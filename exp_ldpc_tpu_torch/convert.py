@@ -1,0 +1,168 @@
+"""Carry state from the JAX package's host objects into the port's tensors.
+
+The JAX package keeps its decoder and sampler state as numpy arrays on host
+objects (``TannerELL``, per-column LLR vectors, ``ParsedCircuit`` op lists,
+the fields of a ``StorageDecodePipeline``).  These functions turn that
+state into device tensors of the port, so both packages compute the same
+thing on the same inputs.  Objects are duck-typed: they may come from
+``exp_ldpc_tpu`` itself or from the port's host alias (:mod:`._host`).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .utils.device import DeviceLike, resolve_device
+
+__all__ = [
+    "TannerTables",
+    "tanner_tables",
+    "prior_llr_st",
+    "DeviceOp",
+    "circuit_ops",
+    "noise_args",
+    "pipeline_kwargs_from_jax",
+]
+
+
+@dataclass(frozen=True, eq=False)
+class TannerTables:
+    """A ``TannerELL`` as device index tensors.
+
+    ``chk_vars``/``chk_mask``/``vm_from_cm``/``cm_from_vm`` keep the JAX
+    layouts (pad index one past the end).  ``chk_vars_k`` and ``vm_k`` are
+    the flat kernel forms with ``-1`` marking a padded slot.
+    """
+
+    num_checks: int
+    num_vars: int
+    max_check_degree: int
+    max_var_degree: int
+    chk_vars: torch.Tensor     # (r, Dc) int64 (index tensor)
+    chk_mask: torch.Tensor     # (r, Dc) bool
+    vm_from_cm: torch.Tensor   # (n, Dv) int64, pad = r*Dc
+    cm_from_vm: torch.Tensor   # (r, Dc) int64, pad = n*Dv
+    chk_vars_k: torch.Tensor   # (r*Dc,) int32, -1 = padded slot
+    vm_k: torch.Tensor         # (n*Dv,) int32 flat check-major slot, -1 = pad
+
+    @property
+    def device(self) -> torch.device:
+        return self.chk_vars.device
+
+
+def tanner_tables(tanner, device: DeviceLike = "cuda") -> TannerTables:
+    """``TannerELL`` index tables -> device tensors."""
+    dev = resolve_device(device)
+    r, n = int(tanner.num_checks), int(tanner.num_vars)
+    chk_vars = np.asarray(tanner.chk_vars, dtype=np.int64)
+    chk_mask = np.asarray(tanner.chk_mask, dtype=bool)
+    vm = np.asarray(tanner.vm_from_cm, dtype=np.int64)
+    cm = np.asarray(tanner.cm_from_vm, dtype=np.int64)
+    Dc, Dv = chk_vars.shape[1], vm.shape[1]
+    chk_vars_k = np.where(chk_mask, chk_vars, -1).astype(np.int32).reshape(-1)
+    vm_k = np.where(vm < r * Dc, vm, -1).astype(np.int32).reshape(-1)
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device=dev, dtype=dtype)
+
+    return TannerTables(
+        r, n, Dc, Dv,
+        t(chk_vars, torch.int64), t(chk_mask, torch.bool), t(vm, torch.int64),
+        t(cm, torch.int64), t(chk_vars_k, torch.int32), t(vm_k, torch.int32),
+    )
+
+
+def prior_llr_st(llr: np.ndarray, device: DeviceLike = "cuda") -> torch.Tensor:
+    """Per-spacetime-column LLRs ((rounds+1)·n + rounds·r,) -> f32 tensor."""
+    return torch.as_tensor(np.asarray(llr, dtype=np.float32)).to(resolve_device(device))
+
+
+@dataclass(frozen=True, eq=False)
+class DeviceOp:
+    """One ``ParsedCircuit`` op with its index tables on the device.
+
+    ``targets`` is the op's target list; two-qubit ops additionally carry
+    their pair members ``a``/``b`` (``targets[0::2]``/``targets[1::2]``).
+    Correlated channels carry the X- and Z-plane targets of their Pauli
+    product.  ``arg_index`` is the op's first slot in the noise vector.
+    """
+
+    name: str
+    size: int
+    targets: torch.Tensor
+    a: Optional[torch.Tensor]
+    b: Optional[torch.Tensor]
+    x_targets: Optional[torch.Tensor]
+    z_targets: Optional[torch.Tensor]
+    num_args: int
+    arg_index: int
+    meas_offset: int
+
+
+_PAIR_OPS = ("CX", "CZ", "DEPOLARIZE2", "PAULI_CHANNEL_2")
+
+
+def circuit_ops(ops, device: DeviceLike = "cuda", arg_base: int = 0) -> List[DeviceOp]:
+    """An op block of a ``ParsedCircuit`` -> :class:`DeviceOp` list; noise
+    slots are numbered from ``arg_base`` in :meth:`noise_args` order."""
+    dev = resolve_device(device)
+    out = []
+    ai = arg_base
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64)).to(dev)
+
+    for op in ops:
+        t = np.asarray(op.targets, dtype=np.int64)
+        a = b = xt = zt = None
+        if op.name in _PAIR_OPS:
+            a, b = idx(t[0::2]), idx(t[1::2])
+        if op.name in ("CORRELATED_ERROR", "ELSE_CORRELATED_ERROR"):
+            paulis = np.asarray(op.paulis)
+            xt = idx(t[(paulis == 1) | (paulis == 2)])
+            zt = idx(t[(paulis == 2) | (paulis == 3)])
+        k = int(op.num_noise_args)
+        out.append(DeviceOp(op.name, int(t.size), idx(t), a, b, xt, zt, k, ai,
+                            int(op.meas_offset)))
+        ai += k
+    return out
+
+
+def noise_args(parsed, device: DeviceLike = "cuda") -> torch.Tensor:
+    """``ParsedCircuit.noise_args()`` as an f32 device tensor."""
+    return torch.as_tensor(np.asarray(parsed.noise_args(), dtype=np.float32)).to(
+        resolve_device(device))
+
+
+_BACKENDS = {"auto": "auto", "xla": "stbp", "pallas": "stbp", "stbsr": "stbsr"}
+
+
+def pipeline_kwargs_from_jax(pipe) -> dict:
+    """Constructor arguments of the port's ``StorageDecodePipeline`` from a
+    JAX ``StorageDecodePipeline``, as plain numpy/Python values.
+
+    The JAX ``"xla"`` and ``"pallas"`` spacetime backends both compute the
+    structured f32 BP that the port's ``"stbp"`` backend computes.  A mesh
+    or a two-tier budget is carried over so that the port refuses it."""
+    return dict(
+        code=pipe.code,
+        rounds=int(pipe.rounds),
+        noise_model=pipe.noise_model,
+        data_prior=float(pipe.data_prior),
+        meas_prior=float(pipe.meas_prior),
+        shots_per_device=int(pipe.shots_per_device),
+        max_iter=int(pipe.max_iter),
+        bp_method=str(pipe.bp_method),
+        ms_scaling_factor=float(pipe.ms_scaling_factor),
+        early_stop=bool(pipe.early_stop),
+        bp_backend=_BACKENDS[pipe.bp_backend],
+        osd_fallback_cap=int(pipe.osd_fallback_cap),
+        osd_options=None if pipe.osd_options is None else dict(pipe.osd_options),
+        use_x_logicals=bool(pipe.use_x_logicals),
+        mode=str(pipe.mode),
+        mesh=pipe.mesh,
+        tier1_iters=int(pipe.tier1_iters),
+    )

@@ -1,0 +1,68 @@
+// Shared device code of the spacetime BP kernels K2 (stbp.cu) and K3
+// (stbsr.cu): the check-node update, which both compute exactly as the plain
+// PyTorch version decoders/bp.py::check_update_cm does.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define BIG 1e30f
+#define LANES 32   // shots per block: one per lane, so warp accesses coalesce
+#define WORKERS 8  // warps per block, splitting each phase of an iteration
+
+__device__ __forceinline__ float phi_f(float x) {
+  x = fminf(fmaxf(x, 1e-7f), 30.0f);
+  return -logf(tanhf(x * 0.5f));
+}
+
+// Check update of one check's P incoming messages x[0..P-1], in place.
+// Mirrors decoders/bp.py::check_update_cm: signs exclude self, sums left to
+// right, ms ties go to the first minimum.
+template <int MAXP>
+__device__ __forceinline__ void check_update(float (&x)[MAXP], int P, float synd_sign,
+                                             int method, float alpha) {
+  float tsign = synd_sign;
+#pragma unroll
+  for (int i = 0; i < MAXP; ++i)
+    if (i < P && x[i] < 0.0f) tsign = -tsign;
+  if (method == 0) {  // ps
+    float ph[MAXP];
+    float total = 0.0f;
+#pragma unroll
+    for (int i = 0; i < MAXP; ++i) {
+      if (i < P) {
+        ph[i] = phi_f(fabsf(x[i]));
+        total = (i == 0) ? ph[i] : total + ph[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MAXP; ++i) {
+      if (i < P) {
+        float s = (x[i] < 0.0f) ? -tsign : tsign;
+        x[i] = s * phi_f(total - ph[i]);
+      }
+    }
+  } else {  // ms
+    float min1 = BIG, min2 = BIG;
+    int arg = -1;
+#pragma unroll
+    for (int i = 0; i < MAXP; ++i) {
+      if (i < P) {
+        float m = fabsf(x[i]);
+        if (arg < 0 || m < min1) {
+          min2 = (arg < 0) ? min2 : min1;
+          min1 = m;
+          arg = i;
+        } else {
+          min2 = fminf(min2, m);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MAXP; ++i) {
+      if (i < P) {
+        float s = (x[i] < 0.0f) ? -tsign : tsign;
+        x[i] = (s * ((i == arg) ? min2 : min1)) * alpha;
+      }
+    }
+  }
+}

@@ -1,0 +1,100 @@
+"""Decode-mode drivers of the port.
+
+Counterpart of ``exp_ldpc_tpu/decoders/drivers.py`` for the ``bposd`` mode
+(BP+OSD on the full spacetime matrix) and the CLI helpers.  The other modes
+and ``run_simulation`` are ROADMAP Queue 1 item 6.  Priors follow the
+reference: data columns get ``data_prior``, measurement-error columns
+``meas_prior``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+
+from .. import _host
+from ..utils.device import DeviceLike, resolve_device
+from .bposd import BPOSDDecoder
+from .select import make_spacetime_bp_decoder
+
+__all__ = ["BPOSDCorrect", "add_bposd_args", "unpack_bposd_args", "load_code",
+           "spacetime_prior"]
+
+
+def spacetime_prior(spacetime, data_prior: float, meas_prior: float) -> np.ndarray:
+    """Per-column error probabilities of a ``SpacetimeCode``: data columns
+    ``data_prior``, measurement-error columns ``meas_prior``."""
+    prior = np.zeros(spacetime.spacetime_check_matrix.shape[1])
+    prior[: spacetime._datablock_size] = data_prior
+    prior[spacetime._datablock_size:] = meas_prior
+    return prior
+
+
+_BP_KEYS = ("max_iter", "bp_method", "ms_scaling_factor")
+_OSD_KEYS = ("osd_method", "osd_order")
+
+
+class BPOSDCorrect:
+    """BP+OSD on the full spacetime matrix: BP on ``device`` (kernel chosen
+    by :func:`.select.make_spacetime_bp_decoder`), OSD on the host."""
+
+    def __init__(self, code, rounds: int, bp_osd_options: Dict,
+                 priors: Tuple[float, float], basis: str = "z", device: DeviceLike = "cuda"):
+        unknown = set(bp_osd_options) - set(_BP_KEYS) - set(_OSD_KEYS)
+        if unknown:
+            raise ValueError(f"BPOSDCorrect: unsupported options {sorted(unknown)}")
+        data_prior, meas_prior = priors
+        self._checks = code.checks.x if basis == "x" else code.checks.z
+        self._spacetime_code = _host.SpacetimeCode(self._checks, rounds)
+        bp = make_spacetime_bp_decoder(
+            self._checks, rounds, device=resolve_device(device),
+            channel_probs=spacetime_prior(self._spacetime_code, data_prior, meas_prior),
+            **{k: v for k, v in bp_osd_options.items() if k in _BP_KEYS},
+        )
+        self._bpd = BPOSDDecoder(
+            bp=bp, H=self._spacetime_code.spacetime_check_matrix.tocsr(),
+            osd_method=bp_osd_options.get("osd_method", "osd_cs"),
+            osd_order=bp_osd_options.get("osd_order", 7),
+        )
+
+    def readout_correction_batch(self, history: np.ndarray, readout: np.ndarray) -> np.ndarray:
+        """history (S, rounds, r), readout (S, n) -> final-round correction (S, n)."""
+        syndromes = self._spacetime_code.syndrome_from_history_batch(history, readout)
+        correction = self._bpd.decode_batch(syndromes)
+        return self._spacetime_code.final_correction(correction)
+
+
+def add_bposd_args(parser):
+    """BP+OSD CLI arguments (same surface as the JAX package)."""
+    parser.add_argument(
+        "--bposd_max_iter", type=lambda x: int(x) if x is not None else None,
+        help="BP iteration cap (defaults to the code's qubit count)", default=None)
+    parser.add_argument(
+        "--bposd_bp_method", choices=["ps", "ms", "msl"],
+        help="BP update rule: product-sum, min-sum, or log-domain min-sum", default="ps")
+    parser.add_argument(
+        "--bposd_ms_scaling_factor", type=float,
+        help="min-sum scaling alpha; 0 selects the adaptive 1-2^-t schedule", default=0)
+    parser.add_argument(
+        "--bposd_osd_method", choices=["osd_e", "osd_cs", "osd0"],
+        help="OSD post-processing variant", default="osd_cs")
+    parser.add_argument("--bposd_osd_order", type=int,
+                        help="OSD combination-sweep / exhaustion depth", default=7)
+
+
+def unpack_bposd_args(parsed_args, code) -> Dict:
+    """CLI arguments -> decoder options dict."""
+    return {
+        "max_iter": parsed_args.bposd_max_iter
+        if parsed_args.bposd_max_iter is not None else code.checks.num_qubits,
+        "bp_method": parsed_args.bposd_bp_method,
+        "ms_scaling_factor": parsed_args.bposd_ms_scaling_factor,
+        "osd_method": parsed_args.bposd_osd_method,
+        "osd_order": parsed_args.bposd_osd_order,
+    }
+
+
+def load_code(args):
+    """Load and validate a code file."""
+    with args.code.open() as code_file:
+        return _host.read_quantum_code(code_file, validate_stabilizer_code=True)

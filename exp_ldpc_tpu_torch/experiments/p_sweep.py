@@ -1,0 +1,288 @@
+"""Physical-error-rate sweep driver of the port (pipeline path).
+
+Counterpart of ``exp_ldpc_tpu/experiments/p_sweep.py``: the same CLI
+surface, the same JSONL checkpoint, and a CSV with the same columns in the
+same order as the JAX ``DataFrame.to_csv`` (written with :mod:`csv`; the
+port does not depend on pandas).  Each sweep point runs through
+:class:`..parallel.pipeline.StorageDecodePipeline` on one device; batch j of
+point i draws from a ``torch.Generator`` seeded from (seed, i, j).  The
+host ``run_simulation`` path (no ``pipeline``) is ROADMAP Queue 1 item 6.
+"""
+from __future__ import annotations
+
+import csv
+import json
+import logging
+import sys
+from argparse import ArgumentParser
+from datetime import datetime
+from pathlib import Path
+from typing import IO, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..decoders.drivers import add_bposd_args, load_code, unpack_bposd_args
+from ..utils.device import DeviceLike, resolve_device
+
+__all__ = ["p_sweep", "p_sweep_main", "parse_sweep_spec", "write_csv", "batch_seed",
+           "cli_main"]
+
+_log = logging.getLogger("exp_ldpc_tpu_torch.p_sweep")
+
+
+def _load_checkpoint(path: Path) -> List[dict]:
+    """Completed sweep-point records from a JSONL checkpoint (resume support)."""
+    records = []
+    if path.exists():
+        with path.open() as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    records.append(json.loads(line))
+    return records
+
+
+def batch_seed(seed: Optional[int], point: int, batch: int) -> int:
+    """Deterministic 63-bit generator seed for batch ``batch`` of sweep
+    point ``point``."""
+    ss = np.random.SeedSequence([0 if seed is None else int(seed), point, batch])
+    return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+class _PipelineSweeper:
+    """One pipeline for the whole p grid: noise probabilities and priors
+    rebind between points, the tables and kernels stay."""
+
+    def __init__(self, code, rounds, noise_model, noise_model_args, meas_prior, data_prior,
+                 bp_osd_options, shots_per_device: int, device: torch.device,
+                 use_x_logicals: bool = False, mode: str = "bposd"):
+        checks = code.checks
+        self._x_steps = max(int(checks.x.sum(axis=0).max()), int(checks.x.sum(axis=1).max()))
+        self._z_steps = max(int(checks.z.sum(axis=0).max()), int(checks.z.sum(axis=1).max()))
+        self.code = code
+        self.rounds = rounds
+        self.noise_model = noise_model
+        self.noise_model_args = noise_model_args
+        self.meas_prior = meas_prior
+        self.data_prior = data_prior
+        self.options = dict(bp_osd_options)
+        self.shots_per_device = shots_per_device
+        self.device = device
+        self.use_x_logicals = use_x_logicals
+        self.mode = mode
+        self.pipe = None
+
+    def run_point(self, p_ph: float, samples: int, seed: Optional[int], point: int):
+        from ..parallel.pipeline import StorageDecodePipeline
+
+        noise = self.noise_model(**self.noise_model_args(p_ph))
+        data_p = self.data_prior(p_ph, self._x_steps, self._z_steps)
+        meas_p = self.meas_prior(p_ph, self._x_steps, self._z_steps)
+        if self.pipe is None:
+            opts = self.options
+            self.pipe = StorageDecodePipeline(
+                code=self.code, rounds=self.rounds, noise_model=noise,
+                data_prior=data_p, meas_prior=meas_p,
+                shots_per_device=self.shots_per_device,
+                max_iter=int(opts.get("max_iter", 40)),
+                bp_method=opts.get("bp_method", "ps"),
+                ms_scaling_factor=float(opts.get("ms_scaling_factor", 0.0)),
+                osd_fallback_cap=self.shots_per_device, osd_options=opts,
+                use_x_logicals=self.use_x_logicals, mode=self.mode,
+                tier1_iters=int(opts.get("tier1_iters", 0) or 0),
+                device=self.device)
+        else:
+            self.pipe.rebind_noise(noise, data_p, meas_p)
+        n_batches = max(1, -(-samples // self.shots_per_device))
+        failures = total = osd = 0
+        for j in range(n_batches):
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(batch_seed(seed, point, j))
+            f, s, o = self.pipe.run_bposd(gen)
+            failures, total, osd = failures + f, total + s, osd + o
+        return failures, total, osd
+
+
+def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_prior,
+            seed=None, use_device_sampler=None, checkpoint: Optional[Path] = None,
+            pipeline: Optional[dict] = None, device: DeviceLike = "cuda", **kwargs) -> List[dict]:
+    """Sweep physical error rates; returns the list of point records (the
+    rows of the JAX package's DataFrame, in order).
+
+    ``pipeline`` (dict of ``mesh_devices``/``shots_per_device``) is
+    required: the ``bposd`` mode runs through the device pipeline.  With
+    ``checkpoint`` set, completed points are appended to a JSONL file and a
+    restarted sweep skips them.  The pipeline always samples on the device,
+    so ``use_device_sampler=False`` raises.
+    """
+    if use_device_sampler is False:
+        raise NotImplementedError(
+            "host-sampled sweep (use_device_sampler=False, --cpu_sampler): not ported yet "
+            "(ROADMAP.md, Queue 1 item 6)")
+    if pipeline is None:
+        raise NotImplementedError(
+            "p_sweep without pipeline (host run_simulation): not ported yet "
+            "(ROADMAP.md, Queue 1 item 6)")
+    mode = kwargs.get("decoder_mode", "bposd")
+    if mode not in ("bposd", "bposd_single_shot", "bposd_hybrid"):
+        raise ValueError(
+            "the fused pipeline implements the bposd/bposd_single_shot/"
+            "bposd_hybrid modes; drop --pipeline for other decoder modes")
+    if int(pipeline.get("mesh_devices", 1)) > 1:
+        raise NotImplementedError("mesh-sharded sweep: not ported yet (ROADMAP.md, Queue 1 item 12)")
+    data: List[dict] = []
+    done_p = set()
+    if checkpoint is not None:
+        checkpoint = Path(checkpoint)
+        data = _load_checkpoint(checkpoint)
+        done_p = {round(float(rec["p_ph"]), 12) for rec in data}
+        if data:
+            _log.info("resuming sweep: %d completed points in %s", len(data), checkpoint)
+
+    sweeper = _PipelineSweeper(
+        code=kwargs["code"], rounds=kwargs.get("rounds", 1), noise_model=noise_model,
+        noise_model_args=noise_model_args, meas_prior=meas_prior, data_prior=data_prior,
+        bp_osd_options=kwargs["bp_osd_options"],
+        shots_per_device=int(pipeline.get("shots_per_device", 4096)),
+        device=resolve_device(device),
+        use_x_logicals=bool(kwargs.get("use_x_logicals", False)), mode=mode)
+
+    for i, p_ph in enumerate(p_values):
+        if round(float(p_ph), 12) in done_p:
+            continue
+        time_start = datetime.now()
+        failures, total, osd = sweeper.run_point(p_ph, samples, seed, i)
+        runtime = (datetime.now() - time_start).total_seconds()
+        point = {"p_ph": p_ph, "failures": failures, "samples": total, "walltime": runtime,
+                 **kwargs, **(kwargs["bp_osd_options"])}
+        del point["code"]
+        del point["bp_osd_options"]
+        _log.info("p=%g: %d/%d failures (%d OSD-decoded) in %.1fs", p_ph, failures, total,
+                  osd, runtime)
+        data.append(point)
+        if checkpoint is not None:
+            def _jsonable(v):
+                if hasattr(v, "item"):  # numpy scalars
+                    v = v.item()
+                return v if isinstance(v, (int, float, str, bool, type(None))) else repr(v)
+            with checkpoint.open("a") as f:
+                json.dump({k: _jsonable(v) for k, v in point.items()}, f)
+                f.write("\n")
+    return data
+
+
+def _csv_value(v):
+    if v is None:
+        return ""
+    if hasattr(v, "item"):  # numpy scalars
+        v = v.item()
+    return repr(v) if isinstance(v, float) else v
+
+
+def write_csv(records: List[dict], out: IO[str]) -> None:
+    """Records -> CSV laid out as ``pandas.DataFrame.from_records(records)
+    .to_csv(out)``: an unnamed index column, then the union of the records'
+    keys in first-seen order."""
+    columns: List[str] = []
+    for rec in records:
+        columns.extend(k for k in rec if k not in columns)
+    w = csv.writer(out, lineterminator="\n")
+    w.writerow([""] + columns)
+    for i, rec in enumerate(records):
+        w.writerow([i] + [_csv_value(rec.get(k)) for k in columns])
+
+
+def parse_sweep_spec(x: str) -> Tuple[float, float, int]:
+    """Parse a sweep-grid spec like ``(1e-3, 0.05, 6)``: float bounds
+    ``lower <= upper`` and a positive integer point count."""
+    body = x.strip()
+    if not (body.startswith("(") and body.endswith(")")):
+        raise RuntimeError(f"sweep spec must be a parenthesized triple, got {x!r}")
+    parts = body[1:-1].split(",")
+    if len(parts) != 3:
+        raise RuntimeError(
+            f"sweep spec needs exactly 3 comma-separated fields "
+            f"(lower, upper, points), got {len(parts)} in {x!r}")
+    try:
+        lower, upper, points = float(parts[0]), float(parts[1]), int(parts[2])
+    except ValueError as exc:
+        raise RuntimeError(f"sweep spec {x!r}: {exc}") from exc
+    if points <= 0:
+        raise RuntimeError(f"sweep spec {x!r}: point count must be positive")
+    if lower > upper:
+        raise RuntimeError(f"sweep spec {x!r}: lower bound exceeds upper bound")
+    return (lower, upper, points)
+
+
+def p_sweep_main(noise_model_args, noise_model, meas_prior, data_prior, argv=None):
+    """argparse main; writes the CSV to stdout."""
+    parser = ArgumentParser(
+        description="Perform a batched sweep in the physical error rate for the given "
+        "quantum code under BP+OSD, on a PyTorch device")
+    parser.add_argument("code", type=Path)
+    parser.add_argument("--samples", type=int, help="Monte-Carlo shots per sweep point")
+    parser.add_argument("--p_sweep", type=parse_sweep_spec,
+                        help="sweep grid as (lower, upper, points)")
+    parser.add_argument("--rounds", type=int, help="syndrome-extraction rounds per shot",
+                        default=1)
+    parser.add_argument(
+        "--decoder_mode",
+        choices=["bposd", "bposd_single_shot", "bposd_hybrid", "bpd_detector",
+                 "relay_bp", "sliding_window", "ssf_single_shot"],
+        help="decode mode (the port implements bposd through --pipeline)", default="bposd")
+    parser.add_argument("--linspace", type=bool,
+                        help="linearly spaced sweep points (default: geometric spacing)",
+                        default=False)
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--cpu_sampler", action="store_true",
+                        help="Use the CPU oracle sampler instead of the device sampler "
+                        "(not ported yet: raises)")
+    parser.add_argument("--x_basis", action="store_true",
+                        help="Run the X-basis memory experiment instead of the Z basis")
+    parser.add_argument("--checkpoint", type=Path, default=None,
+                        help="JSONL file to stream completed sweep points to; re-running "
+                        "with the same file resumes after the last completed point")
+    parser.add_argument("--pipeline", action="store_true",
+                        help="Run each sweep point through the on-device sample+decode "
+                        "pipeline (required by the port)")
+    parser.add_argument("--mesh_devices", type=int, default=1,
+                        help="Shard pipeline shots over this many devices")
+    parser.add_argument("--shots_per_device", type=int, default=4096,
+                        help="Monte-Carlo sub-batch size per device per pipeline step")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device; 'cpu' runs the plain versions of the kernels")
+    add_bposd_args(parser)
+
+    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    code = load_code(args)
+    bp_osd_options = unpack_bposd_args(args, code)
+    sweep = np.linspace(*args.p_sweep) if args.linspace else np.geomspace(*args.p_sweep)
+    result = p_sweep(
+        samples=args.samples, code=code, rounds=args.rounds, noise_model=noise_model,
+        noise_model_args=noise_model_args, meas_prior=meas_prior, data_prior=data_prior,
+        p_values=sweep, decoder_mode=args.decoder_mode, bp_osd_options=bp_osd_options,
+        use_x_logicals=args.x_basis, seed=args.seed,
+        use_device_sampler=not args.cpu_sampler, checkpoint=args.checkpoint,
+        pipeline=({"mesh_devices": args.mesh_devices,
+                   "shots_per_device": args.shots_per_device} if args.pipeline else None),
+        device=args.device,
+    )
+    write_csv(result, sys.stdout)
+
+
+def cli_main(argv=None):
+    """Console entry point: pheno noise with the reference's 2/3*p prior."""
+    from .._host import depolarizing_noise
+
+    p_sweep_main(
+        noise_model_args=lambda p: {"p": p, "pm": p},
+        noise_model=depolarizing_noise,
+        meas_prior=lambda p, x_steps, z_steps: 2 / 3 * p,
+        data_prior=lambda p, x_steps, z_steps: 2 / 3 * p,
+        argv=argv,
+    )
+
+
+if __name__ == "__main__":
+    cli_main()

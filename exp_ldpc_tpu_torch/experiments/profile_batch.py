@@ -1,0 +1,129 @@
+"""Where one batch of the ``bposd`` pipeline spends its device time.
+
+    python -m exp_ldpc_tpu_torch.experiments.profile_batch [--p P] [--shots S] [--trace PATH]
+
+Builds the flagship pipeline (HGP-225, 4 rounds, pheno noise with 2/3·p
+priors, min-sum α=0.625, 48 iterations, OSD-CS order 7) on the card, times
+``--repeats`` untraced batches, then traces one more ``run_bposd`` with
+``torch.profiler`` (CPU and CUDA activities) and reads the Chrome trace:
+
+  * ``span_ms``: host wall time of the traced batch, synchronised;
+  * ``busy_ms``: the union of kernel, memcpy and memset intervals on the
+    card; ``idle_share`` = 1 - busy/span;
+  * device time and count per kernel name, K3 split into the device step
+    (its first ``max_iter`` launches) and the host BP+OSD redecode (the
+    rest), device-to-host copies, and the largest gap between device events.
+
+The last line of standard output is the summary as one JSON object.  Needs
+a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .. import _host
+from ..parallel.pipeline import StorageDecodePipeline
+from ..utils.cuda_build import BUILD_DIR
+
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _busy_and_gap(intervals):
+    """Union length and largest gap of (start, end) intervals, in µs."""
+    busy, gap, cur_s, cur_e = 0.0, 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None:
+            cur_s, cur_e = s, e
+        elif s > cur_e:
+            busy += cur_e - cur_s
+            gap = max(gap, s - cur_e)
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy, gap
+
+
+def summarize(trace: dict, max_iter: int) -> dict:
+    """Device-time summary of a Chrome trace written by ``torch.profiler``."""
+    events = sorted((e for e in trace["traceEvents"] if e.get("cat") in _DEVICE_CATS),
+                    key=lambda e: e["ts"])
+    busy, gap = _busy_and_gap([(e["ts"], e["ts"] + e["dur"]) for e in events])
+    per_name = defaultdict(lambda: [0, 0.0])
+    for e in events:
+        rec = per_name[e["name"][:90]]
+        rec[0] += 1
+        rec[1] += e["dur"] / 1e3
+    k3 = [e["dur"] / 1e3 for e in events if "stbsr_iter_kernel" in e["name"]]
+    dtoh = [e["dur"] / 1e3 for e in events if "DtoH" in e["name"]]
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:12]
+    return {
+        "busy_ms": busy / 1e3, "largest_gap_ms": gap / 1e3, "device_events": len(events),
+        "k3_launches": len(k3), "k3_device_step_ms": float(sum(k3[:max_iter])),
+        "k3_redecode_ms": float(sum(k3[max_iter:])),
+        "dtoh_copies": len(dtoh), "dtoh_ms": float(sum(dtoh)),
+        "top": [[name, n, round(ms, 3)] for name, (n, ms) in top],
+    }
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--p", type=float, default=0.0034822022531844966)
+    ap.add_argument("--shots", type=int, default=16384)
+    ap.add_argument("--repeats", type=int, default=5, help="untraced batches timed first")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", type=Path, default=BUILD_DIR / "profile_batch.json",
+                    help="where to write the Chrome trace")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_batch needs a CUDA device")
+    dev = torch.device("cuda")
+    p, max_iter = args.p, 48
+    code = _host.biregular_hgp(12, 3, 4, seed=0, compute_logicals=True)
+    pipe = StorageDecodePipeline(
+        code=code, rounds=4, noise_model=_host.depolarizing_noise(p, p),
+        data_prior=2 / 3 * p, meas_prior=2 / 3 * p, shots_per_device=args.shots,
+        max_iter=max_iter, bp_method="ms", ms_scaling_factor=0.625,
+        osd_fallback_cap=args.shots, osd_options=dict(osd_method="osd_cs", osd_order=7),
+        device=dev)
+    gens = []
+    for i in range(args.repeats + 2):
+        g = torch.Generator(device=dev)
+        g.manual_seed(args.seed * 1000 + i)
+        gens.append(g)
+    pipe.run_bposd(gens[0])  # warm-up: kernel build and first launches
+    walls = []
+    for g in gens[1:-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.run_bposd(g)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        failures, shots, osd = pipe.run_bposd(gens[-1])
+        torch.cuda.synchronize()
+        span = time.perf_counter() - t0
+    args.trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(args.trace))
+    trace = json.loads(args.trace.read_text())
+    out = {"p": p, "shots": shots, "failures": failures, "osd_decoded": osd,
+           "untraced_wall_ms_median": float(np.median(walls)) * 1e3,
+           "span_ms": span * 1e3, **summarize(trace, max_iter)}
+    out["idle_share"] = 1.0 - out["busy_ms"] / out["span_ms"]
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

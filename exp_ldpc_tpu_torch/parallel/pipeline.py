@@ -1,0 +1,234 @@
+"""On-device Monte-Carlo step of the storage experiment (mode ``bposd``).
+
+Counterpart of ``exp_ldpc_tpu/parallel/pipeline.py::StorageDecodePipeline``
+on one device.  One call of :meth:`StorageDecodePipeline.run_bposd`:
+
+  1. samples Pauli frames on the device (:mod:`..sampler.device`);
+  2. forms the differenced spacetime syndromes from the record;
+  3. runs fixed-iteration spacetime BP: kernel K3 (streamed, bf16) past the
+     ~1 MiB dense-operand crossover on a CUDA device, else kernel K2 (f32),
+     or the plain PyTorch versions of either on the CPU;
+  4. counts logical failures of the BP-converged shots and ships the others
+     (compacted to the front, stable order) to the host, where
+     :class:`..decoders.drivers.BPOSDCorrect` redecodes them with BP+OSD.
+
+The mesh-sharded path, the two-tier decode and the ``bposd_single_shot`` /
+``bposd_hybrid`` modes are ROADMAP Queue 1 items 7 and 12; asking for them
+raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import _host
+from ..convert import noise_args, prior_llr_st, tanner_tables
+from ..decoders.bp import normalize_method, priors_to_llr
+from ..decoders.bp_bsr_spacetime import stbsr_decode
+from ..decoders.drivers import BPOSDCorrect, spacetime_prior
+from ..decoders.select import stbsr_selected
+from ..decoders.spacetime_bp import stbp_core
+from ..decoders.spacetime_bp_cuda import stbp_fixed
+from ..sampler.device import build_record_sampler
+from ..utils.device import DeviceLike, resolve_device
+
+__all__ = ["StorageDecodePipeline"]
+
+_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1 item {})"
+
+
+@dataclass(eq=False)
+class StorageDecodePipeline:
+    """End-to-end sample+decode step for a storage experiment on one device.
+
+    ``bp_backend``: ``"auto"`` (K3 past the crossover on a CUDA device, else
+    K2), ``"stbp"`` (K2) or ``"stbsr"`` (K3).  On a CPU device each kernel
+    is replaced by its plain version.  ``run`` and ``run_bposd`` take a
+    ``torch.Generator`` on the pipeline's device.
+    """
+
+    code: object
+    rounds: int
+    noise_model: object
+    data_prior: float
+    meas_prior: float
+    shots_per_device: int
+    max_iter: int = 40
+    bp_method: str = "ps"
+    ms_scaling_factor: float = 0.0
+    mesh: Optional[object] = None
+    early_stop: bool = False
+    bp_backend: str = "auto"
+    osd_fallback_cap: int = 0
+    osd_options: Optional[dict] = None
+    use_x_logicals: bool = False
+    mode: str = "bposd"
+    tier1_iters: int = 0
+    device: DeviceLike = "cuda"
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError("mesh-sharded pipeline: " + _NOT_PORTED.format(12))
+        if self.tier1_iters > 0:
+            raise NotImplementedError("two-tier decode (tier1_iters): " + _NOT_PORTED.format(7))
+        if self.mode in ("bposd_single_shot", "bposd_hybrid"):
+            raise NotImplementedError(f"pipeline mode {self.mode!r}: " + _NOT_PORTED.format(7))
+        if self.mode != "bposd":
+            raise ValueError(f"unknown pipeline mode {self.mode!r}")
+        if self.bp_backend not in ("auto", "stbp", "stbsr"):
+            raise ValueError(f"unknown bp_backend {self.bp_backend!r}")
+        self.device = resolve_device(self.device)
+        self._method = normalize_method(self.bp_method)
+        code = self.code
+        sim = _host.build_storage_simulation(
+            self.rounds, self.noise_model, code, use_x_logicals=self.use_x_logicals)
+        self.storage_sim = sim
+        self.parsed = _host.parse_circuit(sim.circuit)
+        self.x_count = code.checks.x.shape[0]
+        self.z_count = code.checks.z.shape[0]
+        self.num_data = code.num_qubits
+        checks_sector = code.checks.x if self.use_x_logicals else code.checks.z
+        logicals = code.logicals.x if self.use_x_logicals else code.logicals.z
+        self.spacetime = _host.SpacetimeCode(checks_sector, self.rounds)
+        self.tanner = _host.TannerELL.from_check_matrix(checks_sector)
+        self._tables = tanner_tables(self.tanner, self.device)
+        dev = self.device
+        self._Hz = torch.as_tensor(checks_sector.toarray().astype(np.float32)).to(dev)
+        self._Lz_np = np.asarray(logicals, dtype=np.int64)
+        self._Lz = torch.as_tensor(self._Lz_np.astype(np.float32)).to(dev)
+        self._set_priors(self.data_prior, self.meas_prior)
+        self._noise_args = noise_args(self.parsed, dev)
+        self._sample = build_record_sampler(self.parsed, self.shots_per_device, dev)
+        self.kernel = self._resolve_kernel()
+        self._osd = None
+        if self.osd_fallback_cap > 0:
+            if self.osd_fallback_cap > self.shots_per_device:
+                raise ValueError("osd_fallback_cap exceeds shots_per_device")
+            self._osd = self._build_osd_corrector()
+
+    def _resolve_kernel(self) -> str:
+        """"stbsr" (K3), "stbp" (K2) or "core" (plain early-stop BP)."""
+        if self.bp_backend == "stbsr":
+            if self.rounds < 1:
+                raise ValueError("bp_backend='stbsr' needs rounds >= 1")
+            if self.early_stop:
+                raise ValueError("bp_backend='stbsr' requires early_stop=False (global-exit kernel)")
+            return "stbsr"
+        if self.early_stop:  # per-shot freezing: the plain core, no kernel
+            if self.bp_backend == "stbp":
+                raise ValueError("bp_backend='stbp' requires early_stop=False")
+            return "core"
+        if self.bp_backend == "stbp":
+            return "stbp"
+        return "stbsr" if stbsr_selected(self.tanner, self.rounds, self.device) else "stbp"
+
+    def _set_priors(self, data_prior: float, meas_prior: float) -> None:
+        self.data_prior, self.meas_prior = data_prior, meas_prior
+        self.prior_llr = priors_to_llr(spacetime_prior(self.spacetime, data_prior, meas_prior))
+        self._prior = prior_llr_st(self.prior_llr, self.device)
+
+    def _build_osd_corrector(self):
+        opts = dict(self.osd_options or {})
+        opts.pop("tier1_iters", None)  # a pipeline option, checked in __post_init__
+        opts.setdefault("max_iter", self.max_iter)
+        opts.setdefault("bp_method", self.bp_method)
+        opts.setdefault("ms_scaling_factor", self.ms_scaling_factor)
+        return BPOSDCorrect(self.code, self.rounds, opts, (self.data_prior, self.meas_prior),
+                            basis="x" if self.use_x_logicals else "z", device=self.device)
+
+    def decode_spacetime(self, synd: torch.Tensor):
+        """(B·r, S) syndromes -> (hard (Vst, S) uint8, conv (S,) bool)."""
+        args = (self._tables, self.rounds, self._prior, synd, self._method, self.max_iter,
+                float(self.ms_scaling_factor))
+        if self.kernel == "stbsr":
+            h, _p, c, _i = stbsr_decode(*args, early_stop=False)
+        elif self.kernel == "stbp":
+            h, _p, c, _i = stbp_fixed(*args)
+        else:
+            h, _p, c, _i = stbp_core(*args, early_stop=True)
+        return h, c
+
+    def _decode_records(self, record: torch.Tensor):
+        """(S, M) record -> (failures, shots, unconverged) and, with the OSD
+        fallback, the compacted (history, readout, ship) of up to cap shots."""
+        S = record.shape[0]
+        rounds, n = self.rounds, self.num_data
+        r = self.x_count if self.use_x_logicals else self.z_count
+        mpr = self.x_count + self.z_count
+        blk = 0 if self.use_x_logicals else self.x_count
+        rec = record.to(torch.float32)
+        readout = rec[:, mpr * rounds: mpr * rounds + n]
+        history = rec[:, : mpr * rounds].reshape(S, rounds, mpr)[:, :, blk: blk + r]
+        final = torch.remainder(readout @ self._Hz.T, 2.0)                  # (S, r)
+        synd = torch.cat([history, final[:, None, :]], dim=1)
+        synd = torch.cat([synd[:, :1], torch.remainder(synd[:, 1:] + synd[:, :-1], 2.0)], dim=1)
+        synd = synd.reshape(S, (rounds + 1) * r).T.to(torch.uint8).contiguous()
+        hard, conv = self.decode_spacetime(synd)
+        # mod-2 sum of the per-round data blocks
+        data_blocks = hard[: (rounds + 1) * n].reshape(rounds + 1, n, S).to(torch.int32)
+        correction = (data_blocks.sum(dim=0) % 2).T.to(torch.float32)       # (S, n)
+        corrected = torch.remainder(readout + correction, 2.0)
+        failed = (torch.remainder(corrected @ self._Lz.T, 2.0) > 0.5).any(dim=1)
+        ship = ~conv
+        unconv = int(ship.sum())
+        if self.osd_fallback_cap <= 0:
+            return int(failed.sum()), S, unconv
+        f_conv = int((failed & ~ship).sum())
+        order = torch.argsort((~ship).to(torch.int32), stable=True)[: self.osd_fallback_cap]
+        return f_conv, S, unconv, history[order], readout[order], ship[order]
+
+    def run(self, generator: torch.Generator):
+        """generator -> (logical_failures, total_shots, bp_unconverged_shots);
+        with ``osd_fallback_cap`` set this is :meth:`run_bposd`."""
+        if self.osd_fallback_cap > 0:
+            return self.run_bposd(generator)
+        return self._decode_records(self._sample(generator, self._noise_args))
+
+    def run_bposd(self, generator: torch.Generator):
+        """Device BP + host BP+OSD redecode of the BP failures:
+        generator -> (logical_failures, total_shots, osd_decoded_shots)."""
+        if self._osd is None:
+            raise ValueError("construct the pipeline with osd_fallback_cap > 0")
+        record = self._sample(generator, self._noise_args)
+        return self._finish_bposd(*self._decode_records(record))
+
+    def _finish_bposd(self, f_conv, shots, unconv, hist, readout, valid):
+        if unconv > self.osd_fallback_cap:
+            raise RuntimeError(f"{unconv} BP-unconverged shots exceed osd_fallback_cap="
+                               f"{self.osd_fallback_cap}; raise the cap")
+        valid = valid.cpu().numpy()
+        if not valid.any():
+            return f_conv, shots, 0
+        hist = hist.cpu().numpy()[valid].astype(np.int64)
+        readout = readout.cpu().numpy()[valid].astype(np.int64)
+        corr = self._osd.readout_correction_batch(hist, readout)
+        corrected = (readout + np.asarray(corr, dtype=np.int64)) % 2
+        flips = (corrected @ self._Lz_np.T) % 2
+        return f_conv + int(np.any(flips != 0, axis=1).sum()), shots, int(valid.sum())
+
+    def rebind_noise(self, noise_model, data_prior: float, meas_prior: float):
+        """New noise probabilities and priors for the same circuit structure;
+        the op tables, Tanner tables and kernels are kept."""
+        sim = _host.build_storage_simulation(
+            self.rounds, noise_model, self.code, use_x_logicals=self.use_x_logicals)
+        parsed = _host.parse_circuit(sim.circuit)
+        if parsed.structure_signature() != self.parsed.structure_signature():
+            raise ValueError("rebind_noise: circuit structure changed; build a new pipeline")
+        self._noise_args = noise_args(parsed, self.device)
+        self._set_priors(data_prior, meas_prior)
+        self.noise_model = noise_model
+        self.storage_sim = sim
+        if self._osd is not None:
+            self._osd = self._build_osd_corrector()
+        return self
+
+    def run_host_sampled(self, seed: int, shots: Optional[int] = None):
+        """Same device decode, records from the CPU oracle sampler: isolates
+        any statistical disagreement to the samplers.  Returns the first
+        three outputs of the device step, as the JAX pipeline does."""
+        S = shots if shots is not None else self.shots_per_device
+        record = _host.FrameSampler(self.storage_sim.circuit, seed=seed).sample(S)
+        return self._decode_records(torch.as_tensor(record).to(self.device))[:3]

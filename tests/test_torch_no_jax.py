@@ -1,0 +1,113 @@
+"""The port never imports JAX: the machine with the card has none.
+
+A subprocess in which ``import jax`` fails imports every module of
+``exp_ldpc_tpu_torch`` and runs a 64-shot HGP-225 sweep point on the CPU,
+through the library and through the CLI; a static scan finds no JAX import
+in the package or in ``chip_smoke.py``; ``chip_smoke.py`` refuses to run
+without a card, and outside the repository."""
+import os
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "exp_ldpc_tpu_torch"
+
+_BLOCK_JAX = """
+import sys
+for name in [m for m in sys.modules if m == "jax" or m.startswith("jax.")]:
+    del sys.modules[name]
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+try:
+    import jax  # noqa: F401
+    raise SystemExit("jax import was not blocked")
+except ImportError:
+    pass
+"""
+
+_CHECK_CLEAN = """
+leaked = [m for m, mod in sys.modules.items()
+          if (m == "jax" or m.startswith("jax.") or m.startswith("exp_ldpc_tpu."))
+          and mod is not None]
+assert not leaked, leaked
+"""
+
+
+def _run(code: str, timeout: int = 300) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"  # several test processes share the CPU
+    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_runs_a_sweep_point_without_jax():
+    proc = _run(_BLOCK_JAX + """
+import pkgutil, importlib
+import numpy as np
+import exp_ldpc_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+assert len(names) >= 15, names
+from exp_ldpc_tpu_torch import _host
+from exp_ldpc_tpu_torch.experiments.p_sweep import p_sweep
+code = _host.biregular_hgp(12, 3, 4, seed=0, compute_logicals=True)
+recs = p_sweep(
+    samples=64, p_values=np.array([3e-3]), noise_model=_host.depolarizing_noise,
+    noise_model_args=lambda p: {"p": p, "pm": p},
+    meas_prior=lambda p, xs, zs: 2 / 3 * p, data_prior=lambda p, xs, zs: 2 / 3 * p,
+    seed=0, pipeline={"mesh_devices": 1, "shots_per_device": 64}, device="cpu",
+    code=code, rounds=4, decoder_mode="bposd",
+    bp_osd_options=dict(max_iter=48, bp_method="ms", ms_scaling_factor=0.625,
+                        osd_method="osd_cs", osd_order=7))
+assert recs[0]["samples"] == 64 and 0 <= recs[0]["failures"] <= 64, recs
+""" + _CHECK_CLEAN + "print('OK', recs[0]['failures'])")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().startswith("OK")
+
+
+def test_cli_writes_csv_without_jax():
+    proc = _run(_BLOCK_JAX + """
+from exp_ldpc_tpu_torch.experiments.p_sweep import cli_main
+cli_main(["artifacts/hgp225.qecc", "--samples", "32", "--p_sweep", "(0.004,0.004,1)",
+          "--rounds", "1", "--pipeline", "--shots_per_device", "32", "--device", "cpu",
+          "--bposd_max_iter", "12", "--bposd_bp_method", "ms",
+          "--bposd_ms_scaling_factor", "0.625", "--bposd_osd_order", "2"])
+""" + _CHECK_CLEAN)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0] == (",p_ph,failures,samples,walltime,rounds,decoder_mode,use_x_logicals,"
+                        "max_iter,bp_method,ms_scaling_factor,osd_method,osd_order")
+    assert lines[1].startswith("0,0.004,") and len(lines) == 2
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p for p in PKG.rglob("*.py")] + [REPO / "chip_smoke.py"]), ids=lambda p: p.name)
+def test_no_jax_import_in_source(path):
+    text = path.read_text()
+    assert not re.search(r"^\s*(import jax|from jax)", text, re.M), path
+    assert not re.search(r"^\s*(import|from) exp_ldpc_tpu(\.|\s|$)", text, re.M), path
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Here (no card) chip_smoke.py exits nonzero and prints no result; so
+    does a copy of it standing alone, outside the repository."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; chip_smoke.py would run for real")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((REPO / "chip_smoke.py").read_text())
+    proc = subprocess.run([sys.executable, str(lone)], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

@@ -1,0 +1,120 @@
+"""Port parity: the plain version of kernel K3 (exp_ldpc_tpu_torch/decoders/
+bp_bsr_spacetime.py) against the JAX streamed spacetime kernel
+``stbsr_decode`` in Pallas interpret mode, on identical numpy-seeded
+syndromes.
+
+Both sides store messages in bf16 and accumulate in f32, rounding at the
+same points, so the bounds are tighter than the JAX kernel's own test
+against the f32 decoder (tests/test_bp_bsr_spacetime.py): hard decisions
+agree on >= 99.9% of bits and convergence flags on >= 99% of shots (the
+remaining freedom is f32 summation order inside the TPU tile matmuls,
+which can move a bf16 rounding by one step and settle a knife-edge shot
+elsewhere); every converged shot satisfies its spacetime syndrome exactly;
+with early stop the global iteration counts are equal.
+"""
+import numpy as np
+import pytest
+import torch
+
+from exp_ldpc_tpu.codes.hgp import biregular_hgp
+from exp_ldpc_tpu.decoders.bp_bsr_spacetime import SpacetimeBSRDecoder as JaxSTBSR
+from exp_ldpc_tpu.decoders.spacetime import SpacetimeCode
+from exp_ldpc_tpu_torch.decoders.bp_bsr_spacetime import (
+    SpacetimeBSRDecoder, _stbsr_iter_plain, stbsr_decode, stbsr_iter)
+from exp_ldpc_tpu_torch.decoders.select import make_spacetime_bp_decoder
+from exp_ldpc_tpu_torch.decoders.spacetime_bp import SpacetimeBPDecoder
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test processes at once; torch's default of one
+    thread per core in each of them oversubscribes the CPU many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def hgp225():
+    return biregular_hgp(12, 3, 4, seed=0, compute_logicals=False).checks.z
+
+
+def _inputs(H, rounds, p, S, seed):
+    Hst = SpacetimeCode(H, rounds).spacetime_check_matrix.toarray().astype(np.int64)
+    rng = np.random.default_rng(seed)
+    err = (rng.random((S, Hst.shape[1])) < p).astype(np.int64)
+    return Hst, ((err @ Hst.T) % 2).astype(np.uint8)
+
+
+@pytest.mark.parametrize("rounds,p,method,msf,early_stop,iters", [
+    (2, 0.01, "ms", 0.625, False, 12),
+    (3, 0.01, "ms", 0.0, False, 12),   # adaptive min-sum scaling
+    (1, 0.01, "ps", 0.0, False, 12),   # sum-product
+    (2, 0.003, "ms", 0.625, True, 48),  # global early exit
+    (2, 0.003, "ps", 0.0, True, 48),
+])
+def test_plain_k3_matches_jax_kernel(hgp225, rounds, p, method, msf, early_stop, iters):
+    H = hgp225
+    Hst, synd = _inputs(H, rounds, p, 48, seed=3)
+    kw = dict(channel_probs=np.full(Hst.shape[1], p), max_iter=iters, bp_method=method,
+              ms_scaling_factor=msf, early_stop=early_stop)
+    h1, p1, c1, i1 = JaxSTBSR.from_check_matrix(H, rounds, interpret=True,
+                                                **kw).decode_batch(synd)
+    h2, p2, c2, i2 = SpacetimeBSRDecoder.from_check_matrix(H, rounds, device="cpu",
+                                                           **kw).decode_batch(synd)
+    assert (h2 == np.asarray(h1)).mean() >= 0.999
+    assert (c2 == np.asarray(c1)).mean() >= 0.99
+    ok = ((h2.astype(np.int64) @ Hst.T) % 2 == synd).all(axis=1)
+    np.testing.assert_array_equal(ok, c2)  # conv is the exact syndrome check
+    assert c2.any()
+    if early_stop:
+        np.testing.assert_array_equal(i2, np.asarray(i1))
+        assert (i2 == i2[0]).all() and i2[0] < iters  # global exit
+    else:
+        assert (i2 == iters).all()
+
+
+def test_stbsr_iter_cpu_is_plain(hgp225):
+    """On CPU tensors the K3 wrapper runs exactly the plain iteration."""
+    H = hgp225
+    Hst, synd = _inputs(H, 2, 0.01, 16, seed=1)
+    dec = SpacetimeBSRDecoder.from_check_matrix(H, 2, error_rate=0.01, max_iter=6,
+                                                bp_method="ms", ms_scaling_factor=0.625,
+                                                device="cpu")
+    s = torch.as_tensor(synd.T.copy())
+    a = stbsr_decode(dec.tables, 2, dec._prior, s, "ms", 6, 0.625, False)
+    b = stbsr_decode(dec.tables, 2, dec._prior, s, "ms", 6, 0.625, False,
+                     iterate=_stbsr_iter_plain)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_stbsr_iter_rejects_other_devices(hgp225):
+    """Neither CPU nor CUDA: refused, never a silent fallback."""
+    dec = SpacetimeBSRDecoder.from_check_matrix(hgp225, 2, error_rate=0.01, device="cpu")
+    meta = torch.empty((4, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        stbsr_iter(dec.tables, 2, meta, meta, meta, meta, meta, meta, "ms", 0.5,
+                   meta, meta, meta)
+
+
+def test_stbsr_option_validation(hgp225):
+    H = hgp225
+    with pytest.raises(ValueError, match="num_rounds"):
+        SpacetimeBSRDecoder.from_check_matrix(H, 0, error_rate=1e-3, device="cpu")
+    with pytest.raises(ValueError, match="channel_probs"):
+        SpacetimeBSRDecoder.from_check_matrix(H, 2, channel_probs=np.full(7, 1e-3),
+                                              device="cpu")
+    with pytest.raises(ValueError, match="unknown bp method"):
+        SpacetimeBSRDecoder.from_check_matrix(H, 2, error_rate=1e-3, bp_method="zzz",
+                                              device="cpu")
+    with pytest.raises(ValueError, match="error_rate or channel_probs"):
+        SpacetimeBSRDecoder.from_check_matrix(H, 2, device="cpu")
+
+
+def test_selection_rule_on_cpu(hgp225):
+    """K3 needs a CUDA device: on the CPU the selector keeps the structured
+    decoder, as the JAX rule does off-TPU."""
+    dec = make_spacetime_bp_decoder(hgp225, 3, error_rate=1e-3, device="cpu")
+    assert isinstance(dec, SpacetimeBPDecoder)
