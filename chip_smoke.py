@@ -5,7 +5,9 @@
 
 Phases, in order; any failure raises and exits nonzero:
   1. versions and the card (``nvidia-smi`` name and power limit);
-  2. build kernels K2 (``csrc/stbp.cu``) and K3 (``csrc/stbsr.cu``) from source;
+  2. build kernels K1 (``csrc/bsr_bp.cu``), K2 (``csrc/stbp.cu``), K3
+     (``csrc/stbsr.cu``) and K6 (``csrc/bpflat.cu``) from source, one
+     ``nvcc`` per source, all at once;
   3. K2 against its plain PyTorch version on the card, at a ragged shot
      count (685, the host redecode's size), 4,096 and the main path's
      16,384 shots: hard decisions, conv and iters equal, posteriors equal
@@ -17,23 +19,40 @@ Phases, in order; any failure raises and exits nonzero:
      min-sum 48 iterations, OSD-CS 7, at two grid points of
      ``artifacts/ler_hgp225_bposd_v5e.jsonl``, each LER within 4 combined
      binomial sigma of the artifact, through K3;
-  7. the same pipeline on K2 (``bp_backend="stbp"``); the launch counts of
-     phases 6 and 7 together are the main path's;
-  8. timings (CUDA events, median of 5 distinct-input runs).
+  7. the same pipeline on K2 (``bp_backend="stbp"``);
+  8. timings (CUDA events, median of 5 distinct-input runs);
+  9. K6 against its plain version on HGP-225's H and (H|I) at S = 685,
+     4,096 and 16,384 (bounds as in phase 3);
+ 10. K1 against its plain version at the same codes and sizes, fixed and
+     with the early exit per shot block, and at ``biregular_hgp(160, 3,
+     4)`` (>= 3,000 tiles: the regime of the rolled TPU kernel K1b, which
+     K1 serves);
+ 11. the single-shot and hybrid modes through ``p_sweep(...,
+     pipeline=...)`` on ``artifacts/hgp225.qecc`` at p = 0.002, each LER
+     within 4 combined binomial sigma of its row of
+     ``artifacts/pipeline_modes_hgp225_v5e.csv``;
+ 12. timings of K1 and K6 against their plain versions (``bench_bp``'s
+     configuration and 16,384 shots x 48 iterations; K1 also at the
+     >= 3,000-tile code) and the modes' stage split.
 
-The line before the last is the kernel summary JSON (``launches`` from
-phases 6-7, ``launches_by_run`` split by phase; without ``--quick`` only,
-as are the times); the last line is
-``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
+Each run of the main path (phases 6, 7 and the two runs of phase 11) is
+driven with every launch count set to 0 just before it and read just
+after; a kernel of that run that was not launched fails the script.  The
+line before the last is the kernel summary JSON (``launches`` summed over
+those runs, ``launches_by_run`` split by run; without ``--quick`` only, as
+are the times); the last line is ``{"ok": true, "device": {...}}``.  Phase
+times are printed.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import logging
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -48,15 +67,24 @@ import torch  # noqa: E402
 
 from exp_ldpc_tpu_torch import _host  # noqa: E402
 from exp_ldpc_tpu_torch.convert import tanner_tables  # noqa: E402
+from exp_ldpc_tpu_torch.decoders import bp_bsr as k1  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import bp_bsr_spacetime as k3  # noqa: E402
+from exp_ldpc_tpu_torch.decoders import bp_cuda as k6  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import spacetime_bp_cuda as k2  # noqa: E402
-from exp_ldpc_tpu_torch.decoders.bp import priors_to_llr  # noqa: E402
+from exp_ldpc_tpu_torch.decoders.bp import bp_core, priors_to_llr  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.spacetime_bp import stbp_core  # noqa: E402
 from exp_ldpc_tpu_torch.experiments.p_sweep import p_sweep  # noqa: E402
 from exp_ldpc_tpu_torch.parallel.pipeline import StorageDecodePipeline  # noqa: E402
 from exp_ldpc_tpu_torch.sampler.device import DeviceSampler  # noqa: E402
 
 ARTIFACT = ROOT / "artifacts" / "ler_hgp225_bposd_v5e.jsonl"
+MODES_ARTIFACT = ROOT / "artifacts" / "pipeline_modes_hgp225_v5e.csv"
+CODE_FILE = ROOT / "artifacts" / "hgp225.qecc"
+# The MODES_ARTIFACT rows checked.  Its p=0.006 rows are not: they were
+# taken while the host redecode ran f32 per-shot-freezing BP (the port
+# reproduces them with those decoders swapped in); the current selection,
+# K3/K1 (bf16, shared exit), decodes ~10% fewer failures there (PERF.md).
+P_MODES = (0.002,)
 ROUNDS = 4
 MAX_ITER = 48
 ALPHA = 0.625
@@ -78,32 +106,37 @@ def check(cond: bool, what: str) -> None:
     log(f"  ok: {what}")
 
 
-class Setup:
+class Checks:
+    """A check matrix on the card: i.i.d.-error syndromes and syndrome checks."""
+
+    def __init__(self, H, dev: torch.device):
+        self.dev = dev
+        self.H = H.tocsr().astype(np.int64)
+        self.Hd = torch.as_tensor(self.H.toarray().astype(np.float32)).to(dev)
+
+    def syndromes(self, S: int, p: float, seed: int) -> torch.Tensor:
+        """(rows, S) uint8 syndromes of i.i.d. errors at rate p."""
+        rng = np.random.default_rng(seed)
+        err = (rng.random((S, self.H.shape[1])) < p).astype(np.int64)
+        return torch.as_tensor(((self.H @ err.T) % 2).astype(np.uint8)).to(self.dev)
+
+    def valid(self, hard: torch.Tensor, synd: torch.Tensor) -> torch.Tensor:
+        par = torch.remainder(self.Hd @ hard.to(torch.float32), 2.0)
+        return (par == synd.to(torch.float32)).all(dim=0)
+
+
+class Setup(Checks):
     """HGP-225 Z sector, 4 rounds: tables, priors and the spacetime matrix."""
 
     def __init__(self, dev: torch.device):
-        self.dev = dev
         self.code = _host.biregular_hgp(12, 3, 4, seed=0, compute_logicals=True)
         H = self.code.checks.z
         self.tables = tanner_tables(_host.TannerELL.from_check_matrix(H), dev)
-        st = _host.SpacetimeCode(H, ROUNDS)
-        self.Hst = st.spacetime_check_matrix.tocsr().astype(np.int64)
-        self.Hst_dev = torch.as_tensor(self.Hst.toarray().astype(np.float32)).to(dev)
+        super().__init__(_host.SpacetimeCode(H, ROUNDS).spacetime_check_matrix, dev)
 
     def prior(self, p: float) -> torch.Tensor:
-        llr = priors_to_llr(np.full(self.Hst.shape[1], 2 / 3 * p))
+        llr = priors_to_llr(np.full(self.H.shape[1], 2 / 3 * p))
         return torch.as_tensor(llr).to(self.dev)
-
-    def syndromes(self, S: int, p: float, seed: int) -> torch.Tensor:
-        """(B·r, S) uint8 syndromes of i.i.d. spacetime errors at rate p."""
-        rng = np.random.default_rng(seed)
-        err = (rng.random((S, self.Hst.shape[1])) < p).astype(np.int64)
-        synd = (self.Hst @ err.T) % 2
-        return torch.as_tensor(synd.astype(np.uint8)).to(self.dev)
-
-    def valid(self, hard: torch.Tensor, synd: torch.Tensor) -> torch.Tensor:
-        par = torch.remainder(self.Hst_dev @ hard.to(torch.float32), 2.0)
-        return (par == synd.to(torch.float32)).all(dim=0)
 
 
 def phase_card() -> str:
@@ -117,17 +150,21 @@ def phase_card() -> str:
     return smi.splitlines()[0]
 
 
+KERNELS = {"K1": k1.KERNEL, "K2": k2.KERNEL, "K3": k3.KERNEL, "K6": k6.KERNEL}
+
+
 def phase_build() -> None:
-    log("== phase 2: build kernels")
-    for kern in (k2.KERNEL, k3.KERNEL):
-        kern.build()
+    log("== phase 2: build kernels (one nvcc per source, all at once)")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(lambda kern: kern.build(), KERNELS.values()))
+    for kern in KERNELS.values():
         log(f"built {kern.source.name} in {kern.build_seconds:.1f} s")
         for line in kern.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log("  " + line.strip())
 
 
-def _same(tag: str, su: Setup, synd, kern, plain) -> float:
+def _same(tag: str, su, synd, kern, plain) -> float:
     """Kernel outputs ``kern`` against plain outputs ``plain``, both
     (hard, posterior, conv, iters).  The kernels round where their plain
     versions do (``--fmad=false``, the same left-to-right sums, bf16 at the
@@ -214,14 +251,29 @@ def artifact_point(p: float) -> dict:
     raise KeyError(p)
 
 
-def ler_within(failures: int, samples: int, p: float, k: float = 4.0) -> bool:
-    art = artifact_point(p)
+def _ler_gap(failures: int, samples: int, ler_ref: float, samples_ref: int, label: str,
+             k: float = 4.0) -> bool:
+    """LER within ``k`` combined binomial sigma of a reference point."""
     l1, n1 = failures / samples, samples
-    l2, n2 = art["ler"], art["samples"]
+    l2, n2 = ler_ref, samples_ref
     sigma = np.sqrt(l1 * (1 - l1) / n1 + l2 * (1 - l2) / n2)
-    log(f"  p={p:.6g}: LER {l1:.5f} ({failures}/{samples}) vs artifact {l2:.5f}, "
+    log(f"  {label}: LER {l1:.5f} ({failures}/{samples}) vs artifact {l2:.5f}, "
         f"|diff| = {abs(l1 - l2) / sigma:.2f} sigma")
     return abs(l1 - l2) <= k * sigma
+
+
+def ler_within(failures: int, samples: int, p: float, k: float = 4.0) -> bool:
+    art = artifact_point(p)
+    return _ler_gap(failures, samples, art["ler"], art["samples"], f"p={p:.6g}", k)
+
+
+def modes_artifact(mode: str, p: float) -> dict:
+    """The row of ``pipeline_modes_hgp225_v5e.csv`` for ``mode`` at ``p``."""
+    rows = [ln for ln in MODES_ARTIFACT.read_text().splitlines() if not ln.startswith("#")]
+    for rec in csv.DictReader(rows):
+        if rec["decoder_mode"] == mode and abs(float(rec["p_ph"]) - p) < 1e-12:
+            return rec
+    raise KeyError((mode, p))
 
 
 class _PointLog(logging.Handler):
@@ -241,7 +293,7 @@ def phase_main_path(su: Setup, dev: torch.device, samples: int, shots: int) -> d
     lg = logging.getLogger("exp_ldpc_tpu_torch.p_sweep")
     lg.addHandler(handler)
     lg.setLevel(logging.INFO)
-    before = launch_counts()
+    reset_counts()
     records = p_sweep(
         samples=samples, p_values=np.array([P_LO, P_HI]),
         noise_model=_host.depolarizing_noise,
@@ -250,7 +302,7 @@ def phase_main_path(su: Setup, dev: torch.device, samples: int, shots: int) -> d
         seed=0, pipeline={"mesh_devices": 1, "shots_per_device": shots}, device=dev,
         code=su.code, rounds=ROUNDS, decoder_mode="bposd", bp_osd_options=dict(OPTIONS))
     torch.cuda.synchronize()
-    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    launches = launch_counts()
     lg.removeHandler(handler)
     log(f"  kernel launches during the sweep: {launches}")
     for (p, f, n, osd, secs) in handler.points:
@@ -274,10 +326,10 @@ def phase_k2_pipeline(su: Setup, dev: torch.device, shots: int) -> dict:
     check(pipe.kernel == "stbp", "pipeline resolved to K2")
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
-    before = launch_counts()
+    reset_counts()
     f, n, osd = pipe.run_bposd(gen)
     torch.cuda.synchronize()
-    launches = {k: v - before[k] for k, v in launch_counts().items()}
+    launches = launch_counts()
     log(f"  failures {f}, shots {n}, OSD-decoded {osd}, kernel launches {launches}")
     check(launches["K2"] > 0, "K2 launched on the pipeline")
     check(ler_within(f, n, p), "K2 pipeline LER within 4 sigma of the artifact")
@@ -285,7 +337,12 @@ def phase_k2_pipeline(su: Setup, dev: torch.device, shots: int) -> dict:
 
 
 def launch_counts() -> dict:
-    return {"K2": k2.KERNEL.launches, "K3": k3.KERNEL.launches}
+    return {name: kern.launches for name, kern in KERNELS.items()}
+
+
+def reset_counts() -> None:
+    for kern in KERNELS.values():
+        kern.launches = 0
 
 
 def _median_ms(fn, inputs) -> float:
@@ -369,43 +426,266 @@ def phase_timings(su: Setup, dev: torch.device, shots: int) -> dict:
     return t
 
 
+# ---------------------------------------------------------------------------
+# The flat BP kernels K1 and K6, and the single-shot and hybrid modes
+# ---------------------------------------------------------------------------
+
+FLAT_P = 5e-3
+METHODS = (("ms", ALPHA), ("ms", 0.0), ("ps", 0.0))
+
+
+class FlatSetup(Checks):
+    """One flat check matrix on the card, with K1's layout (which holds the
+    Tanner tables K6 reads too)."""
+
+    def __init__(self, H, dev: torch.device, name: str):
+        super().__init__(H, dev)
+        self.name = name
+        self.layout = k1.BSRLayout.from_tanner(_host.TannerELL.from_check_matrix(self.H), dev)
+        self.tables = self.layout.tables
+
+    def prior(self, p: float) -> torch.Tensor:
+        return torch.as_tensor(priors_to_llr(np.full(self.H.shape[1], p))).to(self.dev)
+
+
+def flat_setups(su: Setup, dev: torch.device):
+    """HGP-225's Z checks H (the final-round stage) and (H|I) (the
+    single-shot rounds), and the >= 3,000-tile n = 40,000 HGP (K1b's regime)."""
+    H = su.code.checks.z
+    flats = [FlatSetup(H, dev, "H"),
+             FlatSetup(_host.SpacetimeCodeSingleShot(H).spacetime_check_matrix, dev, "(H|I)")]
+    big = FlatSetup(_host.biregular_hgp(160, 3, 4, seed=0).checks.z, dev, "HGP n=40000")
+    check(big.layout.num_tiles >= 3000,
+          f"{big.name}: {big.layout.num_tiles} BSR tiles (>= 3,000: the K1b regime)")
+    return flats, big
+
+
+def phase_k6(flats, sizes) -> float:
+    log(f"== phase 9: K6 vs plain (f32), S in {sizes}, {MAX_ITER} iterations")
+    worst = 0.0
+    for fs in flats:
+        prior = fs.prior(FLAT_P)
+        for S in sizes:
+            synd = fs.syndromes(S, FLAT_P, seed=3)
+            for method, msf in METHODS:
+                kern = k6.bp_fixed(fs.tables, prior, synd, method, MAX_ITER, msf)
+                plain = bp_core(fs.tables, prior, synd, method, MAX_ITER, msf, early_stop=False)
+                torch.cuda.synchronize()
+                worst = max(worst, _same(f"{fs.name} S={S} {method} alpha={msf}", fs, synd,
+                                         kern, plain))
+    return worst
+
+
+def _k1_case(fs: FlatSetup, synd, prior, method, msf, early_stop, iters) -> float:
+    sb = k1.auto_shot_block(fs.layout)
+    kern = k1.bsr_bp_decode(fs.layout, prior, synd, method, iters, msf, early_stop, sb)
+    plain = k1.bsr_bp_plain(fs.layout, prior, synd, method, iters, msf, early_stop, sb)
+    torch.cuda.synchronize()
+    it = kern[3]
+    blocks = it[::sb]
+    check(torch.equal(it, blocks.repeat_interleave(sb)[: it.numel()]),
+          f"{fs.name}: iters constant within each {sb}-shot block")
+    return _same(f"{fs.name} S={synd.shape[1]} {method} alpha={msf} early_stop={early_stop} "
+                 f"(block iters {blocks.tolist()[:8]})", fs, synd, kern, plain)
+
+
+def phase_k1(flats, big, sizes, quick: bool):
+    log(f"== phase 10: K1 vs plain (bf16 messages), S in {sizes}, {MAX_ITER} iterations")
+    worst = 0.0
+    for fs in flats:
+        prior = fs.prior(FLAT_P)
+        for S in sizes:
+            synd = fs.syndromes(S, FLAT_P, seed=4)
+            for method, msf in METHODS:
+                for es in (False, True):
+                    worst = max(worst, _k1_case(fs, synd, prior, method, msf, es, MAX_ITER))
+    S_big, it_big = (64, 4) if quick else (256, 8)
+    log(f"  K1b regime: {big.name}, {big.layout.num_tiles} tiles, S={S_big}, {it_big} iterations")
+    prior = big.prior(2e-3)
+    synd = big.syndromes(S_big, 2e-3, seed=5)
+    worst_b = 0.0
+    for method, msf, es in (("ms", ALPHA, False), ("ms", ALPHA, True), ("ps", 0.0, False)):
+        worst_b = max(worst_b, _k1_case(big, synd, prior, method, msf, es, it_big))
+    return worst, worst_b
+
+
+def phase_modes(dev: torch.device, samples: int, shots: int) -> dict:
+    """Both modes through the sweep driver; returns the launches of each run."""
+    with CODE_FILE.open() as f:
+        code = _host.read_quantum_code(f, validate_stabilizer_code=True)
+    by_run = {}
+    for mode in ("bposd_single_shot", "bposd_hybrid"):
+        log(f"== phase 11: {mode} p_sweep on {CODE_FILE.name}, p in {P_MODES}, {samples} "
+            f"shots per point, batch {shots}")
+        handler = _PointLog()
+        lg = logging.getLogger("exp_ldpc_tpu_torch.p_sweep")
+        lg.addHandler(handler)
+        lg.setLevel(logging.INFO)
+        reset_counts()
+        records = p_sweep(
+            samples=samples, p_values=np.array(P_MODES),
+            noise_model=_host.depolarizing_noise, noise_model_args=lambda p: {"p": p, "pm": p},
+            meas_prior=lambda p, xs, zs: 2 / 3 * p, data_prior=lambda p, xs, zs: 2 / 3 * p,
+            seed=0, pipeline={"mesh_devices": 1, "shots_per_device": shots}, device=dev,
+            code=code, rounds=ROUNDS, decoder_mode=mode, bp_osd_options=dict(OPTIONS))
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        lg.removeHandler(handler)
+        log(f"  kernel launches during the sweep: {launches}")
+        for (p, f, n, osd, secs) in handler.points:
+            log(f"  p={p:.6g}: failures {f}, shots {n}, OSD-decoded {osd}, "
+                f"{n / secs:.0f} decoded shots/s ({secs:.2f} s)")
+        for rec in records:
+            art = modes_artifact(mode, rec["p_ph"])
+            ref_n = int(art["samples"])
+            check(_ler_gap(rec["failures"], rec["samples"], int(art["failures"]) / ref_n, ref_n,
+                           f"{mode} p={rec['p_ph']:.6g}"),
+                  f"{mode} p={rec['p_ph']:.6g}: LER within 4 sigma of {MODES_ARTIFACT.name}")
+        for name in ("K1", "K6") + (("K2",) if mode == "bposd_hybrid" else ()):
+            check(launches[name] > 0, f"{mode}: {name} launched on the main path")
+        by_run[f"p_sweep_{mode}"] = launches
+    return by_run
+
+
+def phase_flat_timings(flats, big, dev: torch.device, shots: int) -> dict:
+    log("== phase 12: K1 and K6 timings (median of 5 distinct-input runs) and the modes' "
+        "stages")
+    t = {}
+    H, Hss = flats
+
+    def pair(tag, fs, S, iters, p, early_stop=False):
+        prior = fs.prior(p)
+        synds = [fs.syndromes(S, p, seed=300 + i) for i in range(6)]
+        sb = k1.auto_shot_block(fs.layout)
+        fns = {
+            f"K1_{tag}": lambda s: k1.bsr_bp_decode(fs.layout, prior, s, "ms", iters, ALPHA,
+                                                    early_stop, sb),
+            f"K1_{tag}_plain": lambda s: k1.bsr_bp_plain(fs.layout, prior, s, "ms", iters,
+                                                         ALPHA, early_stop, sb)}
+        if not early_stop:
+            fns[f"K6_{tag}"] = lambda s: k6.bp_fixed(fs.tables, prior, s, "ms", iters, ALPHA)
+            fns[f"K6_{tag}_plain"] = lambda s: bp_core(fs.tables, prior, s, "ms", iters, ALPHA,
+                                                       early_stop=False)
+        for key, fn in fns.items():
+            fn(synds[5])
+            t[key] = _median_ms(fn, synds[:5])
+
+    pair("bench", H, 1024, 32, 1e-3)               # bench_bp's configuration
+    pair(f"S{shots}", Hss, shots, MAX_ITER, FLAT_P)
+    pair(f"S{shots}_es", Hss, shots, MAX_ITER, FLAT_P, early_stop=True)
+    # the host BP+OSD redecode's shape: a few hundred shots, early exit
+    pair(f"S{S_REDECODE}_es", Hss, S_REDECODE, MAX_ITER, FLAT_P, early_stop=True)
+    pair("n40000", big, 256, 8, 2e-3)
+    for k, v in t.items():
+        log(f"  {k}: {v:.4f} ms")
+    log(f"  K1 at bench_bp's configuration: {32 * 1024 / t['K1_bench'] * 1e3:.4g} iter*shots/s "
+        f"(plain {32 * 1024 / t['K1_bench_plain'] * 1e3:.4g})")
+    with CODE_FILE.open() as f:
+        code = _host.read_quantum_code(f, validate_stabilizer_code=True)
+    p = P_MODES[0]
+    for mode in ("bposd_single_shot", "bposd_hybrid"):
+        pipe = StorageDecodePipeline(
+            code=code, rounds=ROUNDS, noise_model=_host.depolarizing_noise(p, p),
+            data_prior=2 / 3 * p, meas_prior=2 / 3 * p, shots_per_device=shots,
+            max_iter=MAX_ITER, bp_method="ms", ms_scaling_factor=ALPHA, osd_fallback_cap=shots,
+            osd_options=dict(OPTIONS), mode=mode, device=dev)
+        gens = []
+        for i in range(6):
+            g = torch.Generator(device=dev)
+            g.manual_seed(400 + i)
+            gens.append(g)
+        pipe.run_bposd(gens[5])
+        stages = {"sample": [], "device_decode": [], "host_osd": [], "e2e": [], "osd_shots": []}
+        for g in gens[:5]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            record = pipe._sample(g, pipe._noise_args)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = pipe._decode_records(record)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            _f, _n, osd = pipe._finish_bposd(*out)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t3 - t0, osd)):
+                stages[k].append(v)
+        for k, v in stages.items():
+            t[f"{mode}_{k}" + ("" if k == "osd_shots" else "_s")] = float(np.median(v))
+        log(f"  {mode}: " + ", ".join(f"{k} {np.median(v):.4f}" for k, v in stages.items())
+            + f"; end to end {shots / t[f'{mode}_e2e_s']:.0f} decoded shots/s at p={p:.6g}")
+    return t
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="build, kernel parity at small sizes and the sampler only "
                     "(a first check of new kernels)")
     args = ap.parse_args()
-    smi = phase_card()
+    t_start = time.perf_counter()
+
+    def phase(fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"  [{fn.__name__}: {time.perf_counter() - t0:.1f} s, "
+            f"{time.perf_counter() - t_start:.1f} s in all]")
+        return out
+
+    smi = phase(phase_card)
     dev = torch.device("cuda")
-    phase_build()
+    phase(phase_build)
     su = Setup(dev)
     # ragged shot edges (97, S_REDECODE) and the main path's batch (16,384)
     sizes = (97, 512) if args.quick else (S_REDECODE, 4096, 16384)
-    err = {"K2": phase_k2(su, sizes), "K3": phase_k3(su, sizes)}
-    phase_sampler(su, dev, args.quick)
+    err = {"K2": phase(phase_k2, su, sizes), "K3": phase(phase_k3, su, sizes)}
+    phase(phase_sampler, su, dev, args.quick)
+    src = "exp_ldpc_tpu_torch/csrc/"
     kernels = [
-        {"name": "K2 stbp_fixed", "route": "cuda", "source": "exp_ldpc_tpu_torch/csrc/stbp.cu",
+        {"name": "K1 bsr_bp", "route": "cuda", "source": src + "bsr_bp.cu",
+         "replaces": "exp_ldpc_tpu/decoders/bp_bsr.py:226"},
+        {"name": "K1b bsr_bp (served by K1: the same kernel and count)", "route": "cuda",
+         "source": src + "bsr_bp.cu", "replaces": "exp_ldpc_tpu/decoders/bp_bsr.py:546"},
+        {"name": "K2 stbp_fixed", "route": "cuda", "source": src + "stbp.cu",
          "replaces": "exp_ldpc_tpu/decoders/spacetime_bp_pallas.py:65"},
-        {"name": "K3 stbsr_iter", "route": "cuda", "source": "exp_ldpc_tpu_torch/csrc/stbsr.cu",
+        {"name": "K3 stbsr_iter", "route": "cuda", "source": src + "stbsr.cu",
          "replaces": "exp_ldpc_tpu/decoders/bp_bsr_spacetime.py:113"},
+        {"name": "K6 bp_fixed", "route": "cuda", "source": src + "bpflat.cu",
+         "replaces": "exp_ldpc_tpu/decoders/bp_pallas.py:123"},
     ]
     if not args.quick:
-        # The main path: the p_sweep (bp_backend "auto", K3 at HGP-225) and
-        # the same pipeline with bp_backend "stbp" (K2), counted from 0 here.
-        k2.KERNEL.launches = k3.KERNEL.launches = 0
-        by_run = {"p_sweep": phase_main_path(su, dev, samples=65536, shots=16384),
-                  "pipeline_stbp": phase_k2_pipeline(su, dev, shots=16384)}
-        launches = launch_counts()
+        # The main path, run by run, each counted from 0: the bposd p_sweep
+        # (K3 at HGP-225), the same pipeline on K2 (bp_backend "stbp"), and
+        # the single-shot and hybrid p_sweeps (K6 on the device, K1 in the
+        # host redecode; K2 in the hybrid spacetime stage, K3 in its redecode).
+        by_run = {"p_sweep_bposd": phase(phase_main_path, su, dev, 65536, 16384),
+                  "pipeline_stbp": phase(phase_k2_pipeline, su, dev, 16384)}
+        t = phase(phase_timings, su, dev, 16384)
+    flats, big = flat_setups(su, dev)
+    err["K6"] = phase(phase_k6, flats, sizes)
+    err["K1"], err["K1b"] = phase(phase_k1, flats, big, sizes, args.quick)
+    if not args.quick:
+        by_run.update(phase(phase_modes, dev, 65536, 16384))
+        launches = {name: sum(c[name] for c in by_run.values()) for name in KERNELS}
         for name, n in launches.items():
             check(n > 0, f"{name} launched on the main path ({n} launches)")
-        t = phase_timings(su, dev, shots=16384)
+        t.update(phase(phase_flat_timings, flats, big, dev, 16384))
+        timing = {"K1": ("K1_S16384", "bench", "S16384_es", f"S{S_REDECODE}_es"),
+                  "K1b": ("K1_n40000",),
+                  "K2": ("K2",), "K3": ("K3",), "K6": ("K6_S16384", "bench")}
         for kern in kernels:
-            key = kern["name"][:2]
-            kern.update(launches=launches[key],
-                        launches_by_run={run: c[key] for run, c in by_run.items()},
-                        ms=t[key], plain_ms=t[f"{key}_plain"])
+            key = kern["name"].split()[0]
+            count = "K1" if key == "K1b" else key
+            main_t, *more = timing[key]
+            kern.update(launches=launches[count],
+                        launches_by_run={run: c[count] for run, c in by_run.items()},
+                        ms=t[main_t], plain_ms=t[f"{main_t}_plain"])
+            for tag in more:
+                kern[f"ms_{tag}"] = t[f"{key}_{tag}"]
+                kern[f"plain_ms_{tag}"] = t[f"{key}_{tag}_plain"]
     for kern in kernels:
-        kern["max_abs_err"] = err[kern["name"][:2]]
+        kern["max_abs_err"] = err[kern["name"].split()[0]]
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

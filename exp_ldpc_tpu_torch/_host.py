@@ -70,6 +70,7 @@ reference_sampler = load("sampler.reference")
 
 TannerELL = tanner.TannerELL
 SpacetimeCode = spacetime.SpacetimeCode
+SpacetimeCodeSingleShot = spacetime.SpacetimeCodeSingleShot
 parse_circuit = ir.parse_circuit
 build_storage_simulation = storage_sim.build_storage_simulation
 depolarizing_noise = noise.depolarizing_noise

@@ -14,7 +14,9 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from scipy import sparse
 
+from . import _host
 from .utils.device import DeviceLike, resolve_device
 
 __all__ = [
@@ -25,6 +27,7 @@ __all__ = [
     "circuit_ops",
     "noise_args",
     "pipeline_kwargs_from_jax",
+    "bp_decoder_from_jax",
 ]
 
 
@@ -166,3 +169,41 @@ def pipeline_kwargs_from_jax(pipe) -> dict:
         mesh=pipe.mesh,
         tier1_iters=int(pipe.tier1_iters),
     )
+
+
+def _matrix_from_schedule(sched) -> sparse.csr_matrix:
+    """The (permuted) check matrix a JAX ``BSRSchedule`` encodes: routing
+    tile t of (var tile vt, edge tile et) maps edge row et*128+p, i.e. slot
+    row // c_pad of check row % c_pad, to variable vt*128 + idx[t, p]."""
+    idx = np.asarray(sched.idx)
+    rows, cols = [], []
+    for vt, pairs in enumerate(sched.sched_m):
+        for et, t in pairs:
+            p = np.nonzero(idx[t] >= 0)[0]
+            rows.append((et * 128 + p) % sched.c_pad)
+            cols.append(vt * 128 + idx[t, p])
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    return sparse.csr_matrix((np.ones(rows.size, np.uint8), (rows, cols)),
+                             shape=(sched.num_checks, sched.num_vars))
+
+
+def bp_decoder_from_jax(dec, device: DeviceLike = "cuda"):
+    """A JAX ``BPDecoder`` or ``BSRBPDecoder`` -> the port's decoder with the
+    same Tanner graph, priors, method, iteration cap, scaling, early stop
+    and (BSR) shot block and permutations, so both packages decode with
+    identical state.  The BSR decoder's graph is read back from its tile
+    schedule, which is built from the permuted check matrix."""
+    from .decoders.bp import BPDecoder
+    from .decoders.bp_bsr import BSRBPDecoder, BSRLayout
+
+    dev = resolve_device(device)
+    common = dict(prior_llr=np.asarray(dec.prior_llr, dtype=np.float32), method=str(dec.method),
+                  max_iter=int(dec.max_iter), ms_scaling_factor=float(dec.ms_scaling_factor),
+                  early_stop=bool(dec.early_stop))
+    sched = getattr(dec, "sched", None)
+    if sched is None:
+        return BPDecoder(tanner_tables(dec.tanner, dev), **common)
+    tanner = _host.TannerELL.from_check_matrix(_matrix_from_schedule(sched))
+    return BSRBPDecoder(BSRLayout.from_tanner(tanner, dev), shot_block=int(dec.shot_block),
+                        check_perm=dec.check_perm, inv_var_perm=dec.inv_var_perm,
+                        msg_dtype=str(dec.msg_dtype), **common)

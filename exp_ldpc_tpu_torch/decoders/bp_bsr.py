@@ -1,0 +1,354 @@
+"""Kernel K1: flat BP for large codes with bf16 messages.
+
+Counterpart of ``exp_ldpc_tpu/decoders/bp_bsr.py``.  The TPU kernel
+``_kernel`` keeps one shot block's bf16 messages in VMEM for the whole
+decode and routes them through 128x128 one-hot tiles on the matrix unit;
+``_kernel_dyn`` (K1b) is the same math with rolled loops for schedules of
+>= 3,000 tiles.  The port keeps the contract and drops the tile layout,
+which exists only for the TPU's matrix unit: it routes through the
+``TannerELL`` tables, with rolled loops at every size, so one kernel
+serves both K1 and K1b.
+
+  * :func:`bsr_bp_decode` is the decode: the CUDA kernel ``csrc/bsr_bp.cu``
+    for CUDA tensors, its plain version :func:`bsr_bp_plain` for CPU
+    tensors, and nothing else.
+  * :class:`BSRBPDecoder` is the decoder object (``check_perm`` /
+    ``var_perm``, outputs in the original column order).
+
+Numerics follow the TPU kernel (``bp_bsr.py:226-543``):
+
+  * the initial v2c message is bf16(prior[var]); padded slots hold
+    bf16(+BIG);
+  * the check update computes in f32 on the bf16 messages and stores c2v in
+    bf16.  Min-sum scans a check's slots in order with the first minimum
+    winning the tie; sum-product totals phi over all Dc slots, phi(+BIG)
+    included.  A padded slot is rewritten by the edge broadcast (to
+    bf16(BIG - c2v)) where the TPU kernel rewrites it: in every plane for
+    sum-product, in the planes below the chunk's live-slot count for
+    min-sum (``live_slots``, per 128-check chunk);
+  * the posterior is the f32 prior plus the bf16 c2v messages, accumulated
+    in f32 in the variable's edge order;
+  * the edge broadcast uses bf16(posterior): v2c = bf16(bf16(post) - c2v);
+  * the parity of bf16(posterior) is checked every iteration when
+    ``early_stop`` is set, and once after the loop otherwise; the hard
+    decision is the f32 posterior's sign.
+
+The early exit is per shot block, as on the TPU: the kernel resets its
+done flag at every grid step (one block of ``shot_block`` shots), so a
+block stops once all ITS shots have converged, and ``iters`` is constant
+within a block.  The block size resolves as in JAX: ``shot_block``
+(default :func:`auto_shot_block`), clamped to ``round_up(S, 128)``.  The
+TPU pads the last block with zero-syndrome shots; with priors below 1/2
+such a shot converges at every iteration, so the port, which has no
+padded shots, exits where the TPU does.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from scipy import sparse
+
+from .. import _host
+from ..convert import TannerTables, tanner_tables
+from ..utils.cuda_build import CudaKernel
+from ..utils.device import DeviceLike, resolve_device
+from .bp import (BIG, DecoderBase, alpha_at, channel_priors, check_update_cm,
+                 normalize_method, priors_to_llr, syndrome_ok)
+
+__all__ = ["BSRLayout", "auto_shot_block", "bsr_bp_decode", "bsr_bp_plain", "BSRBPDecoder",
+           "KERNEL"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+KERNEL = CudaKernel("bsr_bp.cu", "bsr_bp", [_P] * 9 + [_I] * 12 + [_F, _P])
+
+_TILE = 128
+_BF16 = torch.bfloat16
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True, eq=False)
+class BSRLayout:
+    """What the port keeps of the JAX ``BSRSchedule``: the Tanner tables on
+    the device, the padded sizes and tile count that size the JAX shot
+    block (:func:`auto_shot_block`), and the live-slot count of every
+    128-check chunk (the min-sum scan and broadcast bounds)."""
+
+    tables: TannerTables
+    c_pad: int
+    v_pad: int
+    num_tiles: int
+    live_slots: Tuple[int, ...]
+
+    @property
+    def num_checks(self) -> int:
+        return self.tables.num_checks
+
+    @property
+    def num_vars(self) -> int:
+        return self.tables.num_vars
+
+    @property
+    def e_pad(self) -> int:
+        return self.tables.max_check_degree * self.c_pad
+
+    @property
+    def device(self) -> torch.device:
+        return self.tables.device
+
+    @classmethod
+    def from_tanner(cls, tanner, device: DeviceLike = "cuda") -> "BSRLayout":
+        """Tile count and live slots as ``bp_bsr.py::_build_schedule`` finds them."""
+        C, V, Dc = tanner.num_checks, tanner.num_vars, tanner.max_check_degree
+        C_pad, V_pad = _round_up(C, _TILE), _round_up(V, _TILE)
+        chk_vars = np.asarray(tanner.chk_vars)
+        chk_mask = np.asarray(tanner.chk_mask)
+        c_idx, s_idx = np.nonzero(chk_mask)
+        erow = s_idx.astype(np.int64) * C_pad + c_idx
+        vt = chk_vars[c_idx, s_idx].astype(np.int64) // _TILE
+        num_tiles = int(np.unique(vt * (Dc * C_pad // _TILE) + erow // _TILE).shape[0])
+        deg = np.zeros(C_pad, np.int64)
+        deg[:C] = chk_mask.sum(axis=1)
+        live = tuple(int(deg[i:i + _TILE].max()) for i in range(0, C_pad, _TILE))
+        return cls(tanner_tables(tanner, resolve_device(device)), C_pad, V_pad, num_tiles, live)
+
+    def slot_limits(self, method: str) -> torch.Tensor:
+        """(C,) int32: per check, the slots below which a padded slot is
+        rewritten by the broadcast (the chunk's live slots for min-sum, all
+        Dc for sum-product)."""
+        if method == "ps":
+            lim = np.full(self.num_checks, self.tables.max_check_degree)
+        else:
+            lim = np.repeat(np.asarray(self.live_slots), _TILE)[: self.num_checks]
+        return torch.as_tensor(lim.astype(np.int32)).to(self.device)
+
+
+def auto_shot_block(layout: BSRLayout) -> int:
+    """The JAX package's default shot block (``bp_bsr.py::_auto_shot_block``):
+    256 where its VMEM estimate stays under 56 MiB, else 128.  On the card
+    it is the unit of the early exit, not a memory choice."""
+    sb = 256
+    msg = 2 * layout.e_pad * sb
+    state = 4 * sb * (layout.v_pad + 2 * layout.c_pad) + 16 * layout.c_pad * sb
+    onehots = layout.num_tiles * _TILE * _TILE * 2
+    temps = 4 * 8 * _TILE * sb
+    return sb if msg + state + onehots + temps < 56 * 2**20 else 128
+
+
+def _blocks(shot_block: int, S: int) -> Tuple[int, int]:
+    """(shots per block, number of blocks) for S shots: JAX clamps the block
+    to round_up(S, 128) so a small batch is not padded to a large block."""
+    sb = max(1, min(int(shot_block), _round_up(S, _TILE)))
+    return sb, -(-S // sb)
+
+
+def _parity_ok(post: torch.Tensor, synd: torch.Tensor, t: TannerTables) -> torch.Tensor:
+    """(S,) bool: the parity of bf16(post)'s hard decision equals ``synd``."""
+    return syndrome_ok((post.to(_BF16) <= 0).to(torch.uint8), synd, t)
+
+
+def _bsr_iter_plain(t: TannerTables, msg, synd_sign, prior, method: str, alpha: float,
+                    rewrite_pad):
+    """One flooding iteration on every shot: msg (C, Dc, S) bf16 v2c ->
+    (new msg (C, Dc, S) bf16, posterior (V, S) f32)."""
+    C, Dc, S = msg.shape
+    Dv = t.max_var_degree
+    c2v = check_update_cm(msg.float(), synd_sign, method, alpha).to(_BF16).float()
+    zero_row = torch.zeros((1, S), device=msg.device)
+    g = torch.cat([c2v.reshape(C * Dc, S), zero_row])[t.vm_from_cm]      # (V, Dv, S)
+    total = prior[:, None] + g[:, 0]
+    for j in range(1, Dv):
+        total = total + g[:, j]
+    pb = total.to(_BF16).float()
+    live = (pb[t.chk_vars] - c2v).to(_BF16)
+    pad = (BIG - c2v).to(_BF16)
+    new = torch.where(t.chk_mask[:, :, None], live,
+                      torch.where(rewrite_pad[:, :, None], pad, msg))
+    return new, total
+
+
+def bsr_bp_plain(layout: BSRLayout, prior_llr: torch.Tensor, syndromes: torch.Tensor,
+                 method: str, max_iter: int, ms_scaling_factor: float,
+                 early_stop: bool = True, shot_block: int = 128):
+    """Plain version of K1 on the tensors' device; same arguments and
+    outputs as :func:`bsr_bp_decode`.  All shots iterate together; a shot
+    block whose shots have all converged stops updating."""
+    method = normalize_method(method)
+    t = layout.tables
+    C, V, Dc = t.num_checks, t.num_vars, t.max_check_degree
+    S = syndromes.shape[1]
+    dev = syndromes.device
+    sb, G = _blocks(shot_block, S)
+    grp = torch.arange(S, device=dev) // sb
+    prior = prior_llr.to(device=dev, dtype=torch.float32)
+    synd = syndromes.to(torch.uint8)
+    synd_sign = 1.0 - 2.0 * synd.to(torch.float32)
+    slot = torch.arange(Dc, device=dev)
+    rewrite_pad = ~t.chk_mask & (slot[None, :] < layout.slot_limits(method)[:, None])
+    edge_prior = torch.where(t.chk_mask, prior[t.chk_vars], BIG).to(_BF16)
+    msg = edge_prior[:, :, None].expand(C, Dc, S).contiguous()
+    post = prior[:, None].expand(V, S).clone()
+    running = torch.ones(G, dtype=torch.bool, device=dev)
+    iters_g = torch.zeros(G, dtype=torch.int32, device=dev)
+    for it in range(max_iter):
+        if early_stop and not bool(running.any()):
+            break
+        new_msg, new_post = _bsr_iter_plain(t, msg, synd_sign, prior, method,
+                                            alpha_at(it, ms_scaling_factor), rewrite_pad)
+        run = running[grp]
+        msg = torch.where(run[None, None], new_msg, msg)
+        post = torch.where(run[None], new_post, post)
+        iters_g += running.to(torch.int32)
+        if early_stop:
+            bad = (~_parity_ok(post, synd, t)).to(torch.int32)
+            bad_g = torch.zeros(G, dtype=torch.int32, device=dev).index_add_(0, grp, bad)
+            running = running & (bad_g > 0)
+    conv = _parity_ok(post, synd, t)
+    return (post <= 0).to(torch.uint8), post, conv, iters_g[grp]
+
+
+def bsr_bp_decode(layout: BSRLayout, prior_llr: torch.Tensor, syndromes: torch.Tensor,
+                  method: str, max_iter: int, ms_scaling_factor: float,
+                  early_stop: bool = True, shot_block: int = 128):
+    """syndromes (C, S) 0/1 -> (hard (V, S) uint8, posterior (V, S) f32,
+    converged (S,) bool, iters (S,) int32), the JAX ``bsr_bp_decode``
+    contract with its early exit per block of ``shot_block`` shots.
+
+    CPU tensors run :func:`bsr_bp_plain`.  On a CUDA device the kernel runs
+    all iterations in one launch without ``early_stop``; with it, one launch
+    per iteration, where a block of 32 shots skips the iteration once every
+    shot of its shot block converged in the previous one (a per-block flag
+    in device memory), so no host synchronisation is needed."""
+    method = normalize_method(method)
+    dev = syndromes.device
+    if dev.type == "cpu":
+        return bsr_bp_plain(layout, prior_llr, syndromes, method, max_iter,
+                            ms_scaling_factor, early_stop, shot_block)
+    if dev.type != "cuda":
+        raise ValueError(f"bsr_bp_decode: unsupported device {dev}")
+    t = layout.tables
+    C, V, Dc, Dv = t.num_checks, t.num_vars, t.max_check_degree, t.max_var_degree
+    Cs, S = syndromes.shape
+    if Cs != C:
+        raise ValueError(f"syndromes have {Cs} rows, expected {C}")
+    if Dc > 32:
+        raise ValueError(f"bsr_bp_decode supports check degree <= 32, got {Dc}")
+    if t.device != dev or prior_llr.device != dev:
+        raise ValueError("bsr_bp_decode: tables, priors and syndromes must share one device")
+    prior = prior_llr.to(torch.float32).contiguous()
+    if prior.shape != (V,):
+        raise ValueError(f"prior_llr must have shape ({V},)")
+    if S == 0 or max_iter <= 0:  # no iteration to launch: the answer is the prior's
+        return bsr_bp_plain(layout, prior, syndromes, method, max_iter, ms_scaling_factor,
+                            early_stop, shot_block)
+    sb, G = _blocks(shot_block, S)
+    synd = syndromes.to(torch.uint8).contiguous()
+    nslot = layout.slot_limits(method)
+    msg = torch.empty((C * Dc, S), dtype=_BF16, device=dev)
+    post = torch.empty((V, S), dtype=torch.float32, device=dev)
+    conv = torch.empty((S,), dtype=torch.uint8, device=dev)
+    gbad = torch.zeros((max_iter, G), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    spans = [(it, 1) for it in range(max_iter)] if early_stop else [(0, max_iter)]
+    for it0, n_it in spans:
+        KERNEL.launch(
+            t.chk_vars_k.data_ptr(), t.vm_k.data_ptr(), nslot.data_ptr(), synd.data_ptr(),
+            prior.data_ptr(), msg.data_ptr(), post.data_ptr(), conv.data_ptr(),
+            gbad.data_ptr(), C, V, Dc, Dv, S, it0, n_it, max_iter,
+            0 if method == "ps" else 1, int(early_stop), sb, G, float(ms_scaling_factor),
+            stream)
+    hard = (post <= 0).to(torch.uint8)
+    if early_stop:
+        # group g ran until the first iteration it left no shot unconverged
+        iters_g = ((gbad != 0).sum(dim=0) + 1).clamp(max=max_iter).to(torch.int32)
+        iters = iters_g[torch.arange(S, device=dev) // sb]
+    else:
+        iters = torch.full((S,), max_iter, dtype=torch.int32, device=dev)
+    return hard, post, conv.bool(), iters
+
+
+@dataclass
+class BSRBPDecoder(DecoderBase):
+    """Batched flat BP on kernel K1 (early exit per shot block); the same
+    ``decode_batch`` contract as :class:`.bp.BPDecoder`.
+    ``check_perm``/``var_perm`` (new -> old) pre-permute H; outputs return
+    in the ORIGINAL column order."""
+
+    layout: BSRLayout
+    prior_llr: np.ndarray     # in the permuted column order
+    method: str = "ps"
+    max_iter: int = 0
+    ms_scaling_factor: float = 0.0
+    early_stop: bool = True
+    shot_block: Optional[int] = None   # None -> auto_shot_block
+    check_perm: Optional[np.ndarray] = None
+    inv_var_perm: Optional[np.ndarray] = None  # old -> new
+    msg_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        self.method = normalize_method(self.method)
+        if self.msg_dtype == "int8":
+            raise NotImplementedError(
+                "msg_dtype='int8' (kernel K5, bp_bsr.py::_kernel_int8): not ported yet "
+                "(ROADMAP.md, Queue 2)")
+        if self.msg_dtype != "bfloat16":
+            raise ValueError(f"unknown msg_dtype {self.msg_dtype!r}")
+        if self.max_iter <= 0:
+            self.max_iter = self.layout.num_vars
+        if self.shot_block is None:
+            self.shot_block = auto_shot_block(self.layout)
+        dev = self.layout.device
+        self._prior = torch.as_tensor(np.asarray(self.prior_llr, dtype=np.float32)).to(dev)
+        self._check_perm = None if self.check_perm is None else torch.as_tensor(
+            np.asarray(self.check_perm, dtype=np.int64)).to(dev)
+        self._inv_var_perm = None if self.inv_var_perm is None else torch.as_tensor(
+            np.asarray(self.inv_var_perm, dtype=np.int64)).to(dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.layout.device
+
+    @classmethod
+    def from_check_matrix(cls, H, *, error_rate: Optional[float] = None,
+                          channel_probs: Optional[np.ndarray] = None, max_iter: int = 0,
+                          bp_method: str = "ps", ms_scaling_factor: float = 0.0,
+                          early_stop: bool = True, shot_block: Optional[int] = None,
+                          check_perm: Optional[np.ndarray] = None,
+                          var_perm: Optional[np.ndarray] = None,
+                          msg_dtype: str = "bfloat16",
+                          device: DeviceLike = "cuda") -> "BSRBPDecoder":
+        H = sparse.csr_matrix(H)
+        if check_perm is not None:
+            check_perm = np.asarray(check_perm, dtype=np.int64)
+            H = H[check_perm]
+        inv_var_perm = None
+        if var_perm is not None:
+            var_perm = np.asarray(var_perm, dtype=np.int64)
+            H = H[:, var_perm]
+            inv_var_perm = np.empty_like(var_perm)
+            inv_var_perm[var_perm] = np.arange(var_perm.shape[0])
+        layout = BSRLayout.from_tanner(_host.TannerELL.from_check_matrix(H),
+                                       resolve_device(device))
+        prior = channel_priors(layout.num_vars, error_rate, channel_probs)
+        if var_perm is not None:
+            prior = prior[var_perm]
+        return cls(layout, priors_to_llr(prior), bp_method, max_iter, float(ms_scaling_factor),
+                   early_stop, shot_block, check_perm, inv_var_perm, msg_dtype)
+
+    def decode_tensors(self, syndromes: torch.Tensor):
+        """(C, S) device syndromes in the original check order -> (hard,
+        posterior, conv, iters) with rows in the original column order."""
+        if self._check_perm is not None:
+            syndromes = syndromes[self._check_perm]
+        hard, post, conv, iters = bsr_bp_decode(
+            self.layout, self._prior, syndromes, self.method, self.max_iter,
+            self.ms_scaling_factor, self.early_stop, self.shot_block)
+        if self._inv_var_perm is not None:
+            hard, post = hard[self._inv_var_perm], post[self._inv_var_perm]
+        return hard, post, conv, iters

@@ -8,21 +8,42 @@ JAX package's JAX-free ``osd_decode_batch`` (threaded C++ kernel).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 from scipy import sparse
 
 from .. import _host
+from ..utils.device import DeviceLike
 
 __all__ = ["BPOSDDecoder"]
 
 
 @dataclass
 class BPOSDDecoder:
-    bp: object               # SpacetimeBPDecoder | SpacetimeBSRDecoder
+    bp: object   # BPDecoder | BSRBPDecoder | SpacetimeBPDecoder | SpacetimeBSRDecoder
     H: sparse.csr_matrix
     osd_method: str = "osd_cs"
     osd_order: int = 7
+
+    @classmethod
+    def from_check_matrix(cls, H, *, error_rate: Optional[float] = None,
+                          channel_probs: Optional[np.ndarray] = None, max_iter: int = 0,
+                          bp_method: str = "ps", ms_scaling_factor: float = 0.0,
+                          osd_method: str = "osd_cs", osd_order: int = 7, qc_dims=None,
+                          qc_check_perm=None, qc_var_perm=None,
+                          device: DeviceLike = "cuda") -> "BPOSDDecoder":
+        """Flat BP chosen by :func:`.select.make_bp_decoder` (kernel K1 past
+        the crossover on a CUDA device), OSD on ``H`` in the original column
+        order."""
+        from .select import make_bp_decoder
+
+        bp = make_bp_decoder(H, error_rate=error_rate, channel_probs=channel_probs,
+                             max_iter=max_iter, bp_method=bp_method,
+                             ms_scaling_factor=ms_scaling_factor, qc_dims=qc_dims,
+                             qc_check_perm=qc_check_perm, qc_var_perm=qc_var_perm,
+                             device=device)
+        return cls(bp=bp, H=sparse.csr_matrix(H), osd_method=osd_method, osd_order=osd_order)
 
     def decode_batch(self, syndromes: np.ndarray) -> np.ndarray:
         """(S, C) syndromes -> (S, V) error estimates (BP, OSD on BP failures)."""

@@ -31,16 +31,10 @@ from scipy import sparse
 from .. import _host
 from ..convert import TannerTables, prior_llr_st, tanner_tables
 from ..utils.device import DeviceLike, resolve_device
-from .bp import BIG, alpha_at, check_update_cm, normalize_method, priors_to_llr
+from .bp import (BIG, DecoderBase, alpha_at, channel_priors, check_parity, check_update_cm,
+                 normalize_method, priors_to_llr)
 
-__all__ = ["stbp_core", "SpacetimeBPDecoder", "SpacetimeDecoderBase", "spacetime_priors"]
-
-
-def _data_syndrome_parity(hard_d: torch.Tensor, t: TannerTables) -> torch.Tensor:
-    """(B, n, S) 0/1 -> (B, r, S) int32 parity of each check's data bits."""
-    bits = hard_d[:, t.chk_vars].to(torch.int32)            # (B, r, Dc, S)
-    bits = torch.where(t.chk_mask[None, :, :, None], bits, 0)
-    return bits.sum(dim=2) % 2
+__all__ = ["stbp_core", "SpacetimeBPDecoder", "SpacetimeDecoderBase"]
 
 
 def spacetime_syndrome_ok(hard_d, hard_m, synd, t: TannerTables) -> torch.Tensor:
@@ -48,7 +42,7 @@ def spacetime_syndrome_ok(hard_d, hard_m, synd, t: TannerTables) -> torch.Tensor
     equals ``synd`` (B, r, S)."""
     zeros = torch.zeros_like(synd[:1], dtype=torch.int32)
     hm = hard_m.to(torch.int32)
-    par = (_data_syndrome_parity(hard_d, t)
+    par = (check_parity(hard_d, t)
            + torch.cat([zeros, hm]) + torch.cat([hm, zeros])) % 2
     return (par == synd.to(torch.int32)).all(dim=1).all(dim=0)
 
@@ -140,29 +134,14 @@ def stbp_core(tables: TannerTables, num_rounds: int, prior_llr: torch.Tensor,
     return hard, post, conv, iters
 
 
-def spacetime_priors(num_cols: int, error_rate: Optional[float],
-                     channel_probs: Optional[np.ndarray]) -> np.ndarray:
-    """Per-spacetime-column error probabilities from a scalar or a vector."""
-    if channel_probs is not None:
-        priors = np.asarray(channel_probs, dtype=np.float64)
-        if priors.shape != (num_cols,):
-            raise ValueError(f"channel_probs must have shape ({num_cols},)")
-        return priors
-    if error_rate is not None:
-        return np.full(num_cols, error_rate)
-    raise ValueError("need error_rate or channel_probs")
-
-
 @dataclass
-class SpacetimeDecoderBase:
-    """State, construction and numpy interface shared by the spacetime
-    decoders (:class:`SpacetimeBPDecoder` and
+class SpacetimeDecoderBase(DecoderBase):
+    """State and construction shared by the spacetime decoders
+    (:class:`SpacetimeBPDecoder` and
     :class:`.bp_bsr_spacetime.SpacetimeBSRDecoder`); a subclass supplies
-    :meth:`decode_tensors`.
-
-    ``decode_batch`` takes (S, B·r) syndromes in ``SpacetimeCode`` row
-    order and returns numpy (hard (S, Vst), posterior (S, Vst), converged
-    (S,), iters (S,)).
+    :meth:`decode_tensors` on (B·r, S) syndromes in ``SpacetimeCode`` row
+    order, and ``decode_batch`` returns numpy (hard (S, Vst), posterior
+    (S, Vst), converged (S,), iters (S,)).
     """
 
     tables: TannerTables
@@ -193,23 +172,13 @@ class SpacetimeDecoderBase:
         r, n = H.shape
         R = int(num_rounds)
         n_st = (R + 1) * n + R * r
-        priors = spacetime_priors(n_st, error_rate, channel_probs)
+        priors = channel_priors(n_st, error_rate, channel_probs)
         tables = tanner_tables(_host.TannerELL.from_check_matrix(H), resolve_device(device))
         if max_iter <= 0:  # ldpc convention: default = column count
             max_iter = n_st
         return cls(tables, R, priors_to_llr(priors), max_iter,
                    cls.method if bp_method is None else bp_method,
                    float(ms_scaling_factor), early_stop)
-
-    def decode_tensors(self, syndromes: torch.Tensor):
-        """(B·r, S) device syndromes -> (hard, posterior, conv, iters) tensors."""
-        raise NotImplementedError
-
-    def decode_batch(self, syndromes: np.ndarray):
-        s = torch.as_tensor(np.ascontiguousarray(np.asarray(syndromes, dtype=np.uint8).T))
-        hard, post, conv, iters = self.decode_tensors(s.to(self.device))
-        return (hard.T.cpu().numpy(), post.T.cpu().numpy(),
-                conv.cpu().numpy(), iters.cpu().numpy())
 
 
 @dataclass

@@ -111,7 +111,8 @@ def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_p
     rows of the JAX package's DataFrame, in order).
 
     ``pipeline`` (dict of ``mesh_devices``/``shots_per_device``) is
-    required: the ``bposd`` mode runs through the device pipeline.  With
+    required: the ``bposd``, ``bposd_single_shot`` and ``bposd_hybrid``
+    modes (``decoder_mode``) run through the device pipeline.  With
     ``checkpoint`` set, completed points are appended to a JSONL file and a
     restarted sweep skips them.  The pipeline always samples on the device,
     so ``use_device_sampler=False`` raises.
@@ -230,7 +231,8 @@ def p_sweep_main(noise_model_args, noise_model, meas_prior, data_prior, argv=Non
         "--decoder_mode",
         choices=["bposd", "bposd_single_shot", "bposd_hybrid", "bpd_detector",
                  "relay_bp", "sliding_window", "ssf_single_shot"],
-        help="decode mode (the port implements bposd through --pipeline)", default="bposd")
+        help="decode mode (the port implements bposd, bposd_single_shot and bposd_hybrid "
+        "through --pipeline)", default="bposd")
     parser.add_argument("--linspace", type=bool,
                         help="linearly spaced sweep points (default: geometric spacing)",
                         default=False)

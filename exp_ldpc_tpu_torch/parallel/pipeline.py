@@ -1,20 +1,33 @@
-"""On-device Monte-Carlo step of the storage experiment (mode ``bposd``).
+"""On-device Monte-Carlo step of the storage experiment.
 
 Counterpart of ``exp_ldpc_tpu/parallel/pipeline.py::StorageDecodePipeline``
 on one device.  One call of :meth:`StorageDecodePipeline.run_bposd`:
 
   1. samples Pauli frames on the device (:mod:`..sampler.device`);
-  2. forms the differenced spacetime syndromes from the record;
-  3. runs fixed-iteration spacetime BP: kernel K3 (streamed, bf16) past the
-     ~1 MiB dense-operand crossover on a CUDA device, else kernel K2 (f32),
-     or the plain PyTorch versions of either on the CPU;
-  4. counts logical failures of the BP-converged shots and ships the others
-     (compacted to the front, stable order) to the host, where
-     :class:`..decoders.drivers.BPOSDCorrect` redecodes them with BP+OSD.
+  2. decodes by ``mode``:
 
-The mesh-sharded path, the two-tier decode and the ``bposd_single_shot`` /
-``bposd_hybrid`` modes are ROADMAP Queue 1 items 7 and 12; asking for them
-raises ``NotImplementedError``.
+     * ``"bposd"``: differenced spacetime syndromes, then fixed-iteration
+       spacetime BP: kernel K3 (streamed, bf16) past the ~1 MiB
+       dense-operand crossover on a CUDA device, else kernel K2 (f32);
+     * ``"bposd_single_shot"``: per round, flat BP on (H|I) of the round's
+       syndrome plus the accumulated correction, then flat BP of the final
+       round on H;
+     * ``"bposd_hybrid"``: spacetime BP (kernel K2 at every size: the
+       streamed K3 contract serves mode ``"bposd"`` only, as in JAX), then
+       flat BP of the final round on H;
+
+     every flat stage without ``early_stop`` is kernel K6 on a CUDA device
+     (its contract is that stage's); with ``early_stop`` the stages run the
+     plain per-shot-freezing cores, as JAX does; on the CPU each kernel is
+     replaced by its plain version;
+  3. counts logical failures of the shots it keeps and ships the others
+     (compacted to the front, stable order) to the host, where the mode's
+     BP+OSD driver (:mod:`..decoders.drivers`) redecodes them: any shot
+     with an unconverged stage in ``bposd`` and ``bposd_single_shot``, the
+     shots whose final-round BP did not converge in ``bposd_hybrid``.
+
+The mesh-sharded path and the two-tier decode are ROADMAP Queue 1 items 12
+and 7; asking for them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -26,9 +39,11 @@ import torch
 
 from .. import _host
 from ..convert import noise_args, prior_llr_st, tanner_tables
-from ..decoders.bp import normalize_method, priors_to_llr
+from ..decoders.bp import bp_core, normalize_method, priors_to_llr
 from ..decoders.bp_bsr_spacetime import stbsr_decode
-from ..decoders.drivers import BPOSDCorrect, spacetime_prior
+from ..decoders.bp_cuda import bp_fixed
+from ..decoders.drivers import (BPOSDCorrect, BPOSDCorrectSingleShot, BPOSDHybridCorrect,
+                                spacetime_prior)
 from ..decoders.select import stbsr_selected
 from ..decoders.spacetime_bp import stbp_core
 from ..decoders.spacetime_bp_cuda import stbp_fixed
@@ -44,8 +59,13 @@ _NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1 item {})"
 class StorageDecodePipeline:
     """End-to-end sample+decode step for a storage experiment on one device.
 
-    ``bp_backend``: ``"auto"`` (K3 past the crossover on a CUDA device, else
-    K2), ``"stbp"`` (K2) or ``"stbsr"`` (K3).  On a CPU device each kernel
+    ``bp_backend`` picks the spacetime stage: ``"auto"`` (K3 past the
+    crossover on a CUDA device in mode ``"bposd"``, else K2), ``"stbp"``
+    (K2) or ``"stbsr"`` (K3, mode ``"bposd"`` only); mode
+    ``"bposd_single_shot"`` has no spacetime stage and takes ``"auto"``
+    only.  ``kernel`` names the spacetime stage's choice (None without
+    one), ``flat_kernel`` the flat stages' ("bpflat": K6, "core": plain
+    early-stop BP; None in mode ``"bposd"``).  On a CPU device each kernel
     is replaced by its plain version.  ``run`` and ``run_bposd`` take a
     ``torch.Generator`` on the pipeline's device.
     """
@@ -74,9 +94,7 @@ class StorageDecodePipeline:
             raise NotImplementedError("mesh-sharded pipeline: " + _NOT_PORTED.format(12))
         if self.tier1_iters > 0:
             raise NotImplementedError("two-tier decode (tier1_iters): " + _NOT_PORTED.format(7))
-        if self.mode in ("bposd_single_shot", "bposd_hybrid"):
-            raise NotImplementedError(f"pipeline mode {self.mode!r}: " + _NOT_PORTED.format(7))
-        if self.mode != "bposd":
+        if self.mode not in ("bposd", "bposd_single_shot", "bposd_hybrid"):
             raise ValueError(f"unknown pipeline mode {self.mode!r}")
         if self.bp_backend not in ("auto", "stbp", "stbsr"):
             raise ValueError(f"unknown bp_backend {self.bp_backend!r}")
@@ -95,6 +113,12 @@ class StorageDecodePipeline:
         self.spacetime = _host.SpacetimeCode(checks_sector, self.rounds)
         self.tanner = _host.TannerELL.from_check_matrix(checks_sector)
         self._tables = tanner_tables(self.tanner, self.device)
+        self._tables_ss = None
+        if self.mode == "bposd_single_shot":
+            # per-round decode matrix (H|I): one measurement-error column per check
+            H_ss = _host.SpacetimeCodeSingleShot(checks_sector).spacetime_check_matrix
+            self._tables_ss = tanner_tables(_host.TannerELL.from_check_matrix(H_ss),
+                                            self.device)
         dev = self.device
         self._Hz = torch.as_tensor(checks_sector.toarray().astype(np.float32)).to(dev)
         self._Lz_np = np.asarray(logicals, dtype=np.int64)
@@ -103,17 +127,25 @@ class StorageDecodePipeline:
         self._noise_args = noise_args(self.parsed, dev)
         self._sample = build_record_sampler(self.parsed, self.shots_per_device, dev)
         self.kernel = self._resolve_kernel()
+        self.flat_kernel = None if self.mode == "bposd" else (
+            "core" if self.early_stop else "bpflat")
         self._osd = None
         if self.osd_fallback_cap > 0:
             if self.osd_fallback_cap > self.shots_per_device:
                 raise ValueError("osd_fallback_cap exceeds shots_per_device")
             self._osd = self._build_osd_corrector()
 
-    def _resolve_kernel(self) -> str:
-        """"stbsr" (K3), "stbp" (K2) or "core" (plain early-stop BP)."""
+    def _resolve_kernel(self) -> Optional[str]:
+        """The spacetime stage: "stbsr" (K3), "stbp" (K2), "core" (plain
+        early-stop BP), or None in mode "bposd_single_shot"."""
+        if self.mode == "bposd_single_shot":
+            if self.bp_backend != "auto":
+                raise ValueError(f"bp_backend={self.bp_backend!r} applies to the spacetime-BP "
+                                 "stage; bposd_single_shot has none")
+            return None
         if self.bp_backend == "stbsr":
-            if self.rounds < 1:
-                raise ValueError("bp_backend='stbsr' needs rounds >= 1")
+            if self.mode != "bposd" or self.rounds < 1:
+                raise ValueError("bp_backend='stbsr' needs mode='bposd' and rounds >= 1")
             if self.early_stop:
                 raise ValueError("bp_backend='stbsr' requires early_stop=False (global-exit kernel)")
             return "stbsr"
@@ -123,12 +155,24 @@ class StorageDecodePipeline:
             return "core"
         if self.bp_backend == "stbp":
             return "stbp"
-        return "stbsr" if stbsr_selected(self.tanner, self.rounds, self.device) else "stbp"
+        if self.mode == "bposd" and stbsr_selected(self.tanner, self.rounds, self.device):
+            return "stbsr"
+        return "stbp"
 
     def _set_priors(self, data_prior: float, meas_prior: float) -> None:
+        """The spacetime priors, and the per-mode pair of the flat stages:
+        (H|I) and final round for single-shot, final round for hybrid."""
         self.data_prior, self.meas_prior = data_prior, meas_prior
         self.prior_llr = priors_to_llr(spacetime_prior(self.spacetime, data_prior, meas_prior))
         self._prior = prior_llr_st(self.prior_llr, self.device)
+        self._prior_ss = self._prior_final = None
+        if self.mode != "bposd":
+            n = self.num_data
+            self._prior_final = prior_llr_st(priors_to_llr(np.full(n, data_prior)), self.device)
+        if self.mode == "bposd_single_shot":
+            r = self._tables_ss.num_vars - self.num_data
+            self._prior_ss = prior_llr_st(priors_to_llr(np.concatenate(
+                [np.full(self.num_data, data_prior), np.full(r, meas_prior)])), self.device)
 
     def _build_osd_corrector(self):
         opts = dict(self.osd_options or {})
@@ -136,8 +180,10 @@ class StorageDecodePipeline:
         opts.setdefault("max_iter", self.max_iter)
         opts.setdefault("bp_method", self.bp_method)
         opts.setdefault("ms_scaling_factor", self.ms_scaling_factor)
-        return BPOSDCorrect(self.code, self.rounds, opts, (self.data_prior, self.meas_prior),
-                            basis="x" if self.use_x_logicals else "z", device=self.device)
+        cls = {"bposd": BPOSDCorrect, "bposd_single_shot": BPOSDCorrectSingleShot,
+               "bposd_hybrid": BPOSDHybridCorrect}[self.mode]
+        return cls(self.code, self.rounds, opts, (self.data_prior, self.meas_prior),
+                   basis="x" if self.use_x_logicals else "z", device=self.device)
 
     def decode_spacetime(self, synd: torch.Tensor):
         """(B·r, S) syndromes -> (hard (Vst, S) uint8, conv (S,) bool)."""
@@ -151,6 +197,15 @@ class StorageDecodePipeline:
             h, _p, c, _i = stbp_core(*args, early_stop=True)
         return h, c
 
+    def decode_flat(self, tables, prior: torch.Tensor, synd: torch.Tensor):
+        """A flat BP stage: (C, S) syndromes -> (hard (V, S) uint8, conv (S,) bool)."""
+        args = (tables, prior, synd, self._method, self.max_iter, float(self.ms_scaling_factor))
+        if self.flat_kernel == "bpflat":
+            h, _p, c, _i = bp_fixed(*args)
+        else:
+            h, _p, c, _i = bp_core(*args, early_stop=True)
+        return h, c
+
     def _decode_records(self, record: torch.Tensor):
         """(S, M) record -> (failures, shots, unconverged) and, with the OSD
         fallback, the compacted (history, readout, ship) of up to cap shots."""
@@ -162,17 +217,44 @@ class StorageDecodePipeline:
         rec = record.to(torch.float32)
         readout = rec[:, mpr * rounds: mpr * rounds + n]
         history = rec[:, : mpr * rounds].reshape(S, rounds, mpr)[:, :, blk: blk + r]
-        final = torch.remainder(readout @ self._Hz.T, 2.0)                  # (S, r)
-        synd = torch.cat([history, final[:, None, :]], dim=1)
-        synd = torch.cat([synd[:, :1], torch.remainder(synd[:, 1:] + synd[:, :-1], 2.0)], dim=1)
-        synd = synd.reshape(S, (rounds + 1) * r).T.to(torch.uint8).contiguous()
-        hard, conv = self.decode_spacetime(synd)
-        # mod-2 sum of the per-round data blocks
-        data_blocks = hard[: (rounds + 1) * n].reshape(rounds + 1, n, S).to(torch.int32)
-        correction = (data_blocks.sum(dim=0) % 2).T.to(torch.float32)       # (S, n)
+        HzT = self._Hz.T
+        if self.mode == "bposd_single_shot":
+            # per round: (H|I) BP of the round's syndrome plus the syndrome
+            # of the accumulated correction; then BP of the final round
+            acc = torch.zeros((S, n), device=record.device)
+            bad = torch.zeros((S,), dtype=torch.bool, device=record.device)
+            for t in range(rounds):
+                s_t = torch.remainder(torch.remainder(acc @ HzT, 2.0) + history[:, t], 2.0)
+                hard_t, conv_t = self.decode_flat(self._tables_ss, self._prior_ss,
+                                                  s_t.T.to(torch.uint8).contiguous())
+                acc = torch.remainder(acc + hard_t[:n].T.to(torch.float32), 2.0)
+                bad = bad | ~conv_t
+            synd_f = torch.remainder(torch.remainder(readout + acc, 2.0) @ HzT, 2.0)
+            hard_f, conv_f = self.decode_flat(self._tables, self._prior_final,
+                                              synd_f.T.to(torch.uint8).contiguous())
+            ship = bad | ~conv_f
+            correction = torch.remainder(hard_f.T.to(torch.float32) + acc, 2.0)
+        else:
+            final = torch.remainder(readout @ HzT, 2.0)                         # (S, r)
+            synd = torch.cat([history, final[:, None, :]], dim=1)
+            synd = torch.cat([synd[:, :1], torch.remainder(synd[:, 1:] + synd[:, :-1], 2.0)],
+                             dim=1)
+            synd = synd.reshape(S, (rounds + 1) * r).T.to(torch.uint8).contiguous()
+            hard, conv = self.decode_spacetime(synd)
+            # mod-2 sum of the per-round data blocks
+            data_blocks = hard[: (rounds + 1) * n].reshape(rounds + 1, n, S).to(torch.int32)
+            correction = (data_blocks.sum(dim=0) % 2).T.to(torch.float32)   # (S, n)
+            ship = ~conv
+            if self.mode == "bposd_hybrid":
+                # final-round BP on top of the spacetime BP; only its
+                # unconverged shots go to the host
+                synd_f = torch.remainder(torch.remainder(readout + correction, 2.0) @ HzT, 2.0)
+                hard_f, conv_f = self.decode_flat(self._tables, self._prior_final,
+                                                  synd_f.T.to(torch.uint8).contiguous())
+                correction = torch.remainder(hard_f.T.to(torch.float32) + correction, 2.0)
+                ship = ~conv_f
         corrected = torch.remainder(readout + correction, 2.0)
         failed = (torch.remainder(corrected @ self._Lz.T, 2.0) > 0.5).any(dim=1)
-        ship = ~conv
         unconv = int(ship.sum())
         if self.osd_fallback_cap <= 0:
             return int(failed.sum()), S, unconv

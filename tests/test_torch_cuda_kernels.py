@@ -1,4 +1,4 @@
-"""Kernels K2 and K3 against their plain PyTorch versions on a CUDA card.
+"""Kernels K1, K2, K3 and K6 against their plain PyTorch versions on a CUDA card.
 
 Marked ``gpu``: skipped where no CUDA device is present (the CPU suite);
 on a machine with a card run ``python -m pytest --noconftest -m gpu
@@ -7,7 +7,8 @@ kernels round exactly where their plain versions do (no multiply-add
 contraction, the same left-to-right sums), so on the card hard decisions,
 conv and iters are equal and posteriors equal to 1e-6*max(1,|x|), the
 bounds ``chip_smoke.py`` holds them to.  S=77 leaves a ragged shot edge
-(77 mod 32 = 13) for the kernels' masking.
+(77 mod 32 = 13) for the kernels' masking; K1's early exit runs per JAX
+shot block (128 shots here, four CUDA blocks), so S=300 spans three.
 """
 import numpy as np
 import pytest
@@ -15,7 +16,9 @@ import torch
 
 from exp_ldpc_tpu_torch import _host
 from exp_ldpc_tpu_torch.convert import tanner_tables
-from exp_ldpc_tpu_torch.decoders.bp import priors_to_llr
+from exp_ldpc_tpu_torch.decoders.bp import bp_core, priors_to_llr
+from exp_ldpc_tpu_torch.decoders.bp_bsr import KERNEL as K1, BSRLayout, bsr_bp_decode, bsr_bp_plain
+from exp_ldpc_tpu_torch.decoders.bp_cuda import KERNEL as K6, bp_fixed
 from exp_ldpc_tpu_torch.decoders.bp_bsr_spacetime import (
     KERNEL as K3, _stbsr_iter_plain, stbsr_decode)
 from exp_ldpc_tpu_torch.decoders.spacetime_bp import stbp_core
@@ -73,3 +76,52 @@ def test_k3_matches_plain(setup, method, msf, early_stop, S):
     torch.cuda.synchronize()
     assert K3.launches == before + int(kern[3][0])
     _assert_same(kern, plain)
+
+
+@pytest.fixture(scope="module")
+def flat():
+    """HGP-225's single-shot matrix (H|I): tables, priors, syndromes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    H = _host.biregular_hgp(12, 3, 4, seed=0).checks.z
+    Hss = _host.SpacetimeCodeSingleShot(H).spacetime_check_matrix.tocsr().astype(np.int64)
+    rng = np.random.default_rng(1)
+    err = np.zeros((300, Hss.shape[1]), np.int64)
+    err[:128] = rng.random((128, Hss.shape[1])) < 1e-3      # an easy shot block
+    err[128:] = rng.random((172, Hss.shape[1])) < 8e-3
+    synd = torch.as_tensor(((Hss @ err.T) % 2).astype(np.uint8)).to(dev)
+    prior = torch.as_tensor(priors_to_llr(np.full(Hss.shape[1], 4e-3))).to(dev)
+    layout = BSRLayout.from_tanner(_host.TannerELL.from_check_matrix(Hss), dev)
+    return layout, prior, synd
+
+
+@pytest.mark.parametrize("S", [77, 300])
+@pytest.mark.parametrize("method,msf", [("ms", 0.625), ("ms", 0.0), ("ps", 0.0)])
+def test_k6_matches_plain(flat, method, msf, S):
+    layout, prior, synd = flat
+    synd = synd[:, :S].contiguous()
+    before = K6.launches
+    kern = bp_fixed(layout.tables, prior, synd, method, 24, msf)
+    plain = bp_core(layout.tables, prior, synd, method, 24, msf, early_stop=False)
+    torch.cuda.synchronize()
+    assert K6.launches == before + 1
+    _assert_same(kern, plain)
+
+
+@pytest.mark.parametrize("S", [77, 300])
+@pytest.mark.parametrize("method,msf,early_stop", [("ms", 0.625, False), ("ps", 0.0, False),
+                                                   ("ms", 0.625, True), ("ms", 0.0, True),
+                                                   ("ps", 0.0, True)])
+def test_k1_matches_plain(flat, method, msf, early_stop, S):
+    layout, prior, synd = flat
+    synd = synd[:, :S].contiguous()
+    before = K1.launches
+    kern = bsr_bp_decode(layout, prior, synd, method, 24, msf, early_stop, 128)
+    plain = bsr_bp_plain(layout, prior, synd, method, 24, msf, early_stop, 128)
+    torch.cuda.synchronize()
+    assert K1.launches == before + (24 if early_stop else 1)
+    _assert_same(kern, plain)
+    iters = kern[3].cpu().numpy()
+    for b in range(0, S, 128):  # one count per JAX shot block
+        assert (iters[b:b + 128] == iters[b]).all()

@@ -2,7 +2,8 @@
 
 A subprocess in which ``import jax`` fails imports every module of
 ``exp_ldpc_tpu_torch`` and runs a 64-shot HGP-225 sweep point on the CPU,
-through the library and through the CLI; a static scan finds no JAX import
+through the library and through the CLI, and a step of each of the
+single-shot and hybrid modes with the flat decoders; a static scan finds no JAX import
 in the package or in ``chip_smoke.py``; ``chip_smoke.py`` refuses to run
 without a card, and outside the repository."""
 import os
@@ -66,6 +67,36 @@ recs = p_sweep(
                         osd_method="osd_cs", osd_order=7))
 assert recs[0]["samples"] == 64 and 0 <= recs[0]["failures"] <= 64, recs
 """ + _CHECK_CLEAN + "print('OK', recs[0]['failures'])")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().startswith("OK")
+
+
+def test_modes_and_flat_decoders_run_without_jax():
+    """The single-shot and hybrid modes (their flat BP stages, K6's and K1's
+    plain versions and the host drivers) on the CPU with JAX blocked."""
+    proc = _run(_BLOCK_JAX + """
+import numpy as np, torch
+from exp_ldpc_tpu_torch import _host
+from exp_ldpc_tpu_torch.decoders.bp_bsr import BSRBPDecoder
+from exp_ldpc_tpu_torch.decoders.select import make_bp_decoder
+from exp_ldpc_tpu_torch.parallel.pipeline import StorageDecodePipeline
+code = _host.biregular_hgp(12, 3, 4, seed=0, compute_logicals=True)
+for mode in ("bposd_single_shot", "bposd_hybrid"):
+    pipe = StorageDecodePipeline(
+        code=code, rounds=2, noise_model=_host.depolarizing_noise(3e-3, 3e-3),
+        data_prior=2e-3, meas_prior=2e-3, shots_per_device=64, max_iter=24, bp_method="ms",
+        ms_scaling_factor=0.625, osd_fallback_cap=64, mode=mode, device="cpu")
+    g = torch.Generator()
+    g.manual_seed(0)
+    f, s, osd = pipe.run_bposd(g)
+    assert s == 64 and 0 <= f <= 64, (mode, f, s)
+H = code.checks.z
+synd = np.zeros((8, H.shape[0]), np.uint8)
+for dec in (make_bp_decoder(H, error_rate=0.01, max_iter=8, device="cpu"),
+            BSRBPDecoder.from_check_matrix(H, error_rate=0.01, max_iter=8, device="cpu")):
+    hard, post, conv, iters = dec.decode_batch(synd)
+    assert conv.all() and not hard.any()
+""" + _CHECK_CLEAN + "print('OK')")
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().startswith("OK")
 

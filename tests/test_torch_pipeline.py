@@ -141,8 +141,8 @@ def test_pipeline_refusals(small_code):
     kw = _kw(small_code, device="cpu")
     for over, exc in ((dict(mesh=object()), NotImplementedError),
                       (dict(tier1_iters=4), NotImplementedError),
-                      (dict(mode="bposd_single_shot"), NotImplementedError),
-                      (dict(mode="bposd_hybrid"), NotImplementedError),
+                      (dict(mode="bposd_single_shot", bp_backend="stbp"), ValueError),
+                      (dict(mode="bposd_hybrid", bp_backend="stbsr"), ValueError),
                       (dict(mode="zzz"), ValueError),
                       (dict(bp_backend="pallas"), ValueError),
                       (dict(bp_backend="stbsr", early_stop=True), ValueError),
