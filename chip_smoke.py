@@ -6,15 +6,16 @@
 Phases, in order; any failure raises and exits nonzero:
   1. versions and the card (``nvidia-smi`` name and power limit);
   2. build kernels K1 (``csrc/bsr_bp.cu``), K2 (``csrc/stbp.cu``), K3
-     (``csrc/stbsr.cu``) and K6 (``csrc/bpflat.cu``) from source, one
-     ``nvcc`` per source, all at once;
+     (``csrc/stbsr.cu``), K4 (``csrc/bsr_shard.cu``) and K6
+     (``csrc/bpflat.cu``) from source, one ``nvcc`` per source, all at once;
   3. K2 against its plain PyTorch version on the card, at a ragged shot
      count (685, the host redecode's size), 4,096 and the main path's
      16,384 shots: hard decisions, conv and iters equal, posteriors equal
      to 1e-6*max(1,|x|);
   4. K3 against its plain PyTorch version, at the same sizes and bounds;
   5. the device sampler: noiseless circuit -> zero detectors; detector rates
-     against the host oracle ``FrameSampler``;
+     against the host oracle ``FrameSampler`` (whose ~10 s of host work runs
+     in a thread beside phases 2-4);
   6. the main path: ``p_sweep(..., pipeline=...)`` on HGP-225, 4 rounds,
      min-sum 48 iterations, OSD-CS 7, at two grid points of
      ``artifacts/ler_hgp225_bposd_v5e.jsonl``, each LER within 4 combined
@@ -35,12 +36,41 @@ Phases, in order; any failure raises and exits nonzero:
      configuration and 16,384 shots x 48 iterations; K1 also at the
      >= 3,000-tile code) and the modes' stage split.
 
-Each run of the main path (phases 6, 7 and the two runs of phase 11) is
-driven with every launch count set to 0 just before it and read just
-after; a kernel of that run that was not launched fails the script.  The
-line before the last is the kernel summary JSON (``launches`` summed over
-those runs, ``launches_by_run`` split by run; without ``--quick`` only, as
-are the times); the last line is ``{"ok": true, "device": {...}}``.  Phase
+ 13. K4 (``csrc/bsr_shard.cu``) against its plain version through the
+     emulated check-partition decoder at ``biregular_hgp(20, 3, 4, seed=1)``
+     (n = 625), D in {1, 2, 3}, S in {97, 685, 4,096}, min-sum at alpha
+     0.625, adaptive min-sum and sum-product, 24 iterations (bounds as in
+     phase 3), and at the capacity demo's full size (``shard_capacity.build``:
+     n = 40,000, D = ``auto_num_shards`` (8), 128 shots, 32 iterations);
+ 14. the emulated check-partition decode on K4 against K1 at fixed
+     iterations (the JAX contract): hard decisions and conv equal;
+ 15. the model axis's main path: ``shard_capacity``'s decode and checks at
+     its full size (n = 40,000, D = 8, 128 shots, 32 iterations);
+ 16. the distributed path: two ranks in two processes on the one card
+     (model axis 2, ``backend="gloo"``, which all-reduces CUDA tensors),
+     whose hard decisions, conv flags and posteriors must equal the
+     emulated D = 2 decode.  The ranks start right after the build and run
+     beside phases 3-5 (their ~10 s are nearly all process start-up); the
+     phase joins and checks them after phase 5;
+ 17. K3 against its plain version in the regime where the JAX package
+     selects the rolled K3b (>= 64 BSR tiles): ``bench_stbsr.py``'s codes
+     (the cyclic lifted product n = 4,862 and ``biregular_hgp(80, 3, 4,
+     seed=7)`` n = 10,000), 8 rounds, 128 shots, 32 iterations; min-sum at
+     both, sum-product at the first; each compared decode is timed once;
+ 18. timings: K4 per decode iteration (all shards) and its plain version
+     at the capacity and ``bench_bsr_shard`` (cyclic n = 4,862 in QC order,
+     1,024 shots, D in {1, 2, 4}) shapes, beside K1 at the same shapes,
+     each by ``shard_capacity.per_iter_slope`` (4 -> 12 iterations, best of
+     2 distinct batches).
+
+Each run of the main path (phases 6, 7, the two runs of phase 11, and
+phases 15 and 16) is driven with every launch count set to 0 just before it
+and read just after (phase 16 reads the counts of its two ranks); a kernel
+of that run that was not launched fails the script.  The line before the
+last is the kernel summary JSON (``launches`` summed over those runs,
+``launches_by_run`` split by run; K3b's row counts phase 17's K3 decodes,
+since no main-path run reaches its sizes; without ``--quick`` only, as are
+the times); the last line is ``{"ok": true, "device": {...}}``.  Phase
 times are printed.  It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -53,6 +83,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -68,12 +99,15 @@ import torch  # noqa: E402
 from exp_ldpc_tpu_torch import _host  # noqa: E402
 from exp_ldpc_tpu_torch.convert import tanner_tables  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import bp_bsr as k1  # noqa: E402
+from exp_ldpc_tpu_torch.decoders import bp_bsr_shard as k4  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import bp_bsr_spacetime as k3  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import bp_cuda as k6  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import spacetime_bp_cuda as k2  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.bp import bp_core, priors_to_llr  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.spacetime_bp import stbp_core  # noqa: E402
+from exp_ldpc_tpu_torch.experiments import bench_bsr_shard, shard_capacity  # noqa: E402
 from exp_ldpc_tpu_torch.experiments.p_sweep import p_sweep  # noqa: E402
+from exp_ldpc_tpu_torch.parallel.mesh import make_mesh, run_world  # noqa: E402
 from exp_ldpc_tpu_torch.parallel.pipeline import StorageDecodePipeline  # noqa: E402
 from exp_ldpc_tpu_torch.sampler.device import DeviceSampler  # noqa: E402
 
@@ -107,12 +141,18 @@ def check(cond: bool, what: str) -> None:
 
 
 class Checks:
-    """A check matrix on the card: i.i.d.-error syndromes and syndrome checks."""
+    """A check matrix, sparse on the host and on the card (the spacetime
+    matrices of the large codes are too large to densify): i.i.d.-error
+    syndromes, syndrome checks and flat priors."""
 
-    def __init__(self, H, dev: torch.device):
+    def __init__(self, H, dev: torch.device, name: str = ""):
         self.dev = dev
         self.H = H.tocsr().astype(np.int64)
-        self.Hd = torch.as_tensor(self.H.toarray().astype(np.float32)).to(dev)
+        self.name = name
+        self.Hs = torch.sparse_csr_tensor(
+            torch.as_tensor(self.H.indptr, dtype=torch.int64),
+            torch.as_tensor(self.H.indices, dtype=torch.int64),
+            torch.ones(self.H.nnz, dtype=torch.float32), self.H.shape).to(dev)
 
     def syndromes(self, S: int, p: float, seed: int) -> torch.Tensor:
         """(rows, S) uint8 syndromes of i.i.d. errors at rate p."""
@@ -121,8 +161,11 @@ class Checks:
         return torch.as_tensor(((self.H @ err.T) % 2).astype(np.uint8)).to(self.dev)
 
     def valid(self, hard: torch.Tensor, synd: torch.Tensor) -> torch.Tensor:
-        par = torch.remainder(self.Hd @ hard.to(torch.float32), 2.0)
+        par = torch.remainder(self.Hs @ hard.to(torch.float32), 2.0)
         return (par == synd.to(torch.float32)).all(dim=0)
+
+    def prior(self, p: float) -> torch.Tensor:
+        return torch.as_tensor(priors_to_llr(np.full(self.H.shape[1], p))).to(self.dev)
 
 
 class Setup(Checks):
@@ -135,8 +178,7 @@ class Setup(Checks):
         super().__init__(_host.SpacetimeCode(H, ROUNDS).spacetime_check_matrix, dev)
 
     def prior(self, p: float) -> torch.Tensor:
-        llr = priors_to_llr(np.full(self.H.shape[1], 2 / 3 * p))
-        return torch.as_tensor(llr).to(self.dev)
+        return super().prior(2 / 3 * p)
 
 
 def phase_card() -> str:
@@ -150,7 +192,8 @@ def phase_card() -> str:
     return smi.splitlines()[0]
 
 
-KERNELS = {"K1": k1.KERNEL, "K2": k2.KERNEL, "K3": k3.KERNEL, "K6": k6.KERNEL}
+KERNELS = {"K1": k1.KERNEL, "K2": k2.KERNEL, "K3": k3.KERNEL, "K4": k4.KERNEL,
+           "K6": k6.KERNEL}
 
 
 def phase_build() -> None:
@@ -222,19 +265,30 @@ def phase_k3(su: Setup, sizes) -> float:
     return worst
 
 
-def phase_sampler(su: Setup, dev: torch.device, quick: bool) -> None:
+SAMPLER_P = 3e-3
+
+
+def _noisy(su: Setup):
+    return _host.build_storage_simulation(
+        ROUNDS, _host.depolarizing_noise(SAMPLER_P, SAMPLER_P), su.code)
+
+
+def host_rates(su: Setup, shots: int) -> np.ndarray:
+    """Detector rates of the host oracle ``FrameSampler`` (~10 s of host work
+    at 16,384 shots, drawn in a thread beside phases 2-4)."""
+    return _host.FrameSampler(_noisy(su).circuit, seed=7).sample_detectors(shots).mean(axis=0)
+
+
+def phase_sampler(su: Setup, dev: torch.device, n_dev: int, n_host: int, host) -> None:
     log("== phase 5: device sampler")
     quiet = _host.build_storage_simulation(ROUNDS, _host.noise.trivial_noise(), su.code)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     det = DeviceSampler(quiet.circuit, 4096, dev).sample_detectors(gen, append_observables=True)
     check(int(det.sum()) == 0, "noiseless circuit: all detectors and observables are 0")
-    p = 3e-3
-    sim = _host.build_storage_simulation(ROUNDS, _host.depolarizing_noise(p, p), su.code)
-    n_dev, n_host = (8192, 2048) if quick else (65536, 16384)
-    ds = DeviceSampler(sim.circuit, n_dev, dev)
+    ds = DeviceSampler(_noisy(su).circuit, n_dev, dev)
     rate_dev = ds.sample_detectors(gen).to(torch.float64).mean(dim=0).cpu().numpy()
-    rate_host = _host.FrameSampler(sim.circuit, seed=7).sample_detectors(n_host).mean(axis=0)
+    rate_host = host.result()
     pooled = (rate_dev * n_dev + rate_host * n_host) / (n_dev + n_host)
     sigma = np.sqrt(pooled * (1 - pooled) * (1 / n_dev + 1 / n_host))
     z = np.abs(rate_dev - rate_host) / np.where(sigma > 0, sigma, 1.0)
@@ -345,17 +399,19 @@ def reset_counts() -> None:
         kern.launches = 0
 
 
+def _timed(fn):
+    """(fn(), its time in ms by CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def _median_ms(fn, inputs) -> float:
-    times = []
-    for x in inputs:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn(x)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return float(np.median([_timed(lambda: fn(x))[1] for x in inputs]))
 
 
 def phase_timings(su: Setup, dev: torch.device, shots: int) -> dict:
@@ -439,13 +495,9 @@ class FlatSetup(Checks):
     Tanner tables K6 reads too)."""
 
     def __init__(self, H, dev: torch.device, name: str):
-        super().__init__(H, dev)
-        self.name = name
+        super().__init__(H, dev, name)
         self.layout = k1.BSRLayout.from_tanner(_host.TannerELL.from_check_matrix(self.H), dev)
         self.tables = self.layout.tables
-
-    def prior(self, p: float) -> torch.Tensor:
-        return torch.as_tensor(priors_to_llr(np.full(self.H.shape[1], p))).to(self.dev)
 
 
 def flat_setups(su: Setup, dev: torch.device):
@@ -617,6 +669,213 @@ def phase_flat_timings(flats, big, dev: torch.device, shots: int) -> dict:
     return t
 
 
+# ---------------------------------------------------------------------------
+# Check-partition BP (K4), the model axis, and K3 in the K3b regime
+# ---------------------------------------------------------------------------
+
+SHARD_ITERS = 24
+
+
+def _k4(dec, synd, iterate=k4.bsr_shard_iter, max_iter=None):
+    """A check-partition decode as (hard, posterior, conv, iters) over the
+    code's columns (the iteration count is fixed)."""
+    h, p, c = dec.decode_tensors(synd, max_iter=max_iter, iterate=iterate)
+    V = dec.sharded.num_vars
+    n = dec.max_iter if max_iter is None else max_iter
+    return h[:V], p[:V], c, torch.full_like(c, n, dtype=torch.int32)
+
+
+def phase_k4(dev: torch.device, sizes, cap):
+    log(f"== phase 13: K4 vs plain (check-partition decode), S in {sizes}, {SHARD_ITERS} "
+        "iterations")
+    fs = Checks(_host.biregular_hgp(20, 3, 4, seed=1).checks.z, dev, "HGP n=625")
+    p = 5e-3
+    worst = 0.0
+    for D in (1, 2, 3):
+        for S in sizes:
+            synd = fs.syndromes(S, p, seed=6)
+            for method, msf in METHODS:
+                dec = k4.ShardedBSRDecoder.from_check_matrix(
+                    fs.H, D, error_rate=p, max_iter=SHARD_ITERS, bp_method=method,
+                    ms_scaling_factor=msf, device=dev)
+                kern = _k4(dec, synd)
+                plain = _k4(dec, synd, k4.bsr_shard_iter_plain)
+                torch.cuda.synchronize()
+                worst = max(worst, _same(f"{fs.name} D={D} S={S} {method} alpha={msf}", fs,
+                                         synd, kern, plain))
+    if cap is None:
+        return worst, None
+    H, cap_dec, rec = cap
+    big = Checks(H, dev, "HGP n=40000")
+    D = rec["shards"]
+    check(D == 8, f"{big.name}: auto_num_shards = {D} (the JAX demo's 8)")
+    synd = big.syndromes(128, 5e-4, seed=7)
+    worst_big = 0.0
+    for method in ("ms", "ps"):   # the demo's decoder: adaptive min-sum, 32 iterations
+        dec = replace(cap_dec, method=method)
+        msf = dec.ms_scaling_factor
+        kern = _k4(dec, synd)
+        plain = _k4(dec, synd, k4.bsr_shard_iter_plain)
+        torch.cuda.synchronize()
+        worst_big = max(worst_big, _same(f"{big.name} D={D} S=128 {method} alpha={msf}", big,
+                                         synd, kern, plain))
+    return worst, worst_big
+
+
+def _shard_case(dev: torch.device):
+    """tests/test_bp_bsr_shard.py's case: n = 625 HGP, 128 shots at p = 0.01."""
+    fs = Checks(_host.biregular_hgp(20, 3, 4, seed=1).checks.z, dev, "HGP n=625")
+    return fs, fs.syndromes(128, 0.01, seed=0)
+
+
+def phase_k4_vs_k1(dev: torch.device) -> None:
+    log(f"== phase 14: check-partition decode on K4 vs K1 at fixed iterations, "
+        f"{SHARD_ITERS} iterations")
+    fs, synd = _shard_case(dev)
+    layout = k1.BSRLayout.from_tanner(_host.TannerELL.from_check_matrix(fs.H), dev)
+    prior = fs.prior(0.01)
+    for method, msf in METHODS:
+        hr, _pr, cr, _ir = k1.bsr_bp_decode(layout, prior, synd, method, SHARD_ITERS, msf,
+                                            False, k1.auto_shot_block(layout))
+        for D in (1, 2, 3):
+            dec = k4.ShardedBSRDecoder.from_check_matrix(
+                fs.H, D, error_rate=0.01, max_iter=SHARD_ITERS, bp_method=method,
+                ms_scaling_factor=msf, device=dev)
+            h, _p, c, _i = _k4(dec, synd)
+            torch.cuda.synchronize()
+            check(torch.equal(h, hr) and torch.equal(c, cr),
+                  f"D={D} {method} alpha={msf}: hard and conv equal to K1 "
+                  f"(conv rate {float(c.float().mean()):.4f})")
+
+
+def phase_shard_capacity(cap) -> dict:
+    log("== phase 15: main path of the model axis: shard_capacity at full size")
+    H, dec, rec = cap
+    rec = dict(rec)
+    reset_counts()
+    rec.update(shard_capacity.run(H, dec))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"  {json.dumps(rec)}")
+    log(f"  kernel launches: {launches}")
+    D = rec["shards"]
+    check(launches["K4"] == 2 * D * dec.max_iter,
+          f"K4 launched once per shard per iteration ({launches['K4']} = 2 decodes x {D} x "
+          f"{dec.max_iter})")
+    return launches
+
+
+def _dist_rank(rank: int, world: int) -> dict:
+    """One rank of phase 16 (runs in its own process)."""
+    mesh = make_mesh(model_parallel=2, device="cuda")
+    fs, synd = _shard_case(mesh.device)
+    dec = k4.ShardedBSRDecoder.from_check_matrix(fs.H, 2, mesh=mesh, error_rate=0.01,
+                                                 max_iter=SHARD_ITERS, bp_method="ms")
+    k4.KERNEL.launches = 0
+    hard, post, conv = dec.decode_batch(synd.cpu().numpy().T)
+    torch.cuda.synchronize()
+    return {"hard": hard, "post": post, "conv": conv, "launches": k4.KERNEL.launches,
+            "device": str(mesh.device), "coords": mesh.coords}
+
+
+def dist_world():
+    """Phase 16's two ranks: (their results, seconds from start to join)."""
+    t0 = time.perf_counter()
+    ranks = run_world(_dist_rank, 2, backend="gloo", timeout=300, threads=None)
+    return ranks, time.perf_counter() - t0
+
+
+def phase_distributed(dev: torch.device, world) -> dict:
+    log("== phase 16: two ranks on the card, model axis 2, gloo")
+    ranks, secs = world.result()
+    log(f"  two ranks ran in {secs:.1f} s (beside phases 3-5) on "
+        f"{[r['device'] for r in ranks]}, coords {[r['coords'] for r in ranks]}")
+    fs, synd = _shard_case(dev)
+    eh, ep, ec = k4.ShardedBSRDecoder.from_check_matrix(
+        fs.H, 2, error_rate=0.01, max_iter=SHARD_ITERS, bp_method="ms",
+        device=dev).decode_batch(synd.cpu().numpy().T)
+    for k, r in enumerate(ranks):
+        d = float(np.abs(r["post"] - ep).max())
+        check(np.array_equal(r["hard"], eh) and np.array_equal(r["conv"], ec) and d == 0.0,
+              f"rank {k}: hard, conv and posteriors equal to the emulated D=2 decode "
+              f"(max |dpost| {d}, conv rate {float(ec.mean()):.4f})")
+        check(r["launches"] == SHARD_ITERS, f"rank {k}: K4 launched {r['launches']} times")
+    counts = {name: 0 for name in KERNELS}
+    counts["K4"] = sum(r["launches"] for r in ranks)
+    return counts
+
+
+def phase_k3b(dev: torch.device, t: dict):
+    """Returns the worst posterior error and the K3 launches of the kernel
+    decodes (counted from 0)."""
+    rounds, S, iters, p = 8, 128, 32, 1e-3
+    log(f"== phase 17: K3 vs plain in the K3b regime, {rounds} rounds, S={S}, {iters} "
+        "iterations")
+    codes = {
+        "cyclic n=4862": _host.lifted.lifted_product_code_cyclic(
+            q=22, m=1, w=14, r=5, seed=42, compute_logicals=False).checks.z,
+        "HGP n=10000": _host.biregular_hgp(80, 3, 4, seed=7, compute_logicals=False).checks.z}
+    worst, launches = 0.0, 0
+    plain = k3._stbsr_iter_plain
+    # sum-product at the first code only: a K3 decode here takes ~1 s (4 CUDA blocks)
+    methods = (("ms", ALPHA), ("ps", 0.0))
+    for name, H in codes.items():
+        tanner = _host.TannerELL.from_check_matrix(H)
+        tiles = k1.BSRLayout.from_tanner(tanner, dev).num_tiles
+        check(tiles >= 64, f"{name}: {tiles} BSR tiles (>= 64: the JAX package selects K3b)")
+        tables = tanner_tables(tanner, dev)
+        st = Checks(_host.SpacetimeCode(H, rounds).spacetime_check_matrix, dev,
+                    f"{name} x{rounds} rounds")
+        prior = st.prior(p)
+        synd = st.syndromes(S, p, seed=40)
+        tag = name.split()[0]
+        for method, msf in methods:
+            args = (tables, rounds, prior, synd, method, iters, msf, False)
+            reset_counts()
+            kern, ms = _timed(lambda: k3.stbsr_decode(*args))
+            launches += k3.KERNEL.launches
+            ref, ms_plain = _timed(lambda: k3.stbsr_decode(*args, iterate=plain))
+            worst = max(worst, _same(f"{st.name} {method} alpha={msf}", st, synd, kern, ref))
+            log(f"  {name} {method}: K3 {ms:.3f} ms, plain {ms_plain:.3f} ms per decode "
+                "(one run)")
+            if method == "ms":
+                t[f"K3b_{tag}"], t[f"K3b_{tag}_plain"] = ms, ms_plain
+        methods = methods[:1]
+    check(launches > 0, f"K3 launched {launches} times at K3b's sizes")
+    return worst, launches
+
+
+def phase_shard_timings(dev: torch.device, cap) -> dict:
+    log("== phase 18: K4 per decode iteration (all shards) vs plain and K1, "
+        "shard_capacity.per_iter_slope (4 -> 12 iterations, best of 2)")
+    t = {}
+
+    def per_iter(tag, H, decs, S, p):
+        layout = k1.BSRLayout.from_tanner(_host.TannerELL.from_check_matrix(H), dev)
+        prior = torch.as_tensor(priors_to_llr(np.full(H.shape[1], p))).to(dev)
+        sb = k1.auto_shot_block(layout)
+        fns = {f"K1_shard_{tag}": lambda s, n: k1.bsr_bp_decode(layout, prior, s, "ms", n,
+                                                                ALPHA, False, sb)}
+        for D, dec in decs:
+            fns[f"K4_{tag}_D{D}"] = lambda s, n, dec=dec: dec.decode_tensors(s, max_iter=n)
+            fns[f"K4_{tag}_D{D}_plain"] = lambda s, n, dec=dec: dec.decode_tensors(
+                s, max_iter=n, iterate=k4.bsr_shard_iter_plain)
+        for key, fn in fns.items():
+            t[key] = 1e3 * shard_capacity.per_iter_slope(fn, H, dev, S, p, lo=4, hi=12, nrep=2)
+        for D, _dec in decs:
+            log(f"  {tag} D={D} S={S}: K4 {t[f'K4_{tag}_D{D}']:.4f}, plain "
+                f"{t[f'K4_{tag}_D{D}_plain']:.4f}, K1 {t[f'K1_shard_{tag}']:.4f} ms per "
+                "iteration")
+
+    H, dec, rec = cap
+    per_iter("capacity", H, [(rec["shards"], dec)], 128, 5e-4)
+    H = bench_bsr_shard.build_code("cyclic4862")
+    per_iter("bench", H, [(D, k4.ShardedBSRDecoder.from_check_matrix(
+        H, D, error_rate=1e-3, max_iter=32, bp_method="ms", device=dev)) for D in (1, 2, 4)],
+             1024, 1e-3)
+    return t
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -634,12 +893,17 @@ def main() -> int:
 
     smi = phase(phase_card)
     dev = torch.device("cuda")
-    phase(phase_build)
     su = Setup(dev)
+    n_dev, n_host = (8192, 2048) if args.quick else (65536, 16384)
+    # host work beside the build and the first parity phases
+    bg = ThreadPoolExecutor(2)
+    host = bg.submit(host_rates, su, n_host)
+    phase(phase_build)
+    world = None if args.quick else bg.submit(dist_world)
     # ragged shot edges (97, S_REDECODE) and the main path's batch (16,384)
     sizes = (97, 512) if args.quick else (S_REDECODE, 4096, 16384)
     err = {"K2": phase(phase_k2, su, sizes), "K3": phase(phase_k3, su, sizes)}
-    phase(phase_sampler, su, dev, args.quick)
+    phase(phase_sampler, su, dev, n_dev, n_host, host)
     src = "exp_ldpc_tpu_torch/csrc/"
     kernels = [
         {"name": "K1 bsr_bp", "route": "cuda", "source": src + "bsr_bp.cu",
@@ -650,6 +914,11 @@ def main() -> int:
          "replaces": "exp_ldpc_tpu/decoders/spacetime_bp_pallas.py:65"},
         {"name": "K3 stbsr_iter", "route": "cuda", "source": src + "stbsr.cu",
          "replaces": "exp_ldpc_tpu/decoders/bp_bsr_spacetime.py:113"},
+        {"name": "K3b stbsr_iter (served by K3: the same kernel; launches at K3b's sizes, "
+                 "phase 17)", "route": "cuda",
+         "source": src + "stbsr.cu", "replaces": "exp_ldpc_tpu/decoders/bp_bsr_spacetime.py:306"},
+        {"name": "K4 bsr_shard", "route": "cuda", "source": src + "bsr_shard.cu",
+         "replaces": "exp_ldpc_tpu/decoders/bp_bsr_shard.py:200"},
         {"name": "K6 bp_fixed", "route": "cuda", "source": src + "bpflat.cu",
          "replaces": "exp_ldpc_tpu/decoders/bp_pallas.py:123"},
     ]
@@ -658,7 +927,8 @@ def main() -> int:
         # (K3 at HGP-225), the same pipeline on K2 (bp_backend "stbp"), and
         # the single-shot and hybrid p_sweeps (K6 on the device, K1 in the
         # host redecode; K2 in the hybrid spacetime stage, K3 in its redecode).
-        by_run = {"p_sweep_bposd": phase(phase_main_path, su, dev, 65536, 16384),
+        by_run = {"distributed_2rank": phase(phase_distributed, dev, world),
+                  "p_sweep_bposd": phase(phase_main_path, su, dev, 65536, 16384),
                   "pipeline_stbp": phase(phase_k2_pipeline, su, dev, 16384)}
         t = phase(phase_timings, su, dev, 16384)
     flats, big = flat_setups(su, dev)
@@ -666,25 +936,48 @@ def main() -> int:
     err["K1"], err["K1b"] = phase(phase_k1, flats, big, sizes, args.quick)
     if not args.quick:
         by_run.update(phase(phase_modes, dev, 65536, 16384))
+    k4_sizes = (97, 512) if args.quick else (97, S_REDECODE, 4096)
+    cap = None if args.quick else shard_capacity.build(device=dev)
+    err["K4"], err_k4_big = phase(phase_k4, dev, k4_sizes, cap)
+    if not args.quick:
+        phase(phase_k4_vs_k1, dev)
+        by_run["shard_capacity"] = phase(phase_shard_capacity, cap)
+        err["K3b"], k3b_launches = phase(phase_k3b, dev, t)
         launches = {name: sum(c[name] for c in by_run.values()) for name in KERNELS}
         for name, n in launches.items():
             check(n > 0, f"{name} launched on the main path ({n} launches)")
         t.update(phase(phase_flat_timings, flats, big, dev, 16384))
+        t.update(phase(phase_shard_timings, dev, cap))
         timing = {"K1": ("K1_S16384", "bench", "S16384_es", f"S{S_REDECODE}_es"),
                   "K1b": ("K1_n40000",),
-                  "K2": ("K2",), "K3": ("K3",), "K6": ("K6_S16384", "bench")}
+                  "K2": ("K2",), "K3": ("K3",),
+                  "K3b": ("K3b_HGP", "cyclic"),
+                  "K4": ("K4_capacity_D8", "bench_D1", "bench_D2", "bench_D4"),
+                  "K6": ("K6_S16384", "bench")}
         for kern in kernels:
             key = kern["name"].split()[0]
-            count = "K1" if key == "K1b" else key
+            if key == "K3b":
+                kern.update(launches=k3b_launches,
+                            launches_by_run={"k3b_regime": k3b_launches})
+            else:
+                count = {"K1b": "K1"}.get(key, key)
+                kern.update(launches=launches[count],
+                            launches_by_run={run: c[count] for run, c in by_run.items()})
             main_t, *more = timing[key]
-            kern.update(launches=launches[count],
-                        launches_by_run={run: c[count] for run, c in by_run.items()},
-                        ms=t[main_t], plain_ms=t[f"{main_t}_plain"])
+            kern.update(ms=t[main_t], plain_ms=t[f"{main_t}_plain"])
             for tag in more:
                 kern[f"ms_{tag}"] = t[f"{key}_{tag}"]
                 kern[f"plain_ms_{tag}"] = t[f"{key}_{tag}_plain"]
+            if key == "K4":
+                kern["ms_per"] = "decode iteration, all shards"
+                kern["k1_ms"] = t["K1_shard_capacity"]
+                kern["k1_ms_bench"] = t["K1_shard_bench"]
+                kern["max_abs_err_n40000"] = err_k4_big
+    if args.quick:  # K3b's regime is not checked with --quick
+        kernels = [k for k in kernels if not k["name"].startswith("K3b")]
     for kern in kernels:
         kern["max_abs_err"] = err[kern["name"].split()[0]]
+    bg.shutdown()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -56,6 +56,8 @@ core = load("core")
 hgp = load("codes.hgp")
 graphs = load("codes.graphs")
 homological = load("codes.homological")
+fields = load("utils.fields")
+lifted = load("codes.lifted")
 io = load("codes.io")
 ir = load("circuits.ir")
 noise = load("circuits.noise")

@@ -28,6 +28,7 @@ __all__ = [
     "noise_args",
     "pipeline_kwargs_from_jax",
     "bp_decoder_from_jax",
+    "sharded_bsr_decoder_from_jax",
 ]
 
 
@@ -207,3 +208,21 @@ def bp_decoder_from_jax(dec, device: DeviceLike = "cuda"):
     return BSRBPDecoder(BSRLayout.from_tanner(tanner, dev), shot_block=int(dec.shot_block),
                         check_perm=dec.check_perm, inv_var_perm=dec.inv_var_perm,
                         msg_dtype=str(dec.msg_dtype), **common)
+
+
+def sharded_bsr_decoder_from_jax(dec, device: DeviceLike = "cuda"):
+    """A JAX ``ShardedBSRDecoder`` -> the port's emulated one (``mesh=None``)
+    with the same check matrix (read back from the per-shard tables), shard
+    count, prior LLRs, method, scaling and iteration budget."""
+    from .decoders.bp_bsr_shard import ShardedBSR, ShardedBSRDecoder
+
+    sb = dec.sharded
+    chk_vars = np.asarray(sb.chk_vars).reshape(-1, sb.dc)[: sb.num_checks]
+    chk_mask = np.asarray(sb.chk_mask).reshape(-1, sb.dc)[: sb.num_checks]
+    rows = np.nonzero(chk_mask)[0]
+    H = sparse.csr_matrix((np.ones(rows.size, np.uint8), (rows, chk_vars[chk_mask])),
+                          shape=(sb.num_checks, sb.num_vars))
+    return ShardedBSRDecoder(ShardedBSR.from_check_matrix(H, sb.num_shards),
+                             np.asarray(dec.prior_llr, np.float32), None, str(dec.method),
+                             int(dec.max_iter), float(dec.ms_scaling_factor),
+                             resolve_device(device))

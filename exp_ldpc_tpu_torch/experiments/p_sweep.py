@@ -4,16 +4,23 @@ Counterpart of ``exp_ldpc_tpu/experiments/p_sweep.py``: the same CLI
 surface, the same JSONL checkpoint, and a CSV with the same columns in the
 same order as the JAX ``DataFrame.to_csv`` (written with :mod:`csv`; the
 port does not depend on pandas).  Each sweep point runs through
-:class:`..parallel.pipeline.StorageDecodePipeline` on one device; batch j of
-point i draws from a ``torch.Generator`` seeded from (seed, i, j).  The
-host ``run_simulation`` path (no ``pipeline``) is ROADMAP Queue 1 item 6.
+:class:`..parallel.pipeline.StorageDecodePipeline`; batch j of point i draws
+on rank k from a ``torch.Generator`` seeded by :func:`batch_seed` from (seed,
+i, j, k).  With ``mesh_devices`` N > 1 the sweep runs in N processes, one
+per device, joined by :func:`..parallel.mesh.init_distributed`: each rank
+calls :func:`p_sweep`, the counts are summed over the data axis, and rank 0
+alone writes the checkpoint and the CSV.  The CLI starts the N processes
+itself (``--mesh_devices N``).  The host ``run_simulation`` path (no
+``pipeline``) is ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
 
 import csv
 import json
 import logging
+import subprocess
 import sys
+import time
 from argparse import ArgumentParser
 from datetime import datetime
 from pathlib import Path
@@ -21,8 +28,10 @@ from typing import IO, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..decoders.drivers import add_bposd_args, load_code, unpack_bposd_args
+from ..parallel.mesh import DATA_AXIS, Mesh, free_port, init_distributed, make_mesh
 from ..utils.device import DeviceLike, resolve_device
 
 __all__ = ["p_sweep", "p_sweep_main", "parse_sweep_spec", "write_csv", "batch_seed",
@@ -43,10 +52,13 @@ def _load_checkpoint(path: Path) -> List[dict]:
     return records
 
 
-def batch_seed(seed: Optional[int], point: int, batch: int) -> int:
+def batch_seed(seed: Optional[int], point: int, batch: int, rank: int = 0) -> int:
     """Deterministic 63-bit generator seed for batch ``batch`` of sweep
-    point ``point``."""
-    ss = np.random.SeedSequence([0 if seed is None else int(seed), point, batch])
+    point ``point`` on data rank ``rank``: the SeedSequence of (seed, point,
+    batch), with the rank appended for ranks > 0, so rank 0 draws what a
+    one-device sweep draws."""
+    entropy = [0 if seed is None else int(seed), point, batch] + ([rank] if rank else [])
+    ss = np.random.SeedSequence(entropy)
     return int(ss.generate_state(1, np.uint64)[0] >> np.uint64(1))
 
 
@@ -56,7 +68,8 @@ class _PipelineSweeper:
 
     def __init__(self, code, rounds, noise_model, noise_model_args, meas_prior, data_prior,
                  bp_osd_options, shots_per_device: int, device: torch.device,
-                 use_x_logicals: bool = False, mode: str = "bposd"):
+                 use_x_logicals: bool = False, mode: str = "bposd",
+                 mesh: Optional[Mesh] = None):
         checks = code.checks
         self._x_steps = max(int(checks.x.sum(axis=0).max()), int(checks.x.sum(axis=1).max()))
         self._z_steps = max(int(checks.z.sum(axis=0).max()), int(checks.z.sum(axis=1).max()))
@@ -71,6 +84,7 @@ class _PipelineSweeper:
         self.device = device
         self.use_x_logicals = use_x_logicals
         self.mode = mode
+        self.mesh = mesh
         self.pipe = None
 
     def run_point(self, p_ph: float, samples: int, seed: Optional[int], point: int):
@@ -91,14 +105,16 @@ class _PipelineSweeper:
                 osd_fallback_cap=self.shots_per_device, osd_options=opts,
                 use_x_logicals=self.use_x_logicals, mode=self.mode,
                 tier1_iters=int(opts.get("tier1_iters", 0) or 0),
-                device=self.device)
+                mesh=self.mesh, device=self.device)
         else:
             self.pipe.rebind_noise(noise, data_p, meas_p)
-        n_batches = max(1, -(-samples // self.shots_per_device))
+        n_data, rank = (1, 0) if self.mesh is None else (self.mesh.shape[DATA_AXIS],
+                                                        self.mesh.data_index)
+        n_batches = max(1, -(-samples // (self.shots_per_device * n_data)))
         failures = total = osd = 0
         for j in range(n_batches):
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(batch_seed(seed, point, j))
+            gen = torch.Generator(device=self.pipe.device)
+            gen.manual_seed(batch_seed(seed, point, j, rank))
             f, s, o = self.pipe.run_bposd(gen)
             failures, total, osd = failures + f, total + s, osd + o
         return failures, total, osd
@@ -113,9 +129,12 @@ def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_p
     ``pipeline`` (dict of ``mesh_devices``/``shots_per_device``) is
     required: the ``bposd``, ``bposd_single_shot`` and ``bposd_hybrid``
     modes (``decoder_mode``) run through the device pipeline.  With
-    ``checkpoint`` set, completed points are appended to a JSONL file and a
-    restarted sweep skips them.  The pipeline always samples on the device,
-    so ``use_device_sampler=False`` raises.
+    ``mesh_devices`` N > 1, every rank of a joined world of N processes
+    calls this function with the same arguments (``device`` "cuda" gives
+    rank r the card r); all ranks return the same records.  With
+    ``checkpoint`` set, completed points are appended to a JSONL file (by
+    rank 0) and a restarted sweep skips them.  The pipeline always samples
+    on the device, so ``use_device_sampler=False`` raises.
     """
     if use_device_sampler is False:
         raise NotImplementedError(
@@ -130,8 +149,9 @@ def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_p
         raise ValueError(
             "the fused pipeline implements the bposd/bposd_single_shot/"
             "bposd_hybrid modes; drop --pipeline for other decoder modes")
-    if int(pipeline.get("mesh_devices", 1)) > 1:
-        raise NotImplementedError("mesh-sharded sweep: not ported yet (ROADMAP.md, Queue 1 item 12)")
+    n_dev = int(pipeline.get("mesh_devices", 1))
+    mesh = make_mesh(n_dev, device=device) if n_dev > 1 else None
+    writer = mesh is None or mesh.rank == 0
     data: List[dict] = []
     done_p = set()
     if checkpoint is not None:
@@ -147,7 +167,7 @@ def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_p
         bp_osd_options=kwargs["bp_osd_options"],
         shots_per_device=int(pipeline.get("shots_per_device", 4096)),
         device=resolve_device(device),
-        use_x_logicals=bool(kwargs.get("use_x_logicals", False)), mode=mode)
+        use_x_logicals=bool(kwargs.get("use_x_logicals", False)), mode=mode, mesh=mesh)
 
     for i, p_ph in enumerate(p_values):
         if round(float(p_ph), 12) in done_p:
@@ -159,10 +179,11 @@ def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_p
                  **kwargs, **(kwargs["bp_osd_options"])}
         del point["code"]
         del point["bp_osd_options"]
-        _log.info("p=%g: %d/%d failures (%d OSD-decoded) in %.1fs", p_ph, failures, total,
-                  osd, runtime)
+        if writer:
+            _log.info("p=%g: %d/%d failures (%d OSD-decoded) in %.1fs", p_ph, failures, total,
+                      osd, runtime)
         data.append(point)
-        if checkpoint is not None:
+        if checkpoint is not None and writer:
             def _jsonable(v):
                 if hasattr(v, "item"):  # numpy scalars
                     v = v.item()
@@ -254,9 +275,32 @@ def p_sweep_main(noise_model_args, noise_model, meas_prior, data_prior, argv=Non
                         help="Monte-Carlo sub-batch size per device per pipeline step")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the plain versions of the kernels")
+    parser.add_argument("--backend", choices=["gloo", "nccl"], default=None,
+                        help="torch.distributed backend with --mesh_devices > 1 (default: "
+                        "nccl on cuda, gloo on cpu)")
+    parser.add_argument("--rank", type=int, default=None,
+                        help="this process's rank with --mesh_devices > 1 (set by the launcher)")
+    parser.add_argument("--init_method", type=str, default=None,
+                        help="tcp://host:port of the world with --rank (set by the launcher)")
     add_bposd_args(parser)
 
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    rank, joined = 0, False
+    if args.pipeline and args.mesh_devices > 1:
+        if args.rank is None or args.init_method is None:
+            raise SystemExit("--mesh_devices > 1 runs one process per device: start it through "
+                             "qldpc-p-sweep-torch, or pass --rank and --init_method to each")
+        backend = args.backend or ("gloo" if args.device == "cpu" else "nccl")
+        joined = not dist.is_initialized()
+        rank = init_distributed(args.init_method, args.mesh_devices, args.rank, backend)
+    try:
+        _sweep_cli(args, rank, noise_model_args, noise_model, meas_prior, data_prior)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _sweep_cli(args, rank, noise_model_args, noise_model, meas_prior, data_prior):
     code = load_code(args)
     bp_osd_options = unpack_bposd_args(args, code)
     sweep = np.linspace(*args.p_sweep) if args.linspace else np.geomspace(*args.p_sweep)
@@ -270,13 +314,49 @@ def p_sweep_main(noise_model_args, noise_model, meas_prior, data_prior, argv=Non
                    "shots_per_device": args.shots_per_device} if args.pipeline else None),
         device=args.device,
     )
-    write_csv(result, sys.stdout)
+    if rank == 0:
+        write_csv(result, sys.stdout)
+
+
+def _launch_ranks(argv: List[str], n: int) -> int:
+    """Run this module's CLI in ``n`` processes joined over a free localhost
+    port, ranks 0..n-1; returns the first nonzero exit code (the other
+    ranks are then stopped), else 0.  Rank 0 writes the CSV to stdout."""
+    init = f"tcp://localhost:{free_port()}"
+    cmd = [sys.executable, "-m", "exp_ldpc_tpu_torch.experiments.p_sweep"]
+    procs = [subprocess.Popen(cmd + argv + ["--rank", str(k), "--init_method", init])
+             for k in range(n)]
+    rc = 0
+    try:
+        while rc == 0 and any(p.poll() is None for p in procs):
+            rc = next((p.returncode for p in procs if p.returncode), 0)
+            time.sleep(0.2)
+        rc = rc or next((p.returncode for p in procs if p.returncode), 0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return rc
 
 
 def cli_main(argv=None):
-    """Console entry point: pheno noise with the reference's 2/3*p prior."""
+    """Console entry point: pheno noise with the reference's 2/3*p prior.
+    With ``--pipeline --mesh_devices N`` (N > 1) and no ``--rank`` it
+    starts the N rank processes itself."""
     from .._host import depolarizing_noise
 
+    argv = list(sys.argv[1:] if argv is None else argv)
+    probe = ArgumentParser(add_help=False)
+    probe.add_argument("--pipeline", action="store_true")
+    probe.add_argument("--mesh_devices", type=int, default=1)
+    probe.add_argument("--rank", type=int, default=None)
+    known, _ = probe.parse_known_args(argv)
+    if known.pipeline and known.mesh_devices > 1 and known.rank is None:
+        rc = _launch_ranks(argv, known.mesh_devices)
+        if rc:
+            raise SystemExit(rc)
+        return
     p_sweep_main(
         noise_model_args=lambda p: {"p": p, "pm": p},
         noise_model=depolarizing_noise,

@@ -26,8 +26,12 @@ on one device.  One call of :meth:`StorageDecodePipeline.run_bposd`:
      with an unconverged stage in ``bposd`` and ``bposd_single_shot``, the
      shots whose final-round BP did not converge in ``bposd_hybrid``.
 
-The mesh-sharded path and the two-tier decode are ROADMAP Queue 1 items 12
-and 7; asking for them raises ``NotImplementedError``.
+With a ``mesh`` (:mod:`.mesh`, model axis 1) each rank is one device of
+the data axis: it samples its own ``shots_per_device`` shots with the
+generator it is given, decodes them, redecodes its own shipped shots on
+its host, and the counts are summed over the data group, so every rank
+returns the totals.  The two-tier decode is ROADMAP Queue 1 item 7;
+asking for it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ from ..decoders.spacetime_bp import stbp_core
 from ..decoders.spacetime_bp_cuda import stbp_fixed
 from ..sampler.device import build_record_sampler
 from ..utils.device import DeviceLike, resolve_device
+from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, all_reduce_sum
 
 __all__ = ["StorageDecodePipeline"]
 
@@ -79,7 +84,7 @@ class StorageDecodePipeline:
     max_iter: int = 40
     bp_method: str = "ps"
     ms_scaling_factor: float = 0.0
-    mesh: Optional[object] = None
+    mesh: Optional[Mesh] = None
     early_stop: bool = False
     bp_backend: str = "auto"
     osd_fallback_cap: int = 0
@@ -91,7 +96,10 @@ class StorageDecodePipeline:
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError("mesh-sharded pipeline: " + _NOT_PORTED.format(12))
+            if self.mesh.shape[MODEL_AXIS] != 1:
+                raise ValueError("the pipeline shards shots over the data axis only; "
+                                 f"got a model axis of {self.mesh.shape[MODEL_AXIS]}")
+            self.device = self.mesh.device
         if self.tier1_iters > 0:
             raise NotImplementedError("two-tier decode (tier1_iters): " + _NOT_PORTED.format(7))
         if self.mode not in ("bposd", "bposd_single_shot", "bposd_hybrid"):
@@ -262,34 +270,48 @@ class StorageDecodePipeline:
         order = torch.argsort((~ship).to(torch.int32), stable=True)[: self.osd_fallback_cap]
         return f_conv, S, unconv, history[order], readout[order], ship[order]
 
+    def _data_sum(self, *counts: int):
+        """The counts summed over the mesh's data group (unchanged without a mesh)."""
+        if self.mesh is None:
+            return counts
+        t = torch.tensor(counts, dtype=torch.int64, device=self.device)
+        return tuple(int(x) for x in all_reduce_sum(t, self.mesh.data_group).cpu())
+
     def run(self, generator: torch.Generator):
-        """generator -> (logical_failures, total_shots, bp_unconverged_shots);
-        with ``osd_fallback_cap`` set this is :meth:`run_bposd`."""
+        """generator -> (logical_failures, total_shots, bp_unconverged_shots),
+        summed over the mesh's data axis; with ``osd_fallback_cap`` set this
+        is :meth:`run_bposd`."""
         if self.osd_fallback_cap > 0:
             return self.run_bposd(generator)
-        return self._decode_records(self._sample(generator, self._noise_args))
+        return self._data_sum(*self._decode_records(self._sample(generator, self._noise_args)))
 
     def run_bposd(self, generator: torch.Generator):
         """Device BP + host BP+OSD redecode of the BP failures:
-        generator -> (logical_failures, total_shots, osd_decoded_shots)."""
+        generator -> (logical_failures, total_shots, osd_decoded_shots),
+        summed over the mesh's data axis."""
         if self._osd is None:
             raise ValueError("construct the pipeline with osd_fallback_cap > 0")
         record = self._sample(generator, self._noise_args)
         return self._finish_bposd(*self._decode_records(record))
 
     def _finish_bposd(self, f_conv, shots, unconv, hist, readout, valid):
-        if unconv > self.osd_fallback_cap:
-            raise RuntimeError(f"{unconv} BP-unconverged shots exceed osd_fallback_cap="
-                               f"{self.osd_fallback_cap}; raise the cap")
+        # the cap holds for the data axis as a whole, as in JAX; every rank
+        # sees the same total and raises together
+        n_data = 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
+        (total_unconv,) = self._data_sum(unconv)
+        if total_unconv > self.osd_fallback_cap * n_data:
+            raise RuntimeError(f"{total_unconv} BP-unconverged shots exceed osd_fallback_cap="
+                               f"{self.osd_fallback_cap} per device; raise the cap")
         valid = valid.cpu().numpy()
-        if not valid.any():
-            return f_conv, shots, 0
-        hist = hist.cpu().numpy()[valid].astype(np.int64)
-        readout = readout.cpu().numpy()[valid].astype(np.int64)
-        corr = self._osd.readout_correction_batch(hist, readout)
-        corrected = (readout + np.asarray(corr, dtype=np.int64)) % 2
-        flips = (corrected @ self._Lz_np.T) % 2
-        return f_conv + int(np.any(flips != 0, axis=1).sum()), shots, int(valid.sum())
+        f_osd = 0
+        if valid.any():
+            hist = hist.cpu().numpy()[valid].astype(np.int64)
+            readout = readout.cpu().numpy()[valid].astype(np.int64)
+            corr = self._osd.readout_correction_batch(hist, readout)
+            corrected = (readout + np.asarray(corr, dtype=np.int64)) % 2
+            flips = (corrected @ self._Lz_np.T) % 2
+            f_osd = int(np.any(flips != 0, axis=1).sum())
+        return self._data_sum(f_conv + f_osd, shots, int(valid.sum()))
 
     def rebind_noise(self, noise_model, data_prior: float, meas_prior: float):
         """New noise probabilities and priors for the same circuit structure;

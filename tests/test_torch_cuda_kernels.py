@@ -1,4 +1,4 @@
-"""Kernels K1, K2, K3 and K6 against their plain PyTorch versions on a CUDA card.
+"""Kernels K1, K2, K3, K4 and K6 against their plain PyTorch versions on a CUDA card.
 
 Marked ``gpu``: skipped where no CUDA device is present (the CPU suite);
 on a machine with a card run ``python -m pytest --noconftest -m gpu
@@ -9,6 +9,9 @@ conv and iters are equal and posteriors equal to 1e-6*max(1,|x|), the
 bounds ``chip_smoke.py`` holds them to.  S=77 leaves a ragged shot edge
 (77 mod 32 = 13) for the kernels' masking; K1's early exit runs per JAX
 shot block (128 shots here, four CUDA blocks), so S=300 spans three.
+K4 runs one launch per iteration per shard; its messages and partials are
+equal to the plain version's after one iteration, and decodes at D = 1 and
+3 agree to the same bounds as the other kernels'.
 """
 import numpy as np
 import pytest
@@ -19,6 +22,8 @@ from exp_ldpc_tpu_torch.convert import tanner_tables
 from exp_ldpc_tpu_torch.decoders.bp import bp_core, priors_to_llr
 from exp_ldpc_tpu_torch.decoders.bp_bsr import KERNEL as K1, BSRLayout, bsr_bp_decode, bsr_bp_plain
 from exp_ldpc_tpu_torch.decoders.bp_cuda import KERNEL as K6, bp_fixed
+from exp_ldpc_tpu_torch.decoders.bp_bsr_shard import (
+    KERNEL as K4, ShardedBSRDecoder, bsr_shard_iter, bsr_shard_iter_plain)
 from exp_ldpc_tpu_torch.decoders.bp_bsr_spacetime import (
     KERNEL as K3, _stbsr_iter_plain, stbsr_decode)
 from exp_ldpc_tpu_torch.decoders.spacetime_bp import stbp_core
@@ -125,3 +130,51 @@ def test_k1_matches_plain(flat, method, msf, early_stop, S):
     iters = kern[3].cpu().numpy()
     for b in range(0, S, 128):  # one count per JAX shot block
         assert (iters[b:b + 128] == iters[b]).all()
+
+
+@pytest.fixture(scope="module")
+def shard_case():
+    """The n = 625 HGP's Z checks and 300 syndromes on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    H = _host.biregular_hgp(20, 3, 4, seed=1).checks.z.tocsr().astype(np.int64)
+    rng = np.random.default_rng(2)
+    err = (rng.random((300, H.shape[1])) < 5e-3).astype(np.int64)
+    return H, torch.as_tensor(((H @ err.T) % 2).astype(np.uint8)).to("cuda")
+
+
+@pytest.mark.parametrize("method,alpha", [("ms", 0.625), ("ps", 1.0)])
+def test_k4_one_iteration_equals_plain(shard_case, method, alpha):
+    H, _synd = shard_case
+    dec = ShardedBSRDecoder.from_check_matrix(H, 2, error_rate=5e-3, device="cuda")
+    rng = np.random.default_rng(3)
+    sb, S = dec.sharded, 77
+    for tab in (sb.tables(d, "cuda") for d in range(2)):
+        post = torch.as_tensor(rng.normal(3, 4, (sb.v_pad, S)).astype(np.float32)).cuda()
+        msgs = torch.as_tensor(rng.normal(0, 2, (sb.e_loc, S)).astype(np.float32)).cuda()
+        msgs = msgs.to(torch.bfloat16)
+        synd = torch.as_tensor((rng.random((sb.c_pad_loc, S)) < 0.1).astype(np.uint8)).cuda()
+        before = K4.launches
+        mk, pk = bsr_shard_iter(tab, post, msgs, synd, alpha, method)
+        mp, pp = bsr_shard_iter_plain(tab, post, msgs, synd, alpha, method)
+        torch.cuda.synchronize()
+        assert K4.launches == before + 1
+        assert torch.equal(mk, mp) and torch.equal(pk, pp)
+
+
+@pytest.mark.parametrize("S", [77, 300])
+@pytest.mark.parametrize("D", [1, 3])
+@pytest.mark.parametrize("method,msf", [("ms", 0.625), ("ms", 0.0), ("ps", 0.0)])
+def test_k4_matches_plain(shard_case, method, msf, D, S):
+    H, synd = shard_case
+    synd = synd[:, :S].contiguous()
+    dec = ShardedBSRDecoder.from_check_matrix(H, D, error_rate=5e-3, max_iter=24,
+                                              bp_method=method, ms_scaling_factor=msf,
+                                              device="cuda")
+    before = K4.launches
+    hk, pk, ck = dec.decode_tensors(synd)
+    hp, pp, cp = dec.decode_tensors(synd, iterate=bsr_shard_iter_plain)
+    torch.cuda.synchronize()
+    assert K4.launches == before + D * 24
+    assert bool(((pk - pp).abs() <= 1e-6 * pp.abs().clamp(min=1.0)).all())
+    assert torch.equal(hk, hp) and torch.equal(ck, cp)

@@ -2,10 +2,12 @@
 
 A subprocess in which ``import jax`` fails imports every module of
 ``exp_ldpc_tpu_torch`` and runs a 64-shot HGP-225 sweep point on the CPU,
-through the library and through the CLI, and a step of each of the
-single-shot and hybrid modes with the flat decoders; a static scan finds no JAX import
+through the library and through the CLI, a step of each of the
+single-shot and hybrid modes with the flat decoders, the check-partition
+decoders, the sharding experiments and ``dcn_dryrun --help``; a static scan finds no JAX import
 in the package or in ``chip_smoke.py``; ``chip_smoke.py`` refuses to run
 without a card, and outside the repository."""
+import json
 import os
 import re
 import subprocess
@@ -99,6 +101,44 @@ for dec in (make_bp_decoder(H, error_rate=0.01, max_iter=8, device="cpu"),
 """ + _CHECK_CLEAN + "print('OK')")
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().startswith("OK")
+
+
+def test_sharded_decoders_and_mesh_run_without_jax():
+    """The check-partition decoders (K4's plain version; the plain gather
+    formulation), the mesh module, both sharding experiments at a tiny size
+    and ``dcn_dryrun --help`` with JAX blocked."""
+    proc = _run(_BLOCK_JAX + """
+import numpy as np
+from exp_ldpc_tpu_torch import _host
+from exp_ldpc_tpu_torch.decoders.bp_bsr_shard import ShardedBSRDecoder, auto_num_shards
+from exp_ldpc_tpu_torch.experiments import bench_bsr_shard, shard_capacity
+from exp_ldpc_tpu_torch.parallel import check_shard, dcn_dryrun, mesh
+H = _host.biregular_hgp(20, 3, 4, seed=1).checks.z
+synd = np.zeros((8, H.shape[0]), np.uint8)
+assert auto_num_shards(H) == 1
+hard, post, conv = ShardedBSRDecoder.from_check_matrix(
+    H, 3, error_rate=0.01, max_iter=4, device="cpu").decode_batch(synd)
+assert conv.all() and not hard.any()
+hard, post, conv = check_shard.ShardedBPDecoder.from_check_matrix(
+    H, error_rate=0.01, max_iter=4, device="cpu").decode_batch(synd)
+assert conv.all() and not hard.any()
+assert mesh.make_mesh(device="cpu").shape == {"data": 1, "model": 1}
+shard_capacity.main(["--device", "cpu", "--nv", "20", "--shots", "16", "--iters", "4"])
+bench_bsr_shard.main(["--device", "cpu", "--code", "hgp625", "--shards", "1,2", "--shots",
+                      "16", "--iters", "2", "--reps-lo", "1", "--reps-hi", "2"])
+try:
+    dcn_dryrun.main(["--help"])
+except SystemExit as e:
+    assert e.code == 0, e.code
+""" + _CHECK_CLEAN + "print('OK')")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1] == "OK"
+    recs = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    assert recs[0]["n"] == 625 and recs[0]["weight1_exact"] == 32 and recs[0]["device"] == "cpu"
+    assert [r["config"] for r in recs[1:]] == ["k1_fixed", "shard1", "shard2"]
+    assert recs[3]["allreduce_bytes_per_iter"] == 4 * 640 * 16
+    assert any("--init-method" in ln for ln in lines)
 
 
 def test_cli_writes_csv_without_jax():

@@ -25,6 +25,7 @@ from exp_ldpc_tpu.sampler.reference import FrameSampler
 from exp_ldpc_tpu_torch.convert import pipeline_kwargs_from_jax
 from exp_ldpc_tpu_torch.decoders.drivers import BPOSDCorrect
 from exp_ldpc_tpu_torch.experiments.p_sweep import batch_seed, p_sweep, write_csv
+from exp_ldpc_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from exp_ldpc_tpu_torch.parallel.pipeline import StorageDecodePipeline
 
 P = 3e-3
@@ -139,7 +140,8 @@ def test_run_bposd_and_rebind(small_code):
 
 def test_pipeline_refusals(small_code):
     kw = _kw(small_code, device="cpu")
-    for over, exc in ((dict(mesh=object()), NotImplementedError),
+    model2 = Mesh({DATA_AXIS: 1, MODEL_AXIS: 2}, 0, (0, 0), None, None, torch.device("cpu"))
+    for over, exc in ((dict(mesh=model2), ValueError),     # shots shard over data only
                       (dict(tier1_iters=4), NotImplementedError),
                       (dict(mode="bposd_single_shot", bp_backend="stbp"), ValueError),
                       (dict(mode="bposd_hybrid", bp_backend="stbsr"), ValueError),
@@ -212,7 +214,7 @@ def test_p_sweep_checkpoint_resume(small_code, tmp_path):
 def test_p_sweep_refusals_and_seeds(small_code):
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         p_sweep(p_values=[0.01], device="cpu", **_sweep_kw(small_code, pipeline=None))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="world of 2 processes"):   # no joined world
         p_sweep(p_values=[0.01], device="cpu", **_sweep_kw(
             small_code, pipeline={"mesh_devices": 2, "shots_per_device": 16}))
     with pytest.raises(ValueError, match="drop --pipeline"):

@@ -75,6 +75,36 @@ def test_plain_k3_matches_jax_kernel(hgp225, rounds, p, method, msf, early_stop,
         assert (i2 == iters).all()
 
 
+@pytest.mark.parametrize("rounds,p,method,msf,early_stop,iters", [
+    (2, 0.01, "ms", 0.625, False, 12),
+    (1, 0.01, "ps", 0.0, False, 12),
+    (2, 0.003, "ms", 0.625, True, 48),
+    (2, 0.003, "ps", 0.0, True, 48),
+])
+def test_plain_k3_matches_rolled_jax_kernel(hgp225, rounds, p, method, msf, early_stop, iters):
+    """K3b (``_st_kernel_iter_dyn``, the rolled kernel the JAX package
+    selects at >= 64 tiles) is served by K3, whose loops are rolled at every
+    size: the plain K3 against the JAX decoder forced onto K3b, with the
+    bounds of the unrolled comparison above."""
+    H = hgp225
+    Hst, synd = _inputs(H, rounds, p, 48, seed=4)
+    kw = dict(channel_probs=np.full(Hst.shape[1], p), max_iter=iters, bp_method=method,
+              ms_scaling_factor=msf, early_stop=early_stop)
+    h1, _p1, c1, i1 = JaxSTBSR.from_check_matrix(H, rounds, interpret=True, loop_mode="dynamic",
+                                                 **kw).decode_batch(synd)
+    h2, _p2, c2, i2 = SpacetimeBSRDecoder.from_check_matrix(H, rounds, device="cpu",
+                                                            **kw).decode_batch(synd)
+    assert (h2 == np.asarray(h1)).mean() >= 0.999
+    assert (c2 == np.asarray(c1)).mean() >= 0.99
+    ok = ((h2.astype(np.int64) @ Hst.T) % 2 == synd).all(axis=1)
+    np.testing.assert_array_equal(ok, c2)
+    assert c2.any()
+    if early_stop:
+        np.testing.assert_array_equal(i2, np.asarray(i1))
+    else:
+        assert (i2 == iters).all()
+
+
 def test_stbsr_iter_cpu_is_plain(hgp225):
     """On CPU tensors the K3 wrapper runs exactly the plain iteration."""
     H = hgp225
