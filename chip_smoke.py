@@ -4,10 +4,13 @@
     python3 chip_smoke.py --quick    # build + kernel parity at a small size only
 
 Phases, in order; any failure raises and exits nonzero:
-  1. versions and the card (``nvidia-smi`` name and power limit);
+  1. versions and the card (``nvidia-smi`` name and power limit); the
+     port's C++ GF(2)/OSD library must build and load (no silent numpy
+     fallback on this machine);
   2. build kernels K1 (``csrc/bsr_bp.cu``), K2 (``csrc/stbp.cu``), K3
-     (``csrc/stbsr.cu``), K4 (``csrc/bsr_shard.cu``) and K6
-     (``csrc/bpflat.cu``) from source, one ``nvcc`` per source, all at once;
+     (``csrc/stbsr.cu``), K4 (``csrc/bsr_shard.cu``), K5
+     (``csrc/bsr_bp_int8.cu``) and K6 (``csrc/bpflat.cu``) from source, one
+     ``nvcc`` per source, all at once;
   3. K2 against its plain PyTorch version on the card, at a ragged shot
      count (685, the host redecode's size), 4,096 and the main path's
      16,384 shots: hard decisions, conv and iters equal, posteriors equal
@@ -63,14 +66,37 @@ Phases, in order; any failure raises and exits nonzero:
      each by ``shard_capacity.per_iter_slope`` (4 -> 12 iterations, best of
      2 distinct batches).
 
+
+ 19. K5 (int8 min-sum) against its plain version: posterior quanta, hard
+     decisions, conv and iters EQUAL (integer arithmetic: max |delta| = 0),
+     at HGP-225's H and (H|I), S = 685, 4,096 and 16,384, fixed and with the
+     early exit per shot block, and at the family benchmark's two codes
+     (QC-LP [[1054,140]]; cyclic n = 4,862 in QC order; 1,024 shots, 32
+     iterations); and ``int8_bp_core`` on the card against the numpy oracle;
+ 20. the code-family path: ``bench_large_codes.main`` rows
+     ``qclp_1054_140/{base,bsr,bsr-int8,qc}`` and
+     ``cyclic_lp_4862/{bsr,bsr-int8}`` at 1,024 shots x 32 iterations,
+     p = 1e-3 (slope over 1 and 3 decodes, best of 3), K1 and K5 launched;
+     the converged share of each ``bsr-int8`` row is not below its ``bsr``
+     row's (less 0.02), and each kernel row's share agrees with the JAX
+     package's row of ``artifacts/bp_families_v5e.jsonl`` within 4 combined
+     binomial sigma (int8 converges more often than bf16 at the cyclic
+     code, there as here);
+ 21. timings of K5 and K1 and their plain versions at those two codes
+     (CUDA events, median of 3 distinct batches), and each kernel's bound:
+     the larger of its bytes (inputs read once, outputs written once) over
+     3.35 TB/s and its operations over 67 TFLOP/s, at the shape of its
+     ``ms``.
+
 Each run of the main path (phases 6, 7, the two runs of phase 11, and
-phases 15 and 16) is driven with every launch count set to 0 just before it
+phases 15, 16 and 20) is driven with every launch count set to 0 just before it
 and read just after (phase 16 reads the counts of its two ranks); a kernel
 of that run that was not launched fails the script.  The line before the
 last is the kernel summary JSON (``launches`` summed over those runs,
 ``launches_by_run`` split by run; K3b's row counts phase 17's K3 decodes,
 since no main-path run reaches its sizes; without ``--quick`` only, as are
-the times); the last line is ``{"ok": true, "device": {...}}``.  Phase
+the times, ``bound_ms``, ``bound_by`` and ``library_ms``: a BP decode is
+no single PyTorch call, so that is null); the last line is ``{"ok": true, "device": {...}}``.  Phase
 times are printed.  It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -88,15 +114,22 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 # Everything is read from the checkout this script stands in (never from an
-# installed copy): without the port, the host modules it shares and the
-# artifact beside it, the script refuses to run.
-if not all((ROOT / d).is_dir() for d in ("exp_ldpc_tpu_torch", "exp_ldpc_tpu", "artifacts")):
+# installed copy): without the port and the artifacts beside it, the script
+# refuses to run.
+if not all((ROOT / d).is_dir() for d in ("exp_ldpc_tpu_torch", "artifacts")):
     sys.exit(f"chip_smoke.py must run from the root of a checkout of the repository ({ROOT})")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from exp_ldpc_tpu_torch import _host  # noqa: E402
+from exp_ldpc_tpu_torch.circuits.noise import depolarizing_noise, trivial_noise  # noqa: E402
+from exp_ldpc_tpu_torch.circuits.storage_sim import build_storage_simulation  # noqa: E402
+from exp_ldpc_tpu_torch.codes.hgp import biregular_hgp  # noqa: E402
+from exp_ldpc_tpu_torch.codes.io import read_quantum_code  # noqa: E402
+from exp_ldpc_tpu_torch.codes.lifted import lifted_product_code_cyclic  # noqa: E402
+from exp_ldpc_tpu_torch.decoders.spacetime import SpacetimeCode, SpacetimeCodeSingleShot  # noqa: E402
+from exp_ldpc_tpu_torch.decoders.tanner import TannerELL  # noqa: E402
+from exp_ldpc_tpu_torch.sampler.reference import FrameSampler  # noqa: E402
 from exp_ldpc_tpu_torch.convert import tanner_tables  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import bp_bsr as k1  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import bp_bsr_shard as k4  # noqa: E402
@@ -104,8 +137,12 @@ from exp_ldpc_tpu_torch.decoders import bp_bsr_spacetime as k3  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import bp_cuda as k6  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import spacetime_bp_cuda as k2  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.bp import bp_core, priors_to_llr  # noqa: E402
+from exp_ldpc_tpu_torch.decoders.bp_int8 import (int8_bp_core, int8_bp_oracle,  # noqa: E402
+                                                 quantize_priors)
 from exp_ldpc_tpu_torch.decoders.spacetime_bp import stbp_core  # noqa: E402
-from exp_ldpc_tpu_torch.experiments import bench_bsr_shard, shard_capacity  # noqa: E402
+from exp_ldpc_tpu_torch.experiments import (bench_bsr_shard, bench_large_codes,  # noqa: E402
+                                            shard_capacity)
+from exp_ldpc_tpu_torch.native import get_gf2_lib  # noqa: E402
 from exp_ldpc_tpu_torch.experiments.p_sweep import p_sweep  # noqa: E402
 from exp_ldpc_tpu_torch.parallel.mesh import make_mesh, run_world  # noqa: E402
 from exp_ldpc_tpu_torch.parallel.pipeline import StorageDecodePipeline  # noqa: E402
@@ -113,6 +150,7 @@ from exp_ldpc_tpu_torch.sampler.device import DeviceSampler  # noqa: E402
 
 ARTIFACT = ROOT / "artifacts" / "ler_hgp225_bposd_v5e.jsonl"
 MODES_ARTIFACT = ROOT / "artifacts" / "pipeline_modes_hgp225_v5e.csv"
+FAMILIES_ARTIFACT = ROOT / "artifacts" / "bp_families_v5e.jsonl"
 CODE_FILE = ROOT / "artifacts" / "hgp225.qecc"
 # The MODES_ARTIFACT rows checked.  Its p=0.006 rows are not: they were
 # taken while the host redecode ran f32 per-shot-freezing BP (the port
@@ -172,10 +210,10 @@ class Setup(Checks):
     """HGP-225 Z sector, 4 rounds: tables, priors and the spacetime matrix."""
 
     def __init__(self, dev: torch.device):
-        self.code = _host.biregular_hgp(12, 3, 4, seed=0, compute_logicals=True)
+        self.code = biregular_hgp(12, 3, 4, seed=0, compute_logicals=True)
         H = self.code.checks.z
-        self.tables = tanner_tables(_host.TannerELL.from_check_matrix(H), dev)
-        super().__init__(_host.SpacetimeCode(H, ROUNDS).spacetime_check_matrix, dev)
+        self.tables = tanner_tables(TannerELL.from_check_matrix(H), dev)
+        super().__init__(SpacetimeCode(H, ROUNDS).spacetime_check_matrix, dev)
 
     def prior(self, p: float) -> torch.Tensor:
         return super().prior(2 / 3 * p)
@@ -189,11 +227,13 @@ def phase_card() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     log(smi.splitlines()[0])
+    check(get_gf2_lib() is not None,
+          "the port's C++ GF(2)/OSD library built and loaded (the host OSD is not numpy's)")
     return smi.splitlines()[0]
 
 
 KERNELS = {"K1": k1.KERNEL, "K2": k2.KERNEL, "K3": k3.KERNEL, "K4": k4.KERNEL,
-           "K6": k6.KERNEL}
+           "K5": k1.KERNEL_INT8, "K6": k6.KERNEL}
 
 
 def phase_build() -> None:
@@ -269,19 +309,19 @@ SAMPLER_P = 3e-3
 
 
 def _noisy(su: Setup):
-    return _host.build_storage_simulation(
-        ROUNDS, _host.depolarizing_noise(SAMPLER_P, SAMPLER_P), su.code)
+    return build_storage_simulation(
+        ROUNDS, depolarizing_noise(SAMPLER_P, SAMPLER_P), su.code)
 
 
 def host_rates(su: Setup, shots: int) -> np.ndarray:
     """Detector rates of the host oracle ``FrameSampler`` (~10 s of host work
     at 16,384 shots, drawn in a thread beside phases 2-4)."""
-    return _host.FrameSampler(_noisy(su).circuit, seed=7).sample_detectors(shots).mean(axis=0)
+    return FrameSampler(_noisy(su).circuit, seed=7).sample_detectors(shots).mean(axis=0)
 
 
 def phase_sampler(su: Setup, dev: torch.device, n_dev: int, n_host: int, host) -> None:
     log("== phase 5: device sampler")
-    quiet = _host.build_storage_simulation(ROUNDS, _host.noise.trivial_noise(), su.code)
+    quiet = build_storage_simulation(ROUNDS, trivial_noise(), su.code)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     det = DeviceSampler(quiet.circuit, 4096, dev).sample_detectors(gen, append_observables=True)
@@ -350,7 +390,7 @@ def phase_main_path(su: Setup, dev: torch.device, samples: int, shots: int) -> d
     reset_counts()
     records = p_sweep(
         samples=samples, p_values=np.array([P_LO, P_HI]),
-        noise_model=_host.depolarizing_noise,
+        noise_model=depolarizing_noise,
         noise_model_args=lambda p: {"p": p, "pm": p},
         meas_prior=lambda p, xs, zs: 2 / 3 * p, data_prior=lambda p, xs, zs: 2 / 3 * p,
         seed=0, pipeline={"mesh_devices": 1, "shots_per_device": shots}, device=dev,
@@ -373,7 +413,7 @@ def phase_k2_pipeline(su: Setup, dev: torch.device, shots: int) -> dict:
     log(f"== phase 7: pipeline on K2 (bp_backend='stbp'), {shots} shots at p={P_HI:.6g}")
     p = P_HI
     pipe = StorageDecodePipeline(
-        code=su.code, rounds=ROUNDS, noise_model=_host.depolarizing_noise(p, p),
+        code=su.code, rounds=ROUNDS, noise_model=depolarizing_noise(p, p),
         data_prior=2 / 3 * p, meas_prior=2 / 3 * p, shots_per_device=shots,
         max_iter=MAX_ITER, bp_method="ms", ms_scaling_factor=ALPHA, bp_backend="stbp",
         osd_fallback_cap=shots, osd_options=dict(OPTIONS), device=dev)
@@ -442,7 +482,7 @@ def phase_timings(su: Setup, dev: torch.device, shots: int) -> dict:
     t[f"K3_S{S_REDECODE}_plain"] = _median_ms(
         lambda s: k3.stbsr_decode(*args, s, "ms", MAX_ITER, ALPHA, False, iterate=plain),
         small[:5])
-    sim = _host.build_storage_simulation(ROUNDS, _host.depolarizing_noise(p, p), su.code)
+    sim = build_storage_simulation(ROUNDS, depolarizing_noise(p, p), su.code)
     ds = DeviceSampler(sim.circuit, shots, dev)
     gens = []
     for i in range(6):
@@ -452,7 +492,7 @@ def phase_timings(su: Setup, dev: torch.device, shots: int) -> dict:
     ds.sample(gens[5])
     t["sampler"] = _median_ms(ds.sample, gens[:5])
     pipe = StorageDecodePipeline(
-        code=su.code, rounds=ROUNDS, noise_model=_host.depolarizing_noise(p, p),
+        code=su.code, rounds=ROUNDS, noise_model=depolarizing_noise(p, p),
         data_prior=2 / 3 * p, meas_prior=2 / 3 * p, shots_per_device=shots,
         max_iter=MAX_ITER, bp_method="ms", ms_scaling_factor=ALPHA,
         osd_fallback_cap=shots, osd_options=dict(OPTIONS), device=dev)
@@ -496,7 +536,7 @@ class FlatSetup(Checks):
 
     def __init__(self, H, dev: torch.device, name: str):
         super().__init__(H, dev, name)
-        self.layout = k1.BSRLayout.from_tanner(_host.TannerELL.from_check_matrix(self.H), dev)
+        self.layout = k1.BSRLayout.from_tanner(TannerELL.from_check_matrix(self.H), dev)
         self.tables = self.layout.tables
 
 
@@ -505,8 +545,8 @@ def flat_setups(su: Setup, dev: torch.device):
     single-shot rounds), and the >= 3,000-tile n = 40,000 HGP (K1b's regime)."""
     H = su.code.checks.z
     flats = [FlatSetup(H, dev, "H"),
-             FlatSetup(_host.SpacetimeCodeSingleShot(H).spacetime_check_matrix, dev, "(H|I)")]
-    big = FlatSetup(_host.biregular_hgp(160, 3, 4, seed=0).checks.z, dev, "HGP n=40000")
+             FlatSetup(SpacetimeCodeSingleShot(H).spacetime_check_matrix, dev, "(H|I)")]
+    big = FlatSetup(biregular_hgp(160, 3, 4, seed=0).checks.z, dev, "HGP n=40000")
     check(big.layout.num_tiles >= 3000,
           f"{big.name}: {big.layout.num_tiles} BSR tiles (>= 3,000: the K1b regime)")
     return flats, big
@@ -564,7 +604,7 @@ def phase_k1(flats, big, sizes, quick: bool):
 def phase_modes(dev: torch.device, samples: int, shots: int) -> dict:
     """Both modes through the sweep driver; returns the launches of each run."""
     with CODE_FILE.open() as f:
-        code = _host.read_quantum_code(f, validate_stabilizer_code=True)
+        code = read_quantum_code(f, validate_stabilizer_code=True)
     by_run = {}
     for mode in ("bposd_single_shot", "bposd_hybrid"):
         log(f"== phase 11: {mode} p_sweep on {CODE_FILE.name}, p in {P_MODES}, {samples} "
@@ -576,7 +616,7 @@ def phase_modes(dev: torch.device, samples: int, shots: int) -> dict:
         reset_counts()
         records = p_sweep(
             samples=samples, p_values=np.array(P_MODES),
-            noise_model=_host.depolarizing_noise, noise_model_args=lambda p: {"p": p, "pm": p},
+            noise_model=depolarizing_noise, noise_model_args=lambda p: {"p": p, "pm": p},
             meas_prior=lambda p, xs, zs: 2 / 3 * p, data_prior=lambda p, xs, zs: 2 / 3 * p,
             seed=0, pipeline={"mesh_devices": 1, "shots_per_device": shots}, device=dev,
             code=code, rounds=ROUNDS, decoder_mode=mode, bp_osd_options=dict(OPTIONS))
@@ -633,11 +673,11 @@ def phase_flat_timings(flats, big, dev: torch.device, shots: int) -> dict:
     log(f"  K1 at bench_bp's configuration: {32 * 1024 / t['K1_bench'] * 1e3:.4g} iter*shots/s "
         f"(plain {32 * 1024 / t['K1_bench_plain'] * 1e3:.4g})")
     with CODE_FILE.open() as f:
-        code = _host.read_quantum_code(f, validate_stabilizer_code=True)
+        code = read_quantum_code(f, validate_stabilizer_code=True)
     p = P_MODES[0]
     for mode in ("bposd_single_shot", "bposd_hybrid"):
         pipe = StorageDecodePipeline(
-            code=code, rounds=ROUNDS, noise_model=_host.depolarizing_noise(p, p),
+            code=code, rounds=ROUNDS, noise_model=depolarizing_noise(p, p),
             data_prior=2 / 3 * p, meas_prior=2 / 3 * p, shots_per_device=shots,
             max_iter=MAX_ITER, bp_method="ms", ms_scaling_factor=ALPHA, osd_fallback_cap=shots,
             osd_options=dict(OPTIONS), mode=mode, device=dev)
@@ -688,7 +728,7 @@ def _k4(dec, synd, iterate=k4.bsr_shard_iter, max_iter=None):
 def phase_k4(dev: torch.device, sizes, cap):
     log(f"== phase 13: K4 vs plain (check-partition decode), S in {sizes}, {SHARD_ITERS} "
         "iterations")
-    fs = Checks(_host.biregular_hgp(20, 3, 4, seed=1).checks.z, dev, "HGP n=625")
+    fs = Checks(biregular_hgp(20, 3, 4, seed=1).checks.z, dev, "HGP n=625")
     p = 5e-3
     worst = 0.0
     for D in (1, 2, 3):
@@ -724,7 +764,7 @@ def phase_k4(dev: torch.device, sizes, cap):
 
 def _shard_case(dev: torch.device):
     """tests/test_bp_bsr_shard.py's case: n = 625 HGP, 128 shots at p = 0.01."""
-    fs = Checks(_host.biregular_hgp(20, 3, 4, seed=1).checks.z, dev, "HGP n=625")
+    fs = Checks(biregular_hgp(20, 3, 4, seed=1).checks.z, dev, "HGP n=625")
     return fs, fs.syndromes(128, 0.01, seed=0)
 
 
@@ -732,7 +772,7 @@ def phase_k4_vs_k1(dev: torch.device) -> None:
     log(f"== phase 14: check-partition decode on K4 vs K1 at fixed iterations, "
         f"{SHARD_ITERS} iterations")
     fs, synd = _shard_case(dev)
-    layout = k1.BSRLayout.from_tanner(_host.TannerELL.from_check_matrix(fs.H), dev)
+    layout = k1.BSRLayout.from_tanner(TannerELL.from_check_matrix(fs.H), dev)
     prior = fs.prior(0.01)
     for method, msf in METHODS:
         hr, _pr, cr, _ir = k1.bsr_bp_decode(layout, prior, synd, method, SHARD_ITERS, msf,
@@ -806,29 +846,31 @@ def phase_distributed(dev: torch.device, world) -> dict:
 
 
 def phase_k3b(dev: torch.device, t: dict):
-    """Returns the worst posterior error and the K3 launches of the kernel
-    decodes (counted from 0)."""
+    """Returns the worst posterior error, the K3 launches of the kernel
+    decodes (counted from 0) and, by code tag, the shape each was timed at
+    ((spacetime rows, columns, nonzeros, base tables), shots, iterations)."""
     rounds, S, iters, p = 8, 128, 32, 1e-3
     log(f"== phase 17: K3 vs plain in the K3b regime, {rounds} rounds, S={S}, {iters} "
         "iterations")
     codes = {
-        "cyclic n=4862": _host.lifted.lifted_product_code_cyclic(
+        "cyclic n=4862": lifted_product_code_cyclic(
             q=22, m=1, w=14, r=5, seed=42, compute_logicals=False).checks.z,
-        "HGP n=10000": _host.biregular_hgp(80, 3, 4, seed=7, compute_logicals=False).checks.z}
-    worst, launches = 0.0, 0
+        "HGP n=10000": biregular_hgp(80, 3, 4, seed=7, compute_logicals=False).checks.z}
+    worst, launches, shapes = 0.0, 0, {}
     plain = k3._stbsr_iter_plain
     # sum-product at the first code only: a K3 decode here takes ~1 s (4 CUDA blocks)
     methods = (("ms", ALPHA), ("ps", 0.0))
     for name, H in codes.items():
-        tanner = _host.TannerELL.from_check_matrix(H)
+        tanner = TannerELL.from_check_matrix(H)
         tiles = k1.BSRLayout.from_tanner(tanner, dev).num_tiles
         check(tiles >= 64, f"{name}: {tiles} BSR tiles (>= 64: the JAX package selects K3b)")
         tables = tanner_tables(tanner, dev)
-        st = Checks(_host.SpacetimeCode(H, rounds).spacetime_check_matrix, dev,
+        st = Checks(SpacetimeCode(H, rounds).spacetime_check_matrix, dev,
                     f"{name} x{rounds} rounds")
         prior = st.prior(p)
         synd = st.syndromes(S, p, seed=40)
         tag = name.split()[0]
+        shapes[tag] = ((*st.H.shape, st.H.nnz, tables), S, iters)
         for method, msf in methods:
             args = (tables, rounds, prior, synd, method, iters, msf, False)
             reset_counts()
@@ -842,16 +884,16 @@ def phase_k3b(dev: torch.device, t: dict):
                 t[f"K3b_{tag}"], t[f"K3b_{tag}_plain"] = ms, ms_plain
         methods = methods[:1]
     check(launches > 0, f"K3 launched {launches} times at K3b's sizes")
-    return worst, launches
+    return worst, launches, shapes
 
 
-def phase_shard_timings(dev: torch.device, cap) -> dict:
+def phase_shard_timings(dev: torch.device, cap, cyclic_H) -> dict:
     log("== phase 18: K4 per decode iteration (all shards) vs plain and K1, "
         "shard_capacity.per_iter_slope (4 -> 12 iterations, best of 2)")
     t = {}
 
     def per_iter(tag, H, decs, S, p):
-        layout = k1.BSRLayout.from_tanner(_host.TannerELL.from_check_matrix(H), dev)
+        layout = k1.BSRLayout.from_tanner(TannerELL.from_check_matrix(H), dev)
         prior = torch.as_tensor(priors_to_llr(np.full(H.shape[1], p))).to(dev)
         sb = k1.auto_shot_block(layout)
         fns = {f"K1_shard_{tag}": lambda s, n: k1.bsr_bp_decode(layout, prior, s, "ms", n,
@@ -869,11 +911,233 @@ def phase_shard_timings(dev: torch.device, cap) -> dict:
 
     H, dec, rec = cap
     per_iter("capacity", H, [(rec["shards"], dec)], 128, 5e-4)
-    H = bench_bsr_shard.build_code("cyclic4862")
+    H = cyclic_H
     per_iter("bench", H, [(D, k4.ShardedBSRDecoder.from_check_matrix(
         H, D, error_rate=1e-3, max_iter=32, bp_method="ms", device=dev)) for D in (1, 2, 4)],
              1024, 1e-3)
     return t
+
+
+# ---------------------------------------------------------------------------
+# The int8 kernel K5 and the code-family benchmark
+# ---------------------------------------------------------------------------
+
+FAM_SHOTS, FAM_ITERS, FAM_P = 1024, 32, 1e-3
+
+
+def family_setups(dev: torch.device, cyclic_H):
+    """The two codes of the family path's kernel rows: the QC-LP
+    [[1054,140]] as the benchmark builds it, and the cyclic n = 4,862 in QC
+    order (``bench_bsr_shard.build_code``, the matrix phase 18 times too)."""
+    return [FlatSetup(bench_large_codes._qclp_H(), dev, "qclp"),
+            FlatSetup(cyclic_H, dev, "cyclic")]
+
+
+def _prior_q(fs: Checks, p: float) -> torch.Tensor:
+    return torch.as_tensor(quantize_priors(fs.prior(p).cpu().numpy())[0]).to(fs.dev)
+
+
+def _k5_case(fs: FlatSetup, synd, prior_q, alpha_num, early_stop, iters, sb) -> int:
+    """One K5 decode against its plain version; the largest difference of
+    the posterior quanta (every output is also required equal)."""
+    kern = k1.bsr_bp_decode_int8(fs.layout, prior_q, synd, iters, alpha_num, early_stop, sb)
+    plain = k1.bsr_bp_int8_plain(fs.layout, prior_q, synd, iters, alpha_num, early_stop, sb)
+    torch.cuda.synchronize()
+    tag = (f"{fs.name} S={synd.shape[1]} alpha_num={alpha_num} early_stop={early_stop} "
+           f"(conv rate {float(plain[2].float().mean()):.4f}, block iters "
+           f"{kern[3][::sb].tolist()[:8]})")
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(kern, plain))
+    check(same, f"{tag}: posterior quanta, hard, conv and iters equal to plain")
+    check(bool(fs.valid(kern[0], synd)[kern[2]].all()),
+          f"{fs.name}: every conv=1 shot satisfies its syndrome")
+    return int((kern[1].to(torch.int64) - plain[1].to(torch.int64)).abs().max())
+
+
+def phase_k5(flats, fams, sizes, dev: torch.device) -> float:
+    log(f"== phase 19: K5 vs plain (int8, exact), S in {sizes}, {MAX_ITER} iterations; the "
+        f"family codes at S={FAM_SHOTS}, {FAM_ITERS} iterations")
+    worst = 0
+    for fs in flats:
+        prior_q = _prior_q(fs, FLAT_P)
+        sb = k1.auto_shot_block(fs.layout)
+        for S in sizes:
+            synd = fs.syndromes(S, FLAT_P, seed=8)
+            for alpha_num, es in ((160, False), (160, True), (256, False)):
+                worst = max(worst, _k5_case(fs, synd, prior_q, alpha_num, es, MAX_ITER, sb))
+    for fs in fams:
+        prior_q = _prior_q(fs, FAM_P)
+        synd = fs.syndromes(FAM_SHOTS, FAM_P, seed=9)
+        for es in (False, True):
+            worst = max(worst, _k5_case(fs, synd, prior_q, 160, es, FAM_ITERS, 128))
+    fs = flats[0]
+    synd = fs.syndromes(64, 0.01, seed=10)
+    pq = quantize_priors(priors_to_llr(np.full(fs.H.shape[1], 0.01)))[0]
+    got = int8_bp_core(fs.tables, torch.as_tensor(pq).to(dev), synd, 12, 160, False)
+    want = int8_bp_oracle(fs.H, pq, synd.cpu().numpy(), 12, 160)
+    check(all(np.array_equal(g.cpu().numpy(), w) for g, w in zip(got[:3], want)),
+          "int8_bp_core on the card equals the numpy oracle (hard, posterior quanta, conv)")
+    return float(worst)
+
+
+FAMILY_ROWS = {"qclp_1054_140": ("gather", "qc-roll", "bsr", "bsr-int8"),
+               "cyclic_lp_4862": ("bsr", "bsr-int8")}
+
+
+def phase_families(dev: torch.device):
+    """The family benchmark's own ``main``; returns (launches, rows by
+    (code, formulation))."""
+    log(f"== phase 20: code-family path: bench_large_codes, {FAM_SHOTS} shots x {FAM_ITERS} "
+        f"iterations, p={FAM_P}")
+    common = ["--shots", str(FAM_SHOTS), "--iters", str(FAM_ITERS), "--p", str(FAM_P),
+              "--reps-lo", "1", "--reps-hi", "3", "--device", str(dev)]
+    reset_counts()
+    recs = bench_large_codes.main(common + ["--only", "qclp_1054_140"])
+    recs += bench_large_codes.main(common + ["--only", "cyclic_lp_4862/bsr"])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"  kernel launches: {launches}")
+    rows = {(r["code"], r["formulation"].split("[")[0].split("(")[0]): r for r in recs}
+    check(sorted(rows) == sorted((c, f) for c, fs in FAMILY_ROWS.items() for f in fs),
+          f"rows {sorted(rows)}")
+    for name in ("K1", "K5"):
+        check(launches[name] > 0, f"{name} launched on the family path ({launches[name]})")
+    for r in recs:
+        check(np.isfinite(r["bp_iter_shots_per_s"]) and r["bp_iter_shots_per_s"] > 0
+              and r["device"] == torch.cuda.get_device_name(0),
+              f"{r['code']}/{r['formulation']}: {r['bp_iter_shots_per_s']:.4g} iter*shots/s, "
+              f"{1e3 * FAM_ITERS * FAM_SHOTS / r['bp_iter_shots_per_s']:.3f} ms per decode, "
+              f"converged {r['bp_converged_frac']:.4f}")
+    # Accuracy.  int8 min-sum must not converge less often than bf16 (its
+    # saturation at +-127 quanta damps the messages: at the cyclic code it
+    # converges MORE often, in the reference too), and each kernel row's
+    # converged share must agree with the reference's own row of
+    # artifacts/bp_families_v5e.jsonl (a count of decoded shots, not a time)
+    # within 4 combined binomial sigma.
+    ref = {}
+    for line in FAMILIES_ARTIFACT.read_text().splitlines():
+        r = json.loads(line)
+        ref[r["code"], r["formulation"].split("[")[0]] = r
+    for code in FAMILY_ROWS:
+        a, b = rows[code, "bsr"]["bp_converged_frac"], rows[code, "bsr-int8"]["bp_converged_frac"]
+        check(b >= a - 0.02, f"{code}: converged share bsr-int8 {b:.4f} not below bsr {a:.4f}")
+        for f in ("bsr", "bsr-int8"):
+            got, want = rows[code, f]["bp_converged_frac"], ref[code, f]["bp_converged_frac"]
+            n, n_ref = FAM_SHOTS, 4 * ref[code, f]["shots"]   # the script's reps_lo is 4
+            sigma = np.sqrt(got * (1 - got) / n + want * (1 - want) / n_ref)
+            check(abs(got - want) <= 4 * max(sigma, 1 / n),
+                  f"{code}/{f}: converged share {got:.4f} vs the reference's {want:.4f} "
+                  f"({abs(got - want) / max(sigma, 1 / n):.2f} sigma)")
+    return launches, rows
+
+
+def phase_family_timings(fams, rows) -> dict:
+    log("== phase 21: K5 and K1 against their plain versions at the family codes "
+        f"(S={FAM_SHOTS}, {FAM_ITERS} iterations, median of 3 distinct batches)")
+    t = {}
+    names = {"qclp": "qclp_1054_140", "cyclic": "cyclic_lp_4862"}
+    for fs in fams:
+        prior, prior_q = fs.prior(FAM_P), _prior_q(fs, FAM_P)
+        synds = [fs.syndromes(FAM_SHOTS, FAM_P, seed=500 + i) for i in range(4)]
+        fns = {
+            f"K1_fam_{fs.name}": lambda s: k1.bsr_bp_decode(fs.layout, prior, s, "ms", FAM_ITERS,
+                                                           ALPHA, False, 128),
+            f"K1_fam_{fs.name}_plain": lambda s: k1.bsr_bp_plain(fs.layout, prior, s, "ms",
+                                                                 FAM_ITERS, ALPHA, False, 128),
+            f"K5_{fs.name}": lambda s: k1.bsr_bp_decode_int8(fs.layout, prior_q, s, FAM_ITERS,
+                                                             160, False, 128),
+            f"K5_{fs.name}_plain": lambda s: k1.bsr_bp_int8_plain(fs.layout, prior_q, s,
+                                                                  FAM_ITERS, 160, False, 128)}
+        for key, fn in fns.items():
+            fn(synds[3])
+            t[key] = _median_ms(fn, synds[:3])
+        per = {f: 1e3 * FAM_ITERS * FAM_SHOTS / rows[names[fs.name], f]["bp_iter_shots_per_s"]
+               for f in FAMILY_ROWS[names[fs.name]]}
+        log(f"  {names[fs.name]} ms per decode: bsr (K1) {t[f'K1_fam_{fs.name}']:.3f} (row "
+            f"{per['bsr']:.3f}), plain {t[f'K1_fam_{fs.name}_plain']:.3f}; bsr-int8 (K5) "
+            f"{t[f'K5_{fs.name}']:.3f} (row {per['bsr-int8']:.3f}), plain "
+            f"{t[f'K5_{fs.name}_plain']:.3f}"
+            + "".join(f"; {f} {per[f]:.3f} (plain PyTorch itself)" for f in per
+                      if not f.startswith("bsr")))
+    return t
+
+
+# ---------------------------------------------------------------------------
+# Bounds: the least time the card could take for each kernel's `ms` shape
+# ---------------------------------------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+OPS_PER_S = 67e12           # float32 / int32 outside the tensor cores: these functions hold no
+#                             matrix product of their own (the TPU's one-hot products are routing)
+# Arithmetic per edge, shot and iteration, counted from the plain versions:
+# compares, selects, minima, adds and multiplies only.  A type conversion
+# (the bf16 kernels round a message three times) is not counted, so one count
+# serves the f32 and the bf16 kernels and errs towards a lower bound.
+# Min-sum in float (check_update_cm and the variable update): sign test, sign
+# product, abs, min1, min2 select, is-min select, sign multiply, alpha
+# multiply (8 on the check side); add into the total, subtract (2 on the
+# variable side); the parity xor (1): 11.  int8 (check_update_int,
+# int8_step): abs, negative count, min1, min2, is-min select, multiply,
+# shift, sign parity, negate-select (9); add, clip, subtract, clip (4);
+# parity (1): 14.
+OPS_FLOAT, OPS_INT8 = 11, 14
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    tb, to = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / OPS_PER_S
+    return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
+            "bound_bytes": int(nbytes), "bound_ops": int(ops), "library_ms": None}
+
+
+def _flat_io(tab, S: int) -> int:
+    """Bytes a whole-decode flat kernel must move: syndromes (u8), priors,
+    both Tanner tables (i32), posterior out (4 bytes), conv (u8), iters (i32)."""
+    C, V = tab.num_checks, tab.num_vars
+    return (C * S + 4 * V + 4 * (C * tab.max_check_degree + V * tab.max_var_degree)
+            + 4 * V * S + S + 4 * S)
+
+
+def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape) -> dict:
+    """Bound of each kernel at the shape its ``ms`` was timed at."""
+    S = 16384
+    Hss = flats[1]
+    out = {}
+    # K1, K6: (H|I), 16,384 shots x 48 iterations, fixed (K1 also reads nslot)
+    E = Hss.H.nnz
+    out["K6"] = _bound(_flat_io(Hss.tables, S), OPS_FLOAT * E * S * MAX_ITER)
+    out["K1"] = _bound(_flat_io(Hss.tables, S) + 4 * Hss.tables.num_checks,
+                       OPS_FLOAT * E * S * MAX_ITER)
+    # K1b: n = 40,000 HGP, 256 shots x 8 iterations
+    out["K1b"] = _bound(_flat_io(big.tables, 256) + 4 * big.tables.num_checks,
+                        OPS_FLOAT * big.H.nnz * 256 * 8)
+    # K2: the spacetime decode in one launch: spacetime syndromes and priors
+    # in, base tables, posterior, conv, iters out
+    rows, cols = su.H.shape
+
+    def st_io(rows, cols, tab, shots):
+        return (rows * shots + 4 * cols + 4 * (tab.num_checks * tab.max_check_degree
+                                               + tab.num_vars * tab.max_var_degree)
+                + 4 * cols * shots + 5 * shots)
+
+    out["K2"] = _bound(st_io(rows, cols, su.tables, S), OPS_FLOAT * su.H.nnz * S * MAX_ITER)
+    # K3: one launch per iteration; each launch also reads and writes the
+    # bf16 message arrays (one value per spacetime edge)
+    out["K3"] = _bound(MAX_ITER * (st_io(rows, cols, su.tables, S) + 2 * 2 * su.H.nnz * S),
+                       OPS_FLOAT * su.H.nnz * S * MAX_ITER)
+    (rows, cols, nnz, tab), shots, iters = k3b_shape
+    out["K3b"] = _bound(iters * (st_io(rows, cols, tab, shots) + 2 * 2 * nnz * shots),
+                        OPS_FLOAT * nnz * shots * iters)
+    # K4: one decode iteration, all D shards: per shard the posterior in and
+    # the partial out (f32, V_pad x S), its messages in and out (bf16), its
+    # syndromes and tables
+    H, dec, rec = cap
+    D, sb = rec["shards"], dec.sharded
+    out["K4"] = _bound(D * 2 * 4 * sb.v_pad * 128 + 2 * 2 * H.nnz * 128 + H.shape[0] * 128
+                       + 2 * 4 * H.nnz, OPS_FLOAT * H.nnz * 128)
+    # K5: the cyclic n = 4,862 code, 1,024 shots x 32 iterations, fixed
+    cyc = fams[1]
+    out["K5"] = _bound(_flat_io(cyc.tables, FAM_SHOTS),
+                       OPS_INT8 * cyc.H.nnz * FAM_SHOTS * FAM_ITERS)
+    return out
 
 
 def main() -> int:
@@ -919,6 +1183,8 @@ def main() -> int:
          "source": src + "stbsr.cu", "replaces": "exp_ldpc_tpu/decoders/bp_bsr_spacetime.py:306"},
         {"name": "K4 bsr_shard", "route": "cuda", "source": src + "bsr_shard.cu",
          "replaces": "exp_ldpc_tpu/decoders/bp_bsr_shard.py:200"},
+        {"name": "K5 bsr_bp_int8", "route": "cuda", "source": src + "bsr_bp_int8.cu",
+         "replaces": "exp_ldpc_tpu/decoders/bp_bsr.py:799"},
         {"name": "K6 bp_fixed", "route": "cuda", "source": src + "bpflat.cu",
          "replaces": "exp_ldpc_tpu/decoders/bp_pallas.py:123"},
     ]
@@ -926,7 +1192,8 @@ def main() -> int:
         # The main path, run by run, each counted from 0: the bposd p_sweep
         # (K3 at HGP-225), the same pipeline on K2 (bp_backend "stbp"), and
         # the single-shot and hybrid p_sweeps (K6 on the device, K1 in the
-        # host redecode; K2 in the hybrid spacetime stage, K3 in its redecode).
+        # host redecode; K2 in the hybrid spacetime stage, K3 in its redecode);
+        # later the capacity decode (K4) and the code-family benchmark (K1, K5).
         by_run = {"distributed_2rank": phase(phase_distributed, dev, world),
                   "p_sweep_bposd": phase(phase_main_path, su, dev, 65536, 16384),
                   "pipeline_stbp": phase(phase_k2_pipeline, su, dev, 16384)}
@@ -934,6 +1201,9 @@ def main() -> int:
     flats, big = flat_setups(su, dev)
     err["K6"] = phase(phase_k6, flats, sizes)
     err["K1"], err["K1b"] = phase(phase_k1, flats, big, sizes, args.quick)
+    cyclic_H = bench_bsr_shard.build_code("cyclic4862")
+    fams = family_setups(dev, cyclic_H)
+    err["K5"] = phase(phase_k5, flats, fams, sizes, dev)
     if not args.quick:
         by_run.update(phase(phase_modes, dev, 65536, 16384))
     k4_sizes = (97, 512) if args.quick else (97, S_REDECODE, 4096)
@@ -942,17 +1212,21 @@ def main() -> int:
     if not args.quick:
         phase(phase_k4_vs_k1, dev)
         by_run["shard_capacity"] = phase(phase_shard_capacity, cap)
-        err["K3b"], k3b_launches = phase(phase_k3b, dev, t)
+        err["K3b"], k3b_launches, k3b_shapes = phase(phase_k3b, dev, t)
+        by_run["bench_large_codes"], fam_rows = phase(phase_families, dev)
         launches = {name: sum(c[name] for c in by_run.values()) for name in KERNELS}
         for name, n in launches.items():
             check(n > 0, f"{name} launched on the main path ({n} launches)")
         t.update(phase(phase_flat_timings, flats, big, dev, 16384))
-        t.update(phase(phase_shard_timings, dev, cap))
+        t.update(phase(phase_shard_timings, dev, cap, cyclic_H))
+        t.update(phase(phase_family_timings, fams, fam_rows))
+        bounds = kernel_bounds(su, flats, big, fams, cap, k3b_shapes["HGP"])
         timing = {"K1": ("K1_S16384", "bench", "S16384_es", f"S{S_REDECODE}_es"),
                   "K1b": ("K1_n40000",),
                   "K2": ("K2",), "K3": ("K3",),
                   "K3b": ("K3b_HGP", "cyclic"),
                   "K4": ("K4_capacity_D8", "bench_D1", "bench_D2", "bench_D4"),
+                  "K5": ("K5_cyclic", "qclp"),
                   "K6": ("K6_S16384", "bench")}
         for kern in kernels:
             key = kern["name"].split()[0]
@@ -968,6 +1242,13 @@ def main() -> int:
             for tag in more:
                 kern[f"ms_{tag}"] = t[f"{key}_{tag}"]
                 kern[f"plain_ms_{tag}"] = t[f"{key}_{tag}_plain"]
+            kern.update(bounds[key])
+            if key == "K5":
+                kern["k1_ms"], kern["k1_ms_qclp"] = t["K1_fam_cyclic"], t["K1_fam_qclp"]
+                kern["k1_plain_ms"] = t["K1_fam_cyclic_plain"]
+                kern["k1_plain_ms_qclp"] = t["K1_fam_qclp_plain"]
+                kern["rows_iter_shots_per_s"] = {
+                    f"{c}/{f}": r["bp_iter_shots_per_s"] for (c, f), r in fam_rows.items()}
             if key == "K4":
                 kern["ms_per"] = "decode iteration, all shards"
                 kern["k1_ms"] = t["K1_shard_capacity"]

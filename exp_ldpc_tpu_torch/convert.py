@@ -5,7 +5,7 @@ objects (``TannerELL``, per-column LLR vectors, ``ParsedCircuit`` op lists,
 the fields of a ``StorageDecodePipeline``).  These functions turn that
 state into device tensors of the port, so both packages compute the same
 thing on the same inputs.  Objects are duck-typed: they may come from
-``exp_ldpc_tpu`` itself or from the port's host alias (:mod:`._host`).
+``exp_ldpc_tpu`` itself or from the port's own copies of its host modules.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import numpy as np
 import torch
 from scipy import sparse
 
-from . import _host
+from .decoders.tanner import TannerELL
 from .utils.device import DeviceLike, resolve_device
 
 __all__ = [
@@ -189,25 +189,34 @@ def _matrix_from_schedule(sched) -> sparse.csr_matrix:
 
 
 def bp_decoder_from_jax(dec, device: DeviceLike = "cuda"):
-    """A JAX ``BPDecoder`` or ``BSRBPDecoder`` -> the port's decoder with the
-    same Tanner graph, priors, method, iteration cap, scaling, early stop
-    and (BSR) shot block and permutations, so both packages decode with
+    """A JAX ``BPDecoder``, ``Int8BPDecoder`` or ``BSRBPDecoder`` (either
+    ``msg_dtype``) -> the port's decoder with the same Tanner graph, priors
+    (LLRs; int8: quanta and delta), method, iteration cap, scaling, early
+    stop and (BSR) shot block and permutations, so both packages decode with
     identical state.  The BSR decoder's graph is read back from its tile
     schedule, which is built from the permuted check matrix."""
     from .decoders.bp import BPDecoder
     from .decoders.bp_bsr import BSRBPDecoder, BSRLayout
+    from .decoders.bp_int8 import Int8BPDecoder
 
     dev = resolve_device(device)
-    common = dict(prior_llr=np.asarray(dec.prior_llr, dtype=np.float32), method=str(dec.method),
-                  max_iter=int(dec.max_iter), ms_scaling_factor=float(dec.ms_scaling_factor),
+    common = dict(max_iter=int(dec.max_iter), ms_scaling_factor=float(dec.ms_scaling_factor),
                   early_stop=bool(dec.early_stop))
+    if hasattr(dec, "prior_q"):
+        return Int8BPDecoder(tanner_tables(dec.tanner, dev), np.asarray(dec.prior_q, np.int32),
+                             float(dec.delta), **common)
+    common.update(prior_llr=np.asarray(dec.prior_llr, dtype=np.float32), method=str(dec.method))
     sched = getattr(dec, "sched", None)
     if sched is None:
         return BPDecoder(tanner_tables(dec.tanner, dev), **common)
-    tanner = _host.TannerELL.from_check_matrix(_matrix_from_schedule(sched))
-    return BSRBPDecoder(BSRLayout.from_tanner(tanner, dev), shot_block=int(dec.shot_block),
-                        check_perm=dec.check_perm, inv_var_perm=dec.inv_var_perm,
-                        msg_dtype=str(dec.msg_dtype), **common)
+    tanner = TannerELL.from_check_matrix(_matrix_from_schedule(sched))
+    out = BSRBPDecoder(BSRLayout.from_tanner(tanner, dev), shot_block=int(dec.shot_block),
+                       check_perm=dec.check_perm, inv_var_perm=dec.inv_var_perm,
+                       msg_dtype=str(dec.msg_dtype), prior_quanta=int(dec.prior_quanta), **common)
+    if out.msg_dtype == "int8":  # quantized from the same LLRs: the same quanta and delta
+        assert out._delta == dec._delta and np.array_equal(out._prior_q.cpu().numpy(),
+                                                           dec._prior_q)
+    return out
 
 
 def sharded_bsr_decoder_from_jax(dec, device: DeviceLike = "cuda"):

@@ -24,9 +24,9 @@ import numpy as np
 import torch
 from scipy import sparse
 
-from .. import _host
 from ..convert import TannerTables, tanner_tables
 from ..utils.device import DeviceLike, resolve_device
+from .tanner import TannerELL
 
 __all__ = ["BIG", "priors_to_llr", "phi", "check_update_cm", "normalize_method",
            "alpha_at", "dense_ops_bytes", "bp_core", "check_parity", "syndrome_ok", "BPDecoder",
@@ -241,7 +241,7 @@ class BPDecoder(DecoderBase):
                           bp_method: str = "ps", ms_scaling_factor: float = 0.0,
                           early_stop: bool = True, device: DeviceLike = "cuda") -> "BPDecoder":
         """Constructor with the ldpc option surface of the JAX package."""
-        tanner = _host.TannerELL.from_check_matrix(sparse.csr_matrix(H))
+        tanner = TannerELL.from_check_matrix(sparse.csr_matrix(H))
         prior = channel_priors(tanner.num_vars, error_rate, channel_probs)
         return cls(tanner_tables(tanner, resolve_device(device)), priors_to_llr(prior),
                    bp_method, max_iter, float(ms_scaling_factor), early_stop)

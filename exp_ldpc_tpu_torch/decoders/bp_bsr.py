@@ -1,4 +1,4 @@
-"""Kernel K1: flat BP for large codes with bf16 messages.
+"""Kernels K1 and K5: flat BP for large codes, bf16 and int8 messages.
 
 Counterpart of ``exp_ldpc_tpu/decoders/bp_bsr.py``.  The TPU kernel
 ``_kernel`` keeps one shot block's bf16 messages in VMEM for the whole
@@ -12,8 +12,14 @@ serves both K1 and K1b.
   * :func:`bsr_bp_decode` is the decode: the CUDA kernel ``csrc/bsr_bp.cu``
     for CUDA tensors, its plain version :func:`bsr_bp_plain` for CPU
     tensors, and nothing else.
+  * :func:`bsr_bp_decode_int8` is the fixed-point min-sum decode (the TPU
+    kernel ``_kernel_int8``, K5): the CUDA kernel ``csrc/bsr_bp_int8.cu``
+    for CUDA tensors, its plain version :func:`bsr_bp_int8_plain` for CPU
+    tensors.  Its arithmetic is :mod:`.bp_int8`'s, bit for bit; its early
+    exit is K1's, per shot block.
   * :class:`BSRBPDecoder` is the decoder object (``check_perm`` /
-    ``var_perm``, outputs in the original column order).
+    ``var_perm``, outputs in the original column order; ``msg_dtype``
+    ``"bfloat16"`` for K1, ``"int8"`` for K5).
 
 Numerics follow the TPU kernel (``bp_bsr.py:226-543``):
 
@@ -52,18 +58,21 @@ import numpy as np
 import torch
 from scipy import sparse
 
-from .. import _host
 from ..convert import TannerTables, tanner_tables
 from ..utils.cuda_build import CudaKernel
 from ..utils.device import DeviceLike, resolve_device
 from .bp import (BIG, DecoderBase, alpha_at, channel_priors, check_update_cm,
                  normalize_method, priors_to_llr, syndrome_ok)
+from .bp_int8 import (alpha_num_of, int8_step, int8_syndrome_ok, int8_v2c0,
+                      quantize_priors)
+from .tanner import TannerELL
 
-__all__ = ["BSRLayout", "auto_shot_block", "bsr_bp_decode", "bsr_bp_plain", "BSRBPDecoder",
-           "KERNEL"]
+__all__ = ["BSRLayout", "auto_shot_block", "bsr_bp_decode", "bsr_bp_plain",
+           "bsr_bp_decode_int8", "bsr_bp_int8_plain", "BSRBPDecoder", "KERNEL", "KERNEL_INT8"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel("bsr_bp.cu", "bsr_bp", [_P] * 9 + [_I] * 12 + [_F, _P])
+KERNEL_INT8 = CudaKernel("bsr_bp_int8.cu", "bsr_bp_int8", [_P] * 8 + [_I] * 12 + [_P])
 
 _TILE = 128
 _BF16 = torch.bfloat16
@@ -173,6 +182,33 @@ def _bsr_iter_plain(t: TannerTables, msg, synd_sign, prior, method: str, alpha: 
     return new, total
 
 
+def _iterate_shot_blocks(step, parity_ok, msg, post, max_iter: int, early_stop: bool,
+                         shot_block: int):
+    """The iteration loop both plain versions share: ``step(it, msg)`` gives
+    (new msg (C, Dc, S), new posterior (V, S)) for every shot, and a shot
+    block (``shot_block`` shots, clamped as in JAX) whose shots all satisfy
+    ``parity_ok(post)`` stops updating.  Returns (posterior, conv, iters)."""
+    S = post.shape[1]
+    dev = post.device
+    sb, G = _blocks(shot_block, S)
+    grp = torch.arange(S, device=dev) // sb
+    running = torch.ones(G, dtype=torch.bool, device=dev)
+    iters_g = torch.zeros(G, dtype=torch.int32, device=dev)
+    for it in range(max_iter):
+        if early_stop and not bool(running.any()):
+            break
+        new_msg, new_post = step(it, msg)
+        run = running[grp]
+        msg = torch.where(run[None, None], new_msg, msg)
+        post = torch.where(run[None], new_post, post)
+        iters_g += running.to(torch.int32)
+        if early_stop:
+            bad = (~parity_ok(post)).to(torch.int32)
+            bad_g = torch.zeros(G, dtype=torch.int32, device=dev).index_add_(0, grp, bad)
+            running = running & (bad_g > 0)
+    return post, parity_ok(post), iters_g[grp]
+
+
 def bsr_bp_plain(layout: BSRLayout, prior_llr: torch.Tensor, syndromes: torch.Tensor,
                  method: str, max_iter: int, ms_scaling_factor: float,
                  early_stop: bool = True, shot_block: int = 128):
@@ -184,8 +220,6 @@ def bsr_bp_plain(layout: BSRLayout, prior_llr: torch.Tensor, syndromes: torch.Te
     C, V, Dc = t.num_checks, t.num_vars, t.max_check_degree
     S = syndromes.shape[1]
     dev = syndromes.device
-    sb, G = _blocks(shot_block, S)
-    grp = torch.arange(S, device=dev) // sb
     prior = prior_llr.to(device=dev, dtype=torch.float32)
     synd = syndromes.to(torch.uint8)
     synd_sign = 1.0 - 2.0 * synd.to(torch.float32)
@@ -193,24 +227,12 @@ def bsr_bp_plain(layout: BSRLayout, prior_llr: torch.Tensor, syndromes: torch.Te
     rewrite_pad = ~t.chk_mask & (slot[None, :] < layout.slot_limits(method)[:, None])
     edge_prior = torch.where(t.chk_mask, prior[t.chk_vars], BIG).to(_BF16)
     msg = edge_prior[:, :, None].expand(C, Dc, S).contiguous()
-    post = prior[:, None].expand(V, S).clone()
-    running = torch.ones(G, dtype=torch.bool, device=dev)
-    iters_g = torch.zeros(G, dtype=torch.int32, device=dev)
-    for it in range(max_iter):
-        if early_stop and not bool(running.any()):
-            break
-        new_msg, new_post = _bsr_iter_plain(t, msg, synd_sign, prior, method,
-                                            alpha_at(it, ms_scaling_factor), rewrite_pad)
-        run = running[grp]
-        msg = torch.where(run[None, None], new_msg, msg)
-        post = torch.where(run[None], new_post, post)
-        iters_g += running.to(torch.int32)
-        if early_stop:
-            bad = (~_parity_ok(post, synd, t)).to(torch.int32)
-            bad_g = torch.zeros(G, dtype=torch.int32, device=dev).index_add_(0, grp, bad)
-            running = running & (bad_g > 0)
-    conv = _parity_ok(post, synd, t)
-    return (post <= 0).to(torch.uint8), post, conv, iters_g[grp]
+    post, conv, iters = _iterate_shot_blocks(
+        lambda it, m: _bsr_iter_plain(t, m, synd_sign, prior, method,
+                                      alpha_at(it, ms_scaling_factor), rewrite_pad),
+        lambda p: _parity_ok(p, synd, t), msg, prior[:, None].expand(V, S).clone(), max_iter,
+        early_stop, shot_block)
+    return (post <= 0).to(torch.uint8), post, conv, iters
 
 
 def bsr_bp_decode(layout: BSRLayout, prior_llr: torch.Tensor, syndromes: torch.Tensor,
@@ -244,9 +266,10 @@ def bsr_bp_decode(layout: BSRLayout, prior_llr: torch.Tensor, syndromes: torch.T
     prior = prior_llr.to(torch.float32).contiguous()
     if prior.shape != (V,):
         raise ValueError(f"prior_llr must have shape ({V},)")
-    if S == 0 or max_iter <= 0:  # no iteration to launch: the answer is the prior's
-        return bsr_bp_plain(layout, prior, syndromes, method, max_iter, ms_scaling_factor,
-                            early_stop, shot_block)
+    if max_iter <= 0:
+        raise ValueError(f"bsr_bp_decode needs max_iter >= 1, got {max_iter}")
+    if S == 0:  # a grid of no blocks is not a launch
+        return _no_shots(V, torch.float32, dev)
     sb, G = _blocks(shot_block, S)
     synd = syndromes.to(torch.uint8).contiguous()
     nslot = layout.slot_limits(method)
@@ -265,9 +288,97 @@ def bsr_bp_decode(layout: BSRLayout, prior_llr: torch.Tensor, syndromes: torch.T
             stream)
     hard = (post <= 0).to(torch.uint8)
     if early_stop:
-        # group g ran until the first iteration it left no shot unconverged
-        iters_g = ((gbad != 0).sum(dim=0) + 1).clamp(max=max_iter).to(torch.int32)
-        iters = iters_g[torch.arange(S, device=dev) // sb]
+        iters = _block_iters(gbad, max_iter, sb, S)
+    else:
+        iters = torch.full((S,), max_iter, dtype=torch.int32, device=dev)
+    return hard, post, conv.bool(), iters
+
+
+def _no_shots(V: int, post_dtype: torch.dtype, dev: torch.device):
+    """The decode of an empty batch: (hard, posterior, converged, iters)."""
+    return (torch.empty((V, 0), dtype=torch.uint8, device=dev),
+            torch.empty((V, 0), dtype=post_dtype, device=dev),
+            torch.empty((0,), dtype=torch.bool, device=dev),
+            torch.empty((0,), dtype=torch.int32, device=dev))
+
+
+def _block_iters(gbad: torch.Tensor, max_iter: int, sb: int, S: int) -> torch.Tensor:
+    """(S,) int32 from the kernels' (max_iter, G) "unconverged" table: shot
+    block g ran until the first iteration that left it no shot unconverged."""
+    iters_g = ((gbad != 0).sum(dim=0) + 1).clamp(max=max_iter).to(torch.int32)
+    return iters_g[torch.arange(S, device=gbad.device) // sb]
+
+
+def bsr_bp_int8_plain(layout: BSRLayout, prior_q: torch.Tensor, syndromes: torch.Tensor,
+                      max_iter: int, alpha_num: int, early_stop: bool = True,
+                      shot_block: int = 128):
+    """Plain version of K5 on the tensors' device; same arguments and
+    outputs as :func:`bsr_bp_decode_int8`.  The iteration is
+    :func:`.bp_int8.int8_step`; all shots iterate together, and a shot block
+    whose shots have all converged stops updating."""
+    t = layout.tables
+    S = syndromes.shape[1]
+    prior_q = prior_q.to(device=syndromes.device, dtype=torch.int32)
+    synd = syndromes.to(torch.int32)
+    post, conv, iters = _iterate_shot_blocks(
+        lambda _it, m: int8_step(t, m, synd, prior_q, int(alpha_num)),
+        lambda p: int8_syndrome_ok(p, synd, t), int8_v2c0(t, prior_q, S),
+        prior_q[:, None].expand(t.num_vars, S).clone(), max_iter, early_stop, shot_block)
+    return (post <= 0).to(torch.uint8), post, conv, iters
+
+
+def bsr_bp_decode_int8(layout: BSRLayout, prior_q: torch.Tensor, syndromes: torch.Tensor,
+                       max_iter: int, alpha_num: int, early_stop: bool = True,
+                       shot_block: int = 128):
+    """int8 fixed-point min-sum decode, the JAX ``bsr_bp_decode_int8``
+    contract: ``prior_q`` (V,) int32 quanta (:func:`.bp_int8.quantize_priors`),
+    syndromes (C, S) 0/1 -> (hard (V, S) uint8, posterior (V, S) int32
+    quanta, converged (S,) bool, iters (S,) int32); scale the posterior by
+    delta for LLR units.  The early exit is per block of ``shot_block``
+    shots, clamped to ``round_up(S, 128)``.
+
+    CPU tensors run :func:`bsr_bp_int8_plain`.  On a CUDA device kernel K5
+    runs, launched as K1 is: all iterations in one launch without
+    ``early_stop``, one launch per iteration with it."""
+    dev = syndromes.device
+    if dev.type == "cpu":
+        return bsr_bp_int8_plain(layout, prior_q, syndromes, max_iter, alpha_num, early_stop,
+                                 shot_block)
+    if dev.type != "cuda":
+        raise ValueError(f"bsr_bp_decode_int8: unsupported device {dev}")
+    t = layout.tables
+    C, V, Dc, Dv = t.num_checks, t.num_vars, t.max_check_degree, t.max_var_degree
+    Cs, S = syndromes.shape
+    if Cs != C:
+        raise ValueError(f"syndromes have {Cs} rows, expected {C}")
+    if Dc > 32:
+        raise ValueError(f"bsr_bp_decode_int8 supports check degree <= 32, got {Dc}")
+    if t.device != dev or prior_q.device != dev:
+        raise ValueError("bsr_bp_decode_int8: tables, priors and syndromes must share one device")
+    prior = prior_q.to(torch.int32).contiguous()
+    if prior.shape != (V,):
+        raise ValueError(f"prior_q must have shape ({V},)")
+    if max_iter <= 0:
+        raise ValueError(f"bsr_bp_decode_int8 needs max_iter >= 1, got {max_iter}")
+    if S == 0:  # a grid of no blocks is not a launch
+        return _no_shots(V, torch.int32, dev)
+    sb, G = _blocks(shot_block, S)
+    synd = syndromes.to(torch.uint8).contiguous()
+    msg = torch.empty((C * Dc, S), dtype=torch.int8, device=dev)
+    post = torch.empty((V, S), dtype=torch.int32, device=dev)
+    conv = torch.empty((S,), dtype=torch.uint8, device=dev)
+    gbad = torch.zeros((max_iter, G), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    spans = [(it, 1) for it in range(max_iter)] if early_stop else [(0, max_iter)]
+    for it0, n_it in spans:
+        KERNEL_INT8.launch(
+            t.chk_vars_k.data_ptr(), t.vm_k.data_ptr(), synd.data_ptr(), prior.data_ptr(),
+            msg.data_ptr(), post.data_ptr(), conv.data_ptr(), gbad.data_ptr(),
+            C, V, Dc, Dv, S, it0, n_it, max_iter, int(alpha_num), int(early_stop), sb, G,
+            stream)
+    hard = (post <= 0).to(torch.uint8)
+    if early_stop:
+        iters = _block_iters(gbad, max_iter, sb, S)
     else:
         iters = torch.full((S,), max_iter, dtype=torch.int32, device=dev)
     return hard, post, conv.bool(), iters
@@ -278,7 +389,12 @@ class BSRBPDecoder(DecoderBase):
     """Batched flat BP on kernel K1 (early exit per shot block); the same
     ``decode_batch`` contract as :class:`.bp.BPDecoder`.
     ``check_perm``/``var_perm`` (new -> old) pre-permute H; outputs return
-    in the ORIGINAL column order."""
+    in the ORIGINAL column order.
+
+    ``msg_dtype="int8"`` decodes on kernel K5 instead: fixed-point min-sum
+    with a fixed scaling factor, priors quantized to ``prior_quanta`` quanta
+    (:func:`.bp_int8.quantize_priors`), the posterior returned in LLR units.
+    :func:`.select.make_bp_decoder` never chooses it."""
 
     layout: BSRLayout
     prior_llr: np.ndarray     # in the permuted column order
@@ -290,20 +406,24 @@ class BSRBPDecoder(DecoderBase):
     check_perm: Optional[np.ndarray] = None
     inv_var_perm: Optional[np.ndarray] = None  # old -> new
     msg_dtype: str = "bfloat16"
+    prior_quanta: int = 24
 
     def __post_init__(self):
         self.method = normalize_method(self.method)
-        if self.msg_dtype == "int8":
-            raise NotImplementedError(
-                "msg_dtype='int8' (kernel K5, bp_bsr.py::_kernel_int8): not ported yet "
-                "(ROADMAP.md, Queue 2)")
-        if self.msg_dtype != "bfloat16":
-            raise ValueError(f"unknown msg_dtype {self.msg_dtype!r}")
         if self.max_iter <= 0:
             self.max_iter = self.layout.num_vars
+        if self.msg_dtype not in ("bfloat16", "int8"):
+            raise ValueError(f"unknown msg_dtype {self.msg_dtype!r}")
         if self.shot_block is None:
             self.shot_block = auto_shot_block(self.layout)
         dev = self.layout.device
+        if self.msg_dtype == "int8":
+            if self.method != "ms":
+                raise ValueError("int8 BSR supports min-sum only")
+            if not 0 < self.ms_scaling_factor <= 1:
+                raise ValueError("int8 BSR needs a fixed scaling factor in (0, 1]")
+            q, self._delta = quantize_priors(self.prior_llr, self.prior_quanta)
+            self._prior_q = torch.as_tensor(q).to(dev)
         self._prior = torch.as_tensor(np.asarray(self.prior_llr, dtype=np.float32)).to(dev)
         self._check_perm = None if self.check_perm is None else torch.as_tensor(
             np.asarray(self.check_perm, dtype=np.int64)).to(dev)
@@ -321,7 +441,7 @@ class BSRBPDecoder(DecoderBase):
                           early_stop: bool = True, shot_block: Optional[int] = None,
                           check_perm: Optional[np.ndarray] = None,
                           var_perm: Optional[np.ndarray] = None,
-                          msg_dtype: str = "bfloat16",
+                          msg_dtype: str = "bfloat16", prior_quanta: int = 24,
                           device: DeviceLike = "cuda") -> "BSRBPDecoder":
         H = sparse.csr_matrix(H)
         if check_perm is not None:
@@ -333,22 +453,28 @@ class BSRBPDecoder(DecoderBase):
             H = H[:, var_perm]
             inv_var_perm = np.empty_like(var_perm)
             inv_var_perm[var_perm] = np.arange(var_perm.shape[0])
-        layout = BSRLayout.from_tanner(_host.TannerELL.from_check_matrix(H),
+        layout = BSRLayout.from_tanner(TannerELL.from_check_matrix(H),
                                        resolve_device(device))
         prior = channel_priors(layout.num_vars, error_rate, channel_probs)
         if var_perm is not None:
             prior = prior[var_perm]
         return cls(layout, priors_to_llr(prior), bp_method, max_iter, float(ms_scaling_factor),
-                   early_stop, shot_block, check_perm, inv_var_perm, msg_dtype)
+                   early_stop, shot_block, check_perm, inv_var_perm, msg_dtype, prior_quanta)
 
     def decode_tensors(self, syndromes: torch.Tensor):
         """(C, S) device syndromes in the original check order -> (hard,
         posterior, conv, iters) with rows in the original column order."""
         if self._check_perm is not None:
             syndromes = syndromes[self._check_perm]
-        hard, post, conv, iters = bsr_bp_decode(
-            self.layout, self._prior, syndromes, self.method, self.max_iter,
-            self.ms_scaling_factor, self.early_stop, self.shot_block)
+        if self.msg_dtype == "int8":
+            hard, post, conv, iters = bsr_bp_decode_int8(
+                self.layout, self._prior_q, syndromes, self.max_iter,
+                alpha_num_of(self.ms_scaling_factor), self.early_stop, self.shot_block)
+            post = post.to(torch.float32) * self._delta
+        else:
+            hard, post, conv, iters = bsr_bp_decode(
+                self.layout, self._prior, syndromes, self.method, self.max_iter,
+                self.ms_scaling_factor, self.early_stop, self.shot_block)
         if self._inv_var_perm is not None:
             hard, post = hard[self._inv_var_perm], post[self._inv_var_perm]
         return hard, post, conv, iters

@@ -51,8 +51,10 @@ def bp_fixed(tables: TannerTables, prior_llr: torch.Tensor, syndromes: torch.Ten
     if prior.shape != (V,):
         raise ValueError(f"prior_llr must have shape ({V},)")
     if S == 0:  # a grid of no blocks is not a launch
-        return bp_core(tables, prior, syndromes, method, max_iter, ms_scaling_factor,
-                       early_stop=False)
+        return (torch.empty((V, 0), dtype=torch.uint8, device=dev),
+                torch.empty((V, 0), dtype=torch.float32, device=dev),
+                torch.empty((0,), dtype=torch.bool, device=dev),
+                torch.empty((0,), dtype=torch.int32, device=dev))
     synd = syndromes.to(torch.uint8).contiguous()
     msg = torch.empty((C * Dc, S), dtype=torch.float32, device=dev)
     post = torch.empty((V, S), dtype=torch.float32, device=dev)

@@ -13,8 +13,8 @@ from typing import Optional
 import numpy as np
 from scipy import sparse
 
-from .. import _host
 from ..utils.device import DeviceLike
+from .osd import osd_decode_batch
 
 __all__ = ["BPOSDDecoder"]
 
@@ -52,7 +52,7 @@ class BPOSDDecoder:
         hard = hard.copy()
         if not conv.all():
             failed = np.nonzero(~conv)[0]
-            hard[failed] = _host.osd_decode_batch(
+            hard[failed] = osd_decode_batch(
                 self.H, syndromes[failed], post[failed],
                 osd_method=self.osd_method, osd_order=self.osd_order)
         return hard

@@ -15,10 +15,11 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from .. import _host
+from ..codes.io import read_quantum_code
 from ..utils.device import DeviceLike, resolve_device
 from .bposd import BPOSDDecoder
 from .select import make_spacetime_bp_decoder, qc_kwargs_for_code, qc_kwargs_single_shot
+from .spacetime import SpacetimeCode, SpacetimeCodeSingleShot
 
 __all__ = ["BPOSDCorrect", "BPOSDCorrectSingleShot", "BPOSDHybridCorrect", "add_bposd_args",
            "unpack_bposd_args", "load_code", "spacetime_prior"]
@@ -52,7 +53,7 @@ class BPOSDCorrect:
         _check_options("BPOSDCorrect", bp_osd_options)
         data_prior, meas_prior = priors
         self._checks = code.checks.x if basis == "x" else code.checks.z
-        self._spacetime_code = _host.SpacetimeCode(self._checks, rounds)
+        self._spacetime_code = SpacetimeCode(self._checks, rounds)
         bp = make_spacetime_bp_decoder(
             self._checks, rounds, device=resolve_device(device),
             channel_probs=spacetime_prior(self._spacetime_code, data_prior, meas_prior),
@@ -85,7 +86,7 @@ class BPOSDCorrectSingleShot:
         self._rounds = rounds
         self._checks = code.checks.x if basis == "x" else code.checks.z
         self._Hd = self._checks.toarray().astype(np.int64)
-        self._spacetime_code = _host.SpacetimeCodeSingleShot(self._checks)
+        self._spacetime_code = SpacetimeCodeSingleShot(self._checks)
         self._bpd_single_shot = BPOSDDecoder.from_check_matrix(
             self._spacetime_code.spacetime_check_matrix,
             channel_probs=spacetime_prior(self._spacetime_code, data_prior, meas_prior),
@@ -120,7 +121,7 @@ class BPOSDHybridCorrect:
         data_prior, meas_prior = priors
         self._checks = code.checks.x if basis == "x" else code.checks.z
         self._HdT = self._checks.T.toarray().astype(np.int64)
-        self._spacetime_code = _host.SpacetimeCode(self._checks, rounds)
+        self._spacetime_code = SpacetimeCode(self._checks, rounds)
         self._bpd = make_spacetime_bp_decoder(
             self._checks, rounds, device=dev,
             channel_probs=spacetime_prior(self._spacetime_code, data_prior, meas_prior),
@@ -172,4 +173,4 @@ def unpack_bposd_args(parsed_args, code) -> Dict:
 def load_code(args):
     """Load and validate a code file."""
     with args.code.open() as code_file:
-        return _host.read_quantum_code(code_file, validate_stabilizer_code=True)
+        return read_quantum_code(code_file, validate_stabilizer_code=True)

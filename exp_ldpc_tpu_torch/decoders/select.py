@@ -6,9 +6,11 @@ as they are:
   * :func:`make_bp_decoder` (flat BP): from ~1 MiB of dense routing
     operands up, where "usable" (a CUDA device, the counterpart of
     ``_bsr_usable``), kernel K1 (:class:`.bp_bsr.BSRBPDecoder`, early exit
-    per shot block); below it :class:`.bp.BPDecoder`.  Where JAX would take
-    the quasi-cyclic roll decoder (``QCBPDecoder``), the port raises: that
-    decoder is not ported.
+    per shot block); else, with ``qc_dims`` given, the quasi-cyclic roll
+    decoder (:class:`.qc_bp.QCBPDecoder`) where its monomial count and the
+    operand size are in its range; else :class:`.bp.BPDecoder`.  The int8
+    message path (kernel K5) is passed through when asked for by
+    ``msg_dtype="int8"`` and never chosen.
   * :func:`make_spacetime_bp_decoder`: from the same threshold up (and
     rounds >= 1) the K3 contract
     (:class:`.bp_bsr_spacetime.SpacetimeBSRDecoder`, global early exit),
@@ -20,15 +22,16 @@ a ROADMAP item.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict
 
 import numpy as np
 import torch
 from scipy import sparse
 
-from .. import _host
 from ..utils.device import DeviceLike, resolve_device
 from .bp import dense_ops_bytes
+from .tanner import TannerELL
 
 __all__ = ["make_bp_decoder", "make_spacetime_bp_decoder", "bsr_selected", "stbsr_selected",
            "qc_kwargs_for_code", "qc_kwargs_single_shot"]
@@ -59,28 +62,33 @@ def make_bp_decoder(H, *, qc_dims=None, qc_check_perm=None, qc_var_perm=None,
                     device: DeviceLike = "cuda", **opts):
     """Flat BP on ``device`` with the JAX package's automatic choice.
     ``opts`` are the decoders' ``from_check_matrix`` options; the BSR-only
-    ``shot_block`` is dropped where the flat decoder is chosen (as JAX
-    drops it), and ``msg_dtype="int8"`` (kernel K5) raises."""
+    ``shot_block``, ``msg_dtype`` and ``prior_quanta`` are dropped where
+    another decoder is chosen (as JAX ignores them there).
+
+    The choice never falls on the int8 message path (kernel K5): it is kept
+    for ablations, and a caller opts in with ``msg_dtype="int8"``."""
     from .bp import BPDecoder
     from .bp_bsr import BSRBPDecoder
+    from .qc_bp import QCBPDecoder
 
-    if opts.get("msg_dtype", "bfloat16") != "bfloat16":
-        raise NotImplementedError(
-            f"msg_dtype={opts['msg_dtype']!r} (kernel K5, bp_bsr.py::_kernel_int8): not "
-            "ported yet (ROADMAP.md, Queue 2)")
+    if opts.get("msg_dtype") == "int8":
+        warnings.warn(
+            "msg_dtype='int8' is an ablation-only path: the automatic choice is the bf16 "
+            "kernel at equal accuracy", stacklevel=2)
     dev = resolve_device(device)
     H = sparse.csr_matrix(H)
-    tanner = _host.TannerELL.from_check_matrix(H)
+    tanner = TannerELL.from_check_matrix(H)
     if bsr_selected(tanner, dev):
         return BSRBPDecoder.from_check_matrix(H, check_perm=qc_check_perm, var_perm=qc_var_perm,
                                               device=dev, **opts)
     if qc_dims is not None:
         L = int(np.prod(qc_dims))
         if H.nnz // L <= _QC_MAX_MONOMIALS and _ops_bytes(tanner) > _QC_PREFER_DENSE_OPS_LIMIT:
-            raise NotImplementedError(
-                "the quasi-cyclic roll decoder (QCBPDecoder, decoders/qc_bp.py) that the JAX "
-                "rule picks here: not ported yet (ROADMAP.md, Queue 1 item 11)")
-    opts = {k: v for k, v in opts.items() if k not in ("shot_block", "msg_dtype")}
+            # K1 not usable (no card): the roll decoder is the next structured choice
+            return QCBPDecoder.from_check_matrix(H, qc_dims, check_perm=qc_check_perm,
+                                                 var_perm=qc_var_perm, device=dev, **opts)
+    opts = {k: v for k, v in opts.items()
+            if k not in ("shot_block", "msg_dtype", "prior_quanta")}
     return BPDecoder.from_check_matrix(H, device=dev, **opts)
 
 
@@ -92,7 +100,7 @@ def make_spacetime_bp_decoder(H, num_rounds: int, *, device: DeviceLike = "cuda"
 
     dev = resolve_device(device)
     H = sparse.csr_matrix(H)
-    if stbsr_selected(_host.TannerELL.from_check_matrix(H), num_rounds, dev):
+    if stbsr_selected(TannerELL.from_check_matrix(H), num_rounds, dev):
         return SpacetimeBSRDecoder.from_check_matrix(H, num_rounds, device=dev, **opts)
     return SpacetimeBPDecoder.from_check_matrix(H, num_rounds, device=dev, **opts)
 

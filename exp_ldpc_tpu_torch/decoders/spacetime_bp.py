@@ -28,11 +28,11 @@ import numpy as np
 import torch
 from scipy import sparse
 
-from .. import _host
 from ..convert import TannerTables, prior_llr_st, tanner_tables
 from ..utils.device import DeviceLike, resolve_device
 from .bp import (BIG, DecoderBase, alpha_at, channel_priors, check_parity, check_update_cm,
                  normalize_method, priors_to_llr)
+from .tanner import TannerELL
 
 __all__ = ["stbp_core", "SpacetimeBPDecoder", "SpacetimeDecoderBase"]
 
@@ -173,7 +173,7 @@ class SpacetimeDecoderBase(DecoderBase):
         R = int(num_rounds)
         n_st = (R + 1) * n + R * r
         priors = channel_priors(n_st, error_rate, channel_probs)
-        tables = tanner_tables(_host.TannerELL.from_check_matrix(H), resolve_device(device))
+        tables = tanner_tables(TannerELL.from_check_matrix(H), resolve_device(device))
         if max_iter <= 0:  # ldpc convention: default = column count
             max_iter = n_st
         return cls(tables, R, priors_to_llr(priors), max_iter,

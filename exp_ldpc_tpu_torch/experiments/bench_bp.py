@@ -33,7 +33,8 @@ import time
 import numpy as np
 import torch
 
-from .. import _host
+from ..codes.hgp import biregular_hgp
+from ..decoders.tanner import TannerELL
 from ..decoders.bp import bp_core, priors_to_llr
 from ..decoders.bp_bsr import BSRLayout, auto_shot_block, bsr_bp_decode
 
@@ -45,8 +46,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("bench_bp measures a CUDA device; none is present")
     dev = torch.device("cuda")
-    Hz = _host.biregular_hgp(12, 3, 4, seed=0, compute_logicals=False).checks.z
-    layout = BSRLayout.from_tanner(_host.TannerELL.from_check_matrix(Hz), dev)
+    Hz = biregular_hgp(12, 3, 4, seed=0, compute_logicals=False).checks.z
+    layout = BSRLayout.from_tanner(TannerELL.from_check_matrix(Hz), dev)
     prior = torch.as_tensor(priors_to_llr(np.full(Hz.shape[1], P))).to(dev)
     Hz_dense = Hz.T.toarray().astype(np.uint8)
     sblk = auto_shot_block(layout)

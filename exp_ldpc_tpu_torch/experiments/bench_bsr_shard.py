@@ -26,7 +26,9 @@ import numpy as np
 import torch
 from scipy import sparse
 
-from .. import _host
+from ..codes.hgp import biregular_hgp
+from ..codes.lifted import lifted_product_code_cyclic
+from ..decoders.tanner import TannerELL
 from ..decoders.bp import priors_to_llr
 from ..decoders.bp_bsr import BSRLayout, auto_shot_block, bsr_bp_decode
 from ..decoders.bp_bsr_shard import ShardedBSR, ShardedBSRDecoder, allreduce_bytes
@@ -38,11 +40,11 @@ __all__ = ["build_code", "slope_time", "main"]
 
 def build_code(name: str) -> sparse.csr_matrix:
     if name == "hgp625":
-        return _host.biregular_hgp(20, 3, 4, seed=1, compute_logicals=False).checks.z.tocsr()
+        return biregular_hgp(20, 3, 4, seed=1, compute_logicals=False).checks.z.tocsr()
     if name == "hgp10000":
-        return _host.biregular_hgp(80, 3, 4, seed=7, compute_logicals=False).checks.z.tocsr()
+        return biregular_hgp(80, 3, 4, seed=7, compute_logicals=False).checks.z.tocsr()
     if name == "cyclic4862":
-        code = _host.lifted.lifted_product_code_cyclic(q=22, m=1, w=14, r=5, seed=42,
+        code = lifted_product_code_cyclic(q=22, m=1, w=14, r=5, seed=42,
                                                        compute_logicals=False)
         meta = code.qc_meta
         # QC order: checks and qubits by circulant block
@@ -96,7 +98,7 @@ def main(argv=None) -> int:
 
     base = {"code": args.code, "n": V, "checks": C, "shots": S, "iters": iters,
             "device": device_name(dev)}
-    layout = BSRLayout.from_tanner(_host.TannerELL.from_check_matrix(H), dev)
+    layout = BSRLayout.from_tanner(TannerELL.from_check_matrix(H), dev)
     prior = torch.as_tensor(prior_llr).to(dev)
     sb = auto_shot_block(layout)
     per_decode = slope_time(

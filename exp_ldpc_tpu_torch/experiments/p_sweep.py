@@ -344,7 +344,7 @@ def cli_main(argv=None):
     """Console entry point: pheno noise with the reference's 2/3*p prior.
     With ``--pipeline --mesh_devices N`` (N > 1) and no ``--rank`` it
     starts the N rank processes itself."""
-    from .._host import depolarizing_noise
+    from ..circuits.noise import depolarizing_noise
 
     argv = list(sys.argv[1:] if argv is None else argv)
     probe = ArgumentParser(add_help=False)

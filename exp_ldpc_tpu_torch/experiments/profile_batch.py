@@ -28,7 +28,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import _host
+from ..circuits.noise import depolarizing_noise
+from ..codes.hgp import biregular_hgp
 from ..parallel.pipeline import StorageDecodePipeline
 from ..utils.cuda_build import BUILD_DIR
 
@@ -87,9 +88,9 @@ def main(argv=None) -> dict:
         raise SystemExit("profile_batch needs a CUDA device")
     dev = torch.device("cuda")
     p, max_iter = args.p, 48
-    code = _host.biregular_hgp(12, 3, 4, seed=0, compute_logicals=True)
+    code = biregular_hgp(12, 3, 4, seed=0, compute_logicals=True)
     pipe = StorageDecodePipeline(
-        code=code, rounds=4, noise_model=_host.depolarizing_noise(p, p),
+        code=code, rounds=4, noise_model=depolarizing_noise(p, p),
         data_prior=2 / 3 * p, meas_prior=2 / 3 * p, shots_per_device=args.shots,
         max_iter=max_iter, bp_method="ms", ms_scaling_factor=0.625,
         osd_fallback_cap=args.shots, osd_options=dict(osd_method="osd_cs", osd_order=7),

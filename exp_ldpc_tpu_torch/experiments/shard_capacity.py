@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from scipy import sparse
 
-from .. import _host
+from ..codes.hgp import biregular_hgp
 from ..decoders.bp import priors_to_llr
 from ..decoders.bp_bsr_shard import (ShardedBSR, ShardedBSRDecoder, allreduce_bytes,
                                      auto_num_shards)
@@ -48,7 +48,7 @@ def build(nv: int = 160, shards: int = 0, p: float = 5e-4, iters: int = 32,
     """(H, decoder, record of the build) for the demo's code."""
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    H = sparse.csr_matrix(_host.biregular_hgp(nv, 3, 4, seed=11, compute_logicals=False)
+    H = sparse.csr_matrix(biregular_hgp(nv, 3, 4, seed=11, compute_logicals=False)
                           .checks.z)
     build_code_s = time.perf_counter() - t0
     D = shards or auto_num_shards(H)

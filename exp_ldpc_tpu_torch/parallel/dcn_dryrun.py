@@ -31,7 +31,8 @@ def run_workload(shots_per_device: int = 16, seed: int = 0, device: str = "cuda"
     """The dry run's pipeline step for data rank ``rank``: (failures,
     shots, bp_unconverged), summed over ``mesh``'s data axis (this rank's
     own counts without a mesh)."""
-    from .._host import biregular_hgp, depolarizing_noise
+    from ..circuits.noise import depolarizing_noise
+    from ..codes.hgp import biregular_hgp
     from ..experiments.p_sweep import batch_seed
     from .pipeline import StorageDecodePipeline
 

@@ -41,7 +41,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import _host
+from ..circuits.ir import parse_circuit
+from ..circuits.storage_sim import build_storage_simulation
+from ..decoders.spacetime import SpacetimeCode, SpacetimeCodeSingleShot
+from ..decoders.tanner import TannerELL
+from ..sampler.reference import FrameSampler
 from ..convert import noise_args, prior_llr_st, tanner_tables
 from ..decoders.bp import bp_core, normalize_method, priors_to_llr
 from ..decoders.bp_bsr_spacetime import stbsr_decode
@@ -109,23 +113,23 @@ class StorageDecodePipeline:
         self.device = resolve_device(self.device)
         self._method = normalize_method(self.bp_method)
         code = self.code
-        sim = _host.build_storage_simulation(
+        sim = build_storage_simulation(
             self.rounds, self.noise_model, code, use_x_logicals=self.use_x_logicals)
         self.storage_sim = sim
-        self.parsed = _host.parse_circuit(sim.circuit)
+        self.parsed = parse_circuit(sim.circuit)
         self.x_count = code.checks.x.shape[0]
         self.z_count = code.checks.z.shape[0]
         self.num_data = code.num_qubits
         checks_sector = code.checks.x if self.use_x_logicals else code.checks.z
         logicals = code.logicals.x if self.use_x_logicals else code.logicals.z
-        self.spacetime = _host.SpacetimeCode(checks_sector, self.rounds)
-        self.tanner = _host.TannerELL.from_check_matrix(checks_sector)
+        self.spacetime = SpacetimeCode(checks_sector, self.rounds)
+        self.tanner = TannerELL.from_check_matrix(checks_sector)
         self._tables = tanner_tables(self.tanner, self.device)
         self._tables_ss = None
         if self.mode == "bposd_single_shot":
             # per-round decode matrix (H|I): one measurement-error column per check
-            H_ss = _host.SpacetimeCodeSingleShot(checks_sector).spacetime_check_matrix
-            self._tables_ss = tanner_tables(_host.TannerELL.from_check_matrix(H_ss),
+            H_ss = SpacetimeCodeSingleShot(checks_sector).spacetime_check_matrix
+            self._tables_ss = tanner_tables(TannerELL.from_check_matrix(H_ss),
                                             self.device)
         dev = self.device
         self._Hz = torch.as_tensor(checks_sector.toarray().astype(np.float32)).to(dev)
@@ -316,9 +320,9 @@ class StorageDecodePipeline:
     def rebind_noise(self, noise_model, data_prior: float, meas_prior: float):
         """New noise probabilities and priors for the same circuit structure;
         the op tables, Tanner tables and kernels are kept."""
-        sim = _host.build_storage_simulation(
+        sim = build_storage_simulation(
             self.rounds, noise_model, self.code, use_x_logicals=self.use_x_logicals)
-        parsed = _host.parse_circuit(sim.circuit)
+        parsed = parse_circuit(sim.circuit)
         if parsed.structure_signature() != self.parsed.structure_signature():
             raise ValueError("rebind_noise: circuit structure changed; build a new pipeline")
         self._noise_args = noise_args(parsed, self.device)
@@ -334,5 +338,5 @@ class StorageDecodePipeline:
         any statistical disagreement to the samplers.  Returns the first
         three outputs of the device step, as the JAX pipeline does."""
         S = shots if shots is not None else self.shots_per_device
-        record = _host.FrameSampler(self.storage_sim.circuit, seed=seed).sample(S)
+        record = FrameSampler(self.storage_sim.circuit, seed=seed).sample(S)
         return self._decode_records(torch.as_tensor(record).to(self.device))[:3]

@@ -22,7 +22,7 @@ from typing import Callable, List
 import numpy as np
 import torch
 
-from .. import _host
+from ..circuits.ir import parse_circuit
 from ..convert import DeviceOp, circuit_ops, noise_args
 from ..utils.device import DeviceLike, resolve_device
 
@@ -132,7 +132,7 @@ def build_record_sampler(circuit, shots: int, device: DeviceLike = "cuda"
     where ``noise_args`` is the f32 vector of :func:`convert.noise_args`.
     Record layout as the JAX sampler: rounds of [x_checks..., z_checks...]
     then the data readout."""
-    c = circuit if hasattr(circuit, "prologue") else _host.parse_circuit(circuit)
+    c = circuit if hasattr(circuit, "prologue") else parse_circuit(circuit)
     dev = resolve_device(device)
     S = int(shots)
     n_pro = sum(op.num_noise_args for op in c.prologue)
@@ -166,7 +166,7 @@ class DeviceSampler:
     """Batch sampler for a fixed circuit and shot count on one device."""
 
     def __init__(self, circuit, shots: int, device: DeviceLike = "cuda"):
-        c = circuit if hasattr(circuit, "prologue") else _host.parse_circuit(circuit)
+        c = circuit if hasattr(circuit, "prologue") else parse_circuit(circuit)
         self.circuit = c
         self.shots = int(shots)
         self.device = resolve_device(device)

@@ -185,7 +185,8 @@ def test_bp_decoder_defaults_and_errors(code):
 
 def test_make_bp_decoder_rule():
     """K1 from 1 MiB of dense routing operands up on a CUDA device;
-    BPDecoder below it or on the CPU; the QC roll decoder and int8 raise."""
+    BPDecoder below it or on the CPU; int8 is passed through with a warning
+    and the QC route builds the roll decoder (tests/test_torch_qc_bp.py)."""
     H = biregular_hgp(12, 3, 4, seed=0).checks.z
     Hss = SpacetimeCodeSingleShot(H).spacetime_check_matrix
     small = biregular_hgp(8, 3, 4, seed=2).checks.z
@@ -197,12 +198,14 @@ def test_make_bp_decoder_rule():
     dec = make_bp_decoder(H, error_rate=0.01, max_iter=4, bp_method="ms", shot_block=128,
                           device="cpu")
     assert type(dec) is BPDecoder and dec.max_iter == 4
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        make_bp_decoder(H, error_rate=0.01, msg_dtype="int8", device="cpu")
-    # the JAX rule takes QCBPDecoder here (<= 256 monomials, > 4 MiB operands)
+    with pytest.warns(UserWarning, match="ablation-only"):   # int8 (K5): passed through,
+        dec = make_bp_decoder(H, error_rate=0.01, msg_dtype="int8", device="cpu")  # never chosen
+    assert type(dec) is BPDecoder
+    # a matrix that is not block-circulant is refused by the roll decoder the
+    # JAX rule takes here (<= 256 monomials, > 4 MiB operands)
     rng = np.random.default_rng(3)
     Hqc = random_ldpc(rng, 600, 1200, row_w=3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(ValueError, match="shifted identities"):
         make_bp_decoder(Hqc, error_rate=0.01, qc_dims=(12,), device="cpu")
     assert type(make_bp_decoder(Hqc, error_rate=0.01, max_iter=2, device="cpu")) is BPDecoder
     if not torch.cuda.is_available():

@@ -176,9 +176,6 @@ def test_shot_block_resolution():
 
 
 def test_k1_refusals(code300):
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        BSRBPDecoder.from_check_matrix(code300, error_rate=0.01, bp_method="ms",
-                                       ms_scaling_factor=0.625, msg_dtype="int8", device="cpu")
     with pytest.raises(ValueError, match="msg_dtype"):
         BSRBPDecoder.from_check_matrix(code300, error_rate=0.01, msg_dtype="f16", device="cpu")
     with pytest.raises(TypeError):

@@ -4,12 +4,16 @@ A subprocess in which ``import jax`` fails imports every module of
 ``exp_ldpc_tpu_torch`` and runs a 64-shot HGP-225 sweep point on the CPU,
 through the library and through the CLI, a step of each of the
 single-shot and hybrid modes with the flat decoders, the check-partition
-decoders, the sharding experiments and ``dcn_dryrun --help``; a static scan finds no JAX import
-in the package or in ``chip_smoke.py``; ``chip_smoke.py`` refuses to run
-without a card, and outside the repository."""
+decoders, the sharding experiments and ``dcn_dryrun --help``; afterwards no
+loaded module's file lies in the JAX package's directory.  A copy of the
+port alone (no ``exp_ldpc_tpu/`` beside it) runs a sweep point; a static
+scan finds no JAX import and no loader trick in the package or in
+``chip_smoke.py``; ``chip_smoke.py`` refuses to run without a card, and
+outside the repository."""
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -33,17 +37,25 @@ except ImportError:
 """
 
 _CHECK_CLEAN = """
+import os
 leaked = [m for m, mod in sys.modules.items()
-          if (m == "jax" or m.startswith("jax.") or m.startswith("exp_ldpc_tpu."))
-          and mod is not None]
+          if (m == "jax" or m.startswith("jax.") or m == "exp_ldpc_tpu"
+              or m.startswith("exp_ldpc_tpu.")) and mod is not None]
+assert not leaked, leaked
+# nor may any module, under whatever name, have been loaded from the JAX
+# package's files
+sep = os.sep
+leaked = [(m, f) for m, mod in list(sys.modules.items())
+          for f in [getattr(mod, "__file__", None) or ""]
+          if (sep + "exp_ldpc_tpu" + sep) in os.path.realpath(f)]
 assert not leaked, leaked
 """
 
 
-def _run(code: str, timeout: int = 300) -> subprocess.CompletedProcess:
+def _run(code: str, timeout: int = 300, cwd: Path = REPO) -> subprocess.CompletedProcess:
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"  # several test processes share the CPU
-    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)], cwd=REPO, env=env,
+    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=timeout)
 
 
@@ -55,12 +67,13 @@ import exp_ldpc_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 15, names
-from exp_ldpc_tpu_torch import _host
+assert len(names) >= 50, names
+from exp_ldpc_tpu_torch.circuits.noise import depolarizing_noise
+from exp_ldpc_tpu_torch.codes.hgp import biregular_hgp
 from exp_ldpc_tpu_torch.experiments.p_sweep import p_sweep
-code = _host.biregular_hgp(12, 3, 4, seed=0, compute_logicals=True)
+code = biregular_hgp(12, 3, 4, seed=0, compute_logicals=True)
 recs = p_sweep(
-    samples=64, p_values=np.array([3e-3]), noise_model=_host.depolarizing_noise,
+    samples=64, p_values=np.array([3e-3]), noise_model=depolarizing_noise,
     noise_model_args=lambda p: {"p": p, "pm": p},
     meas_prior=lambda p, xs, zs: 2 / 3 * p, data_prior=lambda p, xs, zs: 2 / 3 * p,
     seed=0, pipeline={"mesh_devices": 1, "shots_per_device": 64}, device="cpu",
@@ -78,14 +91,15 @@ def test_modes_and_flat_decoders_run_without_jax():
     plain versions and the host drivers) on the CPU with JAX blocked."""
     proc = _run(_BLOCK_JAX + """
 import numpy as np, torch
-from exp_ldpc_tpu_torch import _host
+from exp_ldpc_tpu_torch.circuits.noise import depolarizing_noise
+from exp_ldpc_tpu_torch.codes.hgp import biregular_hgp
 from exp_ldpc_tpu_torch.decoders.bp_bsr import BSRBPDecoder
 from exp_ldpc_tpu_torch.decoders.select import make_bp_decoder
 from exp_ldpc_tpu_torch.parallel.pipeline import StorageDecodePipeline
-code = _host.biregular_hgp(12, 3, 4, seed=0, compute_logicals=True)
+code = biregular_hgp(12, 3, 4, seed=0, compute_logicals=True)
 for mode in ("bposd_single_shot", "bposd_hybrid"):
     pipe = StorageDecodePipeline(
-        code=code, rounds=2, noise_model=_host.depolarizing_noise(3e-3, 3e-3),
+        code=code, rounds=2, noise_model=depolarizing_noise(3e-3, 3e-3),
         data_prior=2e-3, meas_prior=2e-3, shots_per_device=64, max_iter=24, bp_method="ms",
         ms_scaling_factor=0.625, osd_fallback_cap=64, mode=mode, device="cpu")
     g = torch.Generator()
@@ -109,11 +123,11 @@ def test_sharded_decoders_and_mesh_run_without_jax():
     and ``dcn_dryrun --help`` with JAX blocked."""
     proc = _run(_BLOCK_JAX + """
 import numpy as np
-from exp_ldpc_tpu_torch import _host
+from exp_ldpc_tpu_torch.codes.hgp import biregular_hgp
 from exp_ldpc_tpu_torch.decoders.bp_bsr_shard import ShardedBSRDecoder, auto_num_shards
 from exp_ldpc_tpu_torch.experiments import bench_bsr_shard, shard_capacity
 from exp_ldpc_tpu_torch.parallel import check_shard, dcn_dryrun, mesh
-H = _host.biregular_hgp(20, 3, 4, seed=1).checks.z
+H = biregular_hgp(20, 3, 4, seed=1).checks.z
 synd = np.zeros((8, H.shape[0]), np.uint8)
 assert auto_num_shards(H) == 1
 hard, post, conv = ShardedBSRDecoder.from_check_matrix(
@@ -157,11 +171,40 @@ cli_main(["artifacts/hgp225.qecc", "--samples", "32", "--p_sweep", "(0.004,0.004
 
 
 @pytest.mark.parametrize("path", sorted(
-    [p for p in PKG.rglob("*.py")] + [REPO / "chip_smoke.py"]), ids=lambda p: p.name)
+    [p for p in PKG.rglob("*.py")] + [REPO / "chip_smoke.py"]), ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_import_in_source(path):
     text = path.read_text()
     assert not re.search(r"^\s*(import jax|from jax)", text, re.M), path
     assert not re.search(r"^\s*(import|from) exp_ldpc_tpu(\.|\s|$)", text, re.M), path
+    # no way around the import system into the JAX package's files either
+    assert not re.search(r"\b_host\b", text), path
+    assert "spec_from_file_location" not in text, path
+    assert not re.search(r"__path__\s*(=|\.(append|insert|extend))", text), path
+    assert not re.search(r"sys\.path\.(append|extend)", text), path
+
+
+def test_port_alone_runs_a_sweep_point(tmp_path):
+    """A directory that holds the port and the HGP-225 code file, and no
+    ``exp_ldpc_tpu/``, runs a 32-shot ``bposd`` sweep point on the CPU."""
+    shutil.copytree(PKG, tmp_path / "exp_ldpc_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (tmp_path / "artifacts").mkdir()
+    shutil.copy(REPO / "artifacts" / "hgp225.qecc", tmp_path / "artifacts")
+    proc = _run(_BLOCK_JAX + f"""
+import exp_ldpc_tpu_torch
+assert exp_ldpc_tpu_torch.__file__.startswith({str(tmp_path)!r}), exp_ldpc_tpu_torch.__file__
+from exp_ldpc_tpu_torch.experiments.p_sweep import cli_main
+cli_main(["artifacts/hgp225.qecc", "--samples", "32", "--p_sweep", "(0.004,0.004,1)",
+          "--rounds", "1", "--pipeline", "--shots_per_device", "32", "--device", "cpu",
+          "--bposd_max_iter", "12", "--bposd_bp_method", "ms",
+          "--bposd_ms_scaling_factor", "0.625", "--bposd_osd_order", "2"])
+from exp_ldpc_tpu_torch.native import get_gf2_lib
+assert get_gf2_lib() is not None
+""" + _CHECK_CLEAN, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert lines[1].startswith("0,0.004,") and len(lines) == 2
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["artifacts", "build", "exp_ldpc_tpu_torch"]
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -94,7 +94,7 @@ def test_measurement_flip_probability_one():
 def test_record_sampler_function_matches_class():
     """build_record_sampler is the same sampling program as DeviceSampler."""
     from exp_ldpc_tpu_torch.convert import noise_args
-    from exp_ldpc_tpu_torch._host import parse_circuit
+    from exp_ldpc_tpu_torch.circuits.ir import parse_circuit
 
     parsed = parse_circuit(MIXED)
     fn = build_record_sampler(parsed, 256, "cpu")
@@ -107,7 +107,7 @@ def test_record_sampler_function_matches_class():
 def test_noise_is_a_runtime_argument():
     """One sampling program serves every noise value of a structure: the
     probabilities are read from the tensor passed at call time."""
-    from exp_ldpc_tpu_torch._host import parse_circuit
+    from exp_ldpc_tpu_torch.circuits.ir import parse_circuit
 
     program = build_record_sampler(parse_circuit("R 0 1\nX_ERROR(0.5) 0 1\nM 0 1"), 64, "cpu")
     for p in (0.0, 1.0):

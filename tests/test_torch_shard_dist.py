@@ -25,7 +25,9 @@ import numpy as np
 import pytest
 import torch
 
-from exp_ldpc_tpu_torch import _host
+from exp_ldpc_tpu_torch.circuits.noise import depolarizing_noise
+from exp_ldpc_tpu_torch.codes.hgp import biregular_hgp
+from exp_ldpc_tpu_torch.decoders.tanner import TannerELL
 from exp_ldpc_tpu_torch.convert import tanner_tables
 from exp_ldpc_tpu_torch.decoders.bp import bp_core, priors_to_llr
 from exp_ldpc_tpu_torch.decoders.bp_bsr_shard import ShardedBSRDecoder
@@ -49,14 +51,14 @@ def _one_torch_thread():
 
 
 def _bsr_case():
-    H = _host.biregular_hgp(20, 3, 4, seed=1, compute_logicals=False).checks.z
+    H = biregular_hgp(20, 3, 4, seed=1, compute_logicals=False).checks.z
     rng = np.random.default_rng(0)
     err = (rng.random((96, H.shape[1])) < 0.01).astype(np.uint8)
     return H, (err @ H.toarray().T % 2).astype(np.uint8)
 
 
 def _flat_case():
-    H = _host.biregular_hgp(6, 2, 3, seed=1).checks.z
+    H = biregular_hgp(6, 2, 3, seed=1).checks.z
     rng = np.random.default_rng(0)
     err = (rng.random((80, H.shape[1])) < 0.01).astype(np.uint8)
     return H, (err @ H.toarray().T % 2).astype(np.uint8)
@@ -117,7 +119,7 @@ def test_model_sharded_bsr_equals_emulation(model_world, method):
 def test_sharded_bp_matches_bp_core(model_world, early_stop):
     Hf, sf = _flat_case()
     iters = dict(_FLAT)[early_stop]
-    tables = tanner_tables(_host.TannerELL.from_check_matrix(Hf), "cpu")
+    tables = tanner_tables(TannerELL.from_check_matrix(Hf), "cpu")
     prior = torch.as_tensor(priors_to_llr(np.full(Hf.shape[1], 0.01)))
     rh, _rp, rc, _ri = bp_core(tables, prior, torch.as_tensor(sf.T.copy()), "ms", iters, 0.625,
                                early_stop)
@@ -131,9 +133,9 @@ def test_sharded_bp_matches_bp_core(model_world, early_stop):
 
 
 def _pipe_kw(**over):
-    code = _host.biregular_hgp(6, 2, 3, seed=1, compute_logicals=True)
+    code = biregular_hgp(6, 2, 3, seed=1, compute_logicals=True)
     p = 0.02
-    kw = dict(code=code, rounds=2, noise_model=_host.depolarizing_noise(p, p),
+    kw = dict(code=code, rounds=2, noise_model=depolarizing_noise(p, p),
               data_prior=2 / 3 * p, meas_prior=2 / 3 * p, shots_per_device=32, max_iter=8,
               bp_method="ms", ms_scaling_factor=0.625, device="cpu")
     kw.update(over)
@@ -141,9 +143,9 @@ def _pipe_kw(**over):
 
 
 def _sweep_kw(mesh_devices):
-    code = _host.biregular_hgp(6, 2, 3, seed=1, compute_logicals=True)
+    code = biregular_hgp(6, 2, 3, seed=1, compute_logicals=True)
     return dict(samples=96, p_values=np.array([0.01, 0.03]), code=code, rounds=2,
-                noise_model=_host.depolarizing_noise,
+                noise_model=depolarizing_noise,
                 noise_model_args=lambda p: {"p": p, "pm": p},
                 meas_prior=lambda p, xs, zs: 2 / 3 * p, data_prior=lambda p, xs, zs: 2 / 3 * p,
                 decoder_mode="bposd", seed=3, device="cpu",
@@ -200,7 +202,7 @@ def test_data_sharded_sweep_sums_rank_runs(data_world):
         f = n = 0
         for k in range(2):
             pipe = StorageDecodePipeline(
-                code=kw["code"], rounds=2, noise_model=_host.depolarizing_noise(p, p),
+                code=kw["code"], rounds=2, noise_model=depolarizing_noise(p, p),
                 data_prior=2 / 3 * p, meas_prior=2 / 3 * p, shots_per_device=16,
                 max_iter=8, bp_method="ms", ms_scaling_factor=0.625, osd_fallback_cap=16,
                 osd_options=opts, device="cpu")
