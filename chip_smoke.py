@@ -8,14 +8,21 @@ Phases, in order; any failure raises and exits nonzero:
      port's C++ GF(2)/OSD library must build and load (no silent numpy
      fallback on this machine);
   2. build kernels K1 (``csrc/bsr_bp.cu``), K2 (``csrc/stbp.cu``), K3
-     (``csrc/stbsr.cu``), K4 (``csrc/bsr_shard.cu``), K5
-     (``csrc/bsr_bp_int8.cu``) and K6 (``csrc/bpflat.cu``) from source, one
-     ``nvcc`` per source, all at once;
+     (``csrc/stbsr.cu``: one grid per phase of an iteration, the phases in
+     ``csrc/stbsr_phases.cuh``), K4 (``csrc/bsr_shard.cu``, phases in
+     ``csrc/bsr_shard_phases.cuh``), K5 (``csrc/bsr_bp_int8.cu``) and K6
+     (``csrc/bpflat.cu``) from source, one ``nvcc`` per source, all at once;
   3. K2 against its plain PyTorch version on the card, at a ragged shot
      count (685, the host redecode's size), 4,096 and the main path's
      16,384 shots: hard decisions, conv and iters equal, posteriors equal
      to 1e-6*max(1,|x|);
-  4. K3 against its plain PyTorch version, at the same sizes and bounds;
+  4. K3 against its plain PyTorch version, at the same sizes and bounds:
+     the device-side loop (one call per decode; 685 shots are padded to 688
+     and run the vector paths like 4,096 and 16,384), fixed and with the
+     early exit, at a batch where the exit never fires and at an easy one
+     (p = 2e-4) where it fires before ``max_iter``; and single iterations
+     of the kernels looped on the host at S = 97 and 685 as they are (one
+     shot per thread: the scalar paths);
   5. the device sampler: noiseless circuit -> zero detectors; detector rates
      against the host oracle ``FrameSampler`` (whose ~10 s of host work runs
      in a thread beside phases 2-4);
@@ -41,10 +48,13 @@ Phases, in order; any failure raises and exits nonzero:
 
  13. K4 (``csrc/bsr_shard.cu``) against its plain version through the
      emulated check-partition decoder at ``biregular_hgp(20, 3, 4, seed=1)``
-     (n = 625), D in {1, 2, 3}, S in {97, 685, 4,096}, min-sum at alpha
-     0.625, adaptive min-sum and sum-product, 24 iterations (bounds as in
-     phase 3), and at the capacity demo's full size (``shard_capacity.build``:
-     n = 40,000, D = ``auto_num_shards`` (8), 128 shots, 32 iterations);
+     (n = 625), D in {1, 2, 3}, S in {97, 685, 4,096} (the decoder pads 97
+     and 685 to a multiple of 8: vector paths), min-sum at alpha 0.625,
+     adaptive min-sum and sum-product, 24 iterations (bounds as in phase
+     3); one iteration on ragged tensors of 97 shots (one shot per thread),
+     partials stored and accumulated, equal to the plain version's; and at
+     the capacity demo's full size (``shard_capacity.build``: n = 40,000,
+     D = ``auto_num_shards`` (8), 128 shots, 32 iterations);
  14. the emulated check-partition decode on K4 against K1 at fixed
      iterations (the JAX contract): hard decisions and conv equal;
  15. the model axis's main path: ``shard_capacity``'s decode and checks at
@@ -58,8 +68,8 @@ Phases, in order; any failure raises and exits nonzero:
  17. K3 against its plain version in the regime where the JAX package
      selects the rolled K3b (>= 64 BSR tiles): ``bench_stbsr.py``'s codes
      (the cyclic lifted product n = 4,862 and ``biregular_hgp(80, 3, 4,
-     seed=7)`` n = 10,000), 8 rounds, 128 shots, 32 iterations; min-sum at
-     both, sum-product at the first; each compared decode is timed once;
+     seed=7)`` n = 10,000), 8 rounds, 128 shots, 32 iterations; min-sum and
+     sum-product at both; each compared decode is timed once;
  18. timings: K4 per decode iteration (all shards) and its plain version
      at the capacity and ``bench_bsr_shard`` (cyclic n = 4,862 in QC order,
      1,024 shots, D in {1, 2, 4}) shapes, beside K1 at the same shapes,
@@ -91,7 +101,10 @@ Phases, in order; any failure raises and exits nonzero:
 Each run of the main path (phases 6, 7, the two runs of phase 11, and
 phases 15, 16 and 20) is driven with every launch count set to 0 just before it
 and read just after (phase 16 reads the counts of its two ranks); a kernel
-of that run that was not launched fails the script.  The line before the
+of that run that was not launched fails the script.  A count is one call of
+a kernel's C entry point: for K3 one whole decode (three grids per
+iteration, all enqueued by the one call), for K4 one iteration of one shard
+(two grids), for the others one grid.  The line before the
 last is the kernel summary JSON (``launches`` summed over those runs,
 ``launches_by_run`` split by run; K3b's row counts phase 17's K3 decodes,
 since no main-path run reaches its sizes; without ``--quick`` only, as are
@@ -242,9 +255,12 @@ def phase_build() -> None:
         list(pool.map(lambda kern: kern.build(), KERNELS.values()))
     for kern in KERNELS.values():
         log(f"built {kern.source.name} in {kern.build_seconds:.1f} s")
+        entry = ""
         for line in kern.build_log.splitlines():
+            if "Compiling entry function" in line:   # the (mangled) template instance
+                entry = line.split("'")[1]
             if "registers" in line or "spill" in line:
-                log("  " + line.strip())
+                log(f"  {entry}: " + line.strip().replace("ptxas info    : ", ""))
 
 
 def _same(tag: str, su, synd, kern, plain) -> float:
@@ -287,21 +303,47 @@ def phase_k2(su: Setup, sizes) -> float:
     return worst
 
 
-def phase_k3(su: Setup, sizes) -> float:
+def phase_k3(su: Setup, sizes, ragged) -> float:
     log(f"== phase 4: K3 vs plain (bf16 messages), S in {sizes}, {MAX_ITER} iterations")
     p = 3e-3
     prior = su.prior(p)
     worst = 0.0
     cases = (("ms", ALPHA, False), ("ms", 0.0, False), ("ps", 0.0, False), ("ms", ALPHA, True))
+    plain = k3._stbsr_iter_plain
     for S in sizes:
         synd = su.syndromes(S, p, seed=2)
         for method, msf, es in cases:
             kern = k3.stbsr_decode(su.tables, ROUNDS, prior, synd, method, MAX_ITER, msf, es)
-            plain = k3.stbsr_decode(su.tables, ROUNDS, prior, synd, method, MAX_ITER, msf, es,
-                                    iterate=k3._stbsr_iter_plain)
+            ref = k3.stbsr_decode(su.tables, ROUNDS, prior, synd, method, MAX_ITER, msf, es,
+                                  iterate=plain)
             torch.cuda.synchronize()
             worst = max(worst, _same(f"S={S} {method} alpha={msf} early_stop={es}", su, synd,
-                                     kern, plain))
+                                     kern, ref))
+    # the exit on the device: a hard batch never fires it, an easy one does
+    S = sizes[-1] // 4
+    for p_err, fires in ((p, False), (2e-4, True)):
+        synd = su.syndromes(S, p_err, seed=12)
+        before = k3.KERNEL.launches
+        kern = k3.stbsr_decode(su.tables, ROUNDS, prior, synd, "ms", MAX_ITER, ALPHA, True)
+        check(k3.KERNEL.launches == before + 1, "one call of K3's entry point per decode")
+        ref = k3.stbsr_decode(su.tables, ROUNDS, prior, synd, "ms", MAX_ITER, ALPHA, True,
+                              iterate=plain)
+        worst = max(worst, _same(f"S={S} p={p_err} early exit", su, synd, kern, ref))
+        it = int(kern[3][0])
+        check((it < MAX_ITER) == fires and bool(kern[2].all()) == fires,
+              f"p={p_err}: the exit {'fires' if fires else 'never fires'} ({it} of {MAX_ITER} "
+              "iterations, as the plain loop)")
+    # single iterations of the kernels on ragged tensors (one shot per thread)
+    for S in ragged:
+        synd = su.syndromes(S, p, seed=13)
+        for method, msf, es in (("ms", ALPHA, True), ("ps", 0.0, False)):
+            kern = k3.stbsr_decode(su.tables, ROUNDS, prior, synd, method, 12, msf, es,
+                                   iterate=k3.stbsr_iter)
+            ref = k3.stbsr_decode(su.tables, ROUNDS, prior, synd, method, 12, msf, es,
+                                  iterate=plain)
+            torch.cuda.synchronize()
+            worst = max(worst, _same(f"S={S} {method} early_stop={es}, one iteration per call",
+                                     su, synd, kern, ref))
     return worst
 
 
@@ -475,10 +517,15 @@ def phase_timings(su: Setup, dev: torch.device, shots: int) -> dict:
     t["K3_plain"] = _median_ms(
         lambda s: k3.stbsr_decode(*args, s, "ms", MAX_ITER, ALPHA, False, iterate=plain),
         synds[:5])
+    # the flag traffic of the early exit (which never fires at this p)
+    t["K3_es"] = _median_ms(lambda s: k3.stbsr_decode(*args, s, "ms", MAX_ITER, ALPHA, True),
+                            synds[:5])
     # K3 at the ragged size of the host BP+OSD redecode
     small = [x[:, :S_REDECODE].contiguous() for x in synds]
     t[f"K3_S{S_REDECODE}"] = _median_ms(
         lambda s: k3.stbsr_decode(*args, s, "ms", MAX_ITER, ALPHA, False), small[:5])
+    t[f"K3_S{S_REDECODE}_es"] = _median_ms(
+        lambda s: k3.stbsr_decode(*args, s, "ms", MAX_ITER, ALPHA, True), small[:5])
     t[f"K3_S{S_REDECODE}_plain"] = _median_ms(
         lambda s: k3.stbsr_decode(*args, s, "ms", MAX_ITER, ALPHA, False, iterate=plain),
         small[:5])
@@ -743,6 +790,25 @@ def phase_k4(dev: torch.device, sizes, cap):
                 torch.cuda.synchronize()
                 worst = max(worst, _same(f"{fs.name} D={D} S={S} {method} alpha={msf}", fs,
                                          synd, kern, plain))
+    # one iteration on ragged tensors (one shot per thread), stored and accumulated
+    sb = k4.ShardedBSR.from_check_matrix(fs.H, 2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    for d in range(sb.num_shards):
+        tab = sb.tables(d, dev)
+        post = 3 + 4 * torch.randn((sb.v_pad, 97), generator=gen, device=dev)
+        msgs = (2 * torch.randn((sb.e_loc, 97), generator=gen, device=dev)).to(torch.bfloat16)
+        synd = (torch.rand((sb.c_pad_loc, 97), generator=gen, device=dev) < 0.1).to(torch.uint8)
+        run = torch.randn((sb.v_pad, 97), generator=gen, device=dev)
+        for method in ("ms", "ps"):
+            mk, pk = k4.bsr_shard_iter(tab, post, msgs, synd, ALPHA, method)
+            mp, pp = k4.bsr_shard_iter_plain(tab, post, msgs, synd, ALPHA, method)
+            _m, ak = k4.bsr_shard_iter(tab, post, msgs, synd, ALPHA, method,
+                                       out_part=run.clone(), accumulate=True)
+            torch.cuda.synchronize()
+            check(torch.equal(mk, mp) and torch.equal(pk, pp) and torch.equal(ak, run + pp),
+                  f"shard {d} of {sb.num_shards} {method}, S=97, one iteration: messages and "
+                  "partials (stored, accumulated) equal to plain")
     if cap is None:
         return worst, None
     H, cap_dec, rec = cap
@@ -858,7 +924,6 @@ def phase_k3b(dev: torch.device, t: dict):
         "HGP n=10000": biregular_hgp(80, 3, 4, seed=7, compute_logicals=False).checks.z}
     worst, launches, shapes = 0.0, 0, {}
     plain = k3._stbsr_iter_plain
-    # sum-product at the first code only: a K3 decode here takes ~1 s (4 CUDA blocks)
     methods = (("ms", ALPHA), ("ps", 0.0))
     for name, H in codes.items():
         tanner = TannerELL.from_check_matrix(H)
@@ -882,8 +947,7 @@ def phase_k3b(dev: torch.device, t: dict):
                 "(one run)")
             if method == "ms":
                 t[f"K3b_{tag}"], t[f"K3b_{tag}_plain"] = ms, ms_plain
-        methods = methods[:1]
-    check(launches > 0, f"K3 launched {launches} times at K3b's sizes")
+    check(launches > 0, f"K3 launched {launches} times at K3b's sizes (one call per decode)")
     return worst, launches, shapes
 
 
@@ -1166,7 +1230,8 @@ def main() -> int:
     world = None if args.quick else bg.submit(dist_world)
     # ragged shot edges (97, S_REDECODE) and the main path's batch (16,384)
     sizes = (97, 512) if args.quick else (S_REDECODE, 4096, 16384)
-    err = {"K2": phase(phase_k2, su, sizes), "K3": phase(phase_k3, su, sizes)}
+    err = {"K2": phase(phase_k2, su, sizes),
+           "K3": phase(phase_k3, su, sizes, (97,) if args.quick else (97, S_REDECODE))}
     phase(phase_sampler, su, dev, n_dev, n_host, host)
     src = "exp_ldpc_tpu_torch/csrc/"
     kernels = [
@@ -1176,12 +1241,14 @@ def main() -> int:
          "source": src + "bsr_bp.cu", "replaces": "exp_ldpc_tpu/decoders/bp_bsr.py:546"},
         {"name": "K2 stbp_fixed", "route": "cuda", "source": src + "stbp.cu",
          "replaces": "exp_ldpc_tpu/decoders/spacetime_bp_pallas.py:65"},
-        {"name": "K3 stbsr_iter", "route": "cuda", "source": src + "stbsr.cu",
+        {"name": "K3 stbsr_run (one count = one decode: 3 grids per iteration)", "route": "cuda",
+         "source": src + "stbsr.cu",
          "replaces": "exp_ldpc_tpu/decoders/bp_bsr_spacetime.py:113"},
-        {"name": "K3b stbsr_iter (served by K3: the same kernel; launches at K3b's sizes, "
+        {"name": "K3b stbsr_run (served by K3: the same kernels; decodes at K3b's sizes, "
                  "phase 17)", "route": "cuda",
          "source": src + "stbsr.cu", "replaces": "exp_ldpc_tpu/decoders/bp_bsr_spacetime.py:306"},
-        {"name": "K4 bsr_shard", "route": "cuda", "source": src + "bsr_shard.cu",
+        {"name": "K4 bsr_shard (one count = one iteration of one shard: 2 grids)",
+         "route": "cuda", "source": src + "bsr_shard.cu",
          "replaces": "exp_ldpc_tpu/decoders/bp_bsr_shard.py:200"},
         {"name": "K5 bsr_bp_int8", "route": "cuda", "source": src + "bsr_bp_int8.cu",
          "replaces": "exp_ldpc_tpu/decoders/bp_bsr.py:799"},
@@ -1223,7 +1290,7 @@ def main() -> int:
         bounds = kernel_bounds(su, flats, big, fams, cap, k3b_shapes["HGP"])
         timing = {"K1": ("K1_S16384", "bench", "S16384_es", f"S{S_REDECODE}_es"),
                   "K1b": ("K1_n40000",),
-                  "K2": ("K2",), "K3": ("K3",),
+                  "K2": ("K2",), "K3": ("K3", f"S{S_REDECODE}"),
                   "K3b": ("K3b_HGP", "cyclic"),
                   "K4": ("K4_capacity_D8", "bench_D1", "bench_D2", "bench_D4"),
                   "K5": ("K5_cyclic", "qclp"),
@@ -1249,6 +1316,9 @@ def main() -> int:
                 kern["k1_plain_ms_qclp"] = t["K1_fam_qclp_plain"]
                 kern["rows_iter_shots_per_s"] = {
                     f"{c}/{f}": r["bp_iter_shots_per_s"] for (c, f), r in fam_rows.items()}
+            if key == "K3":
+                kern["ms_early_stop"] = t["K3_es"]
+                kern[f"ms_S{S_REDECODE}_early_stop"] = t[f"K3_S{S_REDECODE}_es"]
             if key == "K4":
                 kern["ms_per"] = "decode iteration, all shards"
                 kern["k1_ms"] = t["K1_shard_capacity"]

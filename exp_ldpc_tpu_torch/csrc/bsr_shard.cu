@@ -22,123 +22,93 @@
 // What bounds it on an H100: each launch streams the posterior (4 B per
 // variable per shot) and the shard's messages (2 B per edge slot, read and
 // written) and partials (4 B per variable), through dependent gathers:
-// memory latency, not arithmetic.  Design: as K1 (bsr_bp.cu), a block owns
-// 32 shots, one per lane, so every warp access is 32 consecutive shots of
-// one row (coalesced); its SHARD_WARPS warps split phase A (broadcast and
-// check update, one check per warp at a time) and phase B (partials, one
-// variable per warp at a time) around one block barrier.  Phase B walks
-// only the shard's variables that have a local edge and stores 0 for the
-// rest.  The all-reduce of the partials over the model axis runs between
-// launches (no collective runs inside a kernel), so there is one launch
-// per iteration per shard.  Each check and variable is computed by one
-// thread in the plain version's order, so results are bit-identical to it.
+// memory latency and bandwidth, not arithmetic.  The shapes that need a
+// check partition have many rows and few shots (n = 40,000 at 128 shots), so
+// the rows, not the shots, must fill the card.
+//
+// Design.  Each phase is a flat list of (row, shot vector) items spread over
+// a grid sized from the item count and the SM count; a thread owns VEC
+// consecutive shots of one row (8- or 16-byte accesses) and its neighbours
+// the next shots of that row, so warp accesses coalesce.  One iteration of
+// one shard is two launches, the kernel boundary being the barrier between
+// the blocks that share shots:
+//   A  every local check: broadcast and check update, c2v stored in bf16;
+//   B  every variable: the partial total of its local edges.  Either stored
+//      (0 for a variable with no local edge), or, for the in-order sum of
+//      several shards on one device, added to the running total in place
+//      (a variable with no local edge is then left alone: + 0).
+// The all-reduce of the partials over the model axis runs between launches
+// (no collective runs inside a kernel).  Each check and variable is computed
+// by one thread in the plain version's order, so results are bit-identical.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "spacetime_bp.cuh"
+#include "bsr_shard_phases.cuh"
 
-#define SHARD_WARPS 32
-
-__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-
-template <int MAXP>
-__global__ void __launch_bounds__(LANES* SHARD_WARPS) bsr_shard_kernel(
-    const int* __restrict__ chk_vars,     // (Dc*Cl,) slot-major, -1 = padded slot
-    const int* __restrict__ nslot,        // (Cl,) slots scanned per check
-    const int* __restrict__ lvar,         // (V_pad,) local variables first, then the rest
-    const int* __restrict__ lvm,          // (n_loc*Dv,) local edge rows, -1 = pad
-    const float* __restrict__ post,       // (V_pad, S)
-    const __nv_bfloat16* msg_in,          // (Dc*Cl, S) c2v of the previous iteration
-    const uint8_t* __restrict__ synd,     // (Cl, S)
-    __nv_bfloat16* msg_out,               // (Dc*Cl, S) c2v out (may alias msg_in)
-    float* __restrict__ part,             // (V_pad, S) out
-    int Cl, int Dc, int V_pad, int n_loc, int Dv, int S, int method, float alpha) {
-  const int lane = threadIdx.x;
-  const int w = threadIdx.y;
-  const int s = blockIdx.x * LANES + lane;
-  const bool run = s < S;
-  const size_t SS = (size_t)S;
-  const __nv_bfloat16 big = __float2bfloat16_rn(BIG);
-
-  // ---- phase A: broadcast and check update, one check at a time
-  if (run) {
-    for (int c = w; c < Cl; c += SHARD_WARPS) {
-      const int ns = __ldg(&nslot[c]);
-      float x[MAXP];
-#pragma unroll
-      for (int i = 0; i < MAXP; ++i) {
-        if (i < ns) {
-          const size_t row = (size_t)i * Cl + c;
-          const int v = __ldg(&chk_vars[row]);
-          const float a = (v >= 0) ? bf(post[(size_t)v * SS + s]) : BIG;
-          x[i] = bf(a - __bfloat162float(msg_in[row * SS + s]));
-        }
-      }
-      if (ns > 0) {
-        const float ss = synd[(size_t)c * SS + s] ? -1.0f : 1.0f;
-        check_update<MAXP>(x, ns, ss, method, alpha);
-      }
-#pragma unroll
-      for (int i = 0; i < MAXP; ++i) {
-        if (i < Dc) {
-          const size_t row = (size_t)i * Cl + c;
-          msg_out[row * SS + s] = (i < ns) ? __float2bfloat16_rn(x[i]) : big;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- phase B: partial totals of the variables with a local edge
-  if (run) {
-    for (int i = w; i < n_loc; i += SHARD_WARPS) {
-      float tot = 0.0f, tile = 0.0f;
-      int cur = -1;
-      for (int j = 0; j < Dv; ++j) {
-        const int k = __ldg(&lvm[(size_t)i * Dv + j]);
-        if (k < 0) break;
-        const int et = k >> 7;  // 128-row edge tile
-        if (et != cur) {
-          if (cur >= 0) tot = tot + tile;
-          tile = 0.0f;
-          cur = et;
-        }
-        tile = tile + __bfloat162float(msg_out[(size_t)k * SS + s]);
-      }
-      if (cur >= 0) tot = tot + tile;
-      part[(size_t)__ldg(&lvar[i]) * SS + s] = tot;
-    }
-    for (int i = n_loc + w; i < V_pad; i += SHARD_WARPS)
-      part[(size_t)__ldg(&lvar[i]) * SS + s] = 0.0f;
-  }
+template <int MAXP, int VEC, int METHOD>
+__global__ void __launch_bounds__(ROW_THREADS, 2) bsr_shard_check_kernel(const ShardArgs a,
+                                                                      float alpha) {
+  bsr_shard_checks<MAXP, VEC, METHOD>(a, alpha);
 }
 
-template <int MAXP>
-static int launch(const int* chk_vars, const int* nslot, const int* lvar, const int* lvm,
-                  const float* post, const __nv_bfloat16* msg_in, const uint8_t* synd,
-                  __nv_bfloat16* msg_out, float* part, int Cl, int Dc, int V_pad, int n_loc,
-                  int Dv, int S, int method, float alpha, cudaStream_t stream) {
-  const dim3 threads(LANES, SHARD_WARPS);
-  const int blocks = (S + LANES - 1) / LANES;
-  bsr_shard_kernel<MAXP><<<blocks, threads, 0, stream>>>(chk_vars, nslot, lvar, lvm, post,
-                                                        msg_in, synd, msg_out, part, Cl, Dc,
-                                                        V_pad, n_loc, Dv, S, method, alpha);
-  return (int)cudaGetLastError();
+template <int VEC, bool ACCUMULATE>
+__global__ void __launch_bounds__(ROW_THREADS) bsr_shard_var_kernel(const ShardArgs a) {
+  bsr_shard_vars<VEC, ACCUMULATE>(a);
 }
 
+template <int MAXP, int VEC>
+static void launch_checks(const ShardArgs& a, int method, float alpha, int blocks,
+                          cudaStream_t st) {
+  if (method == 0)
+    bsr_shard_check_kernel<MAXP, VEC, 0><<<blocks, ROW_THREADS, 0, st>>>(a, alpha);
+  else
+    bsr_shard_check_kernel<MAXP, VEC, 1><<<blocks, ROW_THREADS, 0, st>>>(a, alpha);
+}
+
+// Phase A by padded check width and lane width: 4 shots a lane up to 16
+// slots, 2 above, 1 for a ragged S; x[VEC][MAXP] lives in registers, two
+// blocks per SM (at most 128 registers a thread), as in K3.
+static bool checks(const ShardArgs& a, int vec, int method, float alpha, int blocks,
+                   cudaStream_t st) {
+#define CASE(MAXP, VEC)                                      \
+  if (a.Dc <= MAXP && vec == VEC) {                          \
+    launch_checks<MAXP, VEC>(a, method, alpha, blocks, st);  \
+    return true;                                             \
+  }
+  CASE(8, 1) CASE(8, 4) CASE(12, 1) CASE(12, 4) CASE(16, 1) CASE(16, 4)
+  CASE(24, 1) CASE(24, 2) CASE(32, 1) CASE(32, 2)
+#undef CASE
+  return false;
+}
+
+template <bool ACCUMULATE>
+static bool vars(const ShardArgs& a, int vec, int blocks, cudaStream_t st) {
+  if (vec == 1) bsr_shard_var_kernel<1, ACCUMULATE><<<blocks, ROW_THREADS, 0, st>>>(a);
+  else if (vec == 2) bsr_shard_var_kernel<2, ACCUMULATE><<<blocks, ROW_THREADS, 0, st>>>(a);
+  else if (vec == 4) bsr_shard_var_kernel<4, ACCUMULATE><<<blocks, ROW_THREADS, 0, st>>>(a);
+  else if (vec == 8) bsr_shard_var_kernel<8, ACCUMULATE><<<blocks, ROW_THREADS, 0, st>>>(a);
+  else return false;
+  return true;
+}
+
+// One iteration of one shard (two launches) on `stream`.  With `accumulate`
+// the partials are added to `part` in place.  vec_* / blocks_*: lane width
+// and grid of each phase, planned by the caller (S a multiple of every vec,
+// every array aligned to its access).
 extern "C" int bsr_shard(const void* chk_vars, const void* nslot, const void* lvar,
                          const void* lvm, const void* post, const void* msg_in, const void* synd,
                          void* msg_out, void* part, int Cl, int Dc, int V_pad, int n_loc, int Dv,
-                         int S, int method, float alpha, void* stream) {
-  auto args = [&](auto f) {
-    return f((const int*)chk_vars, (const int*)nslot, (const int*)lvar, (const int*)lvm,
-             (const float*)post, (const __nv_bfloat16*)msg_in, (const uint8_t*)synd,
-             (__nv_bfloat16*)msg_out, (float*)part, Cl, Dc, V_pad, n_loc, Dv, S, method, alpha,
-             (cudaStream_t)stream);
-  };
-  if (Dc <= 8) return args([](auto... a) { return launch<8>(a...); });
-  if (Dc <= 16) return args([](auto... a) { return launch<16>(a...); });
-  if (Dc <= 32) return args([](auto... a) { return launch<32>(a...); });
-  return (int)cudaErrorInvalidValue;
+                         int S, int method, float alpha, int accumulate, int vec_a, int blocks_a,
+                         int vec_b, int blocks_b, void* stream) {
+  const ShardArgs a = {(const int*)chk_vars, (const int*)nslot, (const int*)lvar,
+                       (const int*)lvm, (const float*)post, (const __nv_bfloat16*)msg_in,
+                       (const uint8_t*)synd, (__nv_bfloat16*)msg_out, (float*)part,
+                       Cl, Dc, V_pad, n_loc, Dv, S};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (S % vec_a || S % vec_b) return (int)cudaErrorInvalidValue;
+  if (!checks(a, vec_a, method, alpha, blocks_a, st)) return (int)cudaErrorInvalidValue;
+  const bool ok = accumulate ? vars<true>(a, vec_b, blocks_b, st) : vars<false>(a, vec_b, blocks_b, st);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

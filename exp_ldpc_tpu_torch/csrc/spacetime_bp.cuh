@@ -66,3 +66,33 @@ __device__ __forceinline__ void check_update(float (&x)[MAXP], int P, float synd
     }
   }
 }
+
+// Min-sum update of all N slots, for callers that pad unused slots with
+// +infinity: such a slot flips no sign and never enters min1 or min2 (slot 0
+// is always a real one), so the result on the real slots is check_update's
+// with P = the real count, without a run-time bound on any loop.
+template <int N>
+__device__ __forceinline__ void check_update_ms_all(float (&x)[N], float synd_sign, float alpha) {
+  float tsign = synd_sign;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (x[i] < 0.0f) tsign = -tsign;
+  float min1 = fabsf(x[0]), min2 = BIG;
+  int arg = 0;
+#pragma unroll
+  for (int i = 1; i < N; ++i) {
+    const float m = fabsf(x[i]);
+    if (m < min1) {
+      min2 = min1;
+      min1 = m;
+      arg = i;
+    } else {
+      min2 = fminf(min2, m);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float s = (x[i] < 0.0f) ? -tsign : tsign;
+    x[i] = (s * ((i == arg) ? min2 : min1)) * alpha;
+  }
+}

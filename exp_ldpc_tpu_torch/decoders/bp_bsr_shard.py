@@ -6,8 +6,9 @@ owns the syndromes and c2v messages of its checks over the GLOBAL variable
 space.  One BP iteration factors at the posterior: given the replicated
 posterior, everything else is local, so an iteration is one launch of K4
 per shard (:func:`bsr_shard_iter`: broadcast, check update, partial
-variable totals) followed by one sum of the (V_pad, S) partials over the
-shards, an ``all_reduce`` over the mesh's model group.
+variable totals; two grids, ``csrc/bsr_shard.cu``) followed by one sum of
+the (V_pad, S) partials over the shards, an ``all_reduce`` over the mesh's
+model group.
 
   * :class:`ShardedBSR` is the host build: per shard its check->variable
     table, mask and live slots per chunk, and the variable-major table of
@@ -41,7 +42,7 @@ import torch
 from scipy import sparse
 
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh, all_gather_cols, all_reduce_sum)
-from ..utils.cuda_build import CudaKernel
+from ..utils.cuda_build import CudaKernel, aligned, row_shot_plan
 from ..utils.device import DeviceLike, resolve_device
 from .bp import BIG, alpha_at, channel_priors, normalize_method, phi, priors_to_llr
 
@@ -49,10 +50,17 @@ __all__ = ["ShardedBSR", "ShardTables", "ShardedBSRDecoder", "auto_num_shards",
            "bsr_shard_iter", "bsr_shard_iter_plain", "allreduce_bytes", "KERNEL"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-KERNEL = CudaKernel("bsr_shard.cu", "bsr_shard", [_P] * 9 + [_I] * 7 + [_F, _P])
+# csrc/bsr_shard.cu::bsr_shard: 9 arrays; Cl, Dc, V_pad, n_loc, Dv, S, method; alpha;
+# accumulate and (vec, blocks) of the two phases; the stream.  One call = one iteration of
+# one shard = 2 grids: ``KERNEL.launches`` counts calls.
+KERNEL = CudaKernel("bsr_shard.cu", "bsr_shard", [_P] * 9 + [_I] * 7 + [_F] + [_I] * 5 + [_P])
 
 _TILE = 128
 _BF16 = torch.bfloat16
+# On a CUDA device the decoder pads its shot axis to this multiple (all-zero
+# syndromes), so that every row starts on a 16-byte boundary and the kernels
+# take their vector paths.
+_SHOT_ALIGN = 8
 
 
 def _round_up(x: int, m: int) -> int:
@@ -133,13 +141,16 @@ class ShardedBSR:
     def tables(self, shard: int, device: DeviceLike = "cuda") -> "ShardTables":
         return ShardTables.build(self, shard, resolve_device(device))
 
-    def shard_syndromes(self, syndromes: torch.Tensor) -> torch.Tensor:
-        """(C, S) -> (D, c_pad_loc, S) uint8, zero rows past the last check."""
+    def shard_syndromes(self, syndromes: torch.Tensor,
+                        shots: Optional[int] = None) -> torch.Tensor:
+        """(C, S) -> (D, c_pad_loc, shots) uint8, zero rows past the last
+        check and zero columns past S (``shots`` defaults to S)."""
         C, S = syndromes.shape
-        out = torch.zeros((self.num_shards * self.c_pad_loc, S), dtype=torch.uint8,
+        shots = S if shots is None else shots
+        out = torch.zeros((self.num_shards * self.c_pad_loc, shots), dtype=torch.uint8,
                           device=syndromes.device)
-        out[:C] = syndromes
-        return out.view(self.num_shards, self.c_pad_loc, S)
+        out[:C, :S] = syndromes
+        return out.view(self.num_shards, self.c_pad_loc, shots)
 
 
 @dataclass(frozen=True, eq=False)
@@ -273,7 +284,8 @@ def _check_scan(x: torch.Tensor, synd_sign: torch.Tensor, nslot: torch.Tensor, m
 
 def bsr_shard_iter_plain(sh: ShardTables, posterior: torch.Tensor, messages: torch.Tensor,
                          syndromes: torch.Tensor, alpha: float, method: str,
-                         out: Optional[torch.Tensor] = None):
+                         out: Optional[torch.Tensor] = None,
+                         out_part: Optional[torch.Tensor] = None, accumulate: bool = False):
     """Plain version of K4 on the tensors' device; same arguments and
     outputs as :func:`bsr_shard_iter`."""
     Dc, Cl = sh.dc, sh.c_pad_loc
@@ -303,52 +315,82 @@ def bsr_shard_iter_plain(sh: ShardTables, posterior: torch.Tensor, messages: tor
     tot = tot + run
     part = torch.zeros((sh.v_pad, S), device=posterior.device)
     part[sh.lvar[: sh.n_loc]] = tot
+    if out_part is not None:
+        part = out_part.add_(part) if accumulate else out_part.copy_(part)
     if out is not None:
         out.copy_(c2v.view(Dc * Cl, S))
         return out, part
     return c2v.view(Dc * Cl, S), part
 
 
+def launch_plans(sh: ShardTables, shots: int, sm_count: int, accumulate: bool = False,
+                 vectors: bool = True):
+    """Lane width and grid of K4's two phases (``csrc/bsr_shard.cu``): phase
+    A walks the shard's checks, phase B every variable (or, accumulating,
+    only those with a local edge), each times the shot vectors.  Phase A
+    keeps a check's Dc messages of every owned shot in registers, so it
+    takes 4 shots a lane up to 16 slots and 2 above; phase B takes up to 8.
+    ``vectors`` is false when an array does not start on a 16-byte
+    boundary."""
+    va, vb = ((4,) if sh.dc <= 16 else (2,), (8, 4, 2)) if vectors else ((), ())
+    return (row_shot_plan(sh.c_pad_loc, shots, va, sm_count),
+            row_shot_plan(sh.n_loc if accumulate else sh.v_pad, shots, vb, sm_count))
+
+
 def bsr_shard_iter(sh: ShardTables, posterior: torch.Tensor, messages: torch.Tensor,
                    syndromes: torch.Tensor, alpha: float, method: str,
-                   out: Optional[torch.Tensor] = None):
+                   out: Optional[torch.Tensor] = None,
+                   out_part: Optional[torch.Tensor] = None, accumulate: bool = False):
     """One K4 iteration on one shard: posterior (V_pad, S) f32, messages
     (e_loc, S) bf16 (c2v, zeros at iteration 0), syndromes (c_pad_loc, S)
-    0/1 -> (messages' (e_loc, S) bf16, partials (V_pad, S) f32, no prior).
-    ``out`` (which may be ``messages``) receives the new messages.
+    0/1 -> (messages' (e_loc, S) bf16, partials (V_pad, S) f32, no prior, 0
+    for a variable with no local edge).  ``out`` (which may be ``messages``)
+    receives the new messages.  ``out_part`` receives the partials, or with
+    ``accumulate`` has them added in place (the in-order sum over the
+    shards of one device) and is returned in their stead.
 
     CPU tensors run :func:`bsr_shard_iter_plain`; CUDA tensors launch the
-    kernel or raise."""
+    kernels or raise."""
     method = normalize_method(method)
     dev = posterior.device
     if dev.type == "cpu":
-        return bsr_shard_iter_plain(sh, posterior, messages, syndromes, alpha, method, out)
+        return bsr_shard_iter_plain(sh, posterior, messages, syndromes, alpha, method, out,
+                                    out_part, accumulate)
     if dev.type != "cuda":
         raise ValueError(f"bsr_shard_iter: unsupported device {dev}")
     Dc, Cl, V_pad = sh.dc, sh.c_pad_loc, sh.v_pad
     S = posterior.shape[1]
     if Dc > 32:
         raise ValueError(f"bsr_shard_iter supports check degree <= 32, got {Dc}")
+    if out is None:
+        out = torch.empty_like(messages)
+    if out_part is None:
+        if accumulate:
+            raise ValueError("bsr_shard_iter: accumulate needs out_part")
+        out_part = torch.empty((V_pad, S), dtype=torch.float32, device=dev)
     for name, x, shape, dtype in (("posterior", posterior, (V_pad, S), torch.float32),
                                   ("messages", messages, (Dc * Cl, S), _BF16),
-                                  ("syndromes", syndromes, (Cl, S), torch.uint8)):
+                                  ("syndromes", syndromes, (Cl, S), torch.uint8),
+                                  ("out", out, (Dc * Cl, S), _BF16),
+                                  ("out_part", out_part, (V_pad, S), torch.float32)):
         if x.shape != shape or x.dtype != dtype or x.device != dev or not x.is_contiguous():
             raise ValueError(f"bsr_shard_iter: {name} must be a contiguous {dtype} tensor of "
                              f"shape {shape} on {dev}, got {x.dtype} {tuple(x.shape)} on "
                              f"{x.device}")
     if sh.device != dev:
         raise ValueError("bsr_shard_iter: tables and tensors must share one device")
-    if out is None:
-        out = torch.empty_like(messages)
-    part = torch.empty((V_pad, S), dtype=torch.float32, device=dev)
     if S == 0:
-        return out, part
+        return out, out_part
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pa, pb = launch_plans(sh, S, sms, accumulate,
+                          aligned(posterior, messages, syndromes, out, out_part))
     KERNEL.launch(
         sh.chk_vars_k.data_ptr(), sh.nslot(method).data_ptr(), sh.lvar_k.data_ptr(),
         sh.lvm_k.data_ptr(), posterior.data_ptr(), messages.data_ptr(), syndromes.data_ptr(),
-        out.data_ptr(), part.data_ptr(), Cl, Dc, V_pad, sh.n_loc, sh.dv, S,
-        0 if method == "ps" else 1, float(alpha), torch.cuda.current_stream(dev).cuda_stream)
-    return out, part
+        out.data_ptr(), out_part.data_ptr(), Cl, Dc, V_pad, sh.n_loc, sh.dv, S,
+        0 if method == "ps" else 1, float(alpha), int(accumulate), pa.vec, pa.blocks, pb.vec,
+        pb.blocks, torch.cuda.current_stream(dev).cuda_stream)
+    return out, out_part
 
 
 def _parity_bad(sh: ShardTables, hard: torch.Tensor, synd: torch.Tensor) -> torch.Tensor:
@@ -419,25 +461,31 @@ class ShardedBSRDecoder:
         n_iter = self.max_iter if max_iter is None else int(max_iter)
         sb = self.sharded
         S = syndromes.shape[1]
-        synd = sb.shard_syndromes(syndromes.to(torch.uint8))
-        synd = [synd[d].contiguous() for d in self._shards]
+        dev = self.device
+        # the buffers of the whole decode: padded shots decode all-zero syndromes
+        Sp = -(-S // _SHOT_ALIGN) * _SHOT_ALIGN if dev.type == "cuda" else S
+        synd = sb.shard_syndromes(syndromes, Sp)
+        synd = [synd[d] for d in self._shards]
         group = None if self.mesh is None else self.mesh.model_group
-        post = self._prior[:, None].expand(sb.v_pad, S).contiguous()
-        msgs = [torch.zeros((sb.e_loc, S), dtype=_BF16, device=self.device)
-                for _ in self._shards]
+        prior = self._prior[:, None]
+        post = prior.expand(sb.v_pad, Sp).contiguous()
+        tot = torch.empty((sb.v_pad, Sp), dtype=torch.float32, device=dev)
+        msgs = [torch.zeros((sb.e_loc, Sp), dtype=_BF16, device=dev) for _ in self._shards]
         for it in range(n_iter):
             alpha = alpha_at(it, self.ms_scaling_factor)
-            tot = torch.zeros((sb.v_pad, S), device=self.device)
+            # shard 0 stores its partials, the others add theirs in shard order:
+            # ((p0 + p1) + p2) ..., the sum an in-order loop over the shards takes
             for k, sh in enumerate(self._tables):
-                msgs[k], part = iterate(sh, post, msgs[k], synd[k], alpha, self.method,
-                                        out=msgs[k])
-                tot = tot + part
-            post = self._prior[:, None] + all_reduce_sum(tot, group)
+                iterate(sh, post, msgs[k], synd[k], alpha, self.method, out=msgs[k],
+                        out_part=tot, accumulate=k > 0)
+            torch.add(prior, all_reduce_sum(tot, group), out=post)
         hard = (post <= 0).to(torch.uint8)
-        bad = torch.zeros(S, dtype=torch.int32, device=self.device)
+        bad = torch.zeros(Sp, dtype=torch.int32, device=dev)
         for k, sh in enumerate(self._tables):
             bad = bad + _parity_bad(sh, hard, synd[k])
         conv = all_reduce_sum(bad, group) == 0
+        if Sp != S:
+            hard, post, conv = hard[:, :S].contiguous(), post[:, :S].contiguous(), conv[:S]
         return hard, post, conv
 
     def decode_batch(self, syndromes: np.ndarray, max_iter: Optional[int] = None):

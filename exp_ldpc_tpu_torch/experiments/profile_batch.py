@@ -10,9 +10,12 @@ priors, min-sum α=0.625, 48 iterations, OSD-CS order 7) on the card, times
   * ``span_ms``: host wall time of the traced batch, synchronised;
   * ``busy_ms``: the union of kernel, memcpy and memset intervals on the
     card; ``idle_share`` = 1 - busy/span;
-  * device time and count per kernel name, K3 split into the device step
-    (its first ``max_iter`` launches) and the host BP+OSD redecode (the
-    rest), device-to-host copies, and the largest gap between device events.
+  * device time and count per kernel name, K3's grids (three per iteration:
+    ``stbsr_check_kernel``, ``stbsr_var_kernel``, ``stbsr_parity_kernel``)
+    split into the device step (the first ``3 * max_iter``) and the host
+    BP+OSD redecode (the rest, those that return at once after its early
+    exit included), device-to-host copies, and the largest gap between
+    device events.
 
 The last line of standard output is the summary as one JSON object.  Needs
 a CUDA device.
@@ -63,13 +66,14 @@ def summarize(trace: dict, max_iter: int) -> dict:
         rec = per_name[e["name"][:90]]
         rec[0] += 1
         rec[1] += e["dur"] / 1e3
-    k3 = [e["dur"] / 1e3 for e in events if "stbsr_iter_kernel" in e["name"]]
+    k3 = [e["dur"] / 1e3 for e in events if "stbsr_" in e["name"]]
+    step = 3 * max_iter   # grids of the device step: three phases per iteration
     dtoh = [e["dur"] / 1e3 for e in events if "DtoH" in e["name"]]
     top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:12]
     return {
         "busy_ms": busy / 1e3, "largest_gap_ms": gap / 1e3, "device_events": len(events),
-        "k3_launches": len(k3), "k3_device_step_ms": float(sum(k3[:max_iter])),
-        "k3_redecode_ms": float(sum(k3[max_iter:])),
+        "k3_launches": len(k3), "k3_device_step_ms": float(sum(k3[:step])),
+        "k3_redecode_ms": float(sum(k3[step:])),
         "dtoh_copies": len(dtoh), "dtoh_ms": float(sum(dtoh)),
         "top": [[name, n, round(ms, 3)] for name, (n, ms) in top],
     }

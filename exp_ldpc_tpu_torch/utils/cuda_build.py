@@ -17,9 +17,9 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
-__all__ = ["CudaKernel"]
+__all__ = ["CudaKernel", "RowShotPlan", "row_shot_plan", "aligned"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "exp_ldpc_tpu_torch"
@@ -30,6 +30,42 @@ _NVCC_FLAGS = (
     "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+ROW_THREADS = 256    # csrc/vec_io.cuh: threads per block of the row x shot kernels
+_BLOCKS_PER_SM = 32  # grid cap; past it a thread takes several items (grid-stride loop)
+
+
+class RowShotPlan(NamedTuple):
+    """Launch of one phase of a row x shot kernel (K3, K4): ``vec``
+    consecutive shots per thread, ``items`` = rows x (shots / vec) work
+    items, rows outermost, walked by ``blocks`` blocks of ``ROW_THREADS``
+    threads in a grid-stride loop (``csrc/vec_io.cuh::RowItems``): thread t
+    takes items t, t + blocks*ROW_THREADS, ...; item i is row
+    ``i // (shots // vec)``, shots ``(i % (shots // vec)) * vec`` on."""
+
+    vec: int
+    items: int
+    blocks: int
+
+
+def row_shot_plan(rows: int, shots: int, vecs: Sequence[int], sm_count: int) -> RowShotPlan:
+    """The lane width is the first of ``vecs`` (the widths the phase is
+    compiled for, widest first) that divides ``shots``, else 1: no item has
+    a ragged tail, and an odd shot count runs one shot per thread.  The grid
+    covers the items once, up to ``_BLOCKS_PER_SM`` blocks per SM."""
+    vec = next((v for v in vecs if shots % v == 0), 1)
+    items = rows * (shots // vec)
+    if items >= 2**31:
+        raise ValueError(f"{rows} rows x {shots} shots exceed the kernels' 32-bit work list")
+    blocks = max(1, min(-(-items // ROW_THREADS), _BLOCKS_PER_SM * sm_count))
+    return RowShotPlan(vec, items, blocks)
+
+
+def aligned(*tensors, nbytes: int = 16) -> bool:
+    """Whether every tensor starts on an ``nbytes`` boundary (the widest
+    access of the row x shot kernels)."""
+    return all(t.data_ptr() % nbytes == 0 for t in tensors)
 
 
 def _nvcc() -> str:
@@ -45,8 +81,10 @@ def _nvcc() -> str:
 class CudaKernel:
     """One ``.cu`` file with a C entry point, built on first use.
 
-    ``launches`` counts kernel launches made through :meth:`launch`; a run
-    that claims to have used the kernel resets it before and reads it after.
+    ``launches`` counts calls of the entry point made through
+    :meth:`launch` (an entry point may enqueue several grids: K4's two
+    phases of an iteration, all iterations of a K3 decode); a run that
+    claims to have used the kernel resets it before and reads it after.
     """
 
     def __init__(self, source: str, entry: str, argtypes: Sequence):

@@ -9,9 +9,15 @@ conv and iters are equal and posteriors equal to 1e-6*max(1,|x|), the
 bounds ``chip_smoke.py`` holds them to.  S=77 leaves a ragged shot edge
 (77 mod 32 = 13) for the kernels' masking; K1's early exit runs per JAX
 shot block (128 shots here, four CUDA blocks), so S=300 spans three.
-K4 runs one launch per iteration per shard; its messages and partials are
-equal to the plain version's after one iteration, and decodes at D = 1 and
-3 agree to the same bounds as the other kernels'.
+K3 and K4 split rows x shot vectors over the card: a decode pads its shot
+axis and takes the vector paths at every S (77 and 300 ragged, 256
+aligned), while a single iteration on the caller's own (ragged) tensors
+runs one shot per thread.  One K3 call enqueues a whole decode (three grids
+per iteration, the early exit on the device, no copy to the host); one K4
+call is one iteration of one shard (two grids); its messages and partials
+are equal to the plain version's after one iteration, stored or
+accumulated, and decodes at D = 1 and 3 agree to the same bounds as the
+other kernels'.
 """
 import numpy as np
 import pytest
@@ -27,7 +33,7 @@ from exp_ldpc_tpu_torch.decoders.bp_cuda import KERNEL as K6, bp_fixed
 from exp_ldpc_tpu_torch.decoders.bp_bsr_shard import (
     KERNEL as K4, ShardedBSRDecoder, bsr_shard_iter, bsr_shard_iter_plain)
 from exp_ldpc_tpu_torch.decoders.bp_bsr_spacetime import (
-    KERNEL as K3, _stbsr_iter_plain, stbsr_decode)
+    KERNEL as K3, _stbsr_iter_plain, stbsr_decode, stbsr_iter)
 from exp_ldpc_tpu_torch.decoders.spacetime_bp import stbp_core
 from exp_ldpc_tpu_torch.decoders.spacetime_bp_cuda import KERNEL as K2, stbp_fixed
 
@@ -43,7 +49,7 @@ def setup():
     H = biregular_hgp(12, 3, 4, seed=0).checks.z
     Hst = SpacetimeCode(H, ROUNDS).spacetime_check_matrix.tocsr().astype(np.int64)
     rng = np.random.default_rng(0)
-    err = (rng.random((256, Hst.shape[1])) < 3e-3).astype(np.int64)
+    err = (rng.random((300, Hst.shape[1])) < 3e-3).astype(np.int64)
     synd = torch.as_tensor(((Hst @ err.T) % 2).astype(np.uint8)).to(dev)
     prior = torch.as_tensor(priors_to_llr(np.full(Hst.shape[1], 2e-3))).to(dev)
     tables = tanner_tables(TannerELL.from_check_matrix(H), dev)
@@ -70,9 +76,9 @@ def test_k2_matches_plain(setup, method, msf, S):
     _assert_same(kern, plain)
 
 
-@pytest.mark.parametrize("S", [77, 256])
+@pytest.mark.parametrize("S", [77, 256, 300])
 @pytest.mark.parametrize("method,msf,early_stop", [("ms", 0.625, False), ("ps", 0.0, False),
-                                                   ("ms", 0.625, True)])
+                                                   ("ms", 0.625, True), ("ps", 0.0, True)])
 def test_k3_matches_plain(setup, method, msf, early_stop, S):
     tables, prior, synd = setup
     synd = synd[:, :S].contiguous()
@@ -81,8 +87,76 @@ def test_k3_matches_plain(setup, method, msf, early_stop, S):
     plain = stbsr_decode(tables, ROUNDS, prior, synd, method, 24, msf, early_stop,
                          iterate=_stbsr_iter_plain)
     torch.cuda.synchronize()
-    assert K3.launches == before + int(kern[3][0])
+    assert K3.launches == before + 1    # one call enqueues the whole decode
     _assert_same(kern, plain)
+
+
+def _k3_state(tables, prior, synd):
+    """One iteration's arguments from random messages (bf16) at the syndromes' S."""
+    R, B = ROUNDS, ROUNDS + 1
+    r, n, Dc = tables.num_checks, tables.num_vars, tables.max_check_degree
+    S = synd.shape[1]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(S)
+
+    def rnd(rows, dtype):
+        return (3 * torch.randn((rows, S), generator=g, device="cuda")).to(dtype)
+
+    msg = rnd(B * r * Dc, torch.bfloat16)
+    msg[~tables.chk_mask.reshape(-1).repeat(B)] = 1e30
+    return dict(msg=msg, mlo=rnd(R * r, torch.bfloat16), mhi=rnd(R * r, torch.bfloat16),
+                synd=synd, prior_d=prior[: B * n].contiguous(), mprior=prior[B * n:].contiguous(),
+                post_d=torch.zeros((B * n, S), device="cuda"),
+                post_m=torch.zeros((R * r, S), device="cuda"),
+                conv=torch.zeros(S, dtype=torch.uint8, device="cuda"),
+                c2m=torch.empty((2 * R * r, S), device="cuda"))
+
+
+@pytest.mark.parametrize("S", [77, 256, 300])
+@pytest.mark.parametrize("method,alpha", [("ms", 0.625), ("ps", 1.0)])
+def test_k3_one_iteration_equals_plain(setup, method, alpha, S):
+    """``stbsr_iter`` on the caller's tensors: one shot per thread at a
+    ragged S (77: odd rows of the bf16 arrays start off a 4-byte boundary),
+    4 or more at 256 and 300.  Every array it writes equals the plain one's."""
+    tables, prior, synd = setup
+    a = _k3_state(tables, prior, synd[:, :S].contiguous())
+    b = {k: v.clone() for k, v in a.items()}
+    args = ("msg", "mlo", "mhi", "synd", "prior_d", "mprior")
+    outs = ("post_d", "post_m", "conv", "c2m")
+    before = K3.launches
+    stbsr_iter(tables, ROUNDS, *(a[k] for k in args), method, alpha, *(a[k] for k in outs))
+    _stbsr_iter_plain(tables, ROUNDS, *(b[k] for k in args), method, alpha,
+                      *(b[k] for k in outs))
+    torch.cuda.synchronize()
+    assert K3.launches == before + 1
+    for k in ("msg", "mlo", "mhi", "post_d", "post_m", "conv"):
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("p,fires", [(2e-4, True), (3e-3, False)])
+def test_k3_early_exit_on_the_device(setup, p, fires):
+    """The exit fires before ``max_iter`` on an easy batch and never on a
+    hard one; either way ``iters`` equals the plain loop's, nothing changes
+    after the exit iteration, and the decode copies nothing to the host."""
+    tables, prior, synd = setup
+    if fires:   # few errors per shot: every shot converges within a few iterations
+        H = SpacetimeCode(biregular_hgp(12, 3, 4, seed=0).checks.z, ROUNDS) \
+            .spacetime_check_matrix.tocsr().astype(np.int64)
+        err = (np.random.default_rng(9).random((128, H.shape[1])) < p).astype(np.int64)
+        synd = torch.as_tensor(((H @ err.T) % 2).astype(np.uint8)).cuda()
+    stbsr_decode(tables, ROUNDS, prior, synd, "ms", 24, 0.625, True)   # build, warm up
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        kern = stbsr_decode(tables, ROUNDS, prior, synd, "ms", 24, 0.625, True)
+        torch.cuda.synchronize()
+    plain = stbsr_decode(tables, ROUNDS, prior, synd, "ms", 24, 0.625, True,
+                         iterate=_stbsr_iter_plain)
+    _assert_same(kern, plain)
+    iters = int(kern[3][0])
+    assert (iters < 24) == fires and bool(kern[2].all()) == fires
+    names = [e.key for e in prof.key_averages()]
+    assert any("stbsr_" in k for k in names), names
+    assert not any("DtoH" in k for k in names), names
 
 
 @pytest.fixture(scope="module")
@@ -145,26 +219,33 @@ def shard_case():
     return H, torch.as_tensor(((H @ err.T) % 2).astype(np.uint8)).to("cuda")
 
 
+@pytest.mark.parametrize("S", [77, 256])
 @pytest.mark.parametrize("method,alpha", [("ms", 0.625), ("ps", 1.0)])
-def test_k4_one_iteration_equals_plain(shard_case, method, alpha):
+def test_k4_one_iteration_equals_plain(shard_case, method, alpha, S):
+    """On the caller's tensors: one shot per thread at S = 77, four at 256;
+    partials stored, and accumulated onto a running total."""
     H, _synd = shard_case
     dec = ShardedBSRDecoder.from_check_matrix(H, 2, error_rate=5e-3, device="cuda")
     rng = np.random.default_rng(3)
-    sb, S = dec.sharded, 77
+    sb = dec.sharded
     for tab in (sb.tables(d, "cuda") for d in range(2)):
         post = torch.as_tensor(rng.normal(3, 4, (sb.v_pad, S)).astype(np.float32)).cuda()
         msgs = torch.as_tensor(rng.normal(0, 2, (sb.e_loc, S)).astype(np.float32)).cuda()
         msgs = msgs.to(torch.bfloat16)
         synd = torch.as_tensor((rng.random((sb.c_pad_loc, S)) < 0.1).astype(np.uint8)).cuda()
+        run = torch.as_tensor(rng.normal(0, 2, (sb.v_pad, S)).astype(np.float32)).cuda()
         before = K4.launches
         mk, pk = bsr_shard_iter(tab, post, msgs, synd, alpha, method)
         mp, pp = bsr_shard_iter_plain(tab, post, msgs, synd, alpha, method)
+        _m, ak = bsr_shard_iter(tab, post, msgs, synd, alpha, method, out_part=run.clone(),
+                                accumulate=True)
         torch.cuda.synchronize()
-        assert K4.launches == before + 1
+        assert K4.launches == before + 2
         assert torch.equal(mk, mp) and torch.equal(pk, pp)
+        assert torch.equal(ak, run + pp)
 
 
-@pytest.mark.parametrize("S", [77, 300])
+@pytest.mark.parametrize("S", [77, 256, 300])
 @pytest.mark.parametrize("D", [1, 3])
 @pytest.mark.parametrize("method,msf", [("ms", 0.625), ("ms", 0.0), ("ps", 0.0)])
 def test_k4_matches_plain(shard_case, method, msf, D, S):
@@ -178,6 +259,7 @@ def test_k4_matches_plain(shard_case, method, msf, D, S):
     hp, pp, cp = dec.decode_tensors(synd, iterate=bsr_shard_iter_plain)
     torch.cuda.synchronize()
     assert K4.launches == before + D * 24
+    assert hk.shape == (dec.sharded.v_pad, S) and ck.shape == (S,)
     assert bool(((pk - pp).abs() <= 1e-6 * pp.abs().clamp(min=1.0)).all())
     assert torch.equal(hk, hp) and torch.equal(ck, cp)
 

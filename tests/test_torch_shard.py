@@ -255,3 +255,100 @@ def test_decoder_option_validation(case):
     with pytest.raises(ValueError, match="columns"):
         P.ShardedBSRDecoder.from_check_matrix(H, 1, error_rate=0.01, device="cpu"
                                               ).decode_batch(np.zeros((2, 3), np.uint8))
+
+
+def _covered(plan, rows, shots, threads=256):
+    """How often the grid-stride walk of ``csrc/vec_io.cuh::RowItems`` visits
+    each (row, shot): thread t of ``plan.blocks * threads`` takes items t,
+    t + stride, ...; item i is row i // (shots // vec), ``vec`` shots from
+    (i % (shots // vec)) * vec."""
+    stride = plan.blocks * threads
+    items = np.concatenate([np.arange(t, plan.items, stride) for t in range(stride)]
+                           or [np.zeros(0, np.int64)])
+    sv = shots // plan.vec
+    cover = np.zeros((rows, shots), np.int64)
+    for k in range(plan.vec):
+        np.add.at(cover, (items // sv, (items % sv) * plan.vec + k), 1)
+    return cover
+
+
+@pytest.mark.parametrize("sm_count", [1, 132])
+@pytest.mark.parametrize("shots", [1, 7, 24, 31, 97, 128, 688])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_launch_plans_cover_every_row_once(case, shots, accumulate, sm_count):
+    """K4's two phases visit every local check and every variable (when
+    accumulating: every variable with a local edge) of every shot exactly
+    once, for odd shot counts (one shot per thread), multiples of the lane
+    width, fewer items than threads and more than the grid holds."""
+    H, _ = case
+    for D in (1, 3):
+        sb = P.ShardedBSR.from_check_matrix(H, D)
+        for d in range(D):
+            tab = sb.tables(d, "cpu")
+            rows = (tab.c_pad_loc, tab.n_loc if accumulate else tab.v_pad)
+            plans = P.launch_plans(tab, shots, sm_count, accumulate)
+            for plan, nrows, allowed in zip(plans, rows, ((4, 1), (8, 4, 2, 1))):
+                assert plan.vec == next(v for v in allowed if shots % v == 0)
+                assert plan.items == nrows * (shots // plan.vec)
+                assert 1 <= plan.blocks <= 32 * sm_count
+                assert (_covered(plan, nrows, shots) == 1).all()
+            assert [p.vec for p in P.launch_plans(tab, shots, sm_count, accumulate,
+                                                  vectors=False)] == [1, 1]
+
+
+@pytest.mark.parametrize("method", ["ms", "ps"])
+def test_shard_iter_out_part_and_accumulate(case, method):
+    """``out_part`` receives the partials; with ``accumulate`` they are
+    added to it in place, a variable with no local edge left as it was."""
+    H, _ = case
+    sb = P.ShardedBSR.from_check_matrix(H, 3)
+    tab = sb.tables(1, "cpu")
+    post, msgs, synd = (torch.as_tensor(x) for x in _iter_inputs(sb, 24, seed=21))
+    msgs = msgs.to(torch.bfloat16)
+    _m, part = P.bsr_shard_iter(tab, post, msgs, synd, 0.625, method)
+    buf = torch.full_like(part, 7.0)
+    _m, got = P.bsr_shard_iter(tab, post, msgs, synd, 0.625, method, out_part=buf)
+    assert got is buf and torch.equal(buf, part)
+    run = torch.as_tensor(np.random.default_rng(22).normal(0, 2, part.shape).astype(np.float32))
+    want = run + part
+    _m, got = P.bsr_shard_iter(tab, post, msgs, synd, 0.625, method, out_part=run,
+                               accumulate=True)
+    assert got is run and torch.equal(run, want)
+    rest = tab.lvar[tab.n_loc:]
+    assert rest.numel() > 0 and bool((part[rest] == 0).all())
+
+
+def _decode_summing_fresh_partials(dec, synd_cs, n_iter):
+    """The decoder loop as it was before the partials were accumulated in
+    place: a zero-filled total per iteration, ``tot = tot + part`` over the
+    shards in order, then the prior."""
+    sb = dec.sharded
+    S = synd_cs.shape[1]
+    synd = sb.shard_syndromes(synd_cs.to(torch.uint8))
+    post = dec._prior[:, None].expand(sb.v_pad, S).contiguous()
+    msgs = [torch.zeros((sb.e_loc, S), dtype=torch.bfloat16) for _ in dec._tables]
+    for it in range(n_iter):
+        alpha = P.alpha_at(it, dec.ms_scaling_factor)
+        tot = torch.zeros((sb.v_pad, S))
+        for k, sh in enumerate(dec._tables):
+            msgs[k], part = P.bsr_shard_iter_plain(sh, post, msgs[k], synd[k].contiguous(),
+                                                   alpha, dec.method)
+            tot = tot + part
+        post = dec._prior[:, None] + tot
+    return (post <= 0).to(torch.uint8), post
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+@pytest.mark.parametrize("method,msf", [("ms", 0.0), ("ms", 0.625), ("ps", 0.0)])
+def test_in_place_accumulation_equals_summing_fresh_partials(case, method, msf, D):
+    """Shard 0 stores its partials into the preallocated total and shards
+    1.. add theirs in place: ((p0 + p1) + p2), bit for bit the sum that a
+    fresh zero-filled total and ``tot = tot + part`` give."""
+    H, synd = case
+    dec = P.ShardedBSRDecoder.from_check_matrix(H, D, error_rate=0.01, max_iter=6,
+                                                bp_method=method, ms_scaling_factor=msf,
+                                                device="cpu")
+    s = torch.as_tensor(synd[:40].T.copy())
+    hard, post, _conv = dec.decode_tensors(s)
+    want_hard, want_post = _decode_summing_fresh_partials(dec, s, 6)
+    assert torch.equal(post, want_post) and torch.equal(hard, want_hard)

@@ -148,3 +148,125 @@ def test_selection_rule_on_cpu(hgp225):
     decoder, as the JAX rule does off-TPU."""
     dec = make_spacetime_bp_decoder(hgp225, 3, error_rate=1e-3, device="cpu")
     assert isinstance(dec, SpacetimeBPDecoder)
+
+
+def _covered(plan, rows, shots, threads=256):
+    """How often the grid-stride walk of ``csrc/vec_io.cuh::RowItems`` visits
+    each (row, shot): thread t of ``plan.blocks * threads`` takes items t,
+    t + stride, ...; item i is row i // (shots // vec), ``vec`` shots from
+    (i % (shots // vec)) * vec."""
+    stride = plan.blocks * threads
+    items = np.concatenate([np.arange(t, plan.items, stride) for t in range(stride)]
+                           or [np.zeros(0, np.int64)])
+    sv = shots // plan.vec
+    cover = np.zeros((rows, shots), np.int64)
+    for k in range(plan.vec):
+        np.add.at(cover, (items // sv, (items % sv) * plan.vec + k), 1)
+    return cover
+
+
+@pytest.mark.parametrize("sm_count", [1, 132])
+@pytest.mark.parametrize("shots", [1, 7, 16, 31, 77, 128, 300, 688])
+@pytest.mark.parametrize("rounds", [1, 3])
+def test_launch_plans_cover_every_row_once(hgp225, rounds, shots, sm_count):
+    """K3's three phases: every check, variable and parity of every shot is
+    visited exactly once, whatever the shot count (odd: one shot per
+    thread; a multiple of the lane width: whole vectors, no ragged tail),
+    with fewer items than threads (1 shot) and more than the grid holds."""
+    from exp_ldpc_tpu_torch.decoders.bp_bsr_spacetime import launch_plans
+
+    t = SpacetimeBSRDecoder.from_check_matrix(hgp225, rounds, error_rate=0.01,
+                                              device="cpu").tables
+    B, r, n = rounds + 1, t.num_checks, t.num_vars
+    rows = (B * r, rounds * r + B * n, B * r)
+    widths = ((4, 1), (8, 4, 2, 1), (16, 8, 4, 1))
+    for plan, nrows, allowed in zip(launch_plans(t, rounds, shots, sm_count), rows, widths):
+        assert plan.vec in allowed and shots % plan.vec == 0
+        assert plan.vec == next(v for v in allowed if shots % v == 0)   # the widest that fits
+        assert plan.items == nrows * (shots // plan.vec)
+        assert 1 <= plan.blocks <= 32 * sm_count
+        assert (_covered(plan, nrows, shots) == 1).all()
+    # an array off a 16-byte boundary: one shot per thread in every phase
+    assert [p.vec for p in launch_plans(t, rounds, shots, sm_count, vectors=False)] == [1, 1, 1]
+
+
+def _guarded(step):
+    """The device-side loop's semantics on the host: every iteration is
+    enqueued, and one that starts after all shots have converged is a no-op
+    (the kernels return at once on the ``done`` word); the iterations that
+    ran are counted."""
+    state = {"done": False, "iters": 0}
+
+    def iterate(t, R, msg, mlo, mhi, synd, prior_d, mprior, method, alpha, post_d, post_m,
+                conv, c2m=None):
+        if state["done"]:
+            return
+        step(t, R, msg, mlo, mhi, synd, prior_d, mprior, method, alpha, post_d, post_m, conv)
+        state["iters"] += 1
+        state["done"] = bool(conv.all())
+
+    return iterate, state
+
+
+@pytest.mark.parametrize("p,method,msf,fires", [
+    (0.003, "ms", 0.625, True),     # the exit fires early
+    (0.003, "ms", 0.0, True),
+    (0.03, "ms", 0.625, False),     # it never fires: some shot stays unconverged
+])
+def test_device_flag_semantics_equal_the_host_loop(hgp225, p, method, msf, fires):
+    """``stbsr_decode`` with a guarded iteration (what the kernels do with
+    their ``done`` word) equals today's loop exactly, and the JAX kernel on
+    hard, conv, iters and posteriors."""
+    H, rounds, iters = hgp225, 2, 24
+    Hst, synd = _inputs(H, rounds, p, 48, seed=5)
+    kw = dict(channel_probs=np.full(Hst.shape[1], p), max_iter=iters, bp_method=method,
+              ms_scaling_factor=msf, early_stop=True)
+    dec = SpacetimeBSRDecoder.from_check_matrix(H, rounds, device="cpu", **kw)
+    s = torch.as_tensor(synd.T.copy())
+    args = (dec.tables, rounds, dec._prior, s, method, iters, msf)
+    loop = stbsr_decode(*args, True)
+    iterate, state = _guarded(_stbsr_iter_plain)
+    hard, post, conv, _n = stbsr_decode(*args, False, iterate=iterate)   # all iterations enqueued
+    assert torch.equal(hard, loop[0]) and torch.equal(post, loop[1])
+    assert torch.equal(conv, loop[2])
+    assert (loop[3] == state["iters"]).all()
+    assert (state["iters"] < iters) == fires == bool(conv.all())
+    jh, jp, jc, ji = JaxSTBSR.from_check_matrix(H, rounds, interpret=True,
+                                                **kw).decode_batch(synd)
+    np.testing.assert_array_equal(hard.numpy().T, np.asarray(jh))
+    np.testing.assert_array_equal(conv.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(np.asarray(ji), state["iters"])
+    np.testing.assert_allclose(post.numpy().T, np.asarray(jp), rtol=1e-5, atol=1e-4)
+
+
+def test_decode_iterate_hook_runs_at_the_callers_shot_count(hgp225):
+    """With ``iterate`` given the loop runs on the host at the caller's S
+    (no padding), through the wrapper or the plain version alike."""
+    H = hgp225
+    Hst, synd = _inputs(H, 2, 0.01, 13, seed=6)
+    dec = SpacetimeBSRDecoder.from_check_matrix(H, 2, error_rate=0.01, max_iter=5,
+                                                device="cpu")
+    seen = []
+
+    def spy(t, R, msg, *rest):
+        seen.append(msg.shape[1])
+        stbsr_iter(t, R, msg, *rest)
+
+    s = torch.as_tensor(synd.T.copy())
+    a = stbsr_decode(dec.tables, 2, dec._prior, s, "ms", 5, 0.625, False, iterate=spy)
+    b = stbsr_decode(dec.tables, 2, dec._prior, s, "ms", 5, 0.625, False)
+    assert seen == [13] * 5
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("module", ["bench_stbsr", "bench_grid_barrier"])
+def test_card_benchmarks_refuse_to_run_without_a_card(module):
+    """The K3/K4 timing scripts measure the card only: no CPU fallback."""
+    import importlib
+
+    bench = importlib.import_module(f"exp_ldpc_tpu_torch.experiments.{module}")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        bench.main([])
