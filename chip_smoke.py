@@ -14,8 +14,13 @@ Phases, in order; any failure raises and exits nonzero:
      (``csrc/bpflat.cu``) from source, one ``nvcc`` per source, all at once;
   3. K2 against its plain PyTorch version on the card, at a ragged shot
      count (685, the host redecode's size), 4,096 and the main path's
-     16,384 shots: hard decisions, conv and iters equal, posteriors equal
-     to 1e-6*max(1,|x|);
+     16,384 shots, below the SM count (77: one shot per block) and ragged
+     past one wave (5,001), all on the resident route (each block's shots
+     in shared memory); 685 on the streamed route too; the gross code
+     over 12 rounds (60 iterations, 4,096 shots); and the n = 10,000 HGP
+     over 8 rounds (128 shots, 4 iterations), whose state does not fit
+     shared memory: the streamed route.  Hard decisions, conv and iters
+     equal, posteriors equal to 1e-6*max(1,|x|); each case prints its plan;
   4. K3 against its plain PyTorch version, at the same sizes and bounds:
      the device-side loop (one call per decode; 685 shots are padded to 688
      and run the vector paths like 4,096 and 16,384), fixed and with the
@@ -31,9 +36,13 @@ Phases, in order; any failure raises and exits nonzero:
      ``artifacts/ler_hgp225_bposd_v5e.jsonl``, each LER within 4 combined
      binomial sigma of the artifact, through K3;
   7. the same pipeline on K2 (``bp_backend="stbp"``);
-  8. timings (CUDA events, median of 5 distinct-input runs);
+  8. timings (CUDA events, median of 5 distinct-input runs): K2 at 16,384
+     shots on both routes and at 685, the gross code over 12 rounds (16,384
+     x 60), each with its plan; K3; the sampler; the ``bposd`` stages;
   9. K6 against its plain version on HGP-225's H and (H|I) at S = 685,
-     4,096 and 16,384 (bounds as in phase 3);
+     4,096, 16,384, 77 and 5,001 (resident), 685 on the streamed route, and
+     the n = 40,000 HGP (128 shots, 4 iterations: streamed), bounds as in
+     phase 3;
  10. K1 against its plain version at the same codes and sizes, fixed and
      with the early exit per shot block, and at ``biregular_hgp(160, 3,
      4)`` (>= 3,000 tiles: the regime of the rolled TPU kernel K1b, which
@@ -43,8 +52,9 @@ Phases, in order; any failure raises and exits nonzero:
      within 4 combined binomial sigma of its row of
      ``artifacts/pipeline_modes_hgp225_v5e.csv``;
  12. timings of K1 and K6 against their plain versions (``bench_bp``'s
-     configuration and 16,384 shots x 48 iterations; K1 also at the
-     >= 3,000-tile code) and the modes' stage split.
+     configuration, 16,384 and 685 shots x 48 iterations; K1 also at the
+     >= 3,000-tile code), K6's streamed route at 16,384 and its plans, and
+     the modes' stage split.
 
  13. K4 (``csrc/bsr_shard.cu``) against its plain version through the
      emulated check-partition decoder at ``biregular_hgp(20, 3, 4, seed=1)``
@@ -106,7 +116,10 @@ a kernel's C entry point: for K3 one whole decode (three grids per
 iteration, all enqueued by the one call), for K4 one iteration of one shard
 (two grids), for the others one grid.  The line before the
 last is the kernel summary JSON (``launches`` summed over those runs,
-``launches_by_run`` split by run; K3b's row counts phase 17's K3 decodes,
+``launches_by_run`` split by run, ``routes`` split by route: K2 and K6
+"resident" / "streamed", the others "default"; ``routes_parity_phase``,
+K2's and K6's routes in their parity phase; ``ms_streamed``, their
+streamed route at the main shape; K3b's row counts phase 17's K3 decodes,
 since no main-path run reaches its sizes; without ``--quick`` only, as are
 the times, ``bound_ms``, ``bound_by`` and ``library_ms``: a BP decode is
 no single PyTorch call, so that is null); the last line is ``{"ok": true, "device": {...}}``.  Phase
@@ -137,6 +150,7 @@ import torch  # noqa: E402
 
 from exp_ldpc_tpu_torch.circuits.noise import depolarizing_noise, trivial_noise  # noqa: E402
 from exp_ldpc_tpu_torch.circuits.storage_sim import build_storage_simulation  # noqa: E402
+from exp_ldpc_tpu_torch.codes.bivariate_bicycle import gross_code  # noqa: E402
 from exp_ldpc_tpu_torch.codes.hgp import biregular_hgp  # noqa: E402
 from exp_ldpc_tpu_torch.codes.io import read_quantum_code  # noqa: E402
 from exp_ldpc_tpu_torch.codes.lifted import lifted_product_code_cyclic  # noqa: E402
@@ -175,6 +189,7 @@ MAX_ITER = 48
 ALPHA = 0.625
 OPTIONS = dict(max_iter=MAX_ITER, bp_method="ms", ms_scaling_factor=ALPHA,
                osd_method="osd_cs", osd_order=7)
+METHODS = (("ms", ALPHA), ("ms", 0.0), ("ps", 0.0))
 P_LO, P_HI = 0.0015157165665103977, 0.0034822022531844966
 # ~ the BP-unconverged shots per 16,384-shot batch at P_HI: the ragged size
 # at which the host BP+OSD redecode runs K3
@@ -210,6 +225,14 @@ class Checks:
         rng = np.random.default_rng(seed)
         err = (rng.random((S, self.H.shape[1])) < p).astype(np.int64)
         return torch.as_tensor(((self.H @ err.T) % 2).astype(np.uint8)).to(self.dev)
+
+    def device_syndromes(self, S: int, p: float, seed: int) -> torch.Tensor:
+        """(rows, S) uint8 syndromes of i.i.d. errors drawn on the device (the
+        timing batches of the larger matrices: the host draw takes seconds)."""
+        gen = torch.Generator(device=self.dev)
+        gen.manual_seed(seed)
+        err = (torch.rand((self.H.shape[1], S), generator=gen, device=self.dev) < p)
+        return torch.remainder(self.Hs @ err.to(torch.float32), 2.0).to(torch.uint8)
 
     def valid(self, hard: torch.Tensor, synd: torch.Tensor) -> torch.Tensor:
         par = torch.remainder(self.Hs @ hard.to(torch.float32), 2.0)
@@ -287,20 +310,84 @@ def _same(tag: str, su, synd, kern, plain) -> float:
     return worst
 
 
-def phase_k2(su: Setup, sizes) -> float:
-    log(f"== phase 3: K2 vs plain, S in {sizes}, {MAX_ITER} iterations")
+def _plan_tag(plan) -> str:
+    return (f"{plan.route} G={plan.group} stride={plan.stride} blocks={plan.blocks} "
+            f"threads={plan.threads} tables_smem={plan.tables_smem} smem={plan.smem_bytes} B")
+
+
+def _routes_since(kern, before: dict) -> dict:
+    return {r: n - before.get(r, 0) for r, n in kern.routes.items() if n != before.get(r, 0)}
+
+
+# Shot counts added to the K2 and K6 parity phases: below the SM count (one
+# shot per block), and ragged past one wave (the last block holds fewer
+# shots than the others).
+S_SMALL, S_RAGGED = 77, 5001
+
+
+def _gross(dev: torch.device):
+    """The gross code [[144,12,12]]'s Z checks over 12 rounds (the reference's
+    bench_gross configuration): tables and the spacetime matrix."""
+    H = gross_code().checks.z
+    return (tanner_tables(TannerELL.from_check_matrix(H), dev),
+            Checks(SpacetimeCode(H, GROSS_ROUNDS).spacetime_check_matrix, dev,
+                   f"gross x{GROSS_ROUNDS} rounds"))
+
+
+GROSS_ROUNDS, GROSS_ITERS = 12, 60
+
+
+def phase_k2(su: Setup, sizes, dev: torch.device):
+    """Returns the worst posterior error and the routes this phase ran."""
+    log(f"== phase 3: K2 vs plain, S in {sizes + (S_SMALL, S_RAGGED)}, {MAX_ITER} iterations; "
+        f"the gross code x{GROSS_ROUNDS} rounds; the streamed route")
     p = 3e-3
     prior = su.prior(p)
     worst = 0.0
-    for S in sizes:
+    before = dict(k2.KERNEL.routes)
+
+    def case(tag, chk, tables, rounds, prior, synd, method, msf, iters, route="auto"):
+        plan = k2.launch_plan(tables, rounds, synd.shape[1], dev, route=route)
+        kern = k2.stbp_fixed(tables, rounds, prior, synd, method, iters, msf, plan=plan)
+        plain = stbp_core(tables, rounds, prior, synd, method, iters, msf, early_stop=False)
+        torch.cuda.synchronize()
+        return _same(f"{tag} {method} alpha={msf} [{_plan_tag(plan)}]", chk, synd, kern, plain)
+
+    for S in sizes + (S_SMALL, S_RAGGED):
         synd = su.syndromes(S, p, seed=1)
-        for method, msf in (("ms", ALPHA), ("ms", 0.0), ("ps", 0.0)):
-            kern = k2.stbp_fixed(su.tables, ROUNDS, prior, synd, method, MAX_ITER, msf)
-            plain = stbp_core(su.tables, ROUNDS, prior, synd, method, MAX_ITER, msf,
-                              early_stop=False)
-            torch.cuda.synchronize()
-            worst = max(worst, _same(f"S={S} {method} alpha={msf}", su, synd, kern, plain))
-    return worst
+        for method, msf in METHODS:
+            worst = max(worst, case(f"S={S}", su, su.tables, ROUNDS, prior, synd, method, msf,
+                                    MAX_ITER))
+    plan = k2.launch_plan(su.tables, ROUNDS, S_RAGGED, dev)
+    check(plan.route == "resident" and S_RAGGED % plan.group != 0,
+          f"S={S_RAGGED}: ragged ({S_RAGGED} = {S_RAGGED // plan.group} x {plan.group} + "
+          f"{S_RAGGED % plan.group})")
+    check(k2.launch_plan(su.tables, ROUNDS, S_SMALL, dev).blocks == S_SMALL,
+          f"S={S_SMALL}: one shot per block, {S_SMALL} blocks")
+    # the streamed route (the 32-shot-block kernel) at a main-path size
+    synd = su.syndromes(sizes[0], p, seed=1)
+    worst = max(worst, case(f"S={sizes[0]} streamed", su, su.tables, ROUNDS, prior, synd, "ms",
+                            ALPHA, MAX_ITER, route="streamed"))
+    # the gross code over 12 rounds: Dc 6, the exact 8-slot instance
+    tables, gst = _gross(dev)
+    synd = gst.syndromes(sizes[1], p, seed=15)
+    for method, msf in METHODS:
+        worst = max(worst, case(f"{gst.name} S={sizes[1]}", gst, tables, GROSS_ROUNDS,
+                                gst.prior(2 / 3 * p), synd, method, msf, GROSS_ITERS))
+    # over the budget: one shot's state exceeds the opt-in shared memory
+    H = biregular_hgp(80, 3, 4, seed=7, compute_logicals=False).checks.z
+    tables = tanner_tables(TannerELL.from_check_matrix(H), dev)
+    big = Checks(SpacetimeCode(H, 8).spacetime_check_matrix, dev, "HGP n=10000 x8 rounds")
+    synd = big.syndromes(128, 1e-3, seed=16)
+    check(k2.launch_plan(tables, 8, 128, dev).route == "streamed",
+          f"{big.name}: {k2.resident_bytes(tables, 8)[0]} B per shot takes the streamed route")
+    for method, msf in (("ms", ALPHA), ("ps", 0.0)):
+        worst = max(worst, case(f"{big.name} S=128", big, tables, 8, big.prior(1e-3), synd,
+                                method, msf, 4))
+    routes = _routes_since(k2.KERNEL, before)
+    check(routes.get("resident", 0) > 0 and routes.get("streamed", 0) > 0,
+          f"K2 ran both routes: {routes}")
+    return worst, routes
 
 
 def phase_k3(su: Setup, sizes, ragged) -> float:
@@ -472,13 +559,23 @@ def phase_k2_pipeline(su: Setup, dev: torch.device, shots: int) -> dict:
     return launches
 
 
+# each kernel's launches on the main path by route (K2, K6: resident /
+# streamed; the others one route, "default"), summed over its runs
+MAIN_ROUTES = {name: {} for name in KERNELS}
+
+
 def launch_counts() -> dict:
+    """The launches since the last reset; also adds their routes to
+    ``MAIN_ROUTES`` (every caller reads a run of the main path)."""
+    for name, kern in KERNELS.items():
+        for route, n in kern.routes.items():
+            MAIN_ROUTES[name][route] = MAIN_ROUTES[name].get(route, 0) + n
     return {name: kern.launches for name, kern in KERNELS.items()}
 
 
 def reset_counts() -> None:
     for kern in KERNELS.values():
-        kern.launches = 0
+        kern.reset_counts()
 
 
 def _timed(fn):
@@ -509,6 +606,32 @@ def phase_timings(su: Setup, dev: torch.device, shots: int) -> dict:
     t["K2"] = _median_ms(lambda s: k2.stbp_fixed(*args, s, "ms", MAX_ITER, ALPHA), synds[:5])
     t["K2_plain"] = _median_ms(
         lambda s: stbp_core(*args, s, "ms", MAX_ITER, ALPHA, early_stop=False), synds[:5])
+    # the streamed route (the 32-shot-block kernel) on the same inputs
+    streamed = k2.launch_plan(su.tables, ROUNDS, shots, dev, route="streamed")
+    k2.stbp_fixed(*args, warm, "ms", MAX_ITER, ALPHA, plan=streamed)
+    t["K2_streamed"] = _median_ms(
+        lambda s: k2.stbp_fixed(*args, s, "ms", MAX_ITER, ALPHA, plan=streamed), synds[:5])
+    small2 = [x[:, :S_REDECODE].contiguous() for x in synds]
+    t[f"K2_S{S_REDECODE}"] = _median_ms(
+        lambda s: k2.stbp_fixed(*args, s, "ms", MAX_ITER, ALPHA), small2[:5])
+    t[f"K2_S{S_REDECODE}_plain"] = _median_ms(
+        lambda s: stbp_core(*args, s, "ms", MAX_ITER, ALPHA, early_stop=False), small2[:5])
+    # the gross code over 12 rounds, 60 iterations (bench_gross's decoder)
+    gtab, gst = _gross(dev)
+    gprior = gst.prior(2 / 3 * p)
+    gsyn = [gst.device_syndromes(shots, p, seed=150 + i) for i in range(4)]
+    gargs = (gtab, GROSS_ROUNDS, gprior)
+    k2.stbp_fixed(*gargs, gsyn[3], "ms", GROSS_ITERS, ALPHA)
+    t["K2_gross"] = _median_ms(lambda s: k2.stbp_fixed(*gargs, s, "ms", GROSS_ITERS, ALPHA),
+                               gsyn[:3])
+    t["K2_gross_plain"] = _median_ms(
+        lambda s: stbp_core(*gargs, s, "ms", GROSS_ITERS, ALPHA, early_stop=False), gsyn[:2])
+    for tag, plan in ((f"HGP-225 S={shots}", k2.launch_plan(su.tables, ROUNDS, shots, dev)),
+                      (f"HGP-225 S={S_REDECODE}",
+                       k2.launch_plan(su.tables, ROUNDS, S_REDECODE, dev)),
+                      (f"gross x{GROSS_ROUNDS} S={shots}",
+                       k2.launch_plan(gtab, GROSS_ROUNDS, shots, dev))):
+        log(f"  K2 plan at {tag}: {_plan_tag(plan)}")
     k3.stbsr_decode(*args, warm, "ms", MAX_ITER, ALPHA, False)
     t["K3"] = _median_ms(lambda s: k3.stbsr_decode(*args, s, "ms", MAX_ITER, ALPHA, False),
                          synds[:5])
@@ -574,7 +697,6 @@ def phase_timings(su: Setup, dev: torch.device, shots: int) -> dict:
 # ---------------------------------------------------------------------------
 
 FLAT_P = 5e-3
-METHODS = (("ms", ALPHA), ("ms", 0.0), ("ps", 0.0))
 
 
 class FlatSetup(Checks):
@@ -599,20 +721,44 @@ def flat_setups(su: Setup, dev: torch.device):
     return flats, big
 
 
-def phase_k6(flats, sizes) -> float:
-    log(f"== phase 9: K6 vs plain (f32), S in {sizes}, {MAX_ITER} iterations")
+def phase_k6(flats, big, sizes, dev: torch.device):
+    """Returns the worst posterior error and the routes this phase ran."""
+    log(f"== phase 9: K6 vs plain (f32), S in {sizes + (S_SMALL, S_RAGGED)}, {MAX_ITER} "
+        "iterations; the streamed route")
     worst = 0.0
+    before = dict(k6.KERNEL.routes)
+
+    def case(tag, fs, prior, synd, method, msf, iters, route="auto"):
+        plan = k6.launch_plan(fs.tables, synd.shape[1], dev, route=route)
+        kern = k6.bp_fixed(fs.tables, prior, synd, method, iters, msf, plan=plan)
+        plain = bp_core(fs.tables, prior, synd, method, iters, msf, early_stop=False)
+        torch.cuda.synchronize()
+        return _same(f"{fs.name} {tag} {method} alpha={msf} [{_plan_tag(plan)}]", fs, synd, kern,
+                     plain)
+
     for fs in flats:
         prior = fs.prior(FLAT_P)
-        for S in sizes:
+        for S in sizes + (S_SMALL, S_RAGGED):
             synd = fs.syndromes(S, FLAT_P, seed=3)
             for method, msf in METHODS:
-                kern = k6.bp_fixed(fs.tables, prior, synd, method, MAX_ITER, msf)
-                plain = bp_core(fs.tables, prior, synd, method, MAX_ITER, msf, early_stop=False)
-                torch.cuda.synchronize()
-                worst = max(worst, _same(f"{fs.name} S={S} {method} alpha={msf}", fs, synd,
-                                         kern, plain))
-    return worst
+                worst = max(worst, case(f"S={S}", fs, prior, synd, method, msf, MAX_ITER))
+        plan = k6.launch_plan(fs.tables, S_RAGGED, dev)
+        check(plan.route == "resident" and S_RAGGED % plan.group != 0,
+              f"{fs.name} S={S_RAGGED}: ragged ({S_RAGGED} = {S_RAGGED // plan.group} x "
+              f"{plan.group} + {S_RAGGED % plan.group})")
+        synd = fs.syndromes(sizes[0], FLAT_P, seed=3)
+        worst = max(worst, case(f"S={sizes[0]} streamed", fs, prior, synd, "ms", ALPHA, MAX_ITER,
+                                route="streamed"))
+    # over the budget: the n = 40,000 HGP (557 KB a shot)
+    synd = big.syndromes(128, 2e-3, seed=17)
+    check(k6.launch_plan(big.tables, 128, dev).route == "streamed",
+          f"{big.name}: {k6.resident_bytes(big.tables)[0]} B per shot takes the streamed route")
+    for method, msf in (("ms", ALPHA), ("ps", 0.0)):
+        worst = max(worst, case("S=128", big, big.prior(2e-3), synd, method, msf, 4))
+    routes = _routes_since(k6.KERNEL, before)
+    check(routes.get("resident", 0) > 0 and routes.get("streamed", 0) > 0,
+          f"K6 ran both routes: {routes}")
+    return worst, routes
 
 
 def _k1_case(fs: FlatSetup, synd, prior, method, msf, early_stop, iters) -> float:
@@ -714,7 +860,18 @@ def phase_flat_timings(flats, big, dev: torch.device, shots: int) -> dict:
     pair(f"S{shots}_es", Hss, shots, MAX_ITER, FLAT_P, early_stop=True)
     # the host BP+OSD redecode's shape: a few hundred shots, early exit
     pair(f"S{S_REDECODE}_es", Hss, S_REDECODE, MAX_ITER, FLAT_P, early_stop=True)
+    pair(f"S{S_REDECODE}", Hss, S_REDECODE, MAX_ITER, FLAT_P)
     pair("n40000", big, 256, 8, 2e-3)
+    # K6's streamed route (the 32-shot-block kernel) at the main shape
+    prior = Hss.prior(FLAT_P)
+    synds = [Hss.device_syndromes(shots, FLAT_P, seed=300 + i) for i in range(6)]
+    streamed = k6.launch_plan(Hss.tables, shots, dev, route="streamed")
+    k6.bp_fixed(Hss.tables, prior, synds[5], "ms", MAX_ITER, ALPHA, plan=streamed)
+    t[f"K6_S{shots}_streamed"] = _median_ms(
+        lambda s: k6.bp_fixed(Hss.tables, prior, s, "ms", MAX_ITER, ALPHA, plan=streamed),
+        synds[:5])
+    for fs, n in ((Hss, shots), (Hss, S_REDECODE), (H, 1024)):
+        log(f"  K6 plan at {fs.name} S={n}: {_plan_tag(k6.launch_plan(fs.tables, n, dev))}")
     for k, v in t.items():
         log(f"  {k}: {v:.4f} ms")
     log(f"  K1 at bench_bp's configuration: {32 * 1024 / t['K1_bench'] * 1e3:.4g} iter*shots/s "
@@ -908,6 +1065,7 @@ def phase_distributed(dev: torch.device, world) -> dict:
         check(r["launches"] == SHARD_ITERS, f"rank {k}: K4 launched {r['launches']} times")
     counts = {name: 0 for name in KERNELS}
     counts["K4"] = sum(r["launches"] for r in ranks)
+    MAIN_ROUTES["K4"]["default"] = MAIN_ROUTES["K4"].get("default", 0) + counts["K4"]
     return counts
 
 
@@ -1160,14 +1318,20 @@ def _flat_io(tab, S: int) -> int:
             + 4 * V * S + S + 4 * S)
 
 
-def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape) -> dict:
-    """Bound of each kernel at the shape its ``ms`` was timed at."""
+def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross) -> dict:
+    """Bound of each kernel at the shape its ``ms`` was timed at (K2 and K6
+    also at their other timed shapes: ``bound_ms_<tag>``)."""
     S = 16384
     Hss = flats[1]
     out = {}
     # K1, K6: (H|I), 16,384 shots x 48 iterations, fixed (K1 also reads nslot)
     E = Hss.H.nnz
     out["K6"] = _bound(_flat_io(Hss.tables, S), OPS_FLOAT * E * S * MAX_ITER)
+    for tag, fs, shots, iters in ((f"S{S_REDECODE}", Hss, S_REDECODE, MAX_ITER),
+                                  ("bench", flats[0], 1024, 32)):
+        b = _bound(_flat_io(fs.tables, shots), OPS_FLOAT * fs.H.nnz * shots * iters)
+        out["K6"][f"bound_ms_{tag}"] = b["bound_ms"]
+        out["K6"][f"bound_by_{tag}"] = b["bound_by"]
     out["K1"] = _bound(_flat_io(Hss.tables, S) + 4 * Hss.tables.num_checks,
                        OPS_FLOAT * E * S * MAX_ITER)
     # K1b: n = 40,000 HGP, 256 shots x 8 iterations
@@ -1183,6 +1347,12 @@ def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape) -> dict:
                 + 4 * cols * shots + 5 * shots)
 
     out["K2"] = _bound(st_io(rows, cols, su.tables, S), OPS_FLOAT * su.H.nnz * S * MAX_ITER)
+    gtab, gst = gross
+    for tag, chk, tab, shots, iters in ((f"S{S_REDECODE}", su, su.tables, S_REDECODE, MAX_ITER),
+                                        ("gross", gst, gtab, S, GROSS_ITERS)):
+        b = _bound(st_io(*chk.H.shape, tab, shots), OPS_FLOAT * chk.H.nnz * shots * iters)
+        out["K2"][f"bound_ms_{tag}"] = b["bound_ms"]
+        out["K2"][f"bound_by_{tag}"] = b["bound_by"]
     # K3: one launch per iteration; each launch also reads and writes the
     # bf16 message arrays (one value per spacetime edge)
     out["K3"] = _bound(MAX_ITER * (st_io(rows, cols, su.tables, S) + 2 * 2 * su.H.nnz * S),
@@ -1230,8 +1400,9 @@ def main() -> int:
     world = None if args.quick else bg.submit(dist_world)
     # ragged shot edges (97, S_REDECODE) and the main path's batch (16,384)
     sizes = (97, 512) if args.quick else (S_REDECODE, 4096, 16384)
-    err = {"K2": phase(phase_k2, su, sizes),
-           "K3": phase(phase_k3, su, sizes, (97,) if args.quick else (97, S_REDECODE))}
+    err, parity_routes = {}, {}
+    err["K2"], parity_routes["K2"] = phase(phase_k2, su, sizes, dev)
+    err["K3"] = phase(phase_k3, su, sizes, (97,) if args.quick else (97, S_REDECODE))
     phase(phase_sampler, su, dev, n_dev, n_host, host)
     src = "exp_ldpc_tpu_torch/csrc/"
     kernels = [
@@ -1266,7 +1437,7 @@ def main() -> int:
                   "pipeline_stbp": phase(phase_k2_pipeline, su, dev, 16384)}
         t = phase(phase_timings, su, dev, 16384)
     flats, big = flat_setups(su, dev)
-    err["K6"] = phase(phase_k6, flats, sizes)
+    err["K6"], parity_routes["K6"] = phase(phase_k6, flats, big, sizes, dev)
     err["K1"], err["K1b"] = phase(phase_k1, flats, big, sizes, args.quick)
     cyclic_H = bench_bsr_shard.build_code("cyclic4862")
     fams = family_setups(dev, cyclic_H)
@@ -1287,14 +1458,14 @@ def main() -> int:
         t.update(phase(phase_flat_timings, flats, big, dev, 16384))
         t.update(phase(phase_shard_timings, dev, cap, cyclic_H))
         t.update(phase(phase_family_timings, fams, fam_rows))
-        bounds = kernel_bounds(su, flats, big, fams, cap, k3b_shapes["HGP"])
+        bounds = kernel_bounds(su, flats, big, fams, cap, k3b_shapes["HGP"], _gross(dev))
         timing = {"K1": ("K1_S16384", "bench", "S16384_es", f"S{S_REDECODE}_es"),
                   "K1b": ("K1_n40000",),
-                  "K2": ("K2",), "K3": ("K3", f"S{S_REDECODE}"),
+                  "K2": ("K2", f"S{S_REDECODE}", "gross"), "K3": ("K3", f"S{S_REDECODE}"),
                   "K3b": ("K3b_HGP", "cyclic"),
                   "K4": ("K4_capacity_D8", "bench_D1", "bench_D2", "bench_D4"),
                   "K5": ("K5_cyclic", "qclp"),
-                  "K6": ("K6_S16384", "bench")}
+                  "K6": ("K6_S16384", "bench", f"S{S_REDECODE}")}
         for kern in kernels:
             key = kern["name"].split()[0]
             if key == "K3b":
@@ -1310,6 +1481,11 @@ def main() -> int:
                 kern[f"ms_{tag}"] = t[f"{key}_{tag}"]
                 kern[f"plain_ms_{tag}"] = t[f"{key}_{tag}_plain"]
             kern.update(bounds[key])
+            kern["routes"] = ({"default": k3b_launches} if key == "K3b" else
+                              dict(MAIN_ROUTES[{"K1b": "K1"}.get(key, key)]))
+            if key in parity_routes:
+                kern["routes_parity_phase"] = parity_routes[key]
+                kern["ms_streamed"] = t[f"{main_t}_streamed"]
             if key == "K5":
                 kern["k1_ms"], kern["k1_ms_qclp"] = t["K1_fam_cyclic"], t["K1_fam_qclp"]
                 kern["k1_plain_ms"] = t["K1_fam_cyclic_plain"]
@@ -1326,6 +1502,10 @@ def main() -> int:
                 kern["max_abs_err_n40000"] = err_k4_big
     if args.quick:  # K3b's regime is not checked with --quick
         kernels = [k for k in kernels if not k["name"].startswith("K3b")]
+        for kern in kernels:
+            key = kern["name"].split()[0]
+            if key in parity_routes:
+                kern["routes_parity_phase"] = parity_routes[key]
     for kern in kernels:
         kern["max_abs_err"] = err[kern["name"].split()[0]]
     bg.shutdown()

@@ -5,7 +5,7 @@ modes (``bposd``: BP+OSD on the full spacetime matrix;
 ``bposd_single_shot``: per-round (H|I) BP+OSD with an accumulated
 correction, then the final round; ``bposd_hybrid``: spacetime BP, then
 BP+OSD of the final round) and the CLI helpers.  The other modes and
-``run_simulation`` are ROADMAP Queue 1 item 6.  Priors follow the
+``run_simulation`` are not ported yet (ROADMAP.md, Queue 1).  Priors follow the
 reference: data columns get ``data_prior``, measurement-error columns
 ``meas_prior``.
 """

@@ -4,21 +4,26 @@ Counterpart of ``exp_ldpc_tpu/decoders/select.py``, with the JAX rules kept
 as they are:
 
   * :func:`make_bp_decoder` (flat BP): from ~1 MiB of dense routing
-    operands up, where "usable" (a CUDA device, the counterpart of
-    ``_bsr_usable``), kernel K1 (:class:`.bp_bsr.BSRBPDecoder`, early exit
-    per shot block); else, with ``qc_dims`` given, the quasi-cyclic roll
-    decoder (:class:`.qc_bp.QCBPDecoder`) where its monomial count and the
-    operand size are in its range; else :class:`.bp.BPDecoder`.  The int8
-    message path (kernel K5) is passed through when asked for by
+    operands up, where "usable" (a CUDA device, the counterpart of the
+    reference's TPU, and :func:`fits_bsr`, as ``_bsr_usable`` asks), kernel
+    K1 (:class:`.bp_bsr.BSRBPDecoder`, early exit per shot block); else,
+    with ``qc_dims`` given, the quasi-cyclic roll decoder
+    (:class:`.qc_bp.QCBPDecoder`) where its monomial count and the operand
+    size are in its range; else :class:`.bp.BPDecoder`.  The int8 message
+    path (kernel K5) is passed through when asked for by
     ``msg_dtype="int8"`` and never chosen.
   * :func:`make_spacetime_bp_decoder`: from the same threshold up (and
     rounds >= 1) the K3 contract
-    (:class:`.bp_bsr_spacetime.SpacetimeBSRDecoder`, global early exit),
-    below it the structured decoder (:class:`.spacetime_bp.SpacetimeBPDecoder`:
-    K2 in fixed-iteration mode).  "Usable" for K3 means a CUDA device.
+    (:class:`.bp_bsr_spacetime.SpacetimeBSRDecoder`, global early exit)
+    where usable (a CUDA device and :func:`fits_stbsr`, as
+    ``_stbsr_usable`` asks), else the structured decoder
+    (:class:`.spacetime_bp.SpacetimeBPDecoder`: K2 in fixed-iteration mode).
 
-The thresholds were measured on a TPU v5e; re-deriving them on the H100 is
-a ROADMAP item.
+The thresholds and the fit rules were measured and sized on a TPU v5e;
+re-deriving them on the H100 is a ROADMAP item.  The fit rules are kept
+because they decide the decode's contract (bf16 messages and an early exit,
+or f32 at fixed iterations): with them the port decodes every code as the
+reference does.
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ from .bp import dense_ops_bytes
 from .tanner import TannerELL
 
 __all__ = ["make_bp_decoder", "make_spacetime_bp_decoder", "bsr_selected", "stbsr_selected",
-           "qc_kwargs_for_code", "qc_kwargs_single_shot"]
+           "fits_bsr", "fits_stbsr", "fits_stbsr_sched", "qc_kwargs_for_code",
+           "qc_kwargs_single_shot"]
 
 # exp_ldpc_tpu/decoders/select.py:45 (v5e crossover)
 BSR_MIN_OPS_BYTES = 2**20
@@ -43,19 +49,78 @@ _QC_MAX_MONOMIALS = 256
 _QC_PREFER_DENSE_OPS_LIMIT = 4 * 2**20
 
 
+_TILE = 128   # the reference's BSR tile (exp_ldpc_tpu/decoders/bp_bsr.py:66)
+
+
 def _ops_bytes(tanner) -> int:
     return dense_ops_bytes(tanner.num_vars, tanner.num_checks, tanner.max_check_degree)
 
 
+def _layout(tanner):
+    """The port's ``BSRLayout`` of ``tanner`` (its tables on the CPU): the
+    padded sizes and tile count the fit rules read."""
+    from .bp_bsr import BSRLayout
+
+    return BSRLayout.from_tanner(tanner, "cpu")
+
+
+def fits_bsr(layout, shot_block: int = 128, vmem_budget_bytes: int = 64 * 2**20) -> bool:
+    """The reference's routing rule for the flat K1 contract: its estimate
+    of K1's TPU VMEM (``exp_ldpc_tpu/decoders/bp_bsr.py:201-218``: bf16
+    messages, f32 posterior / parity / syndromes, the fused min-sum scan
+    state, the one-hot tiles, the tables, temporaries) under a 64 MiB
+    budget, computed on a :class:`.bp_bsr.BSRLayout`.  It is not an H100
+    memory limit: the port keeps it so that the automatic choice gives each
+    code the reference's decode contract."""
+    sb = shot_block
+    msg = 2 * layout.e_pad * sb
+    state = 4 * sb * (layout.v_pad + 2 * layout.c_pad) + 16 * layout.c_pad * sb
+    onehots = layout.num_tiles * _TILE * _TILE * 2
+    tables = 4 * (layout.e_pad + 2 * layout.e_pad // _TILE * _TILE)
+    temps = 4 * 8 * _TILE * sb
+    return msg + state + onehots + tables + temps < vmem_budget_bytes
+
+
+def fits_stbsr_sched(layout, shot_block: int = 128, vmem_budget_bytes: int = 100 * 2**20,
+                     onehot_vmem: bool = True) -> bool:
+    """The reference's per-call VMEM estimate of the streamed spacetime
+    kernel K3 (``exp_ldpc_tpu/decoders/bp_bsr_spacetime.py:531-549``:
+    double-buffered message, posterior, measurement and syndrome windows,
+    three scratch panels, the optional one-hot store, temporaries) under a
+    100 MiB budget, on a :class:`.bp_bsr.BSRLayout` of the base code.  A
+    routing rule, not an H100 memory limit (see :func:`fits_bsr`)."""
+    sb, c_pad = shot_block, layout.c_pad
+    win = 2 * 2 * layout.e_pad * sb * 2 + 2 * 4 * layout.v_pad * sb
+    win += 2 * (4 * 2 + 4) * c_pad * sb + 2 * 2 * c_pad * sb
+    scratch = 3 * 4 * c_pad * sb
+    oh = layout.num_tiles * _TILE * _TILE * 2 if onehot_vmem else 0
+    temps = 4 * 8 * _TILE * sb
+    return win + scratch + oh + temps < vmem_budget_bytes
+
+
+def fits_stbsr(layout, num_rounds: int, shot_block: int = 128,
+               vmem_budget_bytes: int = 100 * 2**20) -> bool:
+    """``fits_stbsr_sched`` without the one-hot store
+    (``exp_ldpc_tpu/decoders/bp_bsr_spacetime.py:552-559``): independent of
+    the round count."""
+    del num_rounds
+    return fits_stbsr_sched(layout, shot_block, vmem_budget_bytes, onehot_vmem=False)
+
+
 def bsr_selected(tanner, device: torch.device) -> bool:
-    """True where the JAX rule picks the flat K1 contract."""
-    return _ops_bytes(tanner) >= BSR_MIN_OPS_BYTES and device.type == "cuda"
+    """True where the JAX rule picks the flat K1 contract: from 1 MiB of
+    dense routing operands up, on a CUDA device, where :func:`fits_bsr`
+    holds (``_bsr_usable``)."""
+    return device.type == "cuda" and _ops_bytes(tanner) >= BSR_MIN_OPS_BYTES \
+        and fits_bsr(_layout(tanner))
 
 
 def stbsr_selected(tanner, num_rounds: int, device: torch.device) -> bool:
-    """True where the JAX rule picks the streamed K3 contract."""
-    return num_rounds >= 1 and _ops_bytes(tanner) >= BSR_MIN_OPS_BYTES \
-        and device.type == "cuda"
+    """True where the JAX rule picks the streamed K3 contract: rounds >= 1,
+    from 1 MiB of dense routing operands up, on a CUDA device, where
+    :func:`fits_stbsr` holds (``_stbsr_usable``)."""
+    return num_rounds >= 1 and device.type == "cuda" \
+        and _ops_bytes(tanner) >= BSR_MIN_OPS_BYTES and fits_stbsr(_layout(tanner), 1)
 
 
 def make_bp_decoder(H, *, qc_dims=None, qc_check_perm=None, qc_var_perm=None,

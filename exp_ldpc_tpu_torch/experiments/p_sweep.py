@@ -11,7 +11,7 @@ per device, joined by :func:`..parallel.mesh.init_distributed`: each rank
 calls :func:`p_sweep`, the counts are summed over the data axis, and rank 0
 alone writes the checkpoint and the CSV.  The CLI starts the N processes
 itself (``--mesh_devices N``).  The host ``run_simulation`` path (no
-``pipeline``) is ROADMAP Queue 1 item 6.
+``pipeline``) is not ported yet (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -138,12 +138,12 @@ def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_p
     """
     if use_device_sampler is False:
         raise NotImplementedError(
-            "host-sampled sweep (use_device_sampler=False, --cpu_sampler): not ported yet "
-            "(ROADMAP.md, Queue 1 item 6)")
+            "host-sampled sweep (use_device_sampler=False, --cpu_sampler): run_simulation is "
+            "not ported yet (ROADMAP.md, Queue 1)")
     if pipeline is None:
         raise NotImplementedError(
-            "p_sweep without pipeline (host run_simulation): not ported yet "
-            "(ROADMAP.md, Queue 1 item 6)")
+            "p_sweep without pipeline (host run_simulation): run_simulation is not ported "
+            "yet (ROADMAP.md, Queue 1)")
     mode = kwargs.get("decoder_mode", "bposd")
     if mode not in ("bposd", "bposd_single_shot", "bposd_hybrid"):
         raise ValueError(

@@ -30,8 +30,8 @@ With a ``mesh`` (:mod:`.mesh`, model axis 1) each rank is one device of
 the data axis: it samples its own ``shots_per_device`` shots with the
 generator it is given, decodes them, redecodes its own shipped shots on
 its host, and the counts are summed over the data group, so every rank
-returns the totals.  The two-tier decode is ROADMAP Queue 1 item 7;
-asking for it raises ``NotImplementedError``.
+returns the totals.  The two-tier decode (``tier1_iters``) is not ported
+yet (ROADMAP.md, Queue 1); asking for it raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -61,7 +61,6 @@ from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, all_reduce_sum
 
 __all__ = ["StorageDecodePipeline"]
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1 item {})"
 
 
 @dataclass(eq=False)
@@ -105,7 +104,8 @@ class StorageDecodePipeline:
                                  f"got a model axis of {self.mesh.shape[MODEL_AXIS]}")
             self.device = self.mesh.device
         if self.tier1_iters > 0:
-            raise NotImplementedError("two-tier decode (tier1_iters): " + _NOT_PORTED.format(7))
+            raise NotImplementedError("two-tier decode (tier1_iters): not ported yet "
+                                      "(ROADMAP.md, Queue 1, the two-tier decode)")
         if self.mode not in ("bposd", "bposd_single_shot", "bposd_hybrid"):
             raise ValueError(f"unknown pipeline mode {self.mode!r}")
         if self.bp_backend not in ("auto", "stbp", "stbsr"):

@@ -17,9 +17,10 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import NamedTuple, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
-__all__ = ["CudaKernel", "RowShotPlan", "row_shot_plan", "aligned"]
+__all__ = ["CudaKernel", "RowShotPlan", "row_shot_plan", "aligned", "ResidentPlan",
+           "resident_plan", "streamed_plan", "resident_max_threads", "device_limits"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "exp_ldpc_tpu_torch"
@@ -62,6 +63,119 @@ def row_shot_plan(rows: int, shots: int, vecs: Sequence[int], sm_count: int) -> 
     return RowShotPlan(vec, items, blocks)
 
 
+class ResidentPlan(NamedTuple):
+    """Launch of a whole-decode flat or spacetime BP kernel (K2, K6).
+
+    ``route`` "resident": a block owns ``group`` consecutive shots and keeps
+    all their messages and syndromes in dynamic shared memory for every
+    iteration; each shared-memory row holds ``stride`` (>= group) shot
+    slots; ``smem_bytes`` is the block's dynamic shared memory, the tables
+    included when ``tables_smem``.  ``route`` "streamed": one shot's state
+    does not fit in shared memory, so the messages live in device memory and
+    a block of ``STREAMED_THREADS`` threads owns ``STREAMED_SHOTS`` shots
+    (the 32-shot-block kernel); its dynamic shared memory holds the tables
+    alone, where they fit."""
+
+    route: str
+    group: int
+    stride: int
+    blocks: int
+    threads: int
+    tables_smem: bool
+    smem_bytes: int
+
+
+STREAMED_SHOTS, STREAMED_THREADS = 32, 256   # csrc/spacetime_bp.cuh: LANES, LANES * WORKERS
+_STREAMED_STATIC = 4 * STREAMED_SHOTS        # the streamed kernels' static `bad[LANES]` flags
+
+
+def resident_max_threads(width: int) -> int:
+    """Threads per block the resident kernels are compiled for
+    (``csrc/resident_bp.cuh::ResidentThreads``): 1,024 for check widths up
+    to 16 slots (64 registers a thread), 512 above (128)."""
+    return 1024 if width <= 16 else 512
+
+
+def streamed_plan(shots: int, table_bytes: int, smem_optin: int) -> ResidentPlan:
+    """The streamed route's launch: ``STREAMED_SHOTS`` shots per block, the
+    tables in dynamic shared memory where they fit there."""
+    tables = table_bytes + _STREAMED_STATIC <= smem_optin
+    return ResidentPlan("streamed", 0, 0, -(-shots // STREAMED_SHOTS), STREAMED_THREADS, tables,
+                        table_bytes if tables else 0)
+
+
+def resident_plan(per_shot_bytes: int, table_bytes: int, shots: int, smem_optin: int,
+                  sm_count: int, *, fixed_bytes: int = 0, width: int = 16,
+                  blocks_per_sm: int = 1, threads: Optional[int] = None,
+                  max_group: Optional[int] = None, pad: int = 0) -> ResidentPlan:
+    """Route and launch of a whole-decode kernel from its shapes.
+
+    A block's dynamic shared memory is ``stride * per_shot_bytes +
+    fixed_bytes`` plus ``table_bytes`` when the tables sit there too
+    (``stride = group + pad``).  If one shot does not fit in
+    ``smem_optin`` (the card's opt-in limit per block), the route is
+    "streamed".  Else, where the batch fits one wave of one block per SM,
+    ``group`` is ``ceil(shots / sm_count)``, so a few hundred shots still
+    spread over every SM, with the widest thread count of the check
+    ``width`` (:func:`resident_max_threads`).  A larger batch runs
+    ``blocks_per_sm`` blocks side by side on each SM (so one block's
+    barrier waits overlap another's work), each in ``smem_optin //
+    blocks_per_sm`` bytes with ``resident_max_threads // blocks_per_sm``
+    threads, and ``group`` is as many shots as fit there (at most
+    ``max_group``), evened out over the waves.  The tables go in shared
+    memory when they fit beside one shot.  ``threads`` overrides the thread
+    count (a multiple of 32, at most :func:`resident_max_threads`)."""
+    if shots < 1 or sm_count < 1 or blocks_per_sm < 1:
+        raise ValueError(f"shots ({shots}), sm_count ({sm_count}) and blocks_per_sm "
+                         f"({blocks_per_sm}) must be positive")
+
+    def need(stride: int, tables: bool) -> int:
+        return stride * per_shot_bytes + fixed_bytes + (table_bytes if tables else 0)
+
+    def fit(budget: int) -> Tuple[bool, int]:
+        tables = need(1 + pad, True) <= budget
+        return tables, (budget - need(0, tables)) // per_shot_bytes - pad
+
+    if need(1 + pad, False) > smem_optin:
+        return streamed_plan(shots, table_bytes, smem_optin)
+    cap = resident_max_threads(width)
+    tables, most = fit(smem_optin)
+    per_sm = 1
+    if shots > sm_count * most and blocks_per_sm > 1 and need(1 + pad, False) <= (
+            smem_optin // blocks_per_sm):
+        per_sm = blocks_per_sm
+        tables, most = fit(smem_optin // per_sm)
+    if max_group is not None:
+        most = max(1, min(most, int(max_group)))
+    slots = sm_count * per_sm
+    waves = -(-shots // (slots * most))
+    group = -(-shots // (slots * waves))
+    width_threads = max(32, 32 * (cap // per_sm // 32))
+    nthreads = width_threads if threads is None else max(32, min(cap, 32 * (int(threads) // 32)))
+    return ResidentPlan("resident", group, group + pad, -(-shots // group), nthreads, tables,
+                        need(group + pad, tables))
+
+
+_LIMITS: Dict[int, Tuple[int, int]] = {}
+
+
+def device_limits(kernel: "CudaKernel", device) -> Tuple[int, int]:
+    """(opt-in shared memory per block in bytes, SM count) of a CUDA
+    device, read once with ``cudaDeviceGetAttribute`` through ``kernel``'s
+    library (``csrc/resident_bp.cuh::device_limits``)."""
+    import torch
+
+    idx = torch.cuda.current_device() if device.index is None else int(device.index)
+    if idx not in _LIMITS:
+        fn = kernel.symbol("device_limits", [ctypes.c_int, ctypes.c_void_p])
+        out = (ctypes.c_int * 2)()
+        rc = fn(idx, ctypes.cast(out, ctypes.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"cudaDeviceGetAttribute failed with CUDA error {rc}")
+        _LIMITS[idx] = (int(out[0]), int(out[1]))
+    return _LIMITS[idx]
+
+
 def aligned(*tensors, nbytes: int = 16) -> bool:
     """Whether every tensor starts on an ``nbytes`` boundary (the widest
     access of the row x shot kernels)."""
@@ -83,8 +197,11 @@ class CudaKernel:
 
     ``launches`` counts calls of the entry point made through
     :meth:`launch` (an entry point may enqueue several grids: K4's two
-    phases of an iteration, all iterations of a K3 decode); a run that
-    claims to have used the kernel resets it before and reads it after.
+    phases of an iteration, all iterations of a K3 decode), and ``routes``
+    splits that count by the route the caller names (K2 and K6:
+    "resident" or "streamed"; the other kernels have one, "default"); a run
+    that claims to have used the kernel resets both (:meth:`reset_counts`)
+    before and reads them after.
     """
 
     def __init__(self, source: str, entry: str, argtypes: Sequence):
@@ -92,9 +209,15 @@ class CudaKernel:
         self.entry = entry
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.routes: Dict[str, int] = {}
         self.build_seconds: Optional[float] = None
         self.build_log = ""
         self._fn = None
+        self._lib = None
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.routes = {}
 
     def build(self):
         """Compile (if the hashed library is missing) and load; returns the C function."""
@@ -118,13 +241,22 @@ class CudaKernel:
                 os.replace(tmp, so_path)
         self.build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(so_path))
+        self._lib = lib
         fn = getattr(lib, self.entry)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
         self._fn = fn
         return fn
 
-    def launch(self, *args) -> None:
+    def symbol(self, name: str, argtypes: Sequence):
+        """Another C function of the same library (built on first use)."""
+        self.build()
+        fn = getattr(self._lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        return fn
+
+    def launch(self, *args, route: str = "default") -> None:
         """Call the entry point (which launches on the given stream); raise
         on a nonzero ``cudaGetLastError`` code."""
         fn = self.build()
@@ -132,3 +264,4 @@ class CudaKernel:
         if rc != 0:
             raise RuntimeError(f"{self.entry} launch failed with CUDA error {rc}")
         self.launches += 1
+        self.routes[route] = self.routes.get(route, 0) + 1

@@ -9,7 +9,11 @@ conv and iters are equal and posteriors equal to 1e-6*max(1,|x|), the
 bounds ``chip_smoke.py`` holds them to.  S=77 leaves a ragged shot edge
 (77 mod 32 = 13) for the kernels' masking; K1's early exit runs per JAX
 shot block (128 shots here, four CUDA blocks), so S=300 spans three.
-K3 and K4 split rows x shot vectors over the card: a decode pads its shot
+K2 and K6 run each decode on one of two routes, picked from the shape: a
+block's shots resident in shared memory (S = 1 and 77 spread one shot per
+block), or streamed through device memory (the shapes whose state does not
+fit; forced here at HGP-225 too).  K3 and K4 split rows x shot vectors over
+the card: a decode pads its shot
 axis and takes the vector paths at every S (77 and 300 ragged, 256
 aligned), while a single iteration on the caller's own (ragged) tensors
 runs one shot per thread.  One K3 call enqueues a whole decode (three grids
@@ -30,12 +34,15 @@ from exp_ldpc_tpu_torch.convert import tanner_tables
 from exp_ldpc_tpu_torch.decoders.bp import bp_core, priors_to_llr
 from exp_ldpc_tpu_torch.decoders.bp_bsr import KERNEL as K1, BSRLayout, bsr_bp_decode, bsr_bp_plain
 from exp_ldpc_tpu_torch.decoders.bp_cuda import KERNEL as K6, bp_fixed
+from exp_ldpc_tpu_torch.decoders.bp_cuda import launch_plan as k6_launch_plan
 from exp_ldpc_tpu_torch.decoders.bp_bsr_shard import (
     KERNEL as K4, ShardedBSRDecoder, bsr_shard_iter, bsr_shard_iter_plain)
 from exp_ldpc_tpu_torch.decoders.bp_bsr_spacetime import (
     KERNEL as K3, _stbsr_iter_plain, stbsr_decode, stbsr_iter)
 from exp_ldpc_tpu_torch.decoders.spacetime_bp import stbp_core
 from exp_ldpc_tpu_torch.decoders.spacetime_bp_cuda import KERNEL as K2, stbp_fixed
+from exp_ldpc_tpu_torch.decoders.spacetime_bp_cuda import launch_plan as k2_launch_plan
+from exp_ldpc_tpu_torch.decoders.spacetime_bp_cuda import resident_bytes as k2_resident_bytes
 
 pytestmark = pytest.mark.gpu
 ROUNDS = 4
@@ -63,17 +70,113 @@ def _assert_same(kern, plain):
     assert torch.equal(hk, hp) and torch.equal(ck, cp) and torch.equal(ik, ip)
 
 
-@pytest.mark.parametrize("S", [77, 256])
+def _counted(kernel, route, fn):
+    """fn(), checking that it launched ``kernel`` once on ``route``."""
+    before, routes = kernel.launches, dict(kernel.routes)
+    out = fn()
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert kernel.routes.get(route, 0) == routes.get(route, 0) + 1
+    return out
+
+
+@pytest.mark.parametrize("route", ["auto", "streamed", "streamed_ldg"])
+@pytest.mark.parametrize("S", [1, 77, 256, 299, 300])
 @pytest.mark.parametrize("method,msf", [("ms", 0.625), ("ms", 0.0), ("ps", 0.0)])
-def test_k2_matches_plain(setup, method, msf, S):
+def test_k2_matches_plain(setup, method, msf, S, route):
+    """HGP-225 takes the resident route (S = 1 and 77: one shot per block,
+    fewer blocks than SMs; 299: 100 blocks of 3 shots, the last of 2); the
+    streamed route, forced, with its tables in shared memory and through
+    the read-only cache."""
     tables, prior, synd = setup
     synd = synd[:, :S].contiguous()
-    before = K2.launches
-    kern = stbp_fixed(tables, ROUNDS, prior, synd, method, 24, msf)
+    plan = None
+    if route != "auto":
+        plan = k2_launch_plan(tables, ROUNDS, S, synd.device, route="streamed")
+        assert plan.tables_smem and plan.smem_bytes == k2_resident_bytes(tables, ROUNDS)[2]
+        if route == "streamed_ldg":
+            plan = plan._replace(tables_smem=False, smem_bytes=0)
+    kern = _counted(K2, "resident" if route == "auto" else "streamed",
+                    lambda: stbp_fixed(tables, ROUNDS, prior, synd, method, 24, msf, plan=plan))
     plain = stbp_core(tables, ROUNDS, prior, synd, method, 24, msf, early_stop=False)
-    torch.cuda.synchronize()
-    assert K2.launches == before + 1
     _assert_same(kern, plain)
+
+
+@pytest.mark.parametrize("tune", [dict(max_group=4, threads=256), dict(max_group=3, pad=1),
+                                  dict(threads=512, pad=2)])
+def test_k2_resident_plan_variants(setup, tune):
+    """Other shots per block, threads and padded row strides give the same
+    outputs (S = 299: ragged last blocks)."""
+    tables, prior, synd = setup
+    synd = synd[:, :299].contiguous()
+    plan = k2_launch_plan(tables, ROUNDS, synd.shape[1], synd.device, **tune)
+    assert plan.route == "resident" and plan.stride == plan.group + tune.get("pad", 0)
+    kern = stbp_fixed(tables, ROUNDS, prior, synd, "ms", 12, 0.625, plan=plan)
+    plain = stbp_core(tables, ROUNDS, prior, synd, "ms", 12, 0.625, early_stop=False)
+    torch.cuda.synchronize()
+    _assert_same(kern, plain)
+
+
+def test_resident_routes_without_tables_in_shared_memory(setup, flat):
+    """The resident kernels read the Tanner tables through the read-only
+    cache where they do not fit beside a shot (forced here), and K2 runs a
+    0-round decode (no measurement rows)."""
+    tables, prior, synd = setup
+    plan = k2_launch_plan(tables, ROUNDS, 299, synd.device)
+    per_shot, fixed, _table = k2_resident_bytes(tables, ROUNDS)
+    plan = plan._replace(tables_smem=False, smem_bytes=plan.stride * per_shot + fixed)
+    s = synd[:, :299].contiguous()
+    kern = _counted(K2, "resident", lambda: stbp_fixed(tables, ROUNDS, prior, s, "ps", 12, 0.0,
+                                                       plan=plan))
+    _assert_same(kern, stbp_core(tables, ROUNDS, prior, s, "ps", 12, 0.0, early_stop=False))
+    n, r = tables.num_vars, tables.num_checks
+    s0, p0 = synd[:r, :77].contiguous(), prior[:n].contiguous()
+    kern = _counted(K2, "resident", lambda: stbp_fixed(tables, 0, p0, s0, "ms", 12, 0.625))
+    _assert_same(kern, stbp_core(tables, 0, p0, s0, "ms", 12, 0.625, early_stop=False))
+    layout, fprior, fsynd = flat
+    from exp_ldpc_tpu_torch.decoders.bp_cuda import resident_bytes as k6_resident_bytes
+    plan = k6_launch_plan(layout.tables, 299, fsynd.device)
+    per_shot, fixed, _table = k6_resident_bytes(layout.tables)
+    plan = plan._replace(tables_smem=False, smem_bytes=plan.stride * per_shot + fixed)
+    s = fsynd[:, :299].contiguous()
+    kern = _counted(K6, "resident", lambda: bp_fixed(layout.tables, fprior, s, "ms", 12, 0.0,
+                                                     plan=plan))
+    _assert_same(kern, bp_core(layout.tables, fprior, s, "ms", 12, 0.0, early_stop=False))
+
+
+@pytest.mark.parametrize("method,msf", [("ms", 0.625), ("ps", 0.0)])
+def test_k2_gross_code_12_rounds(method, msf):
+    """The gross code over 12 rounds (Dc 6: the exact 8-slot instance)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from exp_ldpc_tpu_torch.codes.bivariate_bicycle import gross_code
+
+    H = gross_code().checks.z
+    tables = tanner_tables(TannerELL.from_check_matrix(H), "cuda")
+    Hst = SpacetimeCode(H, 12).spacetime_check_matrix.tocsr().astype(np.int64)
+    err = (np.random.default_rng(6).random((200, Hst.shape[1])) < 3e-3).astype(np.int64)
+    synd = torch.as_tensor(((Hst @ err.T) % 2).astype(np.uint8)).cuda()
+    prior = torch.as_tensor(priors_to_llr(np.full(Hst.shape[1], 2e-3))).cuda()
+    kern = _counted(K2, "resident",
+                    lambda: stbp_fixed(tables, 12, prior, synd, method, 24, msf))
+    _assert_same(kern, stbp_core(tables, 12, prior, synd, method, 24, msf, early_stop=False))
+
+
+def test_k2_over_budget_takes_the_streamed_route():
+    """``biregular_hgp(80, 3, 4)`` (n = 10,000) over 8 rounds: 1.56 MB a shot,
+    over the opt-in shared memory; tables through the read-only cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    H = biregular_hgp(80, 3, 4, seed=7).checks.z
+    tables = tanner_tables(TannerELL.from_check_matrix(H), "cuda")
+    Hst = SpacetimeCode(H, 8).spacetime_check_matrix.tocsr().astype(np.int64)
+    err = (np.random.default_rng(7).random((40, Hst.shape[1])) < 1e-3).astype(np.int64)
+    synd = torch.as_tensor(((Hst @ err.T) % 2).astype(np.uint8)).cuda()
+    prior = torch.as_tensor(priors_to_llr(np.full(Hst.shape[1], 1e-3))).cuda()
+    plan = k2_launch_plan(tables, 8, 40, synd.device)
+    assert plan.route == "streamed" and not plan.tables_smem
+    kern = _counted(K2, "streamed", lambda: stbp_fixed(tables, 8, prior, synd, "ms", 4, 0.625))
+    _assert_same(kern, stbp_core(tables, 8, prior, synd, "ms", 4, 0.625, early_stop=False))
 
 
 @pytest.mark.parametrize("S", [77, 256, 300])
@@ -177,17 +280,46 @@ def flat():
     return layout, prior, synd
 
 
-@pytest.mark.parametrize("S", [77, 300])
+@pytest.mark.parametrize("route", ["auto", "streamed"])
+@pytest.mark.parametrize("S", [1, 77, 299, 300])
 @pytest.mark.parametrize("method,msf", [("ms", 0.625), ("ms", 0.0), ("ps", 0.0)])
-def test_k6_matches_plain(flat, method, msf, S):
+def test_k6_matches_plain(flat, method, msf, S, route):
+    """(H|I) takes the resident route; the streamed route forced."""
     layout, prior, synd = flat
     synd = synd[:, :S].contiguous()
-    before = K6.launches
-    kern = bp_fixed(layout.tables, prior, synd, method, 24, msf)
+    plan = None if route == "auto" else k6_launch_plan(layout.tables, S, synd.device,
+                                                       route="streamed")
+    kern = _counted(K6, "resident" if route == "auto" else "streamed",
+                    lambda: bp_fixed(layout.tables, prior, synd, method, 24, msf, plan=plan))
     plain = bp_core(layout.tables, prior, synd, method, 24, msf, early_stop=False)
-    torch.cuda.synchronize()
-    assert K6.launches == before + 1
     _assert_same(kern, plain)
+
+
+@pytest.mark.parametrize("tune", [dict(max_group=2, threads=256), dict(pad=1),
+                                  dict(max_group=3, threads=512, pad=2)])
+def test_k6_resident_plan_variants(flat, tune):
+    layout, prior, synd = flat
+    synd = synd[:, :299].contiguous()
+    plan = k6_launch_plan(layout.tables, synd.shape[1], synd.device, **tune)
+    assert plan.route == "resident" and plan.stride == plan.group + tune.get("pad", 0)
+    kern = bp_fixed(layout.tables, prior, synd, "ms", 12, 0.0, plan=plan)
+    plain = bp_core(layout.tables, prior, synd, "ms", 12, 0.0, early_stop=False)
+    torch.cuda.synchronize()
+    _assert_same(kern, plain)
+
+
+def test_k6_over_budget_takes_the_streamed_route():
+    """The n = 40,000 HGP: 557 KB a shot, over the opt-in shared memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    H = biregular_hgp(160, 3, 4, seed=0).checks.z.tocsr().astype(np.int64)
+    tables = tanner_tables(TannerELL.from_check_matrix(H), "cuda")
+    err = (np.random.default_rng(8).random((40, H.shape[1])) < 2e-3).astype(np.int64)
+    synd = torch.as_tensor(((H @ err.T) % 2).astype(np.uint8)).cuda()
+    prior = torch.as_tensor(priors_to_llr(np.full(H.shape[1], 2e-3))).cuda()
+    assert k6_launch_plan(tables, 40, synd.device).route == "streamed"
+    kern = _counted(K6, "streamed", lambda: bp_fixed(tables, prior, synd, "ms", 4, 0.625))
+    _assert_same(kern, bp_core(tables, prior, synd, "ms", 4, 0.625, early_stop=False))
 
 
 @pytest.mark.parametrize("S", [77, 300])

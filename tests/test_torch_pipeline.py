@@ -212,7 +212,7 @@ def test_p_sweep_checkpoint_resume(small_code, tmp_path):
 
 
 def test_p_sweep_refusals_and_seeds(small_code):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="run_simulation is not ported"):
         p_sweep(p_values=[0.01], device="cpu", **_sweep_kw(small_code, pipeline=None))
     with pytest.raises(ValueError, match="world of 2 processes"):   # no joined world
         p_sweep(p_values=[0.01], device="cpu", **_sweep_kw(

@@ -3,7 +3,7 @@ profile_batch.py on a hand-made Chrome trace (the profiling run itself
 needs a card)."""
 import pytest
 
-from exp_ldpc_tpu_torch.experiments.profile_batch import summarize
+from exp_ldpc_tpu_torch.experiments.profile_batch import parse_args, summarize
 
 
 def _ev(cat, name, ts, dur):
@@ -38,3 +38,36 @@ def test_summarize_busy_gap_and_k3_split():
 def test_summarize_empty_trace():
     out = summarize({"traceEvents": []}, max_iter=48)
     assert (out["busy_ms"], out["largest_gap_ms"], out["k3_launches"]) == (0.0, 0.0, 0)
+
+
+def test_summarize_sums_the_ported_kernels_by_route():
+    """K2 and K6 by route, K1 and K3 by kernel; ``stbp_resident_kernel``
+    does not count as K6's ``bp_resident_kernel``."""
+    trace = {"traceEvents": [
+        _ev("kernel", "void stbp_resident_kernel<9, true>(unsigned char const*, float)", 0, 40),
+        _ev("kernel", "void bp_resident_kernel<8, true>(unsigned char const*, float)", 50, 5),
+        _ev("kernel", "void bp_resident_kernel<7, true>(unsigned char const*, float)", 60, 3),
+        _ev("kernel", "void bp_streamed_kernel<8>(unsigned char const*)", 70, 9),
+        _ev("kernel", "void bsr_bp_kernel<8, 1>(BsrArgs)", 80, 2),
+        _ev("kernel", "void stbsr_var_kernel<4>(StArgs, bool)", 90, 4),
+        _ev("kernel", "elementwise_kernel", 100, 1),
+    ]}
+    k = summarize(trace, max_iter=48)["kernels"]
+    assert k == {"K1": {"grids": 1, "ms": 0.002}, "K2 resident": {"grids": 1, "ms": 0.04},
+                 "K3": {"grids": 1, "ms": 0.004}, "K6 resident": {"grids": 2, "ms": 0.008},
+                 "K6 streamed": {"grids": 1, "ms": 0.009}}
+
+
+@pytest.mark.parametrize("mode,p", [("bposd", 0.0034822022531844966), ("bposd_single_shot", 0.002),
+                                    ("bposd_hybrid", 0.002)])
+def test_mode_and_route_options(mode, p):
+    """``--mode`` picks the pipeline mode and its default p, ``--route`` the
+    K2/K6 route; each (mode, route) traces to its own file."""
+    args = parse_args(["--mode", mode])
+    assert (args.mode, args.p, args.route) == (mode, p, "auto")
+    assert args.trace.name == f"profile_batch_{mode}_auto.json"
+    args = parse_args(["--mode", mode, "--route", "streamed", "--p", "0.001"])
+    assert (args.p, args.route, args.trace.name) == (0.001, "streamed",
+                                                     f"profile_batch_{mode}_streamed.json")
+    with pytest.raises(SystemExit):
+        parse_args(["--mode", "relay_bp"])
