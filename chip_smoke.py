@@ -7,7 +7,8 @@ Phases, in order; any failure raises and exits nonzero:
   1. versions and the card (``nvidia-smi`` name and power limit); the
      port's C++ GF(2)/OSD library must build and load (no silent numpy
      fallback on this machine);
-  2. build kernels K1 (``csrc/bsr_bp.cu``), K2 (``csrc/stbp.cu``), K3
+  2. build kernels K1 (``csrc/bsr_bp.cu``: one grid per phase of an
+     iteration, phase C in ``csrc/bsr_phases.cuh``), K2 (``csrc/stbp.cu``), K3
      (``csrc/stbsr.cu``: one grid per phase of an iteration, the phases in
      ``csrc/stbsr_phases.cuh``), K4 (``csrc/bsr_shard.cu``, phases in
      ``csrc/bsr_shard_phases.cuh``), K5 (``csrc/bsr_bp_int8.cu``) and K6
@@ -44,16 +45,22 @@ Phases, in order; any failure raises and exits nonzero:
      the n = 40,000 HGP (128 shots, 4 iterations: streamed), bounds as in
      phase 3;
  10. K1 against its plain version at the same codes and sizes, fixed and
-     with the early exit per shot block, and at ``biregular_hgp(160, 3,
-     4)`` (>= 3,000 tiles: the regime of the rolled TPU kernel K1b, which
-     K1 serves);
+     with the early exit per shot block; at S in {1, 77, 128, 300, 685} in
+     shot blocks of 128 and 256 on a batch whose first 128 shots have
+     all-zero syndromes (that block stops after one iteration, the next
+     runs on); at the cyclic lifted product n = 4,862 (check degree 24);
+     and at ``biregular_hgp(160, 3, 4)`` (>= 3,000 tiles: the regime of
+     the rolled TPU kernel K1b, which K1 serves).  Every output equal,
+     posteriors bit for bit; one K1 call per decode; each case prints its
+     plan (padded shots, shot blocks, lane width and grid per phase);
  11. the single-shot and hybrid modes through ``p_sweep(...,
      pipeline=...)`` on ``artifacts/hgp225.qecc`` at p = 0.002, each LER
      within 4 combined binomial sigma of its row of
      ``artifacts/pipeline_modes_hgp225_v5e.csv``;
  12. timings of K1 and K6 against their plain versions (``bench_bp``'s
      configuration, 16,384 and 685 shots x 48 iterations; K1 also at the
-     >= 3,000-tile code), K6's streamed route at 16,384 and its plans, and
+     >= 3,000-tile code), beside K1's times before its redesign
+     (``OLD_KERNEL_MS``), K6's streamed route at 16,384 and its plans, and
      the modes' stage split.
 
  13. K4 (``csrc/bsr_shard.cu``) against its plain version through the
@@ -90,7 +97,8 @@ Phases, in order; any failure raises and exits nonzero:
  19. K5 (int8 min-sum) against its plain version: posterior quanta, hard
      decisions, conv and iters EQUAL (integer arithmetic: max |delta| = 0),
      at HGP-225's H and (H|I), S = 685, 4,096 and 16,384, fixed and with the
-     early exit per shot block, and at the family benchmark's two codes
+     early exit per shot block, at phase 10's exit cases (S in {1, 77, 128,
+     300, 685}, blocks of 128 and 256), and at the family benchmark's two codes
      (QC-LP [[1054,140]]; cyclic n = 4,862 in QC order; 1,024 shots, 32
      iterations); and ``int8_bp_core`` on the card against the numpy oracle;
  20. the code-family path: ``bench_large_codes.main`` rows
@@ -103,18 +111,22 @@ Phases, in order; any failure raises and exits nonzero:
      binomial sigma (int8 converges more often than bf16 at the cyclic
      code, there as here);
  21. timings of K5 and K1 and their plain versions at those two codes
-     (CUDA events, median of 3 distinct batches), and each kernel's bound:
+     (CUDA events, median of 3 distinct batches; the old kernels' times
+     beside), and
+     each kernel's bound:
      the larger of its bytes (inputs read once, outputs written once) over
      3.35 TB/s and its operations over 67 TFLOP/s, at the shape of its
-     ``ms``.
+     ``ms`` and of each ``ms_<tag>`` (with the early exit: the
+     shot-iterations the timed batches needed).
 
 Each run of the main path (phases 6, 7, the two runs of phase 11, and
 phases 15, 16 and 20) is driven with every launch count set to 0 just before it
 and read just after (phase 16 reads the counts of its two ranks); a kernel
 of that run that was not launched fails the script.  A count is one call of
-a kernel's C entry point: for K3 one whole decode (three grids per
-iteration, all enqueued by the one call), for K4 one iteration of one shard
-(two grids), for the others one grid.  The line before the
+a kernel's C entry point: for K1, K3 and K5 one whole decode (up to three
+grids per iteration, all enqueued by the one call: a single-shot batch is 5
+K1 calls, a hybrid batch 1), for K2 and K6 one decode (one grid), for K4
+one iteration of one shard (two grids).  The line before the
 last is the kernel summary JSON (``launches`` summed over those runs,
 ``launches_by_run`` split by run, ``routes`` split by route: K2 and K6
 "resident" / "streamed", the others "default"; ``routes_parity_phase``,
@@ -761,21 +773,56 @@ def phase_k6(flats, big, sizes, dev: torch.device):
     return worst, routes
 
 
-def _k1_case(fs: FlatSetup, synd, prior, method, msf, early_stop, iters) -> float:
-    sb = k1.auto_shot_block(fs.layout)
+# Shot counts and shot blocks of the K1/K5 exit cases (phases 10 and 19): one
+# shot, below and at one block, ragged past two (all padded to a multiple of
+# 16 on the card), the host redecode's size; blocks of 128 and 256 shots
+S_EXIT, SB_EXIT = (1, 77, 128, 300, 685), (128, 256)
+
+
+def _mixed_syndromes(fs: Checks, S: int, seed: int) -> torch.Tensor:
+    """Syndromes whose shot blocks exit at different iterations: shots
+    0-127 all zero (a 128-shot block stops after one iteration), the rest
+    from i.i.d. errors at p = 3e-3."""
+    synd = fs.syndromes(S, 3e-3, seed)
+    synd[:, :128] = 0
+    return synd
+
+
+def _bsr_plan_tag(fs: "FlatSetup", S: int, sb: int, int8: bool = False,
+                  coop: bool = False) -> str:
+    """The plan K1 (or K5) runs a decode of S shots in blocks of sb on."""
+    t = fs.layout.tables
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sb, _g = k1._blocks(sb, S)
+    plan = k1.bsr_plan(t.num_checks, t.num_vars, t.max_check_degree, t.max_var_degree, S, sb,
+                       sms, int8, coop)
+    return (f"{plan.route}: shots {plan.shots} ({plan.live} live), blocks of {plan.shot_block} x "
+            f"{plan.groups}, vec/grid A {plan.checks.vec}/{plan.checks.blocks} B "
+            f"{plan.variables.vec}/{plan.variables.blocks} C {plan.parity.vec}/"
+            f"{plan.parity.blocks}")
+
+
+def _k1_case(fs: FlatSetup, synd, prior, method, msf, early_stop, iters, sb=None) -> float:
+    sb = k1.auto_shot_block(fs.layout) if sb is None else sb
+    before = k1.KERNEL.launches
     kern = k1.bsr_bp_decode(fs.layout, prior, synd, method, iters, msf, early_stop, sb)
     plain = k1.bsr_bp_plain(fs.layout, prior, synd, method, iters, msf, early_stop, sb)
     torch.cuda.synchronize()
+    check(k1.KERNEL.launches == before + 1, f"{fs.name}: one K1 call per decode")
     it = kern[3]
     blocks = it[::sb]
     check(torch.equal(it, blocks.repeat_interleave(sb)[: it.numel()]),
           f"{fs.name}: iters constant within each {sb}-shot block")
-    return _same(f"{fs.name} S={synd.shape[1]} {method} alpha={msf} early_stop={early_stop} "
-                 f"(block iters {blocks.tolist()[:8]})", fs, synd, kern, plain)
+    tag = (f"{fs.name} S={synd.shape[1]} sb={sb} {method} alpha={msf} early_stop={early_stop} "
+           f"(block iters {blocks.tolist()[:8]}) "
+           f"[{_bsr_plan_tag(fs, synd.shape[1], sb, coop=k1.COOPERATIVE and method == 'ms')}]")
+    check(torch.equal(kern[1], plain[1]), f"{tag}: posterior bit-identical to plain")
+    return _same(tag, fs, synd, kern, plain)
 
 
-def phase_k1(flats, big, sizes, quick: bool):
-    log(f"== phase 10: K1 vs plain (bf16 messages), S in {sizes}, {MAX_ITER} iterations")
+def phase_k1(flats, big, cyclic, sizes, quick: bool):
+    log(f"== phase 10: K1 vs plain (bf16 messages), S in {sizes}, {MAX_ITER} iterations; shot "
+        f"blocks exiting apart, S in {S_EXIT}, blocks of {SB_EXIT}; the cyclic code (Dc 24)")
     worst = 0.0
     for fs in flats:
         prior = fs.prior(FLAT_P)
@@ -784,6 +831,21 @@ def phase_k1(flats, big, sizes, quick: bool):
             for method, msf in METHODS:
                 for es in (False, True):
                     worst = max(worst, _k1_case(fs, synd, prior, method, msf, es, MAX_ITER))
+        for S in S_EXIT:
+            synd = _mixed_syndromes(fs, S, seed=6)
+            for sb in SB_EXIT:
+                for method, msf, es in (("ms", ALPHA, True), ("ms", 0.0, True), ("ps", 0.0, False)):
+                    worst = max(worst, _k1_case(fs, synd, prior, method, msf, es, MAX_ITER, sb))
+                    if es and sb == 128 and S >= 256:
+                        it = k1.bsr_bp_decode(fs.layout, prior, synd, method, MAX_ITER, msf, True,
+                                              sb)[3]
+                        check(int(it[0]) == 1 and int(it[128]) > 1,
+                              f"{fs.name} S={S}: the all-zero block stops after 1 iteration, "
+                              f"the next after {int(it[128])}")
+    prior = cyclic.prior(FAM_P)
+    synd = cyclic.syndromes(FAM_SHOTS, FAM_P, seed=7)
+    for method, msf, es in (("ms", ALPHA, False), ("ms", 0.0, True), ("ps", 0.0, False)):
+        worst = max(worst, _k1_case(cyclic, synd, prior, method, msf, es, FAM_ITERS, 128))
     S_big, it_big = (64, 4) if quick else (256, 8)
     log(f"  K1b regime: {big.name}, {big.layout.num_tiles} tiles, S={S_big}, {it_big} iterations")
     prior = big.prior(2e-3)
@@ -816,7 +878,8 @@ def phase_modes(dev: torch.device, samples: int, shots: int) -> dict:
         torch.cuda.synchronize()
         launches = launch_counts()
         lg.removeHandler(handler)
-        log(f"  kernel launches during the sweep: {launches}")
+        log(f"  kernel launches during the sweep: {launches}; K1 calls per batch "
+            f"{launches['K1'] / (samples // shots * len(P_MODES)):g}")
         for (p, f, n, osd, secs) in handler.points:
             log(f"  p={p:.6g}: failures {f}, shots {n}, OSD-decoded {osd}, "
                 f"{n / secs:.0f} decoded shots/s ({secs:.2f} s)")
@@ -830,6 +893,14 @@ def phase_modes(dev: torch.device, samples: int, shots: int) -> dict:
             check(launches[name] > 0, f"{mode}: {name} launched on the main path")
         by_run[f"p_sweep_{mode}"] = launches
     return by_run
+
+
+# The times of K1 and K5 before their redesign (the 32-shot-block kernels,
+# one launch per iteration with the early exit; chip_smoke.py on an NVIDIA
+# H100 80GB HBM3 at 700 W), printed beside this run's for comparison.
+OLD_KERNEL_MS = {"K1_S16384": 4.48, "K1_S16384_es": 6.76, f"K1_S{S_REDECODE}_es": 3.54,
+          "K1_bench": 1.25, "K1_n40000": 104.9, "K1_fam_cyclic": 122.0, "K5_cyclic": 106.2,
+          "K5_qclp": 6.29}
 
 
 def phase_flat_timings(flats, big, dev: torch.device, shots: int) -> dict:
@@ -854,6 +925,9 @@ def phase_flat_timings(flats, big, dev: torch.device, shots: int) -> dict:
         for key, fn in fns.items():
             fn(synds[5])
             t[key] = _median_ms(fn, synds[:5])
+        # the shot-iterations these batches need (the early exit's data-dependent work)
+        t[f"K1_{tag}_shot_iters"] = float(np.mean([int(fns[f"K1_{tag}"](s)[3].sum())
+                                                   for s in synds[:5]]))
 
     pair("bench", H, 1024, 32, 1e-3)               # bench_bp's configuration
     pair(f"S{shots}", Hss, shots, MAX_ITER, FLAT_P)
@@ -862,6 +936,22 @@ def phase_flat_timings(flats, big, dev: torch.device, shots: int) -> dict:
     pair(f"S{S_REDECODE}_es", Hss, S_REDECODE, MAX_ITER, FLAT_P, early_stop=True)
     pair(f"S{S_REDECODE}", Hss, S_REDECODE, MAX_ITER, FLAT_P)
     pair("n40000", big, 256, 8, 2e-3)
+    # K1's cooperative route (one launch) against one grid per phase, at the
+    # shapes where the plan takes it
+    for tag, fs, S, iters, p, es in (
+            (f"S{S_REDECODE}_es", Hss, S_REDECODE, MAX_ITER, FLAT_P, True),
+            ("bench", H, 1024, 32, 1e-3, False)):
+        prior, sb = fs.prior(p), k1.auto_shot_block(fs.layout)
+        synds = [fs.syndromes(S, p, seed=300 + i) for i in range(6)]
+
+        def fn(s, fs=fs, prior=prior, iters=iters, es=es, sb=sb):
+            return k1.bsr_bp_decode(fs.layout, prior, s, "ms", iters, ALPHA, es, sb)
+        k1.COOPERATIVE = False
+        try:
+            fn(synds[5])
+            t[f"K1_{tag}_grids"] = _median_ms(fn, synds[:5])
+        finally:
+            k1.COOPERATIVE = True
     # K6's streamed route (the 32-shot-block kernel) at the main shape
     prior = Hss.prior(FLAT_P)
     synds = [Hss.device_syndromes(shots, FLAT_P, seed=300 + i) for i in range(6)]
@@ -873,7 +963,9 @@ def phase_flat_timings(flats, big, dev: torch.device, shots: int) -> dict:
     for fs, n in ((Hss, shots), (Hss, S_REDECODE), (H, 1024)):
         log(f"  K6 plan at {fs.name} S={n}: {_plan_tag(k6.launch_plan(fs.tables, n, dev))}")
     for k, v in t.items():
-        log(f"  {k}: {v:.4f} ms")
+        if not k.endswith("_shot_iters"):
+            old = f" (before: {OLD_KERNEL_MS[k]} ms)" if k in OLD_KERNEL_MS else ""
+            log(f"  {k}: {v:.4f} ms{old}")
     log(f"  K1 at bench_bp's configuration: {32 * 1024 / t['K1_bench'] * 1e3:.4g} iter*shots/s "
         f"(plain {32 * 1024 / t['K1_bench_plain'] * 1e3:.4g})")
     with CODE_FILE.open() as f:
@@ -1162,12 +1254,14 @@ def _prior_q(fs: Checks, p: float) -> torch.Tensor:
 def _k5_case(fs: FlatSetup, synd, prior_q, alpha_num, early_stop, iters, sb) -> int:
     """One K5 decode against its plain version; the largest difference of
     the posterior quanta (every output is also required equal)."""
+    before = k1.KERNEL_INT8.launches
     kern = k1.bsr_bp_decode_int8(fs.layout, prior_q, synd, iters, alpha_num, early_stop, sb)
     plain = k1.bsr_bp_int8_plain(fs.layout, prior_q, synd, iters, alpha_num, early_stop, sb)
     torch.cuda.synchronize()
-    tag = (f"{fs.name} S={synd.shape[1]} alpha_num={alpha_num} early_stop={early_stop} "
+    check(k1.KERNEL_INT8.launches == before + 1, f"{fs.name}: one K5 call per decode")
+    tag = (f"{fs.name} S={synd.shape[1]} sb={sb} alpha_num={alpha_num} early_stop={early_stop} "
            f"(conv rate {float(plain[2].float().mean()):.4f}, block iters "
-           f"{kern[3][::sb].tolist()[:8]})")
+           f"{kern[3][::sb].tolist()[:8]}) [{_bsr_plan_tag(fs, synd.shape[1], sb, True)}]")
     same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(kern, plain))
     check(same, f"{tag}: posterior quanta, hard, conv and iters equal to plain")
     check(bool(fs.valid(kern[0], synd)[kern[2]].all()),
@@ -1176,8 +1270,9 @@ def _k5_case(fs: FlatSetup, synd, prior_q, alpha_num, early_stop, iters, sb) -> 
 
 
 def phase_k5(flats, fams, sizes, dev: torch.device) -> float:
-    log(f"== phase 19: K5 vs plain (int8, exact), S in {sizes}, {MAX_ITER} iterations; the "
-        f"family codes at S={FAM_SHOTS}, {FAM_ITERS} iterations")
+    log(f"== phase 19: K5 vs plain (int8, exact), S in {sizes}, {MAX_ITER} iterations; shot "
+        f"blocks exiting apart, S in {S_EXIT}, blocks of {SB_EXIT}; the family codes at "
+        f"S={FAM_SHOTS}, {FAM_ITERS} iterations")
     worst = 0
     for fs in flats:
         prior_q = _prior_q(fs, FLAT_P)
@@ -1186,6 +1281,11 @@ def phase_k5(flats, fams, sizes, dev: torch.device) -> float:
             synd = fs.syndromes(S, FLAT_P, seed=8)
             for alpha_num, es in ((160, False), (160, True), (256, False)):
                 worst = max(worst, _k5_case(fs, synd, prior_q, alpha_num, es, MAX_ITER, sb))
+        for S in S_EXIT:
+            synd = _mixed_syndromes(fs, S, seed=12)
+            for sb in SB_EXIT:
+                for alpha_num, es in ((160, True), (256, False)):
+                    worst = max(worst, _k5_case(fs, synd, prior_q, alpha_num, es, MAX_ITER, sb))
     for fs in fams:
         prior_q = _prior_q(fs, FAM_P)
         synd = fs.syndromes(FAM_SHOTS, FAM_P, seed=9)
@@ -1274,9 +1374,12 @@ def phase_family_timings(fams, rows) -> dict:
             t[key] = _median_ms(fn, synds[:3])
         per = {f: 1e3 * FAM_ITERS * FAM_SHOTS / rows[names[fs.name], f]["bp_iter_shots_per_s"]
                for f in FAMILY_ROWS[names[fs.name]]}
-        log(f"  {names[fs.name]} ms per decode: bsr (K1) {t[f'K1_fam_{fs.name}']:.3f} (row "
-            f"{per['bsr']:.3f}), plain {t[f'K1_fam_{fs.name}_plain']:.3f}; bsr-int8 (K5) "
-            f"{t[f'K5_{fs.name}']:.3f} (row {per['bsr-int8']:.3f}), plain "
+        was = {k: f" (before: {OLD_KERNEL_MS[k]})" if k in OLD_KERNEL_MS else ""
+               for k in (f"K1_fam_{fs.name}", f"K5_{fs.name}")}
+        log(f"  {names[fs.name]} ms per decode: bsr (K1) {t[f'K1_fam_{fs.name}']:.3f}"
+            f"{was[f'K1_fam_{fs.name}']} (row {per['bsr']:.3f}), plain "
+            f"{t[f'K1_fam_{fs.name}_plain']:.3f}; bsr-int8 (K5) {t[f'K5_{fs.name}']:.3f}"
+            f"{was[f'K5_{fs.name}']} (row {per['bsr-int8']:.3f}), plain "
             f"{t[f'K5_{fs.name}_plain']:.3f}"
             + "".join(f"; {f} {per[f]:.3f} (plain PyTorch itself)" for f in per
                       if not f.startswith("bsr")))
@@ -1318,9 +1421,11 @@ def _flat_io(tab, S: int) -> int:
             + 4 * V * S + S + 4 * S)
 
 
-def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross) -> dict:
-    """Bound of each kernel at the shape its ``ms`` was timed at (K2 and K6
-    also at their other timed shapes: ``bound_ms_<tag>``)."""
+def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross, t) -> dict:
+    """Bound of each kernel at the shape its ``ms`` was timed at (K1, K2, K5
+    and K6 also at their other timed shapes: ``bound_ms_<tag>``).  With the
+    early exit the operations are those of the shot-iterations the timed
+    batches needed (``t``'s ``K1_<tag>_shot_iters``)."""
     S = 16384
     Hss = flats[1]
     out = {}
@@ -1334,6 +1439,17 @@ def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross) -> dict:
         out["K6"][f"bound_by_{tag}"] = b["bound_by"]
     out["K1"] = _bound(_flat_io(Hss.tables, S) + 4 * Hss.tables.num_checks,
                        OPS_FLOAT * E * S * MAX_ITER)
+    qclp, cyc = fams
+    for tag, fs, shots, iters in (("bench", flats[0], 1024, 32),
+                                  (f"S{S}_es", Hss, S, None),
+                                  (f"S{S_REDECODE}_es", Hss, S_REDECODE, None),
+                                  ("fam_cyclic", cyc, FAM_SHOTS, FAM_ITERS),
+                                  ("fam_qclp", qclp, FAM_SHOTS, FAM_ITERS)):
+        shot_iters = t[f"K1_{tag}_shot_iters"] if iters is None else shots * iters
+        b = _bound(_flat_io(fs.tables, shots) + 4 * fs.tables.num_checks,
+                   OPS_FLOAT * fs.H.nnz * shot_iters)
+        out["K1"][f"bound_ms_{tag}"] = b["bound_ms"]
+        out["K1"][f"bound_by_{tag}"] = b["bound_by"]
     # K1b: n = 40,000 HGP, 256 shots x 8 iterations
     out["K1b"] = _bound(_flat_io(big.tables, 256) + 4 * big.tables.num_checks,
                         OPS_FLOAT * big.H.nnz * 256 * 8)
@@ -1367,10 +1483,11 @@ def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross) -> dict:
     D, sb = rec["shards"], dec.sharded
     out["K4"] = _bound(D * 2 * 4 * sb.v_pad * 128 + 2 * 2 * H.nnz * 128 + H.shape[0] * 128
                        + 2 * 4 * H.nnz, OPS_FLOAT * H.nnz * 128)
-    # K5: the cyclic n = 4,862 code, 1,024 shots x 32 iterations, fixed
-    cyc = fams[1]
+    # K5: the cyclic n = 4,862 code and the QC-LP, 1,024 shots x 32 iterations, fixed
     out["K5"] = _bound(_flat_io(cyc.tables, FAM_SHOTS),
                        OPS_INT8 * cyc.H.nnz * FAM_SHOTS * FAM_ITERS)
+    b = _bound(_flat_io(qclp.tables, FAM_SHOTS), OPS_INT8 * qclp.H.nnz * FAM_SHOTS * FAM_ITERS)
+    out["K5"]["bound_ms_qclp"], out["K5"]["bound_by_qclp"] = b["bound_ms"], b["bound_by"]
     return out
 
 
@@ -1406,7 +1523,8 @@ def main() -> int:
     phase(phase_sampler, su, dev, n_dev, n_host, host)
     src = "exp_ldpc_tpu_torch/csrc/"
     kernels = [
-        {"name": "K1 bsr_bp", "route": "cuda", "source": src + "bsr_bp.cu",
+        {"name": "K1 bsr_bp_run (one count = one decode: up to 3 grids per iteration)",
+         "route": "cuda", "source": src + "bsr_bp.cu",
          "replaces": "exp_ldpc_tpu/decoders/bp_bsr.py:226"},
         {"name": "K1b bsr_bp (served by K1: the same kernel and count)", "route": "cuda",
          "source": src + "bsr_bp.cu", "replaces": "exp_ldpc_tpu/decoders/bp_bsr.py:546"},
@@ -1421,7 +1539,8 @@ def main() -> int:
         {"name": "K4 bsr_shard (one count = one iteration of one shard: 2 grids)",
          "route": "cuda", "source": src + "bsr_shard.cu",
          "replaces": "exp_ldpc_tpu/decoders/bp_bsr_shard.py:200"},
-        {"name": "K5 bsr_bp_int8", "route": "cuda", "source": src + "bsr_bp_int8.cu",
+        {"name": "K5 bsr_bp_int8_run (one count = one decode: up to 3 grids per iteration)",
+         "route": "cuda", "source": src + "bsr_bp_int8.cu",
          "replaces": "exp_ldpc_tpu/decoders/bp_bsr.py:799"},
         {"name": "K6 bp_fixed", "route": "cuda", "source": src + "bpflat.cu",
          "replaces": "exp_ldpc_tpu/decoders/bp_pallas.py:123"},
@@ -1438,9 +1557,9 @@ def main() -> int:
         t = phase(phase_timings, su, dev, 16384)
     flats, big = flat_setups(su, dev)
     err["K6"], parity_routes["K6"] = phase(phase_k6, flats, big, sizes, dev)
-    err["K1"], err["K1b"] = phase(phase_k1, flats, big, sizes, args.quick)
     cyclic_H = bench_bsr_shard.build_code("cyclic4862")
     fams = family_setups(dev, cyclic_H)
+    err["K1"], err["K1b"] = phase(phase_k1, flats, big, fams[1], sizes, args.quick)
     err["K5"] = phase(phase_k5, flats, fams, sizes, dev)
     if not args.quick:
         by_run.update(phase(phase_modes, dev, 65536, 16384))
@@ -1458,8 +1577,9 @@ def main() -> int:
         t.update(phase(phase_flat_timings, flats, big, dev, 16384))
         t.update(phase(phase_shard_timings, dev, cap, cyclic_H))
         t.update(phase(phase_family_timings, fams, fam_rows))
-        bounds = kernel_bounds(su, flats, big, fams, cap, k3b_shapes["HGP"], _gross(dev))
-        timing = {"K1": ("K1_S16384", "bench", "S16384_es", f"S{S_REDECODE}_es"),
+        bounds = kernel_bounds(su, flats, big, fams, cap, k3b_shapes["HGP"], _gross(dev), t)
+        timing = {"K1": ("K1_S16384", "bench", "S16384_es", f"S{S_REDECODE}_es", "fam_cyclic",
+                         "fam_qclp"),
                   "K1b": ("K1_n40000",),
                   "K2": ("K2", f"S{S_REDECODE}", "gross"), "K3": ("K3", f"S{S_REDECODE}"),
                   "K3b": ("K3b_HGP", "cyclic"),
@@ -1487,9 +1607,6 @@ def main() -> int:
                 kern["routes_parity_phase"] = parity_routes[key]
                 kern["ms_streamed"] = t[f"{main_t}_streamed"]
             if key == "K5":
-                kern["k1_ms"], kern["k1_ms_qclp"] = t["K1_fam_cyclic"], t["K1_fam_qclp"]
-                kern["k1_plain_ms"] = t["K1_fam_cyclic_plain"]
-                kern["k1_plain_ms_qclp"] = t["K1_fam_qclp_plain"]
                 kern["rows_iter_shots_per_s"] = {
                     f"{c}/{f}": r["bp_iter_shots_per_s"] for (c, f), r in fam_rows.items()}
             if key == "K3":

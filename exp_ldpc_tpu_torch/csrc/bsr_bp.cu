@@ -14,165 +14,352 @@
 //   * posterior = f32 prior + the bf16 c2v messages, in the variable's edge
 //     order; v2c = bf16(bf16(posterior) - c2v);
 //   * parity of bf16(posterior) per shot, which sets conv; with early_stop
-//     it is taken every iteration and a shot block whose shots all pass
+//     it is taken every iteration and a shot block whose live shots all pass
 //     stops: the JAX kernel resets its done flag per grid step, so the exit
 //     unit is its block of shot_block shots (128 or 256), not the batch.
 //
 // What bounds it on an H100: every iteration streams each bf16 message of
-// each shot through device memory twice, plus the f32 posterior, and each
-// update is a short dependent chain of loads: memory latency and bandwidth,
-// not arithmetic.  The TPU kernel keeps a shot block's state in VMEM and
-// routes it with one-hot 128x128 tiles on the matrix unit; neither carries
-// over.  Design (as K2/K3): a block owns 32 shots (one per lane, so every
-// warp access is 32 consecutive shots of one row: coalesced) and its 8 warps
-// split each phase (A: checks, B: variables, C: parity) with block barriers;
-// the Tanner tables are read through the read-only cache.
+// each shot through device memory twice (checks, then variables), plus the
+// posterior, in short dependent chains of gathers through the Tanner
+// tables: memory latency and bandwidth, not arithmetic.  The TPU kernel
+// keeps a shot block's state in VMEM and routes it with one-hot 128x128
+// tiles on the matrix unit; neither carries over.
 //
-// The early exit spans CUDA blocks: a JAX shot block of 128-256 shots is
-// 4-8 blocks of 32 here, and blocks cannot wait for each other inside one
-// launch.  So with early_stop the caller launches once per iteration, and
-// gbad[it][g] (zeroed by the caller) collects "some shot of shot block g
-// failed its parity after iteration it"; at the next launch a lane whose
-// shot block left no shot unconverged does nothing, and a block whose lanes
-// all do nothing returns at once.  Without early_stop there is no exit and
-// all iterations run in one launch.  Each check, variable and parity is
-// computed by one thread in the plain version's order, so results are
-// bit-identical to it.
+// Design (K3's, csrc/stbsr.cu).  Each phase of an iteration is a flat list
+// of (row, shot vector) items spread over a grid sized from the item count
+// and the SM count (utils/cuda_build.py::bsr_plan), so 1,024 shots of a
+// 1,540-check code fill the card as 16,384 shots of a 108-check code do.  A
+// thread owns VEC consecutive shots of one row (one 8- or 16-byte access);
+// its neighbours own the next shots of the same row, so warp accesses
+// coalesce.  Three grids per iteration, the kernel boundary being the
+// barrier between rows that share shots:
+//   A  every check: check update, messages stored in place (in iteration 0
+//      the incoming messages are the priors, read from the prior vector);
+//   B  every variable: posterior (f32, written where it is an output), one
+//      byte of bf16(posterior) <= 0 for phase C, v2c in place; up to 8 or
+//      24 edges are held in registers between the sum and the broadcast;
+//   C  every check's parity from those bytes (bsr_phases.cuh): conv set in
+//      B and cleared in C; a violated live shot marks its shot block in
+//      gbad[it], and the last block to finish sets `done` once no shot block
+//      is marked.
+// The iteration loop runs in the C entry point: one call enqueues a whole
+// decode and the host reads nothing back.  An item whose shot block stopped
+// (gbad[it-1][g] == 0) does nothing, and once `done` is set every later grid
+// returns at once.  In fixed-iteration mode there is no flag traffic, and B
+// writes the posterior and C runs in the last iteration only.  VEC divides
+// the shot count and the shot block (the plan), so no item straddles two
+// blocks.  Where every phase's grid fits the card at once (a few hundred
+// shots: the host redecode), min-sum runs the same phases in one
+// cooperative launch with grid-wide barriers between them (route "coop",
+// below), where launches would bound the time.  Each check, variable and
+// parity is computed by one thread in the plain version's order, so results
+// are bit-identical to it.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
-#include "spacetime_bp.cuh"
+#include "bsr_phases.cuh"
 
-__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+namespace cg = cooperative_groups;
 
-template <int MAXP>
-__global__ void __launch_bounds__(LANES* WORKERS) bsr_bp_kernel(
-    const int* __restrict__ chk_vars,   // (C*Dc,), -1 = padded slot
-    const int* __restrict__ vm,         // (V*Dv,), flat check-major slot, -1 = pad
-    const int* __restrict__ nslot,      // (C,) padded slots below this are rewritten
-    const uint8_t* __restrict__ synd,   // (C, S)
-    const float* __restrict__ prior,    // (V,)
-    __nv_bfloat16* __restrict__ msg,    // (C*Dc, S) v2c, kept across launches
-    float* __restrict__ post,           // (V, S) out
-    uint8_t* __restrict__ conv,         // (S,) out
-    int* __restrict__ gbad,             // (max_iter, G) per-shot-block "unconverged"
-    int C, int V, int Dc, int Dv, int S, int it0, int n_it, int max_iter, int method,
-    int early_stop, int shot_block, int G, float alpha0) {
-  __shared__ int bad[LANES];
-  const int lane = threadIdx.x;
-  const int w = threadIdx.y;
-  const int s = blockIdx.x * LANES + lane;
-  const int g = s / shot_block;
-  bool run = s < S;
-  // a shot block that left no shot unconverged last iteration has stopped
-  if (run && early_stop && it0 > 0) run = gbad[(size_t)(it0 - 1) * G + g] != 0;
-  if (!__syncthreads_or(run)) return;
-  const size_t SS = (size_t)S;
-  if (w == 0) bad[lane] = 0;
+__device__ __forceinline__ float bf16_bits(uint16_t u) { return __uint_as_float((uint32_t)u << 16); }
 
-  if (run && it0 == 0) {  // init: v2c = bf16(prior[var]), padded slots bf16(+BIG)
-    for (int e = w; e < C * Dc; e += WORKERS) {
-      const int v = __ldg(&chk_vars[e]);
-      msg[(size_t)e * SS + s] = __float2bfloat16_rn(v >= 0 ? __ldg(&prior[v]) : BIG);
-    }
-  }
-  __syncthreads();
-
-  for (int it = it0; it < it0 + n_it; ++it) {
-    const float alpha = (alpha0 == 0.0f) ? 1.0f - ldexpf(1.0f, -(it + 1)) : alpha0;
-    const bool write_post = early_stop || it == max_iter - 1;
-    // ---- phase A: check update of every check, in place
-    if (run) {
-      for (int c = w; c < C; c += WORKERS) {
-        float x[MAXP];
-        const size_t e0 = (size_t)c * Dc;
+// ---- phase A: check update of every check, in place
+template <int MAXP, bool EXACT, int VEC, int METHOD>
+__device__ __forceinline__ void bsr_checks(const BsrArgs& a, int it, float alpha) {
+  const int Dc = EXACT ? MAXP : a.Dc;
+  const size_t SS = (size_t)a.S;
+  __nv_bfloat16* msg = (__nv_bfloat16*)a.msg;
+  const float* prior = (const float*)a.prior;
+  const float big = bf(BIG);
+  RowItems items(a.C, a.S, VEC);
+  int c, s0;
+  while (items.next(c, s0, VEC)) {
+    if (bsr_stopped(a, it, s0 / a.sb)) continue;
+    const size_t e0 = (size_t)c * Dc;
+    float x[VEC][MAXP];
+    float t[VEC];
 #pragma unroll
-        for (int i = 0; i < MAXP; ++i)
-          if (i < Dc) x[i] = __bfloat162float(msg[(e0 + i) * SS + s]);
-        const float ss = synd[(size_t)c * SS + s] ? -1.0f : 1.0f;
-        check_update<MAXP>(x, Dc, ss, method, alpha);
-        const int ns = __ldg(&nslot[c]);
+    for (int i = 0; i < MAXP; ++i) {
+      if (i < Dc) {
+        if (it == 0) {
+          const int var = __ldg(&a.chk_vars[e0 + i]);
+          const float x0 = var >= 0 ? bf(__ldg(&prior[var])) : big;
 #pragma unroll
-        for (int i = 0; i < MAXP; ++i) {
-          if (i < Dc) {
-            if (__ldg(&chk_vars[e0 + i]) >= 0)
-              msg[(e0 + i) * SS + s] = __float2bfloat16_rn(x[i]);
-            else if (i < ns)
-              msg[(e0 + i) * SS + s] = __float2bfloat16_rn(BIG - bf(x[i]));
-          }
+          for (int v = 0; v < VEC; ++v) x[v][i] = x0;
+        } else {
+          ld_bf16<VEC>(msg + (e0 + i) * SS + s0, t);
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) x[v][i] = t[v];
         }
       }
     }
-    __syncthreads();
-    // ---- phase B: posterior (prior first, then edges in order) and v2c
-    if (run) {
-      for (int v = w; v < V; v += WORKERS) {
-        float total = __ldg(&prior[v]);
-        for (int j = 0; j < Dv; ++j) {
-          const int k = __ldg(&vm[v * Dv + j]);
-          if (k >= 0) total += __bfloat162float(msg[(size_t)k * SS + s]);
+    const Pack<VEC> sy = ld_raw_ro<VEC>(a.synd + (size_t)c * SS + s0);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) check_update<MAXP>(x[v], Dc, sy.u8[v] ? -1.0f : 1.0f, METHOD, alpha);
+    const int ns = __ldg(&a.nslot[c]);
+#pragma unroll
+    for (int i = 0; i < MAXP; ++i) {
+      if (i < Dc) {
+        const int var = __ldg(&a.chk_vars[e0 + i]);
+        // a live slot takes c2v; a padded one below nslot BIG - c2v; the
+        // others keep +BIG, stored once in iteration 0
+        if (var >= 0 || i < ns || it == 0) {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) t[v] = var >= 0 ? x[v][i] : (i < ns ? BIG - bf(x[v][i]) : BIG);
+          st_bf16<VEC>(msg + (e0 + i) * SS + s0, t);
         }
-        if (write_post) post[(size_t)v * SS + s] = total;
-        const float pb = bf(total);
-        for (int j = 0; j < Dv; ++j) {
-          const int k = __ldg(&vm[v * Dv + j]);
+      }
+    }
+  }
+}
+
+// ---- phase B: posterior (prior first, then the edges in order) and v2c.
+// `out`: the posterior and the hard bytes of this iteration are read (the
+// last iteration, or every one with the early exit).  DVR > 0 holds up to
+// DVR edges' raw messages in registers; DVR = 0 reads them twice.
+template <int VEC, int DVR>
+__device__ __forceinline__ void bsr_vars(const BsrArgs& a, int it, bool out) {
+  const int Dv = a.Dv;
+  const size_t SS = (size_t)a.S;
+  __nv_bfloat16* msg = (__nv_bfloat16*)a.msg;
+  const float* prior = (const float*)a.prior;
+  RowItems items(a.V, a.S, VEC);
+  int u, s0;
+  while (items.next(u, s0, VEC)) {
+    if (bsr_stopped(a, it, s0 / a.sb)) continue;
+    Pack<VEC> hd;
+    if (out && u == 0) {  // conv starts at 1; phase C stores 0 on a violated check
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) hd.u8[v] = 1;
+      st_raw<VEC>(a.conv + s0, hd);
+    }
+    const int* edges = a.vm + (size_t)u * Dv;
+    float total[VEC], pb[VEC], t[VEC];
+    const float pr = __ldg(&prior[u]);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) total[v] = pr;
+    if (DVR > 0) {
+      Pack<2 * VEC> m[DVR > 0 ? DVR : 1];
+#pragma unroll
+      for (int j = 0; j < DVR; ++j) {
+        if (j < Dv) {
+          const int k = __ldg(&edges[j]);
           if (k >= 0) {
-            const size_t idx = (size_t)k * SS + s;
-            msg[idx] = __float2bfloat16_rn(pb - __bfloat162float(msg[idx]));
+            m[j] = ld_raw<2 * VEC>(msg + (size_t)k * SS + s0);
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) total[v] += bf16_bits(m[j].u16[v]);
           }
         }
       }
-    }
-    __syncthreads();
-  }
-
-  // ---- phase C: parity of bf16(posterior) after the launch's last iteration
-  int any = 0;
-  if (run) {
-    for (int c = w; c < C; c += WORKERS) {
-      int par = synd[(size_t)c * SS + s];
-      for (int i = 0; i < Dc; ++i) {
-        const int v = __ldg(&chk_vars[c * Dc + i]);
-        if (v >= 0) par ^= (bf(post[(size_t)v * SS + s]) <= 0.0f);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) pb[v] = bf(total[v]);
+#pragma unroll
+      for (int j = 0; j < DVR; ++j) {
+        if (j < Dv) {
+          const int k = __ldg(&edges[j]);
+          if (k >= 0) {
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) t[v] = pb[v] - bf16_bits(m[j].u16[v]);
+            st_bf16<VEC>(msg + (size_t)k * SS + s0, t);
+          }
+        }
       }
-      any |= par;
+    } else {
+      for (int j = 0; j < Dv; ++j) {
+        const int k = __ldg(&edges[j]);
+        if (k >= 0) {
+          ld_bf16<VEC>(msg + (size_t)k * SS + s0, t);
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) total[v] += t[v];
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) pb[v] = bf(total[v]);
+      for (int j = 0; j < Dv; ++j) {
+        const int k = __ldg(&edges[j]);
+        if (k >= 0) {
+          __nv_bfloat16* p = msg + (size_t)k * SS + s0;
+          ld_bf16<VEC>(p, t);
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) t[v] = pb[v] - t[v];
+          st_bf16<VEC>(p, t);
+        }
+      }
+    }
+    if (out) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) hd.u8[v] = pb[v] <= 0.0f;
+      st_raw<VEC>(a.hard + (size_t)u * SS + s0, hd);
+      st_f32<VEC>((float*)a.post + (size_t)u * SS + s0, total);
     }
   }
-  if (any) atomicOr(&bad[lane], 1);
-  __syncthreads();
-  if (run && w == 0) {
-    conv[s] = bad[lane] ? 0 : 1;
-    if (early_stop && bad[lane]) atomicOr(&gbad[(size_t)(it0 + n_it - 1) * G + g], 1);
+}
+
+// One grid per phase; each first reads `done` and returns at once when it is set.
+template <int MAXP, bool EXACT, int VEC, int METHOD>
+__global__ void __launch_bounds__(ROW_THREADS, 2) bsr_bp_check_kernel(const BsrArgs a, int it,
+                                                                      float alpha) {
+  if (a.flags && a.flags[BSR_DONE]) return;
+  bsr_checks<MAXP, EXACT, VEC, METHOD>(a, it, alpha);
+}
+
+template <int VEC, int DVR>
+__global__ void __launch_bounds__(ROW_THREADS) bsr_bp_var_kernel(const BsrArgs a, int it, bool out) {
+  if (a.flags && a.flags[BSR_DONE]) return;
+  bsr_vars<VEC, DVR>(a, it, out);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(ROW_THREADS) bsr_bp_parity_kernel(const BsrArgs a, int it) {
+  if (a.flags && a.flags[BSR_DONE]) return;
+  bsr_parity<VEC>(a, it);
+}
+
+template <int MAXP, bool EXACT, int VEC>
+static void launch_checks(const BsrArgs& a, int it, int method, float alpha, int blocks,
+                          cudaStream_t st) {
+  if (method == 0)
+    bsr_bp_check_kernel<MAXP, EXACT, VEC, 0><<<blocks, ROW_THREADS, 0, st>>>(a, it, alpha);
+  else
+    bsr_bp_check_kernel<MAXP, EXACT, VEC, 1><<<blocks, ROW_THREADS, 0, st>>>(a, it, alpha);
+}
+
+// Phase A by check width and lane width: the main path's exact widths (7:
+// HGP-225's H; 8: its (H|I); 24: the cyclic lifted product), every loop
+// bound a constant, else the bounded scan up to 16 or 32 slots.  x[VEC][MAXP]
+// lives in registers: 4 shots a lane up to 16 slots, 2 above, 1 where 4 or 2
+// does not divide the shots and the shot block (the plan), as in K3.
+static bool checks(const BsrArgs& a, int it, int vec, int method, float alpha, int blocks,
+                   cudaStream_t st) {
+#define CASE(MAXP, EXACT, VEC)                                              \
+  if ((EXACT ? a.Dc == MAXP : a.Dc <= MAXP) && vec == VEC) {                \
+    launch_checks<MAXP, EXACT, VEC>(a, it, method, alpha, blocks, st);      \
+    return true;                                                            \
+  }
+  CASE(7, true, 1) CASE(7, true, 2) CASE(7, true, 4)
+  CASE(8, true, 1) CASE(8, true, 2) CASE(8, true, 4)
+  CASE(24, true, 1) CASE(24, true, 2)
+  CASE(16, false, 1) CASE(16, false, 2) CASE(16, false, 4)
+  CASE(32, false, 1) CASE(32, false, 2)
+#undef CASE
+  return false;
+}
+
+// Phase B by variable degree (edges held in registers: up to 8, up to 24,
+// or none) and lane width.
+static bool vars(const BsrArgs& a, int it, bool out, int vec, int blocks, cudaStream_t st) {
+#define CASE(DVR, VEC)                                                       \
+  if (vec == VEC) {                                                          \
+    bsr_bp_var_kernel<VEC, DVR><<<blocks, ROW_THREADS, 0, st>>>(a, it, out); \
+    return true;                                                             \
+  }
+  if (a.Dv <= 8) {
+    CASE(8, 1) CASE(8, 2) CASE(8, 4) CASE(8, 8)
+  } else if (a.Dv <= 24) {
+    CASE(24, 1) CASE(24, 2) CASE(24, 4)
+  } else {
+    CASE(0, 1) CASE(0, 2) CASE(0, 4)
+  }
+#undef CASE
+  return false;
+}
+
+static bool parity(const BsrArgs& a, int it, int vec, int blocks, cudaStream_t st) {
+  switch (vec) {
+    case 1: bsr_bp_parity_kernel<1><<<blocks, ROW_THREADS, 0, st>>>(a, it); return true;
+    case 2: bsr_bp_parity_kernel<2><<<blocks, ROW_THREADS, 0, st>>>(a, it); return true;
+    case 4: bsr_bp_parity_kernel<4><<<blocks, ROW_THREADS, 0, st>>>(a, it); return true;
+    case 8: bsr_bp_parity_kernel<8><<<blocks, ROW_THREADS, 0, st>>>(a, it); return true;
+    case 16: bsr_bp_parity_kernel<16><<<blocks, ROW_THREADS, 0, st>>>(a, it); return true;
+    default: return false;
+  }
+}
+
+// Route "coop": the whole decode in one cooperative launch whose blocks, all
+// resident at once, separate the phases with grid-wide barriers instead of
+// kernel boundaries (for decodes whose items fit one co-resident grid, where
+// launches bound the time: the host redecode's few hundred shots).  The
+// phases are the same device functions, so the results are the same bits.
+// Min-sum on the main path's exact widths only (checks of 7 or 8 slots at 4
+// shots a lane, variables of up to 8 edges at 8, parity at 16).
+template <int MAXP>
+__global__ void __launch_bounds__(ROW_THREADS, 2)
+bsr_bp_coop_kernel(const BsrArgs a, float alpha, int adaptive, int n_iter) {
+  cg::grid_group grid = cg::this_grid();
+  const bool early = a.flags != nullptr;
+  for (int it = 0; it < n_iter; ++it) {
+    const float al = adaptive ? 1.0f - ldexpf(1.0f, -(it + 1)) : alpha;
+    const bool out = early || it == n_iter - 1;
+    bsr_checks<MAXP, true, 4, 1>(a, it, al);
+    grid.sync();
+    bsr_vars<8, 8>(a, it, out);
+    grid.sync();
+    if (out) bsr_parity<16>(a, it);
+    // the next check phase touches nothing the parity phase reads; only the
+    // early exit needs every block's verdict before it goes on
+    if (early) {
+      grid.sync();
+      if (*(volatile int*)&a.flags[BSR_DONE]) break;  // the same word for every block
+    }
   }
 }
 
 template <int MAXP>
-static int launch(const int* chk_vars, const int* vm, const int* nslot, const uint8_t* synd,
-                  const float* prior, __nv_bfloat16* msg, float* post, uint8_t* conv, int* gbad,
-                  int C, int V, int Dc, int Dv, int S, int it0, int n_it, int max_iter,
-                  int method, int early_stop, int shot_block, int G, float alpha0,
-                  cudaStream_t stream) {
-  const dim3 threads(LANES, WORKERS);
-  const int blocks = (S + LANES - 1) / LANES;
-  bsr_bp_kernel<MAXP><<<blocks, threads, 0, stream>>>(
-      chk_vars, vm, nslot, synd, prior, msg, post, conv, gbad, C, V, Dc, Dv, S, it0, n_it,
-      max_iter, method, early_stop, shot_block, G, alpha0);
+static int launch_coop(const BsrArgs& a, float alpha, int adaptive, int n_iter, int blocks,
+                       cudaStream_t st) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bsr_bp_coop_kernel<MAXP>, ROW_THREADS, 0);
+  if (blocks > sms * per_sm) return (int)cudaErrorCooperativeLaunchTooLarge;
+  BsrArgs args = a;
+  void* params[] = {&args, &alpha, &adaptive, &n_iter};
+  cudaLaunchCooperativeKernel((const void*)bsr_bp_coop_kernel<MAXP>, dim3(blocks),
+                              dim3(ROW_THREADS), params, 0, st);
   return (int)cudaGetLastError();
 }
 
-extern "C" int bsr_bp(const void* chk_vars, const void* vm, const void* nslot, const void* synd,
-                      const void* prior, void* msg, void* post, void* conv, void* gbad, int C,
-                      int V, int Dc, int Dv, int S, int it0, int n_it, int max_iter, int method,
-                      int early_stop, int shot_block, int G, float alpha0, void* stream) {
-  auto args = [&](auto f) {
-    return f((const int*)chk_vars, (const int*)vm, (const int*)nslot, (const uint8_t*)synd,
-             (const float*)prior, (__nv_bfloat16*)msg, (float*)post, (uint8_t*)conv, (int*)gbad,
-             C, V, Dc, Dv, S, it0, n_it, max_iter, method, early_stop, shot_block, G, alpha0,
-             (cudaStream_t)stream);
-  };
-  if (Dc <= 8) return args([](auto... a) { return launch<8>(a...); });
-  if (Dc <= 16) return args([](auto... a) { return launch<16>(a...); });
-  if (Dc <= 32) return args([](auto... a) { return launch<32>(a...); });
-  return (int)cudaErrorInvalidValue;
+// One whole decode of n_iter iterations (at most 3 grids each) on `stream`.
+// method 0 = ps, 1 = ms; alpha the min-sum scaling, or with `adaptive`
+// 1 - 2^-(it+1) per iteration.  gbad ((n_iter, G) int32, zeroed) and flags
+// ((2,) int32, zeroed) are both given for the early exit and both null for
+// fixed iterations.  vec_* / blocks_*: lane width and grid of each phase,
+// planned by the caller (every vec divides S and sb; every array starts on
+// a 16-byte boundary).  coop: route "coop" in one launch of the largest of
+// the three grids (refused where the instance or the grid does not exist).
+extern "C" int bsr_bp_run(const void* chk_vars, const void* vm, const void* nslot,
+                          const void* synd, const void* prior, void* msg, void* post, void* conv,
+                          void* hard, void* gbad, void* flags, int C, int V, int Dc, int Dv,
+                          int S, int S_live, int sb, int G, int method, float alpha, int adaptive,
+                          int n_iter, int vec_a, int blocks_a, int vec_b, int blocks_b,
+                          int vec_c, int blocks_c, int coop, void* stream) {
+  const BsrArgs a = {(const int*)chk_vars, (const int*)vm, (const int*)nslot,
+                     (const uint8_t*)synd, prior, msg, post, (uint8_t*)conv, (uint8_t*)hard,
+                     (int*)gbad, (int*)flags, C, V, Dc, Dv, S, S_live, sb, G};
+  if (!bsr_plan_ok(a, vec_a, vec_b, vec_c) || (gbad == nullptr) != (flags == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (coop) {
+    const int ab = blocks_a > blocks_b ? blocks_a : blocks_b;
+    const int blocks = ab > blocks_c ? ab : blocks_c;
+    if (method != 1 || Dv > 8 || vec_a != 4 || vec_b != 8 || vec_c != 16)
+      return (int)cudaErrorInvalidValue;
+    if (Dc == 7) return launch_coop<7>(a, alpha, adaptive, n_iter, blocks, st);
+    if (Dc == 8) return launch_coop<8>(a, alpha, adaptive, n_iter, blocks, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool early = flags != nullptr;
+  for (int it = 0; it < n_iter; ++it) {
+    const float al = adaptive ? (float)(1.0 - ldexp(1.0, -(it + 1))) : alpha;
+    const bool out = early || it == n_iter - 1;
+    if (!checks(a, it, vec_a, method, al, blocks_a, st) || !vars(a, it, out, vec_b, blocks_b, st) ||
+        (out && !parity(a, it, vec_c, blocks_c, st)))
+      return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

@@ -17,177 +17,276 @@
 //   * posterior = int32 prior_q + the int8 c2v messages (unsaturated);
 //     v2c = clip(clip(posterior, +-127) - c2v, +-127);
 //   * parity of posterior <= 0 per shot, which sets conv; with early_stop it
-//     is taken every iteration and a shot block whose shots all pass stops
-//     (the JAX kernel resets its done flag per grid step, so the exit unit is
-//     its block of shot_block shots, as in K1).
+//     is taken every iteration and a shot block whose live shots all pass
+//     stops (the JAX kernel resets its done flag per grid step, so the exit
+//     unit is its block of shot_block shots, as in K1).
 // Integer sums do not depend on their order, so the results equal the plain
 // version's, and the reference's in fixed-iteration mode, bit for bit.
 //
 // What bounds it on an H100: as K1, every iteration streams each message of
 // each shot through device memory twice plus the int32 posterior, in short
-// dependent chains of loads; and the traffic is byte-wide: a warp that reads
-// 32 consecutive int8 shots of a row touches 32 bytes, a quarter of a
-// 128-byte line, so the memory system moves lines that are mostly unused
-// within one access (neighbouring blocks use the rest).  The TPU kernel keeps
+// dependent chains of gathers; the messages are bytes.  The TPU kernel keeps
 // a shot block's messages in VMEM and routes them with one-hot 128x128 int8
 // tiles on the matrix unit; its dead-row value, live-slot plane skipping and
 // one-hot scratch are devices of that layout and are not carried over.
-// Design (K1's): a block owns 32 shots (one per lane), its 8 warps split each
-// phase (A: checks, B: variables, C: parity) with block barriers, and the
-// Tanner tables are read through the read-only cache.  Packing four shots per
-// lane (char4 and the byte-wise SIMD intrinsics) would use whole lines; this
-// kernel does not do it.
 //
-// The early exit spans CUDA blocks as in K1 (bsr_bp.cu): with early_stop the
-// caller launches once per iteration, and gbad[it][g] (zeroed by the caller)
-// collects "some shot of shot block g failed its parity after iteration it";
-// at the next launch a lane whose shot block left no shot unconverged does
-// nothing.  Without early_stop all iterations run in one launch.
+// Design: K1's (bsr_bp.cu): three grids per iteration over (row, shot
+// vector) items (A checks, B variables, C parity: bsr_phases.cuh), the loop
+// in the C entry point, the early exit on the device (gbad per shot block,
+// a `done` word closed by the last block of phase C).  A thread moves 16
+// (checks of up to 8 slots, variables of up to 8 edges), 8 or 4 shots of a
+// row with one access: a warp reads 256-512 consecutive bytes of a row.  The
+// raw bytes of every slot stay packed in registers, and each shot's check
+// and variable update runs on bytes extracted from them, in int32.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "spacetime_bp.cuh"
+#include "bsr_phases.cuh"
 
 #define SAT 127
 
 __device__ __forceinline__ int clip_sat(int x) { return min(max(x, -SAT), SAT); }
+__device__ __forceinline__ int s8(uint8_t b) { return (int)(int8_t)b; }
 
-template <int MAXP>
-__global__ void __launch_bounds__(LANES* WORKERS) bsr_bp_int8_kernel(
-    const int* __restrict__ chk_vars,   // (C*Dc,), -1 = padded slot
-    const int* __restrict__ vm,         // (V*Dv,), flat check-major slot, -1 = pad
-    const uint8_t* __restrict__ synd,   // (C, S)
-    const int* __restrict__ prior_q,    // (V,) quanta
-    int8_t* __restrict__ msg,           // (C*Dc, S) v2c, kept across launches
-    int* __restrict__ post,             // (V, S) out, quanta
-    uint8_t* __restrict__ conv,         // (S,) out
-    int* __restrict__ gbad,             // (max_iter, G) per-shot-block "unconverged"
-    int C, int V, int Dc, int Dv, int S, int it0, int n_it, int max_iter, int alpha_num,
-    int early_stop, int shot_block, int G) {
-  __shared__ int bad[LANES];
-  const int lane = threadIdx.x;
-  const int w = threadIdx.y;
-  const int s = blockIdx.x * LANES + lane;
-  const int g = s / shot_block;
-  bool run = s < S;
-  // a shot block that left no shot unconverged last iteration has stopped
-  if (run && early_stop && it0 > 0) run = gbad[(size_t)(it0 - 1) * G + g] != 0;
-  if (!__syncthreads_or(run)) return;
-  const size_t SS = (size_t)S;
-  if (w == 0) bad[lane] = 0;
-
-  if (run && it0 == 0) {  // init: v2c = saturated prior of the edge's variable, pads +SAT
-    for (int e = w; e < C * Dc; e += WORKERS) {
-      const int v = __ldg(&chk_vars[e]);
-      msg[(size_t)e * SS + s] = (int8_t)(v >= 0 ? clip_sat(__ldg(&prior_q[v])) : SAT);
-    }
-  }
-  __syncthreads();
-
-  for (int it = it0; it < it0 + n_it; ++it) {
-    const bool write_post = early_stop || it == max_iter - 1;
-    // ---- phase A: check update of every check, in place on its live slots
-    if (run) {
-      for (int c = w; c < C; c += WORKERS) {
-        int x[MAXP];
-        const size_t e0 = (size_t)c * Dc;
+// ---- phase A: min-sum check update of every check, in place on its live slots
+template <int MAXP, bool EXACT, int VEC>
+__device__ __forceinline__ void bsr8_checks(const BsrArgs& a, int it, int alpha_num) {
+  const int Dc = EXACT ? MAXP : a.Dc;
+  const size_t SS = (size_t)a.S;
+  int8_t* msg = (int8_t*)a.msg;
+  const int* prior_q = (const int*)a.prior;
+  RowItems items(a.C, a.S, VEC);
+  int c, s0;
+  while (items.next(c, s0, VEC)) {
+    if (bsr_stopped(a, it, s0 / a.sb)) continue;
+    const size_t e0 = (size_t)c * Dc;
+    Pack<VEC> m[MAXP];
+    uint32_t live = 0;  // bit i: slot i holds an edge (one register, not MAXP predicates)
 #pragma unroll
-        for (int i = 0; i < MAXP; ++i)
-          if (i < Dc) x[i] = msg[(e0 + i) * SS + s];
-        int neg_tot = synd[(size_t)c * SS + s];
-        int min1 = abs(x[0]), min2 = SAT + 1, arg = 0;
-        neg_tot += x[0] < 0;
+    for (int i = 0; i < MAXP; ++i) {
+      if (i < Dc) {
+        const int var = __ldg(&a.chk_vars[e0 + i]);
+        live |= (uint32_t)(var >= 0) << i;
+        if (it == 0) {  // the saturated prior of the slot's variable, +SAT on a padded slot
+          const uint8_t b = (uint8_t)(int8_t)(var >= 0 ? clip_sat(__ldg(&prior_q[var])) : SAT);
 #pragma unroll
-        for (int i = 1; i < MAXP; ++i) {
-          if (i < Dc) {
-            neg_tot += x[i] < 0;
-            const int m = abs(x[i]);
-            if (m < min1) {
-              min2 = min1;
-              min1 = m;
-              arg = i;
-            } else {
-              min2 = min(min2, m);
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < MAXP; ++i) {
-          if (i < Dc && __ldg(&chk_vars[e0 + i]) >= 0) {
-            const int scaled = (((i == arg) ? min2 : min1) * alpha_num) >> 8;
-            const bool ext_neg = (neg_tot + (x[i] < 0)) & 1;
-            msg[(e0 + i) * SS + s] = (int8_t)(ext_neg ? -scaled : scaled);
-          }
+          for (int v = 0; v < VEC; ++v) m[i].u8[v] = b;
+        } else {
+          m[i] = ld_raw<VEC>(msg + (e0 + i) * SS + s0);
         }
       }
     }
-    __syncthreads();
-    // ---- phase B: posterior and the new v2c of every variable
-    if (run) {
-      for (int v = w; v < V; v += WORKERS) {
-        int total = __ldg(&prior_q[v]);
-        for (int j = 0; j < Dv; ++j) {
-          const int k = __ldg(&vm[v * Dv + j]);
-          if (k >= 0) total += msg[(size_t)k * SS + s];
+    const Pack<VEC> sy = ld_raw_ro<VEC>(a.synd + (size_t)c * SS + s0);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      int x0 = s8(m[0].u8[v]);
+      int neg_tot = sy.u8[v] + (x0 < 0);
+      int min1 = abs(x0), min2 = SAT + 1, arg = 0;
+#pragma unroll
+      for (int i = 1; i < MAXP; ++i) {
+        if (i < Dc) {
+          const int x = s8(m[i].u8[v]);
+          neg_tot += x < 0;
+          const int mg = abs(x);
+          if (mg < min1) {
+            min2 = min1;
+            min1 = mg;
+            arg = i;
+          } else {
+            min2 = min(min2, mg);
+          }
         }
-        if (write_post) post[(size_t)v * SS + s] = total;
-        const int p8 = clip_sat(total);
-        for (int j = 0; j < Dv; ++j) {
-          const int k = __ldg(&vm[v * Dv + j]);
+      }
+#pragma unroll
+      for (int i = 0; i < MAXP; ++i) {
+        if (i < Dc && ((live >> i) & 1u)) {
+          const int x = s8(m[i].u8[v]);
+          const int scaled = (((i == arg) ? min2 : min1) * alpha_num) >> 8;
+          const bool ext_neg = (neg_tot + (x < 0)) & 1;
+          m[i].u8[v] = (uint8_t)(int8_t)(ext_neg ? -scaled : scaled);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MAXP; ++i)  // padded slots: +SAT, stored once in iteration 0
+      if (i < Dc && (((live >> i) & 1u) || it == 0))
+        st_raw<VEC>(msg + (e0 + i) * SS + s0, m[i]);
+  }
+}
+
+// ---- phase B: posterior and the new v2c of every variable.  `out` and DVR
+// as in K1's phase B.
+template <int VEC, int DVR>
+__device__ __forceinline__ void bsr8_vars(const BsrArgs& a, int it, bool out) {
+  const int Dv = a.Dv;
+  const size_t SS = (size_t)a.S;
+  int8_t* msg = (int8_t*)a.msg;
+  RowItems items(a.V, a.S, VEC);
+  int u, s0;
+  while (items.next(u, s0, VEC)) {
+    if (bsr_stopped(a, it, s0 / a.sb)) continue;
+    Pack<VEC> hd, t;
+    if (out && u == 0) {  // conv starts at 1; phase C stores 0 on a violated check
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) hd.u8[v] = 1;
+      st_raw<VEC>(a.conv + s0, hd);
+    }
+    const int* edges = a.vm + (size_t)u * Dv;
+    int total[VEC], p8[VEC];
+    const int pr = __ldg(&((const int*)a.prior)[u]);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) total[v] = pr;
+    if (DVR > 0) {
+      Pack<VEC> m[DVR > 0 ? DVR : 1];
+#pragma unroll
+      for (int j = 0; j < DVR; ++j) {
+        if (j < Dv) {
+          const int k = __ldg(&edges[j]);
           if (k >= 0) {
-            const size_t idx = (size_t)k * SS + s;
-            msg[idx] = (int8_t)clip_sat(p8 - (int)msg[idx]);
+            m[j] = ld_raw<VEC>(msg + (size_t)k * SS + s0);
+#pragma unroll
+            for (int v = 0; v < VEC; ++v) total[v] += s8(m[j].u8[v]);
           }
         }
       }
-    }
-    __syncthreads();
-  }
-
-  // ---- phase C: parity of the posterior after the launch's last iteration
-  int any = 0;
-  if (run) {
-    for (int c = w; c < C; c += WORKERS) {
-      int par = synd[(size_t)c * SS + s];
-      for (int i = 0; i < Dc; ++i) {
-        const int v = __ldg(&chk_vars[c * Dc + i]);
-        if (v >= 0) par ^= (post[(size_t)v * SS + s] <= 0);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) p8[v] = clip_sat(total[v]);
+#pragma unroll
+      for (int j = 0; j < DVR; ++j) {
+        if (j < Dv) {
+          const int k = __ldg(&edges[j]);
+          if (k >= 0) {
+#pragma unroll
+            for (int v = 0; v < VEC; ++v)
+              t.u8[v] = (uint8_t)(int8_t)clip_sat(p8[v] - s8(m[j].u8[v]));
+            st_raw<VEC>(msg + (size_t)k * SS + s0, t);
+          }
+        }
       }
-      any |= par;
+    } else {
+      for (int j = 0; j < Dv; ++j) {
+        const int k = __ldg(&edges[j]);
+        if (k >= 0) {
+          t = ld_raw<VEC>(msg + (size_t)k * SS + s0);
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) total[v] += s8(t.u8[v]);
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) p8[v] = clip_sat(total[v]);
+      for (int j = 0; j < Dv; ++j) {
+        const int k = __ldg(&edges[j]);
+        if (k >= 0) {
+          int8_t* p = msg + (size_t)k * SS + s0;
+          t = ld_raw<VEC>(p);
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) t.u8[v] = (uint8_t)(int8_t)clip_sat(p8[v] - s8(t.u8[v]));
+          st_raw<VEC>(p, t);
+        }
+      }
+    }
+    if (out) {
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) hd.u8[v] = total[v] <= 0;
+      st_raw<VEC>(a.hard + (size_t)u * SS + s0, hd);
+      st_i32<VEC>((int*)a.post + (size_t)u * SS + s0, total);
     }
   }
-  if (any) atomicOr(&bad[lane], 1);
-  __syncthreads();
-  if (run && w == 0) {
-    conv[s] = bad[lane] ? 0 : 1;
-    if (early_stop && bad[lane]) atomicOr(&gbad[(size_t)(it0 + n_it - 1) * G + g], 1);
+}
+
+// One grid per phase; each first reads `done` and returns at once when it is set.
+template <int MAXP, bool EXACT, int VEC>
+__global__ void __launch_bounds__(ROW_THREADS, 2) bsr_int8_check_kernel(const BsrArgs a, int it,
+                                                                        int alpha_num) {
+  if (a.flags && a.flags[BSR_DONE]) return;
+  bsr8_checks<MAXP, EXACT, VEC>(a, it, alpha_num);
+}
+
+template <int VEC, int DVR>
+__global__ void __launch_bounds__(ROW_THREADS) bsr_int8_var_kernel(const BsrArgs a, int it,
+                                                                   bool out) {
+  if (a.flags && a.flags[BSR_DONE]) return;
+  bsr8_vars<VEC, DVR>(a, it, out);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(ROW_THREADS) bsr_int8_parity_kernel(const BsrArgs a, int it) {
+  if (a.flags && a.flags[BSR_DONE]) return;
+  bsr_parity<VEC>(a, it);
+}
+
+// Phase A by check width and lane width: the exact widths of the main
+// path's codes (7, 8, 24) and the bounded scan up to 16 or 32 slots; 16
+// shots a lane up to 8 slots, 8 up to 24, 4 above (the packed bytes of
+// every slot in registers), 1 where the plan's width does not divide.
+static bool checks(const BsrArgs& a, int it, int vec, int alpha_num, int blocks, cudaStream_t st) {
+#define CASE(MAXP, EXACT, VEC)                                                           \
+  if ((EXACT ? a.Dc == MAXP : a.Dc <= MAXP) && vec == VEC) {                             \
+    bsr_int8_check_kernel<MAXP, EXACT, VEC><<<blocks, ROW_THREADS, 0, st>>>(a, it, alpha_num); \
+    return true;                                                                         \
+  }
+  CASE(7, true, 1) CASE(7, true, 4) CASE(7, true, 8) CASE(7, true, 16)
+  CASE(8, true, 1) CASE(8, true, 4) CASE(8, true, 8) CASE(8, true, 16)
+  CASE(24, true, 1) CASE(24, true, 4) CASE(24, true, 8)
+  CASE(16, false, 1) CASE(16, false, 4) CASE(16, false, 8) CASE(16, false, 16)
+  CASE(32, false, 1) CASE(32, false, 4) CASE(32, false, 8)
+#undef CASE
+  return false;
+}
+
+// Phase B by variable degree (edges held in registers: up to 8, up to 24,
+// or none) and lane width.
+static bool vars(const BsrArgs& a, int it, bool out, int vec, int blocks, cudaStream_t st) {
+#define CASE(DVR, VEC)                                                         \
+  if (vec == VEC) {                                                            \
+    bsr_int8_var_kernel<VEC, DVR><<<blocks, ROW_THREADS, 0, st>>>(a, it, out); \
+    return true;                                                               \
+  }
+  if (a.Dv <= 8) {
+    CASE(8, 1) CASE(8, 4) CASE(8, 8) CASE(8, 16)
+  } else if (a.Dv <= 24) {
+    CASE(24, 1) CASE(24, 4) CASE(24, 8)
+  } else {
+    CASE(0, 1) CASE(0, 4) CASE(0, 8) CASE(0, 16)
+  }
+#undef CASE
+  return false;
+}
+
+static bool parity(const BsrArgs& a, int it, int vec, int blocks, cudaStream_t st) {
+  switch (vec) {
+    case 1: bsr_int8_parity_kernel<1><<<blocks, ROW_THREADS, 0, st>>>(a, it); return true;
+    case 4: bsr_int8_parity_kernel<4><<<blocks, ROW_THREADS, 0, st>>>(a, it); return true;
+    case 8: bsr_int8_parity_kernel<8><<<blocks, ROW_THREADS, 0, st>>>(a, it); return true;
+    case 16: bsr_int8_parity_kernel<16><<<blocks, ROW_THREADS, 0, st>>>(a, it); return true;
+    default: return false;
   }
 }
 
-template <int MAXP>
-static int launch(const int* chk_vars, const int* vm, const uint8_t* synd, const int* prior_q,
-                  int8_t* msg, int* post, uint8_t* conv, int* gbad, int C, int V, int Dc,
-                  int Dv, int S, int it0, int n_it, int max_iter, int alpha_num, int early_stop,
-                  int shot_block, int G, cudaStream_t stream) {
-  const dim3 threads(LANES, WORKERS);
-  const int blocks = (S + LANES - 1) / LANES;
-  bsr_bp_int8_kernel<MAXP><<<blocks, threads, 0, stream>>>(
-      chk_vars, vm, synd, prior_q, msg, post, conv, gbad, C, V, Dc, Dv, S, it0, n_it, max_iter,
-      alpha_num, early_stop, shot_block, G);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int bsr_bp_int8(const void* chk_vars, const void* vm, const void* synd,
-                           const void* prior_q, void* msg, void* post, void* conv, void* gbad,
-                           int C, int V, int Dc, int Dv, int S, int it0, int n_it, int max_iter,
-                           int alpha_num, int early_stop, int shot_block, int G, void* stream) {
-  auto args = [&](auto f) {
-    return f((const int*)chk_vars, (const int*)vm, (const uint8_t*)synd, (const int*)prior_q,
-             (int8_t*)msg, (int*)post, (uint8_t*)conv, (int*)gbad, C, V, Dc, Dv, S, it0, n_it,
-             max_iter, alpha_num, early_stop, shot_block, G, (cudaStream_t)stream);
-  };
-  if (Dc <= 8) return args([](auto... a) { return launch<8>(a...); });
-  if (Dc <= 16) return args([](auto... a) { return launch<16>(a...); });
-  if (Dc <= 32) return args([](auto... a) { return launch<32>(a...); });
-  return (int)cudaErrorInvalidValue;
+// One whole decode, as K1's bsr_bp_run: n_iter iterations (at most 3 grids
+// each), alpha = alpha_num / 256, gbad and flags both given for the early
+// exit and both null for fixed iterations, lane widths and grids planned by
+// the caller.
+extern "C" int bsr_bp_int8_run(const void* chk_vars, const void* vm, const void* synd,
+                               const void* prior_q, void* msg, void* post, void* conv, void* hard,
+                               void* gbad, void* flags, int C, int V, int Dc, int Dv, int S,
+                               int S_live, int sb, int G, int alpha_num, int n_iter, int vec_a,
+                               int blocks_a, int vec_b, int blocks_b, int vec_c, int blocks_c,
+                               void* stream) {
+  const BsrArgs a = {(const int*)chk_vars, (const int*)vm, nullptr, (const uint8_t*)synd,
+                     prior_q, msg, post, (uint8_t*)conv, (uint8_t*)hard, (int*)gbad, (int*)flags,
+                     C, V, Dc, Dv, S, S_live, sb, G};
+  if (!bsr_plan_ok(a, vec_a, vec_b, vec_c) || (gbad == nullptr) != (flags == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool early = flags != nullptr;
+  for (int it = 0; it < n_iter; ++it) {
+    const bool out = early || it == n_iter - 1;
+    if (!checks(a, it, vec_a, alpha_num, blocks_a, st) || !vars(a, it, out, vec_b, blocks_b, st) ||
+        (out && !parity(a, it, vec_c, blocks_c, st)))
+      return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }

@@ -1,7 +1,8 @@
-// Shared device code of the row x shot kernels K3 (stbsr.cu) and K4
-// (bsr_shard.cu): a thread owns VEC consecutive shots of one row and moves
-// them with one load or store of up to 16 bytes, and the flat (row, shot
-// vector) work list that a launch spreads over the whole card.
+// Shared device code of the row x shot kernels K1 (bsr_bp.cu), K3
+// (stbsr.cu), K4 (bsr_shard.cu) and K5 (bsr_bp_int8.cu): a thread owns VEC
+// consecutive shots of one row and moves them with one load or store of up
+// to 16 bytes, and the flat (row, shot vector) work list that a launch
+// spreads over the whole card.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -88,6 +89,18 @@ template <int VEC> __device__ __forceinline__ void st_f32(float* p, const float 
     Pack<4 * W> k;
 #pragma unroll
     for (int v = 0; v < W; ++v) k.u32[v] = __float_as_uint(x[h * W + v]);
+    st_raw<4 * W>(p + h * W, k);
+  }
+}
+
+// int32: as f32.
+template <int VEC> __device__ __forceinline__ void st_i32(int* p, const int (&x)[VEC]) {
+  constexpr int W = VEC < 4 ? VEC : 4;
+#pragma unroll
+  for (int h = 0; h < VEC / W; ++h) {
+    Pack<4 * W> k;
+#pragma unroll
+    for (int v = 0; v < W; ++v) k.u32[v] = (uint32_t)x[h * W + v];
     st_raw<4 * W>(p + h * W, k);
   }
 }

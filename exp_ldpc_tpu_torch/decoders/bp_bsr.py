@@ -9,17 +9,33 @@ which exists only for the TPU's matrix unit: it routes through the
 ``TannerELL`` tables, with rolled loops at every size, so one kernel
 serves both K1 and K1b.
 
-  * :func:`bsr_bp_decode` is the decode: the CUDA kernel ``csrc/bsr_bp.cu``
-    for CUDA tensors, its plain version :func:`bsr_bp_plain` for CPU
-    tensors, and nothing else.
+  * :func:`bsr_bp_decode` is the decode: the CUDA kernels of
+    ``csrc/bsr_bp.cu`` for CUDA tensors, its plain version
+    :func:`bsr_bp_plain` for CPU tensors, and nothing else.
   * :func:`bsr_bp_decode_int8` is the fixed-point min-sum decode (the TPU
-    kernel ``_kernel_int8``, K5): the CUDA kernel ``csrc/bsr_bp_int8.cu``
+    kernel ``_kernel_int8``, K5): the CUDA kernels of ``csrc/bsr_bp_int8.cu``
     for CUDA tensors, its plain version :func:`bsr_bp_int8_plain` for CPU
     tensors.  Its arithmetic is :mod:`.bp_int8`'s, bit for bit; its early
     exit is K1's, per shot block.
   * :class:`BSRBPDecoder` is the decoder object (``check_perm`` /
     ``var_perm``, outputs in the original column order; ``msg_dtype``
     ``"bfloat16"`` for K1, ``"int8"`` for K5).
+
+On the card both kernels split each phase of an iteration (A checks, B
+variables, C parity) over a flat list of (row, shot vector) items and a
+grid sized from the item count and the SM count
+(``utils/cuda_build.py::bsr_plan``, computed here before the launch and
+tested on the CPU).  One call of the C entry point enqueues the whole
+decode, at most three grids per iteration, and the host reads nothing
+back: the early exit lives in device memory (``gbad``, one "unconverged"
+mark per shot block and iteration, and a ``done`` word after which every
+later grid returns at once).  The shot axis is padded to a multiple of 16
+with all-zero syndromes that never count towards the exit, and the outputs
+are cut back.  Where every phase's grid fits the card at once (min-sum at
+a few hundred shots: the host redecode), K1 runs the same phases in one
+cooperative launch with grid-wide barriers (route "coop"; else "grids").
+``KERNEL.launches`` / ``KERNEL_INT8.launches`` count decodes, ``routes``
+split them by route.
 
 Numerics follow the TPU kernel (``bp_bsr.py:226-543``):
 
@@ -45,21 +61,21 @@ block stops once all ITS shots have converged, and ``iters`` is constant
 within a block.  The block size resolves as in JAX: ``shot_block``
 (default :func:`auto_shot_block`), clamped to ``round_up(S, 128)``.  The
 TPU pads the last block with zero-syndrome shots; with priors below 1/2
-such a shot converges at every iteration, so the port, which has no
-padded shots, exits where the TPU does.
+such a shot converges at every iteration, so the port, whose padded shots
+never count, exits where the TPU does.
 """
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
-from typing import Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from scipy import sparse
 
 from ..convert import TannerTables, tanner_tables
-from ..utils.cuda_build import CudaKernel
+from ..utils.cuda_build import CudaKernel, aligned, bsr_plan
 from ..utils.device import DeviceLike, resolve_device
 from .bp import (BIG, DecoderBase, alpha_at, channel_priors, check_update_cm,
                  normalize_method, priors_to_llr, syndrome_ok)
@@ -71,11 +87,19 @@ __all__ = ["BSRLayout", "auto_shot_block", "bsr_bp_decode", "bsr_bp_plain",
            "bsr_bp_decode_int8", "bsr_bp_int8_plain", "BSRBPDecoder", "KERNEL", "KERNEL_INT8"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-KERNEL = CudaKernel("bsr_bp.cu", "bsr_bp", [_P] * 9 + [_I] * 12 + [_F, _P])
-KERNEL_INT8 = CudaKernel("bsr_bp_int8.cu", "bsr_bp_int8", [_P] * 8 + [_I] * 12 + [_P])
+# csrc/bsr_bp.cu::bsr_bp_run: 11 arrays; C, V, Dc, Dv, S, S_live, sb, G, method; alpha;
+# adaptive, n_iter, (vec, blocks) of the three phases, coop; the stream.
+KERNEL = CudaKernel("bsr_bp.cu", "bsr_bp_run", [_P] * 11 + [_I] * 9 + [_F] + [_I] * 9 + [_P])
+# csrc/bsr_bp_int8.cu::bsr_bp_int8_run: 10 arrays; C, V, Dc, Dv, S, S_live, sb, G,
+# alpha_num, n_iter, (vec, blocks) of the three phases; the stream.
+KERNEL_INT8 = CudaKernel("bsr_bp_int8.cu", "bsr_bp_int8_run", [_P] * 10 + [_I] * 16 + [_P])
 
 _TILE = 128
 _BF16 = torch.bfloat16
+# K1 takes its cooperative route where the plan finds it fits (min-sum at the
+# host redecode's sizes); False keeps every decode on one grid per phase
+# (for comparisons of the two routes).
+COOPERATIVE = True
 
 
 def _round_up(x: int, m: int) -> int:
@@ -94,6 +118,7 @@ class BSRLayout:
     v_pad: int
     num_tiles: int
     live_slots: Tuple[int, ...]
+    _limits: Dict[str, torch.Tensor] = field(default_factory=dict, repr=False)
 
     @property
     def num_checks(self) -> int:
@@ -130,12 +155,15 @@ class BSRLayout:
     def slot_limits(self, method: str) -> torch.Tensor:
         """(C,) int32: per check, the slots below which a padded slot is
         rewritten by the broadcast (the chunk's live slots for min-sum, all
-        Dc for sum-product)."""
-        if method == "ps":
-            lim = np.full(self.num_checks, self.tables.max_check_degree)
-        else:
-            lim = np.repeat(np.asarray(self.live_slots), _TILE)[: self.num_checks]
-        return torch.as_tensor(lim.astype(np.int32)).to(self.device)
+        Dc for sum-product).  Made once per method: a copy to the card per
+        decode would wait on the stream."""
+        if method not in self._limits:
+            if method == "ps":
+                lim = np.full(self.num_checks, self.tables.max_check_degree)
+            else:
+                lim = np.repeat(np.asarray(self.live_slots), _TILE)[: self.num_checks]
+            self._limits[method] = torch.as_tensor(lim.astype(np.int32)).to(self.device)
+        return self._limits[method]
 
 
 def auto_shot_block(layout: BSRLayout) -> int:
@@ -242,56 +270,117 @@ def bsr_bp_decode(layout: BSRLayout, prior_llr: torch.Tensor, syndromes: torch.T
     converged (S,) bool, iters (S,) int32), the JAX ``bsr_bp_decode``
     contract with its early exit per block of ``shot_block`` shots.
 
-    CPU tensors run :func:`bsr_bp_plain`.  On a CUDA device the kernel runs
-    all iterations in one launch without ``early_stop``; with it, one launch
-    per iteration, where a block of 32 shots skips the iteration once every
-    shot of its shot block converged in the previous one (a per-block flag
-    in device memory), so no host synchronisation is needed."""
+    CPU tensors run :func:`bsr_bp_plain`.  On a CUDA device one call of
+    kernel K1 runs the whole decode (at most three grids per iteration);
+    with ``early_stop`` a shot block skips every iteration after the first
+    that left none of its shots unconverged, and once every block has
+    stopped the remaining grids return at once, all without a host
+    synchronisation."""
     method = normalize_method(method)
     dev = syndromes.device
     if dev.type == "cpu":
         return bsr_bp_plain(layout, prior_llr, syndromes, method, max_iter,
                             ms_scaling_factor, early_stop, shot_block)
+    prior, S = _check_call("bsr_bp_decode", layout, prior_llr, syndromes, max_iter,
+                           torch.float32, "prior_llr")
+    if S == 0:  # a grid of no blocks is not a launch
+        return _no_shots(layout.num_vars, torch.float32, dev)
+    st = _CardDecode(layout, syndromes, max_iter, early_stop, shot_block, int8=False,
+                     coop=COOPERATIVE and method == "ms")
+    t, plan = layout.tables, st.plan
+    msf = float(ms_scaling_factor)
+    KERNEL.launch(
+        t.chk_vars_k.data_ptr(), t.vm_k.data_ptr(), layout.slot_limits(method).data_ptr(),
+        *st.pointers(prior), *st.shape_args(), 0 if method == "ps" else 1, msf,
+        int(msf == 0.0), int(max_iter), *st.grid_args(), int(plan.route == "coop"),
+        torch.cuda.current_stream(dev).cuda_stream, route=plan.route)
+    return st.outputs()
+
+
+def _check_call(name: str, layout: BSRLayout, prior: torch.Tensor, syndromes: torch.Tensor,
+                max_iter: int, dtype: torch.dtype, prior_name: str):
+    """The checks both card wrappers make before a launch; returns the
+    priors as the kernel reads them and the shot count."""
+    dev = syndromes.device
     if dev.type != "cuda":
-        raise ValueError(f"bsr_bp_decode: unsupported device {dev}")
+        raise ValueError(f"{name}: unsupported device {dev}")
     t = layout.tables
-    C, V, Dc, Dv = t.num_checks, t.num_vars, t.max_check_degree, t.max_var_degree
+    C, V, Dc = t.num_checks, t.num_vars, t.max_check_degree
     Cs, S = syndromes.shape
     if Cs != C:
         raise ValueError(f"syndromes have {Cs} rows, expected {C}")
     if Dc > 32:
-        raise ValueError(f"bsr_bp_decode supports check degree <= 32, got {Dc}")
-    if t.device != dev or prior_llr.device != dev:
-        raise ValueError("bsr_bp_decode: tables, priors and syndromes must share one device")
-    prior = prior_llr.to(torch.float32).contiguous()
+        raise ValueError(f"{name} supports check degree <= 32, got {Dc}")
+    if t.device != dev or prior.device != dev:
+        raise ValueError(f"{name}: tables, priors and syndromes must share one device")
+    prior = prior.to(dtype).contiguous()
     if prior.shape != (V,):
-        raise ValueError(f"prior_llr must have shape ({V},)")
+        raise ValueError(f"{prior_name} must have shape ({V},)")
     if max_iter <= 0:
-        raise ValueError(f"bsr_bp_decode needs max_iter >= 1, got {max_iter}")
-    if S == 0:  # a grid of no blocks is not a launch
-        return _no_shots(V, torch.float32, dev)
-    sb, G = _blocks(shot_block, S)
-    synd = syndromes.to(torch.uint8).contiguous()
-    nslot = layout.slot_limits(method)
-    msg = torch.empty((C * Dc, S), dtype=_BF16, device=dev)
-    post = torch.empty((V, S), dtype=torch.float32, device=dev)
-    conv = torch.empty((S,), dtype=torch.uint8, device=dev)
-    gbad = torch.zeros((max_iter, G), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    spans = [(it, 1) for it in range(max_iter)] if early_stop else [(0, max_iter)]
-    for it0, n_it in spans:
-        KERNEL.launch(
-            t.chk_vars_k.data_ptr(), t.vm_k.data_ptr(), nslot.data_ptr(), synd.data_ptr(),
-            prior.data_ptr(), msg.data_ptr(), post.data_ptr(), conv.data_ptr(),
-            gbad.data_ptr(), C, V, Dc, Dv, S, it0, n_it, max_iter,
-            0 if method == "ps" else 1, int(early_stop), sb, G, float(ms_scaling_factor),
-            stream)
-    hard = (post <= 0).to(torch.uint8)
-    if early_stop:
-        iters = _block_iters(gbad, max_iter, sb, S)
-    else:
-        iters = torch.full((S,), max_iter, dtype=torch.int32, device=dev)
-    return hard, post, conv.bool(), iters
+        raise ValueError(f"{name} needs max_iter >= 1, got {max_iter}")
+    return prior, S
+
+
+class _CardDecode:
+    """The plan and the device state of one K1 or K5 decode: syndromes
+    padded to the plan's shot count (all-zero columns), the messages, the
+    posterior, conv and the hard-decision bytes, and with ``early_stop`` one
+    zeroed int32 buffer that holds the ``done``/ticket flags and the
+    (max_iter, groups) ``gbad`` table."""
+
+    def __init__(self, layout: BSRLayout, syndromes: torch.Tensor, max_iter: int,
+                 early_stop: bool, shot_block: int, int8: bool, coop: bool = False):
+        t = layout.tables
+        dev = syndromes.device
+        C, V = t.num_checks, t.num_vars
+        S = syndromes.shape[1]
+        sb, _G = _blocks(shot_block, S)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        self.plan = plan = bsr_plan(C, V, t.max_check_degree, t.max_var_degree, S, sb, sms, int8,
+                                    coop)
+        Sp = plan.shots
+        synd = syndromes.to(torch.uint8)
+        if Sp != S or not synd.is_contiguous() or not aligned(synd):
+            synd = torch.zeros((C, Sp), dtype=torch.uint8, device=dev)
+            synd[:, :S] = syndromes
+        self.synd = synd
+        self.msg = torch.empty((C * t.max_check_degree, Sp),
+                               dtype=torch.int8 if int8 else _BF16, device=dev)
+        self.post = torch.empty((V, Sp), dtype=torch.int32 if int8 else torch.float32, device=dev)
+        self.conv = torch.empty((Sp,), dtype=torch.uint8, device=dev)
+        self.hard = torch.empty((V, Sp), dtype=torch.uint8, device=dev)
+        self.flags = self.gbad = None
+        if early_stop:
+            state = torch.zeros(2 + max_iter * plan.groups, dtype=torch.int32, device=dev)
+            self.flags, self.gbad = state[:2], state[2:].view(max_iter, plan.groups)
+        self.max_iter = int(max_iter)
+        self.dims = (C, V, t.max_check_degree, t.max_var_degree)
+
+    def pointers(self, prior: torch.Tensor):
+        """synd, prior, msg, post, conv, hard, gbad, flags (null without the exit)."""
+        opt = [None if x is None else x.data_ptr() for x in (self.gbad, self.flags)]
+        return (self.synd.data_ptr(), prior.data_ptr(), self.msg.data_ptr(),
+                self.post.data_ptr(), self.conv.data_ptr(), self.hard.data_ptr(), *opt)
+
+    def shape_args(self):
+        """C, V, Dc, Dv, S (padded), S_live, sb, G."""
+        p = self.plan
+        return (*self.dims, p.shots, p.live, p.shot_block, p.groups)
+
+    def grid_args(self):
+        p = self.plan
+        return (p.checks.vec, p.checks.blocks, p.variables.vec, p.variables.blocks,
+                p.parity.vec, p.parity.blocks)
+
+    def outputs(self):
+        """(hard, posterior, converged, iters) of the caller's shots."""
+        S, dev = self.plan.live, self.post.device
+        post = self.post[:, :S].contiguous()
+        if self.gbad is None:
+            iters = torch.full((S,), self.max_iter, dtype=torch.int32, device=dev)
+        else:
+            iters = _block_iters(self.gbad, self.max_iter, self.plan.shot_block, S)
+        return (post <= 0).to(torch.uint8), post, self.conv[:S].bool(), iters
 
 
 def _no_shots(V: int, post_dtype: torch.dtype, dev: torch.device):
@@ -337,51 +426,24 @@ def bsr_bp_decode_int8(layout: BSRLayout, prior_q: torch.Tensor, syndromes: torc
     delta for LLR units.  The early exit is per block of ``shot_block``
     shots, clamped to ``round_up(S, 128)``.
 
-    CPU tensors run :func:`bsr_bp_int8_plain`.  On a CUDA device kernel K5
-    runs, launched as K1 is: all iterations in one launch without
-    ``early_stop``, one launch per iteration with it."""
+    CPU tensors run :func:`bsr_bp_int8_plain`.  On a CUDA device one call of
+    kernel K5 runs the whole decode, its loop and exit on the device as
+    K1's."""
     dev = syndromes.device
     if dev.type == "cpu":
         return bsr_bp_int8_plain(layout, prior_q, syndromes, max_iter, alpha_num, early_stop,
                                  shot_block)
-    if dev.type != "cuda":
-        raise ValueError(f"bsr_bp_decode_int8: unsupported device {dev}")
-    t = layout.tables
-    C, V, Dc, Dv = t.num_checks, t.num_vars, t.max_check_degree, t.max_var_degree
-    Cs, S = syndromes.shape
-    if Cs != C:
-        raise ValueError(f"syndromes have {Cs} rows, expected {C}")
-    if Dc > 32:
-        raise ValueError(f"bsr_bp_decode_int8 supports check degree <= 32, got {Dc}")
-    if t.device != dev or prior_q.device != dev:
-        raise ValueError("bsr_bp_decode_int8: tables, priors and syndromes must share one device")
-    prior = prior_q.to(torch.int32).contiguous()
-    if prior.shape != (V,):
-        raise ValueError(f"prior_q must have shape ({V},)")
-    if max_iter <= 0:
-        raise ValueError(f"bsr_bp_decode_int8 needs max_iter >= 1, got {max_iter}")
+    prior, S = _check_call("bsr_bp_decode_int8", layout, prior_q, syndromes, max_iter,
+                           torch.int32, "prior_q")
     if S == 0:  # a grid of no blocks is not a launch
-        return _no_shots(V, torch.int32, dev)
-    sb, G = _blocks(shot_block, S)
-    synd = syndromes.to(torch.uint8).contiguous()
-    msg = torch.empty((C * Dc, S), dtype=torch.int8, device=dev)
-    post = torch.empty((V, S), dtype=torch.int32, device=dev)
-    conv = torch.empty((S,), dtype=torch.uint8, device=dev)
-    gbad = torch.zeros((max_iter, G), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    spans = [(it, 1) for it in range(max_iter)] if early_stop else [(0, max_iter)]
-    for it0, n_it in spans:
-        KERNEL_INT8.launch(
-            t.chk_vars_k.data_ptr(), t.vm_k.data_ptr(), synd.data_ptr(), prior.data_ptr(),
-            msg.data_ptr(), post.data_ptr(), conv.data_ptr(), gbad.data_ptr(),
-            C, V, Dc, Dv, S, it0, n_it, max_iter, int(alpha_num), int(early_stop), sb, G,
-            stream)
-    hard = (post <= 0).to(torch.uint8)
-    if early_stop:
-        iters = _block_iters(gbad, max_iter, sb, S)
-    else:
-        iters = torch.full((S,), max_iter, dtype=torch.int32, device=dev)
-    return hard, post, conv.bool(), iters
+        return _no_shots(layout.num_vars, torch.int32, dev)
+    st = _CardDecode(layout, syndromes, max_iter, early_stop, shot_block, int8=True)
+    t = layout.tables
+    KERNEL_INT8.launch(
+        t.chk_vars_k.data_ptr(), t.vm_k.data_ptr(), *st.pointers(prior), *st.shape_args(),
+        int(alpha_num), int(max_iter), *st.grid_args(), torch.cuda.current_stream(dev).cuda_stream,
+        route=st.plan.route)
+    return st.outputs()
 
 
 @dataclass

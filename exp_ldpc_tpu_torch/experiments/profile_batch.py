@@ -17,7 +17,11 @@ trace:
   * ``busy_ms``: the union of kernel, memcpy and memset intervals on the
     card; ``idle_share`` = 1 - busy/span;
   * device time and count per kernel name and per ported kernel
-    (``kernels``: K1, K2 and K6 by route, K3), K3's grids (three per
+    (``kernels``: K1, K2 and K6 by route, K3; K1's grids are
+    ``bsr_bp_check_kernel``, ``bsr_bp_var_kernel`` and
+    ``bsr_bp_parity_kernel``, at most three per iteration, or one
+    ``bsr_bp_coop_kernel`` per decode on its cooperative route, and
+    ``k1_calls`` counts its decodes in the traced batch), K3's grids (three per
     iteration: ``stbsr_check_kernel``, ``stbsr_var_kernel``,
     ``stbsr_parity_kernel``) split into the device step (the first ``3 *
     max_iter``) and the host BP+OSD redecode (the rest, those that return
@@ -43,7 +47,7 @@ import torch
 
 from ..circuits.noise import depolarizing_noise
 from ..codes.hgp import biregular_hgp
-from ..decoders import bp_cuda, spacetime_bp_cuda
+from ..decoders import bp_bsr, bp_cuda, spacetime_bp_cuda
 from ..parallel.pipeline import StorageDecodePipeline
 from ..utils.cuda_build import BUILD_DIR
 
@@ -52,7 +56,10 @@ MODES = ("bposd", "bposd_single_shot", "bposd_hybrid")
 _P_DEFAULT = {"bposd": 0.0034822022531844966, "bposd_single_shot": 0.002,
               "bposd_hybrid": 0.002}
 # the ported kernels' grids by function name (a K2 or K6 route each)
-_FAMILIES = {"bsr_bp_kernel": "K1", "stbp_resident_kernel": "K2 resident",
+_FAMILIES = {"bsr_bp_check_kernel": "K1", "bsr_bp_var_kernel": "K1",
+             "bsr_bp_parity_kernel": "K1", "bsr_bp_coop_kernel": "K1 coop",
+             "bsr_int8_check_kernel": "K5", "bsr_int8_var_kernel": "K5",
+             "bsr_int8_parity_kernel": "K5", "stbp_resident_kernel": "K2 resident",
              "stbp_streamed_kernel": "K2 streamed", "stbsr_check_kernel": "K3",
              "stbsr_var_kernel": "K3", "stbsr_parity_kernel": "K3",
              "bp_resident_kernel": "K6 resident", "bp_streamed_kernel": "K6 streamed"}
@@ -165,7 +172,7 @@ def main(argv=None) -> dict:
             pipe.run_bposd(g)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        for mod in kernels:
+        for mod in kernels + (bp_bsr,):
             mod.KERNEL.reset_counts()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
@@ -180,6 +187,7 @@ def main(argv=None) -> dict:
     out = {"mode": args.mode, "route": args.route,
            "routes": {"K2": dict(spacetime_bp_cuda.KERNEL.routes),
                       "K6": dict(bp_cuda.KERNEL.routes)},
+           "k1_calls": dict(bp_bsr.KERNEL.routes),
            "p": p, "shots": shots, "failures": failures, "osd_decoded": osd,
            "untraced_wall_ms_median": float(np.median(walls)) * 1e3,
            "span_ms": span * 1e3, **summarize(trace, max_iter)}

@@ -19,7 +19,8 @@ import time
 from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
-__all__ = ["CudaKernel", "RowShotPlan", "row_shot_plan", "aligned", "ResidentPlan",
+__all__ = ["CudaKernel", "RowShotPlan", "row_shot_plan", "BSRPlan", "bsr_widths", "bsr_plan",
+           "BSR_SHOT_ALIGN", "COOP_BLOCKS_PER_SM", "aligned", "ResidentPlan",
            "resident_plan", "streamed_plan", "resident_max_threads", "device_limits"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -38,7 +39,7 @@ _BLOCKS_PER_SM = 32  # grid cap; past it a thread takes several items (grid-stri
 
 
 class RowShotPlan(NamedTuple):
-    """Launch of one phase of a row x shot kernel (K3, K4): ``vec``
+    """Launch of one phase of a row x shot kernel (K1, K3, K4, K5): ``vec``
     consecutive shots per thread, ``items`` = rows x (shots / vec) work
     items, rows outermost, walked by ``blocks`` blocks of ``ROW_THREADS``
     threads in a grid-stride loop (``csrc/vec_io.cuh::RowItems``): thread t
@@ -61,6 +62,80 @@ def row_shot_plan(rows: int, shots: int, vecs: Sequence[int], sm_count: int) -> 
         raise ValueError(f"{rows} rows x {shots} shots exceed the kernels' 32-bit work list")
     blocks = max(1, min(-(-items // ROW_THREADS), _BLOCKS_PER_SM * sm_count))
     return RowShotPlan(vec, items, blocks)
+
+
+BSR_SHOT_ALIGN = 16   # K1/K5 pad a decode's shot axis to this multiple
+
+
+class BSRPlan(NamedTuple):
+    """Launch of one K1 or K5 decode (``csrc/bsr_bp.cu``,
+    ``csrc/bsr_bp_int8.cu``): every array has ``shots`` columns (the
+    caller's ``live`` shots, padded with all-zero syndromes to a multiple of
+    ``BSR_SHOT_ALIGN``, so every row starts on a 16-byte boundary); the
+    early exit's unit is ``shot_block`` shots, and ``groups`` blocks cover
+    the padded axis (the columns of the kernels' ``gbad`` table).  The three
+    phases of an iteration walk checks, variables and checks again.
+    ``route`` "grids": one grid per phase; "coop" (K1 only): the whole
+    decode in one cooperative launch of the largest of the three grids,
+    the phases separated by grid-wide barriers."""
+
+    shots: int
+    live: int
+    shot_block: int
+    groups: int
+    checks: RowShotPlan
+    variables: RowShotPlan
+    parity: RowShotPlan
+    route: str = "grids"
+
+
+def bsr_widths(check_degree: int, var_degree: int, int8: bool = False):
+    """The lane widths each phase of K1 (bf16) or K5 (int8) is compiled for,
+    widest first (``csrc/bsr_bp.cu``, ``csrc/bsr_bp_int8.cu``: the kernels'
+    instances).  Phase A keeps a check's messages of every owned shot in
+    registers: K1 4 shots a lane up to 16 slots and 2 above, as K3; K5 the
+    packed bytes, 16 shots up to 8 slots, 8 up to 24, 4 above.  Phase B
+    holds up to 8 (or 24) edges: K1 8 shots a lane up to 8 edges and 4
+    above, K5 16 and 8.  Phase C moves bytes: up to 16."""
+    if int8:
+        va = (16, 8, 4) if check_degree <= 8 else (8, 4) if check_degree <= 24 else (4,)
+        vb = (8, 4) if 8 < var_degree <= 24 else (16, 8, 4)
+        return va, vb, (16, 8, 4)
+    va = (4, 2) if check_degree <= 16 else (2,)
+    vb = (8, 4, 2) if var_degree <= 8 else (4, 2)
+    return va, vb, (16, 8, 4, 2)
+
+
+COOP_BLOCKS_PER_SM = 2   # csrc/bsr_bp.cu: __launch_bounds__(ROW_THREADS, 2) of the coop kernel
+
+
+def bsr_plan(checks: int, variables: int, check_degree: int, var_degree: int, shots: int,
+             shot_block: int, sm_count: int, int8: bool = False,
+             coop: bool = False) -> BSRPlan:
+    """Plan of a K1 or K5 decode of ``shots`` shots with exit blocks of
+    ``shot_block`` (already resolved, ``bp_bsr._blocks``).  Each phase takes
+    the widest of :func:`bsr_widths` that divides the shot block (the padded
+    shot count is a multiple of all), else one shot a lane: no item
+    straddles two exit blocks.  With ``coop`` (the caller can take K1's
+    cooperative route: min-sum) the route is "coop" where the kernel has the
+    instance (checks of 7 or 8 slots, variables of up to 8 edges, lane
+    widths 4 / 8 / 16) and every phase's grid fits ``COOP_BLOCKS_PER_SM``
+    blocks per SM at once, so all of them are resident together."""
+    if shots < 1 or shot_block < 1:
+        raise ValueError(f"shots ({shots}) and shot_block ({shot_block}) must be positive")
+    padded = -(-shots // BSR_SHOT_ALIGN) * BSR_SHOT_ALIGN
+    va, vb, vc = (tuple(v for v in vecs if shot_block % v == 0)
+                  for vecs in bsr_widths(check_degree, var_degree, int8))
+    plan = BSRPlan(padded, shots, shot_block, -(-padded // shot_block),
+                   row_shot_plan(checks, padded, va, sm_count),
+                   row_shot_plan(variables, padded, vb, sm_count),
+                   row_shot_plan(checks, padded, vc, sm_count))
+    fits = max(plan.checks.blocks, plan.variables.blocks,
+               plan.parity.blocks) <= COOP_BLOCKS_PER_SM * sm_count
+    if (coop and not int8 and check_degree in (7, 8) and var_degree <= 8 and fits
+            and (plan.checks.vec, plan.variables.vec, plan.parity.vec) == (4, 8, 16)):
+        plan = plan._replace(route="coop")
+    return plan
 
 
 class ResidentPlan(NamedTuple):

@@ -6,10 +6,14 @@ tests/test_torch_cuda_kernels.py`` (the suite's conftest imports JAX).  The
 kernels round exactly where their plain versions do (no multiply-add
 contraction, the same left-to-right sums), so on the card hard decisions,
 conv and iters are equal and posteriors equal to 1e-6*max(1,|x|), the
-bounds ``chip_smoke.py`` holds them to.  S=77 leaves a ragged shot edge
-(77 mod 32 = 13) for the kernels' masking; K1's early exit runs per JAX
-shot block (128 shots here, four CUDA blocks), so S=300 spans three.
-K2 and K6 run each decode on one of two routes, picked from the shape: a
+bounds ``chip_smoke.py`` holds them to; K1's and K5's outputs are equal
+bit for bit.  K1 and K5 split rows x shot vectors over the card, one call
+per decode (the loop and the early exit per JAX shot block of 128 or 256
+shots on the device; K1's min-sum at a few hundred shots in one cooperative
+launch, checked against its one-grid-per-phase route); the decode pads its shots to a multiple of 16, so
+S = 1, 77, 300 and 685 are ragged, and a batch whose first shot block has
+all-zero syndromes exits there after one iteration while the others run
+on; the cyclic lifted product holds the 24-slot checks.  K2 and K6 run each decode on one of two routes, picked from the shape: a
 block's shots resident in shared memory (S = 1 and 77 spread one shot per
 block), or streamed through device memory (the shapes whose state does not
 fit; forced here at HGP-225 too).  K3 and K4 split rows x shot vectors over
@@ -322,22 +326,130 @@ def test_k6_over_budget_takes_the_streamed_route():
     _assert_same(kern, bp_core(tables, prior, synd, "ms", 4, 0.625, early_stop=False))
 
 
-@pytest.mark.parametrize("S", [77, 300])
+@pytest.fixture(scope="module")
+def flat_mixed():
+    """(H|I) and 685 syndromes whose shot blocks exit at different
+    iterations: shots 0-127 all-zero syndromes (a 128-shot block stops after
+    one iteration), 128-383 at p = 3e-3, the rest at 8e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    H = biregular_hgp(12, 3, 4, seed=0).checks.z
+    Hss = SpacetimeCodeSingleShot(H).spacetime_check_matrix.tocsr().astype(np.int64)
+    rng = np.random.default_rng(4)
+    err = np.zeros((685, Hss.shape[1]), np.int64)
+    err[128:384] = rng.random((256, Hss.shape[1])) < 3e-3
+    err[384:] = rng.random((301, Hss.shape[1])) < 8e-3
+    synd = torch.as_tensor(((Hss @ err.T) % 2).astype(np.uint8)).cuda()
+    prior = torch.as_tensor(priors_to_llr(np.full(Hss.shape[1], 4e-3))).cuda()
+    return BSRLayout.from_tanner(TannerELL.from_check_matrix(Hss), "cuda"), prior, synd
+
+
+@pytest.fixture(scope="module")
+def cyclic():
+    """The cyclic lifted product n = 4,862 in QC order (check degree 24,
+    variable degree 18) and 300 syndromes at p = 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from exp_ldpc_tpu_torch.experiments.bench_bsr_shard import build_code
+
+    H = build_code("cyclic4862").tocsr().astype(np.int64)
+    err = (np.random.default_rng(11).random((300, H.shape[1])) < 1e-3).astype(np.int64)
+    synd = torch.as_tensor(((H @ err.T) % 2).astype(np.uint8)).cuda()
+    prior = torch.as_tensor(priors_to_llr(np.full(H.shape[1], 1e-3))).cuda()
+    return BSRLayout.from_tanner(TannerELL.from_check_matrix(H), "cuda"), prior, synd
+
+
+def _assert_equal(kern, plain, sb, early_stop):
+    """Every output equal (K1's posteriors bit for bit); one ``iters`` per
+    shot block."""
+    for a, b in zip(kern, plain):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    iters = kern[3].cpu().numpy()
+    for b in range(0, iters.size, sb):
+        assert (iters[b:b + sb] == iters[b]).all()
+    if not early_stop:
+        assert (iters == iters[0]).all()
+
+
+@pytest.mark.parametrize("sb", [128, 256])
+@pytest.mark.parametrize("S", [1, 77, 128, 300, 685])
 @pytest.mark.parametrize("method,msf,early_stop", [("ms", 0.625, False), ("ps", 0.0, False),
                                                    ("ms", 0.625, True), ("ms", 0.0, True),
                                                    ("ps", 0.0, True)])
-def test_k1_matches_plain(flat, method, msf, early_stop, S):
-    layout, prior, synd = flat
+def test_k1_matches_plain(flat_mixed, method, msf, early_stop, S, sb):
+    """One call per decode, fixed or with the exit per shot block; at
+    shot_block 128 the all-zero first block stops after one iteration while
+    the next one runs on."""
+    layout, prior, synd = flat_mixed
     synd = synd[:, :S].contiguous()
     before = K1.launches
-    kern = bsr_bp_decode(layout, prior, synd, method, 24, msf, early_stop, 128)
-    plain = bsr_bp_plain(layout, prior, synd, method, 24, msf, early_stop, 128)
+    kern = bsr_bp_decode(layout, prior, synd, method, 24, msf, early_stop, sb)
+    plain = bsr_bp_plain(layout, prior, synd, method, 24, msf, early_stop, sb)
     torch.cuda.synchronize()
-    assert K1.launches == before + (24 if early_stop else 1)
-    _assert_same(kern, plain)
-    iters = kern[3].cpu().numpy()
-    for b in range(0, S, 128):  # one count per JAX shot block
-        assert (iters[b:b + 128] == iters[b]).all()
+    assert K1.launches == before + 1
+    _assert_equal(kern, plain, sb, early_stop)
+    if early_stop and sb == 128 and S >= 256:
+        iters = kern[3].cpu().numpy()
+        assert iters[0] == 1 and iters[128] > 1
+
+
+@pytest.mark.parametrize("S", [77, 685])
+@pytest.mark.parametrize("msf,early_stop", [(0.625, False), (0.625, True), (0.0, True)])
+def test_k1_routes_agree(flat_mixed, monkeypatch, msf, early_stop, S):
+    """Min-sum at the host redecode's sizes takes the cooperative route (one
+    launch, grid-wide barriers); with it switched off the same decode runs
+    one grid per phase.  Both equal the plain version."""
+    from exp_ldpc_tpu_torch.decoders import bp_bsr
+
+    layout, prior, synd = flat_mixed
+    synd = synd[:, :S].contiguous()
+    plain = bsr_bp_plain(layout, prior, synd, "ms", 24, msf, early_stop, 128)
+    for coop, route in ((True, "coop"), (False, "grids")):
+        monkeypatch.setattr(bp_bsr, "COOPERATIVE", coop)
+        kern = _counted(K1, route, lambda: bsr_bp_decode(layout, prior, synd, "ms", 24, msf,
+                                                         early_stop, 128))
+        _assert_equal(kern, plain, 128, early_stop)
+
+
+@pytest.mark.parametrize("method,msf,early_stop", [("ms", 0.625, False), ("ms", 0.0, True),
+                                                   ("ps", 0.0, False)])
+def test_k1_cyclic_code(cyclic, method, msf, early_stop):
+    """Check degree 24 (the exact 24-slot instance, 2 shots a lane) and
+    variable degree 18 (edges held in registers up to 24)."""
+    layout, prior, synd = cyclic
+    kern = bsr_bp_decode(layout, prior, synd, method, 12, msf, early_stop, 128)
+    plain = bsr_bp_plain(layout, prior, synd, method, 12, msf, early_stop, 128)
+    torch.cuda.synchronize()
+    _assert_equal(kern, plain, 128, early_stop)
+
+
+@pytest.mark.parametrize("coop", [True, False])
+def test_k1_early_exit_on_the_device(flat_mixed, monkeypatch, coop):
+    """The whole decode is enqueued by one call and reads nothing back to
+    the host (PyTorch's sync debug mode raises on a synchronising read such
+    as a copy to the host or ``.item()``);
+    once every block has stopped the rest of the decode does nothing (the
+    outputs equal the plain version's, which stops looping there): the
+    cooperative kernel leaves its loop, and on one grid per phase the later
+    grids return at once."""
+    from exp_ldpc_tpu_torch.decoders import bp_bsr
+
+    monkeypatch.setattr(bp_bsr, "COOPERATIVE", coop)
+    layout, prior, synd = flat_mixed
+    synd = synd[:, :128].contiguous()       # one all-zero block: done after iteration 1
+    bsr_bp_decode(layout, prior, synd, "ms", 48, 0.625, True, 128)   # build, warm up
+    torch.cuda.synchronize()
+    route = "coop" if coop else "grids"
+    before = K1.routes.get(route, 0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kern = bsr_bp_decode(layout, prior, synd, "ms", 48, 0.625, True, 128)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert K1.routes.get(route, 0) == before + 1
+    _assert_equal(kern, bsr_bp_plain(layout, prior, synd, "ms", 48, 0.625, True, 128), 128, True)
+    assert int(kern[3].max()) == 1 and bool(kern[2].all())
 
 
 @pytest.fixture(scope="module")
@@ -396,28 +508,45 @@ def test_k4_matches_plain(shard_case, method, msf, D, S):
     assert torch.equal(hk, hp) and torch.equal(ck, cp)
 
 
-@pytest.mark.parametrize("S", [77, 300])
-@pytest.mark.parametrize("alpha_num,early_stop", [(160, False), (256, False), (160, True)])
-def test_k5_matches_plain(flat, alpha_num, early_stop, S):
-    """K5 (int8 min-sum) is integer arithmetic: every output equals the
-    plain version's, posterior quanta included."""
-    from exp_ldpc_tpu_torch.decoders.bp_bsr import (KERNEL_INT8 as K5, bsr_bp_decode_int8,
-                                                    bsr_bp_int8_plain)
+def _k5_prior(prior):
     from exp_ldpc_tpu_torch.decoders.bp_int8 import quantize_priors
 
-    layout, prior, synd = flat
+    return torch.as_tensor(quantize_priors(prior.cpu().numpy())[0]).to(prior.device)
+
+
+@pytest.mark.parametrize("sb", [128, 256])
+@pytest.mark.parametrize("S", [1, 77, 128, 300, 685])
+@pytest.mark.parametrize("alpha_num,early_stop", [(160, False), (256, False), (160, True)])
+def test_k5_matches_plain(flat_mixed, alpha_num, early_stop, S, sb):
+    """K5 (int8 min-sum) is integer arithmetic: every output equals the
+    plain version's, posterior quanta included; one call per decode."""
+    from exp_ldpc_tpu_torch.decoders.bp_bsr import (KERNEL_INT8 as K5, bsr_bp_decode_int8,
+                                                    bsr_bp_int8_plain)
+
+    layout, prior, synd = flat_mixed
     synd = synd[:, :S].contiguous()
-    prior_q = torch.as_tensor(quantize_priors(prior.cpu().numpy())[0]).to(synd.device)
+    prior_q = _k5_prior(prior)
     before = K5.launches
-    kern = bsr_bp_decode_int8(layout, prior_q, synd, 24, alpha_num, early_stop, 128)
-    plain = bsr_bp_int8_plain(layout, prior_q, synd, 24, alpha_num, early_stop, 128)
+    kern = bsr_bp_decode_int8(layout, prior_q, synd, 24, alpha_num, early_stop, sb)
+    plain = bsr_bp_int8_plain(layout, prior_q, synd, 24, alpha_num, early_stop, sb)
     torch.cuda.synchronize()
-    assert K5.launches == before + (24 if early_stop else 1)
-    for a, b in zip(kern, plain):
-        assert a.dtype == b.dtype and torch.equal(a, b)
-    iters = kern[3].cpu().numpy()
-    for b in range(0, S, 128):  # one count per JAX shot block
-        assert (iters[b:b + 128] == iters[b]).all()
+    assert K5.launches == before + 1
+    _assert_equal(kern, plain, sb, early_stop)
+    if early_stop and sb == 128 and S >= 256:
+        iters = kern[3].cpu().numpy()
+        assert iters[0] == 1 and iters[128] > 1
+
+
+@pytest.mark.parametrize("alpha_num,early_stop", [(160, False), (160, True)])
+def test_k5_cyclic_code(cyclic, alpha_num, early_stop):
+    from exp_ldpc_tpu_torch.decoders.bp_bsr import bsr_bp_decode_int8, bsr_bp_int8_plain
+
+    layout, prior, synd = cyclic
+    prior_q = _k5_prior(prior)
+    kern = bsr_bp_decode_int8(layout, prior_q, synd, 12, alpha_num, early_stop, 128)
+    plain = bsr_bp_int8_plain(layout, prior_q, synd, 12, alpha_num, early_stop, 128)
+    torch.cuda.synchronize()
+    _assert_equal(kern, plain, 128, early_stop)
 
 
 def test_k5_degree_one_checks():

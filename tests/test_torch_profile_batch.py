@@ -41,20 +41,24 @@ def test_summarize_empty_trace():
 
 
 def test_summarize_sums_the_ported_kernels_by_route():
-    """K2 and K6 by route, K1 and K3 by kernel; ``stbp_resident_kernel``
-    does not count as K6's ``bp_resident_kernel``."""
+    """K1 (by route), K2 and K6 by route, K3 by kernel; ``stbp_resident_kernel``
+    does not count as K6's ``bp_resident_kernel``, and K5's grids are not K1's."""
     trace = {"traceEvents": [
         _ev("kernel", "void stbp_resident_kernel<9, true>(unsigned char const*, float)", 0, 40),
         _ev("kernel", "void bp_resident_kernel<8, true>(unsigned char const*, float)", 50, 5),
         _ev("kernel", "void bp_resident_kernel<7, true>(unsigned char const*, float)", 60, 3),
         _ev("kernel", "void bp_streamed_kernel<8>(unsigned char const*)", 70, 9),
-        _ev("kernel", "void bsr_bp_kernel<8, 1>(BsrArgs)", 80, 2),
+        _ev("kernel", "void bsr_bp_check_kernel<8, true, 4, 1>(BsrArgs, int, float)", 80, 2),
+        _ev("kernel", "void bsr_bp_parity_kernel<16>(BsrArgs, int)", 83, 1),
         _ev("kernel", "void stbsr_var_kernel<4>(StArgs, bool)", 90, 4),
         _ev("kernel", "elementwise_kernel", 100, 1),
+        _ev("kernel", "void bsr_bp_coop_kernel<8>(BsrArgs, float, int, int)", 110, 6),
+        _ev("kernel", "void bsr_int8_var_kernel<16, 8>(BsrArgs, int, bool)", 120, 7),
     ]}
     k = summarize(trace, max_iter=48)["kernels"]
-    assert k == {"K1": {"grids": 1, "ms": 0.002}, "K2 resident": {"grids": 1, "ms": 0.04},
-                 "K3": {"grids": 1, "ms": 0.004}, "K6 resident": {"grids": 2, "ms": 0.008},
+    assert k == {"K1": {"grids": 2, "ms": 0.003}, "K1 coop": {"grids": 1, "ms": 0.006},
+                 "K2 resident": {"grids": 1, "ms": 0.04}, "K3": {"grids": 1, "ms": 0.004},
+                 "K5": {"grids": 1, "ms": 0.007}, "K6 resident": {"grids": 2, "ms": 0.008},
                  "K6 streamed": {"grids": 1, "ms": 0.009}}
 
 
