@@ -117,19 +117,53 @@ Phases, in order; any failure raises and exits nonzero:
      the larger of its bytes (inputs read once, outputs written once) over
      3.35 TB/s and its operations over 67 TFLOP/s, at the shape of its
      ``ms`` and of each ``ms_<tag>`` (with the early exit: the
-     shot-iterations the timed batches needed).
+     shot-iterations the timed batches needed);
+ 22. K1 and K5 against their plain versions at check degree 53: the fault
+     matrix of HGP-225's 1-round circuit-noise detector error model (216 x
+     1,518; built in a thread beside the kernel build), S = 97 and 4,096,
+     48 iterations, min-sum and sum-product (K5: int8 min-sum), fixed and
+     with the early exit: every decode takes route "wide" (the two-pass
+     check phase) and equals its plain version bit for bit; timed at 4,096
+     x 48 (``ms_dem_dc53``; also with ``--quick``, untimed); then K1
+     against its plain version at the other matrices phase 23 decodes on
+     K1, each at the shot count and with the options phase 23 gives it
+     (all three built in a thread beside the kernel build): the 4-round
+     phenomenological detector model of ``bpd_detector`` (864 x 4,014,
+     check degree 23; 16,384 shots, 40 iterations, adaptive min-sum),
+     ``sliding_window``'s window matrix (432 x 1,332) and its 4-round
+     exact tail (540 x 1,557; 4,096 shots, 48 iterations, min-sum 0.625);
+     min-sum with the run's scaling and sum-product, fixed and with the
+     early exit, bit for bit; each must be the matrix the selection sends
+     to K1 on the card (not with ``--quick``);
+ 23. the host path: ``p_sweep(..., pipeline=None)``, hence
+     ``run_simulation``, in all seven modes on HGP-225 (the
+     ``biregular_hgp(12, 3, 4, seed=0)`` object the anchors were made with:
+     its logical representatives score the shots small-set-flip leaves
+     unconverged), 4 rounds, the device sampler on the card, 16,384 shots a mode
+     (``sliding_window``: 64 rounds, 4,096 shots, window 4, commit 2), each
+     LER within 4 combined binomial sigma of its anchor (``bposd`` at p =
+     3.4822e-3: ``ler_hgp225_bposd_v5e.jsonl``; the single-shot and hybrid
+     modes at p = 0.002: ``pipeline_modes_hgp225_v5e.csv``; ``bpd_detector``,
+     ``relay_bp`` and ``ssf_single_shot`` at p = 0.002:
+     ``run_simulation_modes_jax_cpu.jsonl``, made by the JAX package on a
+     CPU; ``sliding_window`` at p = 0.001: ``sliding_window_v5e.jsonl``),
+     failures, shots/s and K1/K2/K3 launches printed per mode; then
+     ``bpd_detector`` under 1-round circuit noise (4,096 shots), whose fault
+     checks of 53 slots send every K1 call down route "wide".
 
-Each run of the main path (phases 6, 7, the two runs of phase 11, and
-phases 15, 16 and 20) is driven with every launch count set to 0 just before it
-and read just after (phase 16 reads the counts of its two ranks); a kernel
-of that run that was not launched fails the script.  A count is one call of
+Each run of the main path (phases 6, 7, the two runs of phase 11, phases
+15, 16 and 20, and each run of phase 23) is driven with every launch count
+set to 0 just before it and read just after (phase 16 reads the counts of
+its two ranks); a kernel of that run that was not launched fails the
+script.  A count is one call of
 a kernel's C entry point: for K1, K3 and K5 one whole decode (up to three
 grids per iteration, all enqueued by the one call: a single-shot batch is 5
 K1 calls, a hybrid batch 1), for K2 and K6 one decode (one grid), for K4
 one iteration of one shard (two grids).  The line before the
 last is the kernel summary JSON (``launches`` summed over those runs,
 ``launches_by_run`` split by run, ``routes`` split by route: K2 and K6
-"resident" / "streamed", the others "default"; ``routes_parity_phase``,
+"resident" / "streamed", K1 "grids" / "coop" / "wide", K5 "grids" /
+"wide", the others "default"; ``routes_parity_phase``,
 K2's and K6's routes in their parity phase; ``ms_streamed``, their
 streamed route at the main shape; K3b's row counts phase 17's K3 decodes,
 since no main-path run reaches its sizes; without ``--quick`` only, as are
@@ -160,13 +194,18 @@ if not all((ROOT / d).is_dir() for d in ("exp_ldpc_tpu_torch", "artifacts")):
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from exp_ldpc_tpu_torch.circuits.noise import depolarizing_noise, trivial_noise  # noqa: E402
+from exp_ldpc_tpu_torch.circuits.noise import (circuit_noise, depolarizing_noise,  # noqa: E402
+                                               trivial_noise)
 from exp_ldpc_tpu_torch.circuits.storage_sim import build_storage_simulation  # noqa: E402
 from exp_ldpc_tpu_torch.codes.bivariate_bicycle import gross_code  # noqa: E402
 from exp_ldpc_tpu_torch.codes.hgp import biregular_hgp  # noqa: E402
 from exp_ldpc_tpu_torch.codes.io import read_quantum_code  # noqa: E402
 from exp_ldpc_tpu_torch.codes.lifted import lifted_product_code_cyclic  # noqa: E402
-from exp_ldpc_tpu_torch.decoders.spacetime import SpacetimeCode, SpacetimeCodeSingleShot  # noqa: E402
+from exp_ldpc_tpu_torch.decoders.dem import detector_error_model  # noqa: E402
+from exp_ldpc_tpu_torch.decoders.spacetime import (DetectorSpacetimeCode, SpacetimeCode,  # noqa: E402
+                                                   SpacetimeCodeSingleShot)
+from exp_ldpc_tpu_torch.decoders.select import bsr_selected  # noqa: E402
+from exp_ldpc_tpu_torch.decoders.sliding_window import window_check_matrix  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.tanner import TannerELL  # noqa: E402
 from exp_ldpc_tpu_torch.sampler.reference import FrameSampler  # noqa: E402
 from exp_ldpc_tpu_torch.convert import tanner_tables  # noqa: E402
@@ -663,6 +702,13 @@ def phase_timings(su: Setup, dev: torch.device, shots: int) -> dict:
         lambda s: k3.stbsr_decode(*args, s, "ms", MAX_ITER, ALPHA, True), small[:5])
     t[f"K3_S{S_REDECODE}_plain"] = _median_ms(
         lambda s: k3.stbsr_decode(*args, s, "ms", MAX_ITER, ALPHA, False, iterate=plain),
+        small[:5])
+    # the plain version with the exit armed (its loop tests the exit every iteration)
+    t["K3_es_plain"] = _median_ms(
+        lambda s: k3.stbsr_decode(*args, s, "ms", MAX_ITER, ALPHA, True, iterate=plain),
+        synds[:5])
+    t[f"K3_S{S_REDECODE}_es_plain"] = _median_ms(
+        lambda s: k3.stbsr_decode(*args, s, "ms", MAX_ITER, ALPHA, True, iterate=plain),
         small[:5])
     sim = build_storage_simulation(ROUNDS, depolarizing_noise(p, p), su.code)
     ds = DeviceSampler(sim.circuit, shots, dev)
@@ -1325,7 +1371,7 @@ def phase_families(dev: torch.device):
         check(launches[name] > 0, f"{name} launched on the family path ({launches[name]})")
     for r in recs:
         check(np.isfinite(r["bp_iter_shots_per_s"]) and r["bp_iter_shots_per_s"] > 0
-              and r["device"] == torch.cuda.get_device_name(0),
+              and r["time_kind"] == "slope" and r["device"] == torch.cuda.get_device_name(0),
               f"{r['code']}/{r['formulation']}: {r['bp_iter_shots_per_s']:.4g} iter*shots/s, "
               f"{1e3 * FAM_ITERS * FAM_SHOTS / r['bp_iter_shots_per_s']:.3f} ms per decode, "
               f"converged {r['bp_converged_frac']:.4f}")
@@ -1387,6 +1433,231 @@ def phase_family_timings(fams, rows) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K1 and K5 at check degree 53 (route "wide"), and the host path of p_sweep
+# ---------------------------------------------------------------------------
+
+DEM_P = 1e-3          # circuit noise of HGP-225's 1-round detector error model
+DEM_SIZES = (97, 4096)
+
+
+class PriorSetup(FlatSetup):
+    """A check matrix on the card with a prior per column: a detector
+    model's fault priors, or a window's data and measurement priors."""
+
+    def __init__(self, H, priors, dev: torch.device, name: str):
+        super().__init__(H, dev, name)
+        self.priors = np.asarray(priors, dtype=np.float64)
+
+    def draw(self, S: int, seed: int, scale: float = 2.0) -> torch.Tensor:
+        """(checks, S) syndromes of faults drawn at ``scale`` times their priors."""
+        rng = np.random.default_rng(seed)
+        err = (rng.random((S, self.H.shape[1]), dtype=np.float32)
+               < scale * self.priors).astype(np.int64)
+        return torch.as_tensor(((self.H @ err.T) % 2).astype(np.uint8)).to(self.dev)
+
+    def prior_llr(self) -> torch.Tensor:
+        return torch.as_tensor(priors_to_llr(self.priors)).to(self.dev)
+
+
+def dem_matrix(code):
+    """(fault matrix, fault priors) of the code's 1-round circuit-noise DEM
+    (~8 s of host work, built in a thread beside the kernel build)."""
+    sim = build_storage_simulation(1, circuit_noise(DEM_P, DEM_P), code)
+    dsc = DetectorSpacetimeCode(detector_error_model(sim.circuit))
+    return dsc.fault_check_matrix, dsc.fault_priors
+
+
+def phase_dem_kernels(dem: PriorSetup, timings: bool):
+    """K1 and K5 against their plain versions at check degree 53; returns
+    (K1's worst posterior error, K5's worst quanta difference, times)."""
+    t = dem.layout.tables
+    log(f"== phase 22: K1 and K5 vs plain at check degree {t.max_check_degree} (route wide): "
+        f"HGP-225's 1-round circuit-noise detector model {dem.H.shape[0]} x {dem.H.shape[1]}, "
+        f"S in {DEM_SIZES}, {MAX_ITER} iterations, fixed and with the early exit")
+    check(dem.H.shape == (216, 1518) and t.max_check_degree == 53,
+          "the detector model's fault matrix is 216 x 1,518 with check degree 53")
+    prior = dem.prior_llr()
+    prior_q = torch.as_tensor(quantize_priors(prior.cpu().numpy())[0]).to(dem.dev)
+    sb = k1.auto_shot_block(dem.layout)
+    wide = (k1.KERNEL.routes.get("wide", 0), k1.KERNEL_INT8.routes.get("wide", 0))
+    worst1, worst5 = 0.0, 0
+    for S in DEM_SIZES:
+        synd = dem.draw(S, seed=20 + S)
+        for method, msf in (("ms", ALPHA), ("ps", 0.0)):
+            for es in (False, True):
+                worst1 = max(worst1, _k1_case(dem, synd, prior, method, msf, es, MAX_ITER))
+        for es in (False, True):
+            worst5 = max(worst5, _k5_case(dem, synd, prior_q, 160, es, MAX_ITER, sb))
+    check((k1.KERNEL.routes.get("wide", 0) - wide[0],
+           k1.KERNEL_INT8.routes.get("wide", 0) - wide[1]) == (4 * len(DEM_SIZES),
+                                                                2 * len(DEM_SIZES)),
+          "every K1 and K5 decode of this phase took route wide")
+    times = {}
+    if timings:   # min-sum, 4,096 shots x 48 iterations, fixed; median of 5 distinct batches
+        synds = [dem.draw(4096, seed=40 + i) for i in range(6)]
+        L = dem.layout
+        fns = {"K1_dem_dc53": lambda s: k1.bsr_bp_decode(L, prior, s, "ms", MAX_ITER, ALPHA,
+                                                        False, sb),
+               "K1_dem_dc53_plain": lambda s: k1.bsr_bp_plain(L, prior, s, "ms", MAX_ITER,
+                                                              ALPHA, False, sb),
+               "K5_dem_dc53": lambda s: k1.bsr_bp_decode_int8(L, prior_q, s, MAX_ITER, 160,
+                                                             False, sb),
+               "K5_dem_dc53_plain": lambda s: k1.bsr_bp_int8_plain(L, prior_q, s, MAX_ITER, 160,
+                                                                   False, sb)}
+        for key, fn in fns.items():
+            fn(synds[5])
+            times[key] = _median_ms(fn, synds[:5])
+            log(f"  {key}: {times[key]:.4f} ms (4096 x {MAX_ITER})")
+    return worst1, worst5, times
+
+
+def host_path_matrices(code):
+    """[(name, matrix, priors, shots, options)] of the matrices phase 23
+    decodes on K1 beyond phase 10's H and (H|I): ``bpd_detector``'s fault
+    matrix (4 rounds of phenomenological noise at p = 0.002, as
+    ``run_simulation`` builds it) and ``sliding_window``'s window matrix
+    and 4-round exact tail (priors as ``SlidingWindowDecoder`` sets them).
+    ~8 s of host work, in a thread beside the kernel build."""
+    p = 0.002
+    sim = build_storage_simulation(ROUNDS, depolarizing_noise(p=p, pm=p), code)
+    dsc = DetectorSpacetimeCode(detector_error_model(sim.circuit))
+    H = code.checks.z
+    r, n = H.shape
+    w, q = SW_WINDOW, 2 / 3 * SW_P
+    tail = SpacetimeCode(H, w).spacetime_check_matrix
+    return [("pheno_dem_4r", dsc.fault_check_matrix, dsc.fault_priors, HOST_SHOTS,
+             ANCHOR_OPTIONS),
+            (f"window_{w}", window_check_matrix(H, w), np.full(w * (n + r), q), SW_SHOTS,
+             OPTIONS),
+            (f"tail_{w}r", tail, np.full(tail.shape[1], q), SW_SHOTS, OPTIONS)]
+
+
+def phase_host_path_kernels(setups) -> float:
+    """K1 against its plain version at phase 23's other K1 matrices, at the
+    shots and options phase 23 gives each; the first half of the shots'
+    faults are drawn at their priors (at the window matrices most shot
+    blocks then exit within a few iterations), the second half at four
+    times them (blocks that run to the last iteration).  Returns the worst
+    posterior error."""
+    log("== phase 22 (cont.): K1 vs plain at the matrices phase 23 decodes on K1: "
+        + ", ".join(f"{fs.name} {fs.H.shape[0]} x {fs.H.shape[1]} (Dc "
+                    f"{fs.tables.max_check_degree}), S={S}" for fs, S, _o in setups))
+    worst = 0.0
+    for i, (fs, S, opts) in enumerate(setups):
+        check(bsr_selected(TannerELL.from_check_matrix(fs.H), fs.dev),
+              f"{fs.name}: the selection sends it to K1 on the card")
+        prior = torch.as_tensor(priors_to_llr(fs.priors)).to(fs.dev)
+        synd = torch.cat([fs.draw(S // 2, seed=50 + i, scale=1.0),
+                          fs.draw(S - S // 2, seed=60 + i, scale=4.0)], dim=1)
+        iters = opts["max_iter"]
+        for method, msf in (("ms", float(opts["ms_scaling_factor"])), ("ps", 0.0)):
+            for es in (False, True):
+                worst = max(worst, _k1_case(fs, synd, prior, method, msf, es, iters))
+    return worst
+
+
+RUNSIM_ARTIFACT = ROOT / "artifacts" / "run_simulation_modes_jax_cpu.jsonl"
+SLIDING_ARTIFACT = ROOT / "artifacts" / "sliding_window_v5e.jsonl"
+# the options of the modes anchored by RUNSIM_ARTIFACT (tests/test_decoders.py's, min-sum)
+ANCHOR_OPTIONS = dict(max_iter=40, bp_method="ms", ms_scaling_factor=0, osd_method="osd_cs",
+                      osd_order=4)
+HOST_SHOTS = 16384
+SW_ROUNDS, SW_SHOTS, SW_P, SW_WINDOW, SW_COMMIT = 64, 4096, 0.001, 4, 2
+
+
+def _runsim_anchor(mode: str):
+    for line in RUNSIM_ARTIFACT.read_text().splitlines():
+        rec = json.loads(line)
+        if rec["mode"] == mode:
+            return rec["failures"] / rec["samples"], rec["samples"], RUNSIM_ARTIFACT.name
+    raise KeyError(mode)
+
+
+def _sliding_anchor():
+    for line in SLIDING_ARTIFACT.read_text().splitlines():
+        rec = json.loads(line)
+        if rec.get("bench") == "sliding_window" and rec["rounds"] == SW_ROUNDS:
+            return rec["failures"] / rec["shots"], rec["shots"], SLIDING_ARTIFACT.name
+    raise KeyError(SW_ROUNDS)
+
+
+def host_cases():
+    """(mode, p, rounds, shots, options, (anchor LER, anchor shots, source),
+    kernels the run must launch) of the host-path phase."""
+    art = artifact_point(P_HI)
+    modes = {m: modes_artifact(m, 0.002) for m in ("bposd_single_shot", "bposd_hybrid")}
+    return [
+        ("bposd", P_HI, ROUNDS, HOST_SHOTS, OPTIONS, (art["ler"], art["samples"], ARTIFACT.name),
+         ("K3",)),
+        *[(m, 0.002, ROUNDS, HOST_SHOTS, OPTIONS,
+           (int(r["failures"]) / int(r["samples"]), int(r["samples"]), MODES_ARTIFACT.name),
+           ("K1",) + (("K3",) if m == "bposd_hybrid" else ())) for m, r in modes.items()],
+        *[(m, 0.002, ROUNDS, HOST_SHOTS, ANCHOR_OPTIONS, _runsim_anchor(m),
+           ("K1",) if m == "bpd_detector" else ())
+          for m in ("bpd_detector", "relay_bp", "ssf_single_shot")],
+        ("sliding_window", SW_P, SW_ROUNDS, SW_SHOTS,
+         dict(OPTIONS, window_size=SW_WINDOW, window_commit=SW_COMMIT), _sliding_anchor(),
+         ("K1",)),
+    ]
+
+
+def _host_sweep(code, dev, mode, p, rounds, shots, opts, noise=depolarizing_noise):
+    return p_sweep(
+        samples=shots, p_values=np.array([p]), noise_model=noise,
+        noise_model_args=lambda p: {"p": p, "pm": p},
+        meas_prior=lambda p, xs, zs: 2 / 3 * p, data_prior=lambda p, xs, zs: 2 / 3 * p,
+        seed=31, pipeline=None, device=dev, code=code, rounds=rounds, decoder_mode=mode,
+        bp_osd_options=dict(opts))[0]
+
+
+def phase_host_path(code, dev: torch.device):
+    """Every mode of run_simulation through p_sweep without a pipeline (the
+    device sampler on the card); returns (launches by run, shots/s by mode).
+    ``code`` is ``biregular_hgp(12, 3, 4, seed=0, compute_logicals=True)``,
+    the object the anchors were made with: a mode that leaves shots
+    unconverged (small-set-flip) scores them with the code's logical
+    representatives, and ``artifacts/hgp225.qecc`` holds other ones (on
+    identical records 131 against 95 failures of 4,096)."""
+    log(f"== phase 23: the host path: p_sweep(..., pipeline=None) -> run_simulation in all "
+        f"seven modes on HGP-225, device sampler, {HOST_SHOTS} shots "
+        f"(sliding_window {SW_SHOTS} x {SW_ROUNDS} rounds, window 4, commit 2)")
+    by_run, rates = {}, {}
+    for mode, p, rounds, shots, opts, (ler_ref, n_ref, src), needs in host_cases():
+        reset_counts()
+        rec = _host_sweep(code, dev, mode, p, rounds, shots, opts)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        rates[mode] = rec["samples"] / rec["walltime"]
+        log(f"  {mode} p={p:.6g} rounds={rounds}: failures {rec['failures']}, shots "
+            f"{rec['samples']}, {rates[mode]:.0f} shots/s ({rec['walltime']:.2f} s), launches "
+            f"K1 {launches['K1']} K2 {launches['K2']} K3 {launches['K3']}")
+        check(rec["samples"] == shots and 0 <= rec["failures"] <= shots,
+              f"{mode}: one result per shot")
+        check(_ler_gap(rec["failures"], rec["samples"], ler_ref, n_ref, f"{mode} p={p:.6g}"),
+              f"{mode}: LER within 4 sigma of {src}")
+        for name in needs:
+            check(launches[name] > 0, f"{mode}: {name} launched on the host path")
+        by_run[f"run_simulation_{mode}"] = launches
+    # bpd_detector under circuit noise at 1 round: fault checks of 53 slots
+    reset_counts()
+    rec = _host_sweep(code, dev, "bpd_detector", DEM_P, 1, 4096, ANCHOR_OPTIONS,
+                      noise=circuit_noise)
+    torch.cuda.synchronize()
+    wide = k1.KERNEL.routes.get("wide", 0)
+    launches = launch_counts()
+    rates["bpd_detector_circuit_1round"] = rec["samples"] / rec["walltime"]
+    log(f"  bpd_detector, circuit noise p={DEM_P:g}, 1 round: failures {rec['failures']}, shots "
+        f"{rec['samples']}, {rates['bpd_detector_circuit_1round']:.0f} shots/s "
+        f"({rec['walltime']:.2f} s), K1 launches {launches['K1']} ({wide} on route wide)")
+    check(rec["samples"] == 4096 and rec["failures"] < 4096 // 2,
+          "bpd_detector under circuit noise: one result per shot, most shots decoded")
+    check(launches["K1"] > 0 and wide == launches["K1"],
+          "bpd_detector under circuit noise launched K1, every call on route wide")
+    by_run["run_simulation_bpd_detector_circuit"] = launches
+    return by_run, rates
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for each kernel's `ms` shape
 # ---------------------------------------------------------------------------
 
@@ -1421,7 +1692,7 @@ def _flat_io(tab, S: int) -> int:
             + 4 * V * S + S + 4 * S)
 
 
-def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross, t) -> dict:
+def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross, dem, t) -> dict:
     """Bound of each kernel at the shape its ``ms`` was timed at (K1, K2, K5
     and K6 also at their other timed shapes: ``bound_ms_<tag>``).  With the
     early exit the operations are those of the shot-iterations the timed
@@ -1488,6 +1759,15 @@ def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross, t) -> dict
                        OPS_INT8 * cyc.H.nnz * FAM_SHOTS * FAM_ITERS)
     b = _bound(_flat_io(qclp.tables, FAM_SHOTS), OPS_INT8 * qclp.H.nnz * FAM_SHOTS * FAM_ITERS)
     out["K5"]["bound_ms_qclp"], out["K5"]["bound_by_qclp"] = b["bound_ms"], b["bound_by"]
+    # K1 and K5 at the detector model's 53-slot checks, 4,096 shots x 48, fixed
+    for key, ops in (("K1", OPS_FLOAT), ("K5", OPS_INT8)):
+        b = _bound(_flat_io(dem.tables, 4096) + (4 * dem.tables.num_checks if key == "K1" else 0),
+                   ops * dem.H.nnz * 4096 * MAX_ITER)
+        out[key]["bound_ms_dem_dc53"], out[key]["bound_by_dem_dc53"] = b["bound_ms"], b["bound_by"]
+    # the streamed routes of K2 and K6 do the same work at the main shape: the same bound
+    for key in ("K2", "K6"):
+        out[key]["bound_ms_streamed"] = out[key]["bound_ms"]
+        out[key]["bound_by_streamed"] = out[key]["bound_by"]
     return out
 
 
@@ -1511,8 +1791,10 @@ def main() -> int:
     su = Setup(dev)
     n_dev, n_host = (8192, 2048) if args.quick else (65536, 16384)
     # host work beside the build and the first parity phases
-    bg = ThreadPoolExecutor(2)
+    bg = ThreadPoolExecutor(4)
     host = bg.submit(host_rates, su, n_host)
+    dem_fut = bg.submit(dem_matrix, su.code)
+    host_mats = None if args.quick else bg.submit(host_path_matrices, su.code)
     phase(phase_build)
     world = None if args.quick else bg.submit(dist_world)
     # ragged shot edges (97, S_REDECODE) and the main path's batch (16,384)
@@ -1561,6 +1843,13 @@ def main() -> int:
     fams = family_setups(dev, cyclic_H)
     err["K1"], err["K1b"] = phase(phase_k1, flats, big, fams[1], sizes, args.quick)
     err["K5"] = phase(phase_k5, flats, fams, sizes, dev)
+    dem = PriorSetup(*dem_fut.result(), dev, "dem_dc53")
+    err_dem, dem_times = {}, {}
+    err_dem["K1"], err_dem["K5"], dem_times = phase(phase_dem_kernels, dem, not args.quick)
+    if not args.quick:
+        err_host_k1 = phase(phase_host_path_kernels,
+                            [(PriorSetup(H, pr, dev, name), S, opts)
+                             for name, H, pr, S, opts in host_mats.result()])
     if not args.quick:
         by_run.update(phase(phase_modes, dev, 65536, 16384))
     k4_sizes = (97, 512) if args.quick else (97, S_REDECODE, 4096)
@@ -1571,20 +1860,23 @@ def main() -> int:
         by_run["shard_capacity"] = phase(phase_shard_capacity, cap)
         err["K3b"], k3b_launches, k3b_shapes = phase(phase_k3b, dev, t)
         by_run["bench_large_codes"], fam_rows = phase(phase_families, dev)
+        host_runs, host_speed = phase(phase_host_path, su.code, dev)
+        by_run.update(host_runs)
         launches = {name: sum(c[name] for c in by_run.values()) for name in KERNELS}
         for name, n in launches.items():
             check(n > 0, f"{name} launched on the main path ({n} launches)")
         t.update(phase(phase_flat_timings, flats, big, dev, 16384))
         t.update(phase(phase_shard_timings, dev, cap, cyclic_H))
         t.update(phase(phase_family_timings, fams, fam_rows))
-        bounds = kernel_bounds(su, flats, big, fams, cap, k3b_shapes["HGP"], _gross(dev), t)
+        t.update(dem_times)
+        bounds = kernel_bounds(su, flats, big, fams, cap, k3b_shapes["HGP"], _gross(dev), dem, t)
         timing = {"K1": ("K1_S16384", "bench", "S16384_es", f"S{S_REDECODE}_es", "fam_cyclic",
-                         "fam_qclp"),
+                         "fam_qclp", "dem_dc53"),
                   "K1b": ("K1_n40000",),
                   "K2": ("K2", f"S{S_REDECODE}", "gross"), "K3": ("K3", f"S{S_REDECODE}"),
                   "K3b": ("K3b_HGP", "cyclic"),
                   "K4": ("K4_capacity_D8", "bench_D1", "bench_D2", "bench_D4"),
-                  "K5": ("K5_cyclic", "qclp"),
+                  "K5": ("K5_cyclic", "qclp", "dem_dc53"),
                   "K6": ("K6_S16384", "bench", f"S{S_REDECODE}")}
         for kern in kernels:
             key = kern["name"].split()[0]
@@ -1611,7 +1903,9 @@ def main() -> int:
                     f"{c}/{f}": r["bp_iter_shots_per_s"] for (c, f), r in fam_rows.items()}
             if key == "K3":
                 kern["ms_early_stop"] = t["K3_es"]
+                kern["plain_ms_early_stop"] = t["K3_es_plain"]
                 kern[f"ms_S{S_REDECODE}_early_stop"] = t[f"K3_S{S_REDECODE}_es"]
+                kern[f"plain_ms_S{S_REDECODE}_early_stop"] = t[f"K3_S{S_REDECODE}_es_plain"]
             if key == "K4":
                 kern["ms_per"] = "decode iteration, all shards"
                 kern["k1_ms"] = t["K1_shard_capacity"]
@@ -1624,8 +1918,16 @@ def main() -> int:
             if key in parity_routes:
                 kern["routes_parity_phase"] = parity_routes[key]
     for kern in kernels:
-        kern["max_abs_err"] = err[kern["name"].split()[0]]
+        key = kern["name"].split()[0]
+        kern["max_abs_err"] = err[key]
+        if key in err_dem:
+            kern["max_abs_err_dem_dc53"] = err_dem[key]
+        if key == "K1" and not args.quick:
+            kern["max_abs_err_host_path_matrices"] = err_host_k1
     bg.shutdown()
+    if not args.quick:
+        log("host path (run_simulation through p_sweep, device sampler) shots/s: "
+            + json.dumps({m: round(r, 1) for m, r in host_speed.items()}))
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

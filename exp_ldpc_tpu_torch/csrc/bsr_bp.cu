@@ -51,7 +51,10 @@
 // blocks.  Where every phase's grid fits the card at once (a few hundred
 // shots: the host redecode), min-sum runs the same phases in one
 // cooperative launch with grid-wide barriers between them (route "coop",
-// below), where launches would bound the time.  Each check, variable and
+// below), where launches would bound the time.  Checks of more than
+// BSR_MAX_SLOTS (32) slots, as in the fault matrices of detector error
+// models, take route "wide": phase A in two passes over the slots, whose
+// registers do not grow with Dc (bsr_checks_wide).  Each check, variable and
 // parity is computed by one thread in the plain version's order, so results
 // are bit-identical to it.
 #include <cooperative_groups.h>
@@ -112,6 +115,77 @@ __device__ __forceinline__ void bsr_checks(const BsrArgs& a, int it, float alpha
           st_bf16<VEC>(msg + (e0 + i) * SS + s0, t);
         }
       }
+    }
+  }
+}
+
+// ---- phase A of route "wide": checks of more than BSR_MAX_SLOTS slots (the
+// fault matrices of detector error models), in two passes over the slots,
+// so that what a thread holds does not grow with Dc.  Pass 1 folds each
+// slot's incoming message into the running sign and into either the phi
+// total (ps, left to right) or min1 / min2 / argmin (ms, the first minimum
+// wins); pass 2 reads each slot again, forms its outgoing message as
+// check_update does and stores it in place (a slot is read before it is
+// written).  The same operations in the same order: the same bits.
+template <int VEC>
+__device__ __forceinline__ void bsr_incoming(const BsrArgs& a, int it, size_t e, int var, int s0,
+                                             float (&t)[VEC]) {
+  if (it == 0) {  // iteration 0: the prior of the slot's variable, +BIG on a padded slot
+    const float x0 = var >= 0 ? bf(__ldg(&((const float*)a.prior)[var])) : bf(BIG);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) t[v] = x0;
+  } else {
+    ld_bf16<VEC>((const __nv_bfloat16*)a.msg + e * a.S + s0, t);
+  }
+}
+
+template <int VEC, int METHOD>
+__device__ __forceinline__ void bsr_checks_wide(const BsrArgs& a, int it, float alpha) {
+  const int Dc = a.Dc;
+  __nv_bfloat16* msg = (__nv_bfloat16*)a.msg;
+  RowItems items(a.C, a.S, VEC);
+  int c, s0;
+  while (items.next(c, s0, VEC)) {
+    if (bsr_stopped(a, it, s0 / a.sb)) continue;
+    const size_t e0 = (size_t)c * Dc;
+    const Pack<VEC> sy = ld_raw_ro<VEC>(a.synd + (size_t)c * a.S + s0);
+    float tsign[VEC], acc[VEC], min2[VEC], t[VEC];  // acc: the phi total (ps) or min1 (ms)
+    int arg[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) tsign[v] = sy.u8[v] ? -1.0f : 1.0f;
+    for (int i = 0; i < Dc; ++i) {
+      bsr_incoming<VEC>(a, it, e0 + i, __ldg(&a.chk_vars[e0 + i]), s0, t);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        if (t[v] < 0.0f) tsign[v] = -tsign[v];
+        const float m = fabsf(t[v]);
+        if (METHOD == 0) {
+          const float ph = phi_f(m);
+          acc[v] = i == 0 ? ph : acc[v] + ph;
+        } else if (i == 0 || m < acc[v]) {
+          min2[v] = i == 0 ? BIG : acc[v];
+          acc[v] = m;
+          arg[v] = i;
+        } else {
+          min2[v] = fminf(min2[v], m);
+        }
+      }
+    }
+    const int ns = __ldg(&a.nslot[c]);
+    for (int i = 0; i < Dc; ++i) {
+      const int var = __ldg(&a.chk_vars[e0 + i]);
+      // as phase A: a live slot takes c2v, a padded one below nslot BIG - c2v,
+      // the others keep +BIG, stored once in iteration 0
+      if (var < 0 && i >= ns && it > 0) continue;
+      bsr_incoming<VEC>(a, it, e0 + i, var, s0, t);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const float s = t[v] < 0.0f ? -tsign[v] : tsign[v];
+        const float out = METHOD == 0 ? s * phi_f(acc[v] - phi_f(fabsf(t[v])))
+                                      : (s * (i == arg[v] ? min2[v] : acc[v])) * alpha;
+        t[v] = var >= 0 ? out : (i < ns ? BIG - bf(out) : BIG);
+      }
+      st_bf16<VEC>(msg + (e0 + i) * a.S + s0, t);
     }
   }
 }
@@ -206,6 +280,13 @@ __global__ void __launch_bounds__(ROW_THREADS, 2) bsr_bp_check_kernel(const BsrA
   bsr_checks<MAXP, EXACT, VEC, METHOD>(a, it, alpha);
 }
 
+template <int VEC, int METHOD>
+__global__ void __launch_bounds__(ROW_THREADS) bsr_bp_check_wide_kernel(const BsrArgs a, int it,
+                                                                       float alpha) {
+  if (a.flags && a.flags[BSR_DONE]) return;
+  bsr_checks_wide<VEC, METHOD>(a, it, alpha);
+}
+
 template <int VEC, int DVR>
 __global__ void __launch_bounds__(ROW_THREADS) bsr_bp_var_kernel(const BsrArgs a, int it, bool out) {
   if (a.flags && a.flags[BSR_DONE]) return;
@@ -231,13 +312,27 @@ static void launch_checks(const BsrArgs& a, int it, int method, float alpha, int
 // HGP-225's H; 8: its (H|I); 24: the cyclic lifted product), every loop
 // bound a constant, else the bounded scan up to 16 or 32 slots.  x[VEC][MAXP]
 // lives in registers: 4 shots a lane up to 16 slots, 2 above, 1 where 4 or 2
-// does not divide the shots and the shot block (the plan), as in K3.
+// does not divide the shots and the shot block (the plan), as in K3.  Route
+// "wide" (more than BSR_MAX_SLOTS slots): the two-pass scan, 8, 4, 2 or 1
+// shots a lane.
 static bool checks(const BsrArgs& a, int it, int vec, int method, float alpha, int blocks,
-                   cudaStream_t st) {
+                   bool wide, cudaStream_t st) {
+#define WIDE(VEC)                                                                          \
+  if (vec == VEC) {                                                                        \
+    if (method == 0)                                                                       \
+      bsr_bp_check_wide_kernel<VEC, 0><<<blocks, ROW_THREADS, 0, st>>>(a, it, alpha);      \
+    else                                                                                   \
+      bsr_bp_check_wide_kernel<VEC, 1><<<blocks, ROW_THREADS, 0, st>>>(a, it, alpha);      \
+    return true;                                                                           \
+  }
 #define CASE(MAXP, EXACT, VEC)                                              \
   if ((EXACT ? a.Dc == MAXP : a.Dc <= MAXP) && vec == VEC) {                \
     launch_checks<MAXP, EXACT, VEC>(a, it, method, alpha, blocks, st);      \
     return true;                                                            \
+  }
+  if (wide) {
+    WIDE(1) WIDE(2) WIDE(4) WIDE(8)
+    return false;
   }
   CASE(7, true, 1) CASE(7, true, 2) CASE(7, true, 4)
   CASE(8, true, 1) CASE(8, true, 2) CASE(8, true, 4)
@@ -245,6 +340,7 @@ static bool checks(const BsrArgs& a, int it, int vec, int method, float alpha, i
   CASE(16, false, 1) CASE(16, false, 2) CASE(16, false, 4)
   CASE(32, false, 1) CASE(32, false, 2)
 #undef CASE
+#undef WIDE
   return false;
 }
 
@@ -328,21 +424,23 @@ static int launch_coop(const BsrArgs& a, float alpha, int adaptive, int n_iter, 
 // ((2,) int32, zeroed) are both given for the early exit and both null for
 // fixed iterations.  vec_* / blocks_*: lane width and grid of each phase,
 // planned by the caller (every vec divides S and sb; every array starts on
-// a 16-byte boundary).  coop: route "coop" in one launch of the largest of
-// the three grids (refused where the instance or the grid does not exist).
+// a 16-byte boundary).  route: the plan's, BSR_GRIDS, BSR_COOP (one launch
+// of the largest of the three grids, refused where the instance or the
+// grid does not exist) or BSR_WIDE (required exactly where Dc exceeds
+// BSR_MAX_SLOTS).
 extern "C" int bsr_bp_run(const void* chk_vars, const void* vm, const void* nslot,
                           const void* synd, const void* prior, void* msg, void* post, void* conv,
                           void* hard, void* gbad, void* flags, int C, int V, int Dc, int Dv,
                           int S, int S_live, int sb, int G, int method, float alpha, int adaptive,
                           int n_iter, int vec_a, int blocks_a, int vec_b, int blocks_b,
-                          int vec_c, int blocks_c, int coop, void* stream) {
+                          int vec_c, int blocks_c, int route, void* stream) {
   const BsrArgs a = {(const int*)chk_vars, (const int*)vm, (const int*)nslot,
                      (const uint8_t*)synd, prior, msg, post, (uint8_t*)conv, (uint8_t*)hard,
                      (int*)gbad, (int*)flags, C, V, Dc, Dv, S, S_live, sb, G};
-  if (!bsr_plan_ok(a, vec_a, vec_b, vec_c) || (gbad == nullptr) != (flags == nullptr))
+  if (!bsr_plan_ok(a, vec_a, vec_b, vec_c, route) || (gbad == nullptr) != (flags == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (coop) {
+  if (route == BSR_COOP) {
     const int ab = blocks_a > blocks_b ? blocks_a : blocks_b;
     const int blocks = ab > blocks_c ? ab : blocks_c;
     if (method != 1 || Dv > 8 || vec_a != 4 || vec_b != 8 || vec_c != 16)
@@ -355,7 +453,8 @@ extern "C" int bsr_bp_run(const void* chk_vars, const void* vm, const void* nslo
   for (int it = 0; it < n_iter; ++it) {
     const float al = adaptive ? (float)(1.0 - ldexp(1.0, -(it + 1))) : alpha;
     const bool out = early || it == n_iter - 1;
-    if (!checks(a, it, vec_a, method, al, blocks_a, st) || !vars(a, it, out, vec_b, blocks_b, st) ||
+    if (!checks(a, it, vec_a, method, al, blocks_a, route == BSR_WIDE, st) ||
+        !vars(a, it, out, vec_b, blocks_b, st) ||
         (out && !parity(a, it, vec_c, blocks_c, st)))
       return (int)cudaErrorInvalidValue;
     const cudaError_t err = cudaGetLastError();

@@ -114,6 +114,78 @@ __device__ __forceinline__ void bsr8_checks(const BsrArgs& a, int it, int alpha_
   }
 }
 
+// ---- phase A of route "wide": checks of more than BSR_MAX_SLOTS slots, in
+// two passes over the slots (K1's bsr_checks_wide): pass 1 folds each slot's
+// byte into the negative count, min1, min2 and argmin; pass 2 reads each
+// live slot again and stores its outgoing message.  Integer arithmetic: the
+// same values as phase A.
+template <int VEC>
+__device__ __forceinline__ Pack<VEC> bsr8_incoming(const BsrArgs& a, int it, size_t e, int var,
+                                                   int s0) {
+  Pack<VEC> m;
+  if (it == 0) {  // the saturated prior of the slot's variable, +SAT on a padded slot
+    const uint8_t b =
+        (uint8_t)(int8_t)(var >= 0 ? clip_sat(__ldg(&((const int*)a.prior)[var])) : SAT);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) m.u8[v] = b;
+  } else {
+    m = ld_raw<VEC>((const int8_t*)a.msg + e * a.S + s0);
+  }
+  return m;
+}
+
+template <int VEC>
+__device__ __forceinline__ void bsr8_checks_wide(const BsrArgs& a, int it, int alpha_num) {
+  const int Dc = a.Dc;
+  int8_t* msg = (int8_t*)a.msg;
+  RowItems items(a.C, a.S, VEC);
+  int c, s0;
+  while (items.next(c, s0, VEC)) {
+    if (bsr_stopped(a, it, s0 / a.sb)) continue;
+    const size_t e0 = (size_t)c * Dc;
+    const Pack<VEC> sy = ld_raw_ro<VEC>(a.synd + (size_t)c * a.S + s0);
+    int neg_tot[VEC], min1[VEC], min2[VEC], arg[VEC];
+    for (int i = 0; i < Dc; ++i) {
+      const Pack<VEC> m = bsr8_incoming<VEC>(a, it, e0 + i, __ldg(&a.chk_vars[e0 + i]), s0);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        const int x = s8(m.u8[v]);
+        const int mg = abs(x);
+        if (i == 0) {
+          neg_tot[v] = sy.u8[v] + (x < 0);
+          min1[v] = mg;
+          min2[v] = SAT + 1;
+          arg[v] = 0;
+        } else {
+          neg_tot[v] += x < 0;
+          if (mg < min1[v]) {
+            min2[v] = min1[v];
+            min1[v] = mg;
+            arg[v] = i;
+          } else {
+            min2[v] = min(min2[v], mg);
+          }
+        }
+      }
+    }
+    for (int i = 0; i < Dc; ++i) {
+      const int var = __ldg(&a.chk_vars[e0 + i]);
+      if (var < 0 && it > 0) continue;  // padded slots: +SAT, stored once in iteration 0
+      Pack<VEC> m = bsr8_incoming<VEC>(a, it, e0 + i, var, s0);
+      if (var >= 0) {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          const int x = s8(m.u8[v]);
+          const int scaled = ((i == arg[v] ? min2[v] : min1[v]) * alpha_num) >> 8;
+          const bool ext_neg = (neg_tot[v] + (x < 0)) & 1;
+          m.u8[v] = (uint8_t)(int8_t)(ext_neg ? -scaled : scaled);
+        }
+      }
+      st_raw<VEC>(msg + (e0 + i) * a.S + s0, m);
+    }
+  }
+}
+
 // ---- phase B: posterior and the new v2c of every variable.  `out` and DVR
 // as in K1's phase B.
 template <int VEC, int DVR>
@@ -202,6 +274,13 @@ __global__ void __launch_bounds__(ROW_THREADS, 2) bsr_int8_check_kernel(const Bs
   bsr8_checks<MAXP, EXACT, VEC>(a, it, alpha_num);
 }
 
+template <int VEC>
+__global__ void __launch_bounds__(ROW_THREADS) bsr_int8_check_wide_kernel(const BsrArgs a, int it,
+                                                                         int alpha_num) {
+  if (a.flags && a.flags[BSR_DONE]) return;
+  bsr8_checks_wide<VEC>(a, it, alpha_num);
+}
+
 template <int VEC, int DVR>
 __global__ void __launch_bounds__(ROW_THREADS) bsr_int8_var_kernel(const BsrArgs a, int it,
                                                                    bool out) {
@@ -219,7 +298,20 @@ __global__ void __launch_bounds__(ROW_THREADS) bsr_int8_parity_kernel(const BsrA
 // path's codes (7, 8, 24) and the bounded scan up to 16 or 32 slots; 16
 // shots a lane up to 8 slots, 8 up to 24, 4 above (the packed bytes of
 // every slot in registers), 1 where the plan's width does not divide.
-static bool checks(const BsrArgs& a, int it, int vec, int alpha_num, int blocks, cudaStream_t st) {
+// Route "wide" (more than BSR_MAX_SLOTS slots): the two-pass scan, 16, 8, 4
+// or 1 shots a lane.
+static bool checks(const BsrArgs& a, int it, int vec, int alpha_num, int blocks, bool wide,
+                   cudaStream_t st) {
+#define WIDE(VEC)                                                                            \
+  if (vec == VEC) {                                                                          \
+    bsr_int8_check_wide_kernel<VEC><<<blocks, ROW_THREADS, 0, st>>>(a, it, alpha_num);       \
+    return true;                                                                             \
+  }
+  if (wide) {
+    WIDE(1) WIDE(4) WIDE(8) WIDE(16)
+    return false;
+  }
+#undef WIDE
 #define CASE(MAXP, EXACT, VEC)                                                           \
   if ((EXACT ? a.Dc == MAXP : a.Dc <= MAXP) && vec == VEC) {                             \
     bsr_int8_check_kernel<MAXP, EXACT, VEC><<<blocks, ROW_THREADS, 0, st>>>(a, it, alpha_num); \
@@ -265,24 +357,26 @@ static bool parity(const BsrArgs& a, int it, int vec, int blocks, cudaStream_t s
 
 // One whole decode, as K1's bsr_bp_run: n_iter iterations (at most 3 grids
 // each), alpha = alpha_num / 256, gbad and flags both given for the early
-// exit and both null for fixed iterations, lane widths and grids planned by
-// the caller.
+// exit and both null for fixed iterations, lane widths, grids and route
+// (BSR_GRIDS or BSR_WIDE) planned by the caller.
 extern "C" int bsr_bp_int8_run(const void* chk_vars, const void* vm, const void* synd,
                                const void* prior_q, void* msg, void* post, void* conv, void* hard,
                                void* gbad, void* flags, int C, int V, int Dc, int Dv, int S,
                                int S_live, int sb, int G, int alpha_num, int n_iter, int vec_a,
                                int blocks_a, int vec_b, int blocks_b, int vec_c, int blocks_c,
-                               void* stream) {
+                               int route, void* stream) {
   const BsrArgs a = {(const int*)chk_vars, (const int*)vm, nullptr, (const uint8_t*)synd,
                      prior_q, msg, post, (uint8_t*)conv, (uint8_t*)hard, (int*)gbad, (int*)flags,
                      C, V, Dc, Dv, S, S_live, sb, G};
-  if (!bsr_plan_ok(a, vec_a, vec_b, vec_c) || (gbad == nullptr) != (flags == nullptr))
+  if (!bsr_plan_ok(a, vec_a, vec_b, vec_c, route) || route == BSR_COOP ||
+      (gbad == nullptr) != (flags == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const bool early = flags != nullptr;
   for (int it = 0; it < n_iter; ++it) {
     const bool out = early || it == n_iter - 1;
-    if (!checks(a, it, vec_a, alpha_num, blocks_a, st) || !vars(a, it, out, vec_b, blocks_b, st) ||
+    if (!checks(a, it, vec_a, alpha_num, blocks_a, route == BSR_WIDE, st) ||
+        !vars(a, it, out, vec_b, blocks_b, st) ||
         (out && !parity(a, it, vec_c, blocks_c, st)))
       return (int)cudaErrorInvalidValue;
     const cudaError_t err = cudaGetLastError();

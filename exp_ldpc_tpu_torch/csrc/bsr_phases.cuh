@@ -15,6 +15,12 @@
 #include "vec_io.cuh"
 
 enum { BSR_DONE = 0, BSR_TICKET = 1 };
+// The plan's routes (utils/cuda_build.py::bsr_plan): one grid per phase; K1's
+// one cooperative launch; one grid per phase with the two-pass check phase
+// for checks of more than BSR_MAX_SLOTS slots, whose register instances
+// stop there.
+enum { BSR_GRIDS = 0, BSR_COOP = 1, BSR_WIDE = 2 };
+#define BSR_MAX_SLOTS 32
 
 struct BsrArgs {
   const int* chk_vars;   // (C*Dc,) variable of each check-major slot, -1 = padded slot
@@ -94,11 +100,12 @@ __device__ __forceinline__ void bsr_parity(const BsrArgs& a, int it) {
 
 // The plan's checks, shared by both entry points: every phase's lane width
 // divides the shot count and the shot block (no item straddles two blocks),
-// and the blocks cover the shots.
-static bool bsr_plan_ok(const BsrArgs& a, int vec_a, int vec_b, int vec_c) {
+// the blocks cover the shots, and the route is "wide" exactly where the
+// checks are wider than the register instances.
+static bool bsr_plan_ok(const BsrArgs& a, int vec_a, int vec_b, int vec_c, int route) {
   const int vecs[3] = {vec_a, vec_b, vec_c};
   for (int i = 0; i < 3; ++i)
     if (vecs[i] < 1 || a.S % vecs[i] || a.sb % vecs[i]) return false;
   return a.S_live >= 1 && a.S_live <= a.S && a.sb >= 1 && (size_t)a.G * a.sb >= (size_t)a.S &&
-         a.Dc >= 1 && a.Dc <= 32;
+         a.Dc >= 1 && (route == BSR_WIDE) == (a.Dc > BSR_MAX_SLOTS);
 }

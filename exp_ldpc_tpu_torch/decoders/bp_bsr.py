@@ -34,6 +34,10 @@ with all-zero syndromes that never count towards the exit, and the outputs
 are cut back.  Where every phase's grid fits the card at once (min-sum at
 a few hundred shots: the host redecode), K1 runs the same phases in one
 cooperative launch with grid-wide barriers (route "coop"; else "grids").
+Checks of more than 32 slots (detector-error-model fault matrices) take
+route "wide": the check phase scans a check's slots twice (sign and phi
+total, or sign, min1, min2 and argmin; then the outgoing messages), so a
+thread's registers do not grow with the degree.
 ``KERNEL.launches`` / ``KERNEL_INT8.launches`` count decodes, ``routes``
 split them by route.
 
@@ -75,7 +79,7 @@ import torch
 from scipy import sparse
 
 from ..convert import TannerTables, tanner_tables
-from ..utils.cuda_build import CudaKernel, aligned, bsr_plan
+from ..utils.cuda_build import BSR_ROUTES, CudaKernel, aligned, bsr_plan
 from ..utils.device import DeviceLike, resolve_device
 from .bp import (BIG, DecoderBase, alpha_at, channel_priors, check_update_cm,
                  normalize_method, priors_to_llr, syndrome_ok)
@@ -88,11 +92,11 @@ __all__ = ["BSRLayout", "auto_shot_block", "bsr_bp_decode", "bsr_bp_plain",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # csrc/bsr_bp.cu::bsr_bp_run: 11 arrays; C, V, Dc, Dv, S, S_live, sb, G, method; alpha;
-# adaptive, n_iter, (vec, blocks) of the three phases, coop; the stream.
+# adaptive, n_iter, (vec, blocks) of the three phases, route; the stream.
 KERNEL = CudaKernel("bsr_bp.cu", "bsr_bp_run", [_P] * 11 + [_I] * 9 + [_F] + [_I] * 9 + [_P])
 # csrc/bsr_bp_int8.cu::bsr_bp_int8_run: 10 arrays; C, V, Dc, Dv, S, S_live, sb, G,
-# alpha_num, n_iter, (vec, blocks) of the three phases; the stream.
-KERNEL_INT8 = CudaKernel("bsr_bp_int8.cu", "bsr_bp_int8_run", [_P] * 10 + [_I] * 16 + [_P])
+# alpha_num, n_iter, (vec, blocks) of the three phases, route; the stream.
+KERNEL_INT8 = CudaKernel("bsr_bp_int8.cu", "bsr_bp_int8_run", [_P] * 10 + [_I] * 17 + [_P])
 
 _TILE = 128
 _BF16 = torch.bfloat16
@@ -292,7 +296,7 @@ def bsr_bp_decode(layout: BSRLayout, prior_llr: torch.Tensor, syndromes: torch.T
     KERNEL.launch(
         t.chk_vars_k.data_ptr(), t.vm_k.data_ptr(), layout.slot_limits(method).data_ptr(),
         *st.pointers(prior), *st.shape_args(), 0 if method == "ps" else 1, msf,
-        int(msf == 0.0), int(max_iter), *st.grid_args(), int(plan.route == "coop"),
+        int(msf == 0.0), int(max_iter), *st.grid_args(), BSR_ROUTES[plan.route],
         torch.cuda.current_stream(dev).cuda_stream, route=plan.route)
     return st.outputs()
 
@@ -305,12 +309,10 @@ def _check_call(name: str, layout: BSRLayout, prior: torch.Tensor, syndromes: to
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     t = layout.tables
-    C, V, Dc = t.num_checks, t.num_vars, t.max_check_degree
+    C, V = t.num_checks, t.num_vars
     Cs, S = syndromes.shape
     if Cs != C:
         raise ValueError(f"syndromes have {Cs} rows, expected {C}")
-    if Dc > 32:
-        raise ValueError(f"{name} supports check degree <= 32, got {Dc}")
     if t.device != dev or prior.device != dev:
         raise ValueError(f"{name}: tables, priors and syndromes must share one device")
     prior = prior.to(dtype).contiguous()
@@ -441,8 +443,8 @@ def bsr_bp_decode_int8(layout: BSRLayout, prior_q: torch.Tensor, syndromes: torc
     t = layout.tables
     KERNEL_INT8.launch(
         t.chk_vars_k.data_ptr(), t.vm_k.data_ptr(), *st.pointers(prior), *st.shape_args(),
-        int(alpha_num), int(max_iter), *st.grid_args(), torch.cuda.current_stream(dev).cuda_stream,
-        route=st.plan.route)
+        int(alpha_num), int(max_iter), *st.grid_args(), BSR_ROUTES[st.plan.route],
+        torch.cuda.current_stream(dev).cuda_stream, route=st.plan.route)
     return st.outputs()
 
 

@@ -1,28 +1,44 @@
-"""Decode-mode drivers of the port.
+"""Decode-mode drivers and the end-to-end Monte-Carlo simulation of the port.
 
-Counterpart of ``exp_ldpc_tpu/decoders/drivers.py`` for the three BP+OSD
-modes (``bposd``: BP+OSD on the full spacetime matrix;
-``bposd_single_shot``: per-round (H|I) BP+OSD with an accumulated
-correction, then the final round; ``bposd_hybrid``: spacetime BP, then
-BP+OSD of the final round) and the CLI helpers.  The other modes and
-``run_simulation`` are not ported yet (ROADMAP.md, Queue 1).  Priors follow the
-reference: data columns get ``data_prior``, measurement-error columns
-``meas_prior``.
+Counterpart of ``exp_ldpc_tpu/decoders/drivers.py``: the seven decode modes
+(``bposd``: BP+OSD on the full spacetime matrix; ``bposd_single_shot``:
+per-round (H|I) BP+OSD with an accumulated correction, then the final
+round; ``bposd_hybrid``: spacetime BP, then BP+OSD of the final round;
+``bpd_detector``: BP on the detector error model's fault matrix;
+``relay_bp``: the relay BP ensemble on the spacetime matrix;
+``ssf_single_shot``: per-round small-set-flip; ``sliding_window``:
+overlapping-window BP+OSD), :func:`run_simulation` (build the storage
+circuit, sample, decode every shot, count logical failures) and the CLI
+helpers.  Every decoder runs on ``device`` (the card unless the caller asks
+for the CPU, where each kernel is replaced by its plain version); OSD runs
+on the host.  Priors follow the reference: data columns get
+``data_prior``, measurement-error columns ``meas_prior``.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
+import torch
+from scipy import sparse
 
+from ..circuits.storage_sim import build_storage_simulation
 from ..codes.io import read_quantum_code
 from ..utils.device import DeviceLike, resolve_device
 from .bposd import BPOSDDecoder
-from .select import make_spacetime_bp_decoder, qc_kwargs_for_code, qc_kwargs_single_shot
-from .spacetime import SpacetimeCode, SpacetimeCodeSingleShot
+from .dem import detector_error_model
+from .flip import SmallSetFlipDecoder
+from .parity import mod2_matmul, spacetime_syndromes
+from .relay_bp import RelayBPDecoder
+from .select import (make_bp_decoder, make_spacetime_bp_decoder, qc_kwargs_for_code,
+                     qc_kwargs_single_shot)
+from .sliding_window import SlidingWindowDecoder
+from .spacetime import DetectorSpacetimeCode, SpacetimeCode, SpacetimeCodeSingleShot
 
-__all__ = ["BPOSDCorrect", "BPOSDCorrectSingleShot", "BPOSDHybridCorrect", "add_bposd_args",
-           "unpack_bposd_args", "load_code", "spacetime_prior"]
+__all__ = ["BPOSDCorrect", "BPOSDCorrectSingleShot", "BPOSDHybridCorrect", "BPDetectorCorrect",
+           "RelayBPCorrect", "SSFCorrect", "SlidingWindowCorrect", "run_simulation",
+           "DECODER_MODES", "add_bposd_args", "unpack_bposd_args", "load_code",
+           "spacetime_prior"]
 
 
 def spacetime_prior(spacetime, data_prior: float, meas_prior: float) -> np.ndarray:
@@ -36,12 +52,28 @@ def spacetime_prior(spacetime, data_prior: float, meas_prior: float) -> np.ndarr
 
 _BP_KEYS = ("max_iter", "bp_method", "ms_scaling_factor")
 _OSD_KEYS = ("osd_method", "osd_order")
+_RELAY_KEYS = ("relay_legs", "relay_iters_per_leg", "relay_seed")
 
 
-def _check_options(driver: str, bp_osd_options: Dict) -> None:
-    unknown = set(bp_osd_options) - set(_BP_KEYS) - set(_OSD_KEYS)
+def _check_options(driver: str, bp_osd_options: Dict, extra: Iterable[str] = ()) -> None:
+    unknown = set(bp_osd_options) - set(_BP_KEYS) - set(_OSD_KEYS) - set(extra)
     if unknown:
         raise ValueError(f"{driver}: unsupported options {sorted(unknown)}")
+
+
+def _single_shot_correction(history: np.ndarray, readout: np.ndarray, HdT: np.ndarray,
+                            single_shot: SpacetimeCodeSingleShot, decode_round, decode_final):
+    """The single-shot round loop (JAX ``drivers.py:106-120``): each round's
+    syndrome relative to the accumulated correction, decoded on (H|I) by
+    ``decode_round``, adds its data part to the correction; the final round
+    is decoded on H by ``decode_final``.  history (S, rounds, r), readout
+    (S, n) -> final-round correction (S, n)."""
+    acc = np.zeros_like(readout, dtype=np.int64)
+    for t in range(history.shape[1]):
+        syndrome = (mod2_matmul(acc, HdT) + history[:, t]) % 2
+        acc = (acc + single_shot.final_correction(decode_round(syndrome))) % 2
+    final = decode_final(mod2_matmul((acc + readout) % 2, HdT))
+    return (final + acc) % 2
 
 
 class BPOSDCorrect:
@@ -67,7 +99,7 @@ class BPOSDCorrect:
 
     def readout_correction_batch(self, history: np.ndarray, readout: np.ndarray) -> np.ndarray:
         """history (S, rounds, r), readout (S, n) -> final-round correction (S, n)."""
-        syndromes = self._spacetime_code.syndrome_from_history_batch(history, readout)
+        syndromes = spacetime_syndromes(self._spacetime_code, history, readout)
         correction = self._bpd.decode_batch(syndromes)
         return self._spacetime_code.final_correction(correction)
 
@@ -83,9 +115,8 @@ class BPOSDCorrectSingleShot:
         _check_options("BPOSDCorrectSingleShot", bp_osd_options)
         dev = resolve_device(device)
         data_prior, meas_prior = priors
-        self._rounds = rounds
         self._checks = code.checks.x if basis == "x" else code.checks.z
-        self._Hd = self._checks.toarray().astype(np.int64)
+        self._HdT = self._checks.T.toarray()
         self._spacetime_code = SpacetimeCodeSingleShot(self._checks)
         self._bpd_single_shot = BPOSDDecoder.from_check_matrix(
             self._spacetime_code.spacetime_check_matrix,
@@ -97,15 +128,9 @@ class BPOSDCorrectSingleShot:
 
     def readout_correction_batch(self, history: np.ndarray, readout: np.ndarray) -> np.ndarray:
         """history (S, rounds, r), readout (S, n) -> final-round correction (S, n)."""
-        Hd = self._Hd
-        acc = np.zeros_like(readout, dtype=np.int64)
-        for t in range(self._rounds):
-            syndrome = ((acc @ Hd.T) % 2 + history[:, t]) % 2
-            st_correction = self._bpd_single_shot.decode_batch(syndrome)
-            acc = (acc + self._spacetime_code.final_correction(st_correction)) % 2
-        syndrome = (((acc + readout) % 2) @ Hd.T) % 2
-        final = self._bpd_final_round.decode_batch(syndrome)
-        return (final + acc) % 2
+        return _single_shot_correction(history, readout, self._HdT, self._spacetime_code,
+                                       self._bpd_single_shot.decode_batch,
+                                       self._bpd_final_round.decode_batch)
 
 
 class BPOSDHybridCorrect:
@@ -120,7 +145,7 @@ class BPOSDHybridCorrect:
         dev = resolve_device(device)
         data_prior, meas_prior = priors
         self._checks = code.checks.x if basis == "x" else code.checks.z
-        self._HdT = self._checks.T.toarray().astype(np.int64)
+        self._HdT = self._checks.T.toarray()
         self._spacetime_code = SpacetimeCode(self._checks, rounds)
         self._bpd = make_spacetime_bp_decoder(
             self._checks, rounds, device=dev,
@@ -132,12 +157,235 @@ class BPOSDHybridCorrect:
 
     def readout_correction_batch(self, history: np.ndarray, readout: np.ndarray) -> np.ndarray:
         """history (S, rounds, r), readout (S, n) -> final-round correction (S, n)."""
-        syndromes = self._spacetime_code.syndrome_from_history_batch(history, readout)
+        syndromes = spacetime_syndromes(self._spacetime_code, history, readout)
         correction = self._bpd.decode_batch(syndromes)[0]
         bp_corr = self._spacetime_code.final_correction(correction).astype(np.int64)
-        syndrome = (((bp_corr + readout) % 2) @ self._HdT) % 2
-        final = self._bpd_final_round.decode_batch(syndrome)
+        final = self._bpd_final_round.decode_batch(mod2_matmul((bp_corr + readout) % 2, self._HdT))
         return (final + bp_corr) % 2
+
+
+class SlidingWindowCorrect:
+    """Streaming overlapping-window BP+OSD (:class:`.sliding_window.
+    SlidingWindowDecoder`; JAX ``drivers.py:161-181``).  ``window_size`` /
+    ``window_commit`` keys extend the bposd option dict."""
+
+    def __init__(self, code, rounds: int, bp_osd_options: Dict,
+                 priors: Tuple[float, float], basis: str = "z", device: DeviceLike = "cuda"):
+        _check_options("SlidingWindowCorrect", bp_osd_options, ("window_size", "window_commit"))
+        data_prior, meas_prior = priors
+        opts = dict(bp_osd_options)
+        window = int(opts.pop("window_size", 4))
+        commit = opts.pop("window_commit", None)
+        self._dec = SlidingWindowDecoder(
+            code.checks.x if basis == "x" else code.checks.z, data_prior, meas_prior,
+            window=window, commit=None if commit is None else int(commit), bp_options=opts,
+            device=device)
+
+    def readout_correction_batch(self, history: np.ndarray, readout: np.ndarray) -> np.ndarray:
+        """history (S, rounds, r), readout (S, n) -> final-round correction (S, n)."""
+        return self._dec.decode_batch(history, readout)
+
+
+class SSFCorrect:
+    """Single-shot small-set-flip (JAX ``drivers.py:184-235``): per-round
+    (H|I) SSF with an accumulated correction, then a clean final-round SSF,
+    in the round-loop structure of :class:`BPOSDCorrectSingleShot`.  The
+    per-round flip search runs over the zero-padded opposite-sector
+    stabilizer generators plus a weight-1 generator for each
+    measurement-error column.  ``ssf_max_iter`` extends the option dict (0
+    = one flip per spacetime column); the BP and OSD options are unused."""
+
+    def __init__(self, code, rounds: int, bp_osd_options: Dict,
+                 priors: Tuple[float, float], basis: str = "z", device: DeviceLike = "cuda"):
+        _check_options("SSFCorrect", bp_osd_options, ("ssf_max_iter",))
+        dev = resolve_device(device)
+        self._checks = code.checks.x if basis == "x" else code.checks.z
+        self._HdT = self._checks.T.toarray()
+        self._spacetime_code = SpacetimeCodeSingleShot(self._checks)
+        max_iter = int(bp_osd_options.get("ssf_max_iter", 0) or 0)
+        r, n = self._checks.shape
+        # flip generators come from the OPPOSITE sector's stabilizers
+        gx = code.checks.z if basis == "x" else code.checks.x
+        gen_data = sparse.hstack([gx, sparse.csr_matrix((gx.shape[0], r), dtype=np.uint8)])
+        gen_meas = sparse.hstack([sparse.csr_matrix((r, n), dtype=np.uint8),
+                                  sparse.identity(r, dtype=np.uint8)])
+        generators = sparse.vstack([gen_data, gen_meas]).tocsr()
+        self._dec_ss = SmallSetFlipDecoder.from_css(
+            self._spacetime_code.spacetime_check_matrix, generators, max_iter=max_iter,
+            device=dev)
+        self._dec_final = SmallSetFlipDecoder.from_css(self._checks, gx, max_iter=max_iter,
+                                                       device=dev)
+
+    def readout_correction_batch(self, history: np.ndarray, readout: np.ndarray) -> np.ndarray:
+        """history (S, rounds, r), readout (S, n) -> final-round correction (S, n)."""
+        return _single_shot_correction(history, readout, self._HdT, self._spacetime_code,
+                                       lambda s: self._dec_ss.decode_batch(s)[0],
+                                       lambda s: self._dec_final.decode_batch(s)[0])
+
+
+def _relay_decoder(H, channel_probs, opts: Dict, default_alpha: float, device):
+    """The relay BP ensemble of ``opts`` (``relay_legs``, default 8;
+    ``relay_iters_per_leg``, 30; ``relay_seed``, 0; ``bp_method``, "ms";
+    ``ms_scaling_factor``, ``default_alpha`` where it is 0 or missing)."""
+    return RelayBPDecoder.from_check_matrix(
+        H, channel_probs=channel_probs, device=device,
+        method=opts.get("bp_method", "ms"),
+        ms_scaling_factor=float(opts.get("ms_scaling_factor", default_alpha) or default_alpha),
+        num_legs=int(opts.get("relay_legs", 8)),
+        iters_per_leg=int(opts.get("relay_iters_per_leg", 30)),
+        seed=int(opts.get("relay_seed", 0)))
+
+
+class RelayBPCorrect:
+    """Relay BP ensemble on the full spacetime matrix, no OSD (JAX
+    ``drivers.py:238-269``; arXiv:2507.00254).  ``relay_legs`` (8),
+    ``relay_iters_per_leg`` (30) and ``relay_seed`` (0) extend the option
+    dict; ``max_iter`` and the OSD options are unused."""
+
+    def __init__(self, code, rounds: int, bp_osd_options: Dict,
+                 priors: Tuple[float, float], basis: str = "z", device: DeviceLike = "cuda"):
+        _check_options("RelayBPCorrect", bp_osd_options, _RELAY_KEYS)
+        data_prior, meas_prior = priors
+        self._checks = code.checks.x if basis == "x" else code.checks.z
+        self._spacetime_code = SpacetimeCode(self._checks, rounds)
+        self._bpd = _relay_decoder(
+            self._spacetime_code.spacetime_check_matrix,
+            spacetime_prior(self._spacetime_code, data_prior, meas_prior), bp_osd_options, 1.0,
+            resolve_device(device))
+
+    def readout_correction_batch(self, history: np.ndarray, readout: np.ndarray) -> np.ndarray:
+        """history (S, rounds, r), readout (S, n) -> final-round correction (S, n)."""
+        syndromes = spacetime_syndromes(self._spacetime_code, history, readout)
+        return self._spacetime_code.final_correction(self._bpd.decode_batch(syndromes)[0])
+
+
+class BPDetectorCorrect:
+    """BP on the detector error model's fault matrix (JAX
+    ``drivers.py:272-339``): flat BP chosen by
+    :func:`.select.make_bp_decoder` (kernel K1 past the crossover on a card,
+    route "wide" where a fault check has more than 32 slots); with
+    ``relay_legs`` > 0 the relay ensemble instead (α 0.625 unless set); with
+    ``detector_osd`` OSD (``osd_method`` default "osd0", ``osd_order`` 0) of
+    the shots BP left unconverged, on the fault matrix."""
+
+    def __init__(self, dem, bp_osd_options: Dict, device: DeviceLike = "cuda"):
+        _check_options("BPDetectorCorrect", bp_osd_options, _RELAY_KEYS + ("detector_osd",))
+        dev = resolve_device(device)
+        self._dsc = DetectorSpacetimeCode(dem)
+        opts = dict(bp_osd_options)
+        use_osd = bool(opts.pop("detector_osd", False))
+        H = self._dsc.fault_check_matrix
+        if int(opts.get("relay_legs", 0) or 0) > 0:
+            bp = _relay_decoder(H, self._dsc.fault_priors, opts, 0.625, dev)
+        else:
+            # fault matrices grow with rounds: the formulation selection routes them
+            bp = make_bp_decoder(H, channel_probs=self._dsc.fault_priors, device=dev,
+                                 **{k: v for k, v in opts.items() if k in _BP_KEYS})
+        self._bpd = (BPOSDDecoder(bp=bp, H=sparse.csr_matrix(H),
+                                  osd_method=opts.get("osd_method", "osd0"),
+                                  osd_order=opts.get("osd_order", 0))
+                     if use_osd else bp)
+        self._use_osd = use_osd
+        self._fault_map_T = self._dsc.fault_map.T.toarray()
+
+    def readout_correction_batch(self, detector_batch: np.ndarray) -> np.ndarray:
+        """detector_batch (S, D + L) with observables appended -> corrected
+        observable bits (S, L)."""
+        D = self._dsc.fault_check_matrix.shape[0]
+        syndrome = detector_batch[:, :D]
+        logicals = detector_batch[:, D:].astype(np.int64)
+        out = self._bpd.decode_batch(syndrome)
+        return (logicals + mod2_matmul(out if self._use_osd else out[0], self._fault_map_T)) % 2
+
+
+DECODER_MODES = {"bposd": BPOSDCorrect, "bposd_single_shot": BPOSDCorrectSingleShot,
+                 "bposd_hybrid": BPOSDHybridCorrect, "bpd_detector": BPDetectorCorrect,
+                 "relay_bp": RelayBPCorrect, "ssf_single_shot": SSFCorrect,
+                 "sliding_window": SlidingWindowCorrect}
+
+
+def _steps(H) -> int:
+    """Circuit depth hook argument: the larger of H's max column and row weight."""
+    return max(int(H.sum(axis=0).max()), int(H.sum(axis=1).max()))
+
+
+def run_simulation(samples: int, code, meas_prior, data_prior, noise_model, noise_model_args,
+                   bp_osd_options: Dict, rounds: int, decoder_mode: str,
+                   seed: Optional[int] = None, use_device_sampler: Optional[bool] = None,
+                   use_x_logicals: Optional[bool] = None, device: DeviceLike = "cuda"):
+    """Build the storage circuit, sample, decode every shot; returns the
+    per-shot logical-failure booleans (a list, as JAX's ``run_simulation``).
+
+    ``meas_prior`` / ``data_prior`` are callables ``(x_steps, z_steps) ->
+    float``.  ``use_device_sampler`` (default True) draws the records with
+    :class:`..sampler.device.DeviceSampler` on ``device`` from a
+    ``torch.Generator`` seeded ``seed or 0``; False draws them on the host
+    with the port's ``FrameSampler(circuit, seed=seed)``, which gives the
+    JAX package's records for the same seed.  ``use_x_logicals`` runs the
+    X-basis memory experiment (``checks.x`` / ``logicals.x`` on the X-check
+    block of the record).  An unknown ``decoder_mode`` raises
+    ``RuntimeError``.
+    """
+    dev = resolve_device(device)
+    use_x_logicals = bool(use_x_logicals)
+    basis = "x" if use_x_logicals else "z"
+    checks, logicals = code.checks, code.logicals
+    x_steps, z_steps = _steps(checks.x), _steps(checks.z)
+    storage_sim = build_storage_simulation(
+        rounds, noise_model(**noise_model_args), code, use_x_logicals=use_x_logicals)
+    priors = (data_prior(x_steps, z_steps), meas_prior(x_steps, z_steps))
+
+    detectors = decoder_mode == "bpd_detector"
+    if decoder_mode not in DECODER_MODES:
+        raise RuntimeError("Unknown decoder operation mode")
+    if detectors:
+        decoder = BPDetectorCorrect(detector_error_model(storage_sim.circuit), bp_osd_options,
+                                    device=dev)
+    else:
+        decoder = DECODER_MODES[decoder_mode](code, rounds, bp_osd_options, priors, basis=basis,
+                                              device=dev)
+
+    # ---- sample ----
+    if use_device_sampler is None or use_device_sampler:
+        from ..sampler.device import DeviceSampler
+
+        sampler = DeviceSampler(storage_sim.circuit, shots=samples, device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed if seed is not None else 0)
+        batch = (sampler.sample_detectors(gen, append_observables=True) if detectors
+                 else sampler.sample(gen)).cpu().numpy()
+    else:
+        from ..sampler.reference import FrameSampler
+
+        fs = FrameSampler(storage_sim.circuit, seed=seed)
+        batch = (fs.sample_detectors(samples, append_observables=True) if detectors
+                 else fs.sample(samples))
+
+    # ---- decode (batched) ----
+    if detectors:
+        corrected = decoder.readout_correction_batch(batch)
+        return list(np.any(corrected != 0, axis=1))
+
+    x_count, z_count = checks.x.shape[0], checks.z.shape[0]
+    mpr = x_count + z_count
+    S = batch.shape[0]
+    # record layout per round: [x_checks..., z_checks...]; decode the block
+    # of the memory basis (an X-basis readout is measured by the X checks)
+    blk_off = 0 if use_x_logicals else x_count
+    blk_len = x_count if use_x_logicals else z_count
+    if rounds > 0:
+        history = np.stack(
+            [batch[:, r * mpr + blk_off: r * mpr + blk_off + blk_len] for r in range(rounds)],
+            axis=1).astype(np.int64)
+    else:
+        history = np.zeros((S, 0, blk_len), dtype=np.int64)
+    readout = batch[:, mpr * rounds: mpr * rounds + code.num_qubits].astype(np.int64)
+
+    correction = decoder.readout_correction_batch(history, readout)
+    corrected_readout = (readout + correction) % 2
+    final_logicals = logicals.x if use_x_logicals else logicals.z
+    logical_flips = mod2_matmul(corrected_readout, final_logicals.T)
+    return list(np.any(logical_flips != 0, axis=1))
 
 
 def add_bposd_args(parser):

@@ -52,8 +52,8 @@ def bench(name, H, *, kind, shots, iters, p, device="cuda") -> dict:
         def decode(synd):
             return int8_bp_core(tables, prior_q, synd, iters, alpha_num, False)
 
-    per, conv_frac, first_s = measure(decode, syndrome_source(H, p, shots, dev), REPS_LO,
-                                      REPS_HI, dev)
+    per, time_kind, conv_frac, first_s = measure(decode, syndrome_source(H, p, shots, dev),
+                                                 REPS_LO, REPS_HI, dev)
     return {
         "code": name,
         "kind": kind,
@@ -62,6 +62,7 @@ def bench(name, H, *, kind, shots, iters, p, device="cuda") -> dict:
         "iters": iters,
         "p": p,
         "bp_iter_shots_per_s": iters * shots / per,
+        "time_kind": time_kind,
         "bp_converged_frac": conv_frac,
         "compile_s": first_s,
         "device": device_name(dev),

@@ -74,9 +74,9 @@ def syndrome_source(H, p: float, shots: int, dev: torch.device):
 
 
 def measure(decode, draw, reps_lo: int, reps_hi: int, dev: torch.device):
-    """(seconds per decode by :func:`.bench_bsr_shard.slope_time`, the
-    converged share of the first ``reps_lo`` batches, the first decode's
-    wall time)."""
+    """(seconds per decode by :func:`.bench_bsr_shard.slope_time`, its
+    kind, the converged share of the first ``reps_lo`` batches, the first
+    decode's wall time)."""
     _sync(dev)
     t0 = time.perf_counter()
     conv = decode(draw())[2]
@@ -84,8 +84,8 @@ def measure(decode, draw, reps_lo: int, reps_hi: int, dev: torch.device):
     first_s = time.perf_counter() - t0
     for _ in range(reps_lo - 1):
         conv = torch.cat([conv, decode(draw())[2]])
-    per = slope_time(decode, draw, reps_lo, reps_hi, dev)
-    return per, float(conv.float().mean()), first_s
+    per, kind = slope_time(decode, draw, reps_lo, reps_hi, dev)
+    return per, kind, float(conv.float().mean()), first_s
 
 
 def bench_code(name, H, *, shots, iters, p, reps_lo, reps_hi, qc_dims=None, qc_perms=None,
@@ -128,7 +128,7 @@ def bench_code(name, H, *, shots, iters, p, reps_lo, reps_hi, qc_dims=None, qc_p
         def decode(synd):
             return bp_core(tables, prior, synd, "ms", iters, ALPHA, False)
 
-    per, conv_frac, first_s = measure(decode, syndrome_source(H, p, shots, dev), reps_lo,
+    per, kind, conv_frac, first_s = measure(decode, syndrome_source(H, p, shots, dev), reps_lo,
                                       reps_hi, dev)
     return {
         "code": name,
@@ -139,6 +139,7 @@ def bench_code(name, H, *, shots, iters, p, reps_lo, reps_hi, qc_dims=None, qc_p
         "shots": shots,
         "p": p,
         "bp_iter_shots_per_s": iters * shots / per,
+        "time_kind": kind,
         "bp_converged_frac": conv_frac,
         "compile_s": first_s,
         "shot_block": shot_block if (bsr or bsr_int8) else None,

@@ -1,17 +1,23 @@
-"""Physical-error-rate sweep driver of the port (pipeline path).
+"""Physical-error-rate sweep driver of the port.
 
 Counterpart of ``exp_ldpc_tpu/experiments/p_sweep.py``: the same CLI
 surface, the same JSONL checkpoint, and a CSV with the same columns in the
 same order as the JAX ``DataFrame.to_csv`` (written with :mod:`csv`; the
-port does not depend on pandas).  Each sweep point runs through
-:class:`..parallel.pipeline.StorageDecodePipeline`; batch j of point i draws
-on rank k from a ``torch.Generator`` seeded by :func:`batch_seed` from (seed,
-i, j, k).  With ``mesh_devices`` N > 1 the sweep runs in N processes, one
-per device, joined by :func:`..parallel.mesh.init_distributed`: each rank
-calls :func:`p_sweep`, the counts are summed over the data axis, and rank 0
-alone writes the checkpoint and the CSV.  The CLI starts the N processes
-itself (``--mesh_devices N``).  The host ``run_simulation`` path (no
-``pipeline``) is not ported yet (ROADMAP.md, Queue 1).
+port does not depend on pandas).
+
+Without ``pipeline`` (the CLI without ``--pipeline``) point i runs
+:func:`..decoders.drivers.run_simulation` with seed ``seed + i``, in any of
+the seven decoder modes, sampling on the device or, with
+``use_device_sampler=False`` (``--cpu_sampler``), with the host
+``FrameSampler``.  With ``pipeline`` each point runs through
+:class:`..parallel.pipeline.StorageDecodePipeline` (the three BP+OSD modes,
+sampled on the device); batch j of point i draws on rank k from a
+``torch.Generator`` seeded by :func:`batch_seed` from (seed, i, j, k).  With
+``mesh_devices`` N > 1 the sweep runs in N processes, one per device,
+joined by :func:`..parallel.mesh.init_distributed`: each rank calls
+:func:`p_sweep`, the counts are summed over the data axis, and rank 0 alone
+writes the checkpoint and the CSV.  The CLI starts the N processes itself
+(``--mesh_devices N``).
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..decoders.drivers import add_bposd_args, load_code, unpack_bposd_args
+from ..decoders.drivers import add_bposd_args, load_code, run_simulation, unpack_bposd_args
 from ..parallel.mesh import DATA_AXIS, Mesh, free_port, init_distributed, make_mesh
 from ..utils.device import DeviceLike, resolve_device
 
@@ -126,32 +132,39 @@ def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_p
     """Sweep physical error rates; returns the list of point records (the
     rows of the JAX package's DataFrame, in order).
 
-    ``pipeline`` (dict of ``mesh_devices``/``shots_per_device``) is
-    required: the ``bposd``, ``bposd_single_shot`` and ``bposd_hybrid``
-    modes (``decoder_mode``) run through the device pipeline.  With
+    Without ``pipeline`` each point is one :func:`run_simulation` call
+    (``decoder_mode`` any of its seven modes) with seed ``seed + i`` and the
+    given ``use_device_sampler``.  ``pipeline`` (dict of
+    ``mesh_devices``/``shots_per_device``) runs the ``bposd``,
+    ``bposd_single_shot`` and ``bposd_hybrid`` modes through the device
+    pipeline, which samples on the device: with ``use_device_sampler=False``
+    it raises (the host sampler runs on the host path only).  With
     ``mesh_devices`` N > 1, every rank of a joined world of N processes
     calls this function with the same arguments (``device`` "cuda" gives
     rank r the card r); all ranks return the same records.  With
     ``checkpoint`` set, completed points are appended to a JSONL file (by
-    rank 0) and a restarted sweep skips them.  The pipeline always samples
-    on the device, so ``use_device_sampler=False`` raises.
+    rank 0) and a restarted sweep skips them.
     """
-    if use_device_sampler is False:
-        raise NotImplementedError(
-            "host-sampled sweep (use_device_sampler=False, --cpu_sampler): run_simulation is "
-            "not ported yet (ROADMAP.md, Queue 1)")
-    if pipeline is None:
-        raise NotImplementedError(
-            "p_sweep without pipeline (host run_simulation): run_simulation is not ported "
-            "yet (ROADMAP.md, Queue 1)")
-    mode = kwargs.get("decoder_mode", "bposd")
-    if mode not in ("bposd", "bposd_single_shot", "bposd_hybrid"):
-        raise ValueError(
-            "the fused pipeline implements the bposd/bposd_single_shot/"
-            "bposd_hybrid modes; drop --pipeline for other decoder modes")
-    n_dev = int(pipeline.get("mesh_devices", 1))
-    mesh = make_mesh(n_dev, device=device) if n_dev > 1 else None
-    writer = mesh is None or mesh.rank == 0
+    sweeper, writer = None, True
+    if pipeline is not None:
+        if use_device_sampler is False:
+            raise ValueError("the pipeline samples on the device: drop --pipeline to sample "
+                             "with the host oracle (--cpu_sampler, use_device_sampler=False)")
+        mode = kwargs.get("decoder_mode", "bposd")
+        if mode not in ("bposd", "bposd_single_shot", "bposd_hybrid"):
+            raise ValueError(
+                "the fused pipeline implements the bposd/bposd_single_shot/"
+                "bposd_hybrid modes; drop --pipeline for other decoder modes")
+        n_dev = int(pipeline.get("mesh_devices", 1))
+        mesh = make_mesh(n_dev, device=device) if n_dev > 1 else None
+        writer = mesh is None or mesh.rank == 0
+        sweeper = _PipelineSweeper(
+            code=kwargs["code"], rounds=kwargs.get("rounds", 1), noise_model=noise_model,
+            noise_model_args=noise_model_args, meas_prior=meas_prior, data_prior=data_prior,
+            bp_osd_options=kwargs["bp_osd_options"],
+            shots_per_device=int(pipeline.get("shots_per_device", 4096)),
+            device=resolve_device(device),
+            use_x_logicals=bool(kwargs.get("use_x_logicals", False)), mode=mode, mesh=mesh)
     data: List[dict] = []
     done_p = set()
     if checkpoint is not None:
@@ -161,25 +174,28 @@ def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_p
         if data:
             _log.info("resuming sweep: %d completed points in %s", len(data), checkpoint)
 
-    sweeper = _PipelineSweeper(
-        code=kwargs["code"], rounds=kwargs.get("rounds", 1), noise_model=noise_model,
-        noise_model_args=noise_model_args, meas_prior=meas_prior, data_prior=data_prior,
-        bp_osd_options=kwargs["bp_osd_options"],
-        shots_per_device=int(pipeline.get("shots_per_device", 4096)),
-        device=resolve_device(device),
-        use_x_logicals=bool(kwargs.get("use_x_logicals", False)), mode=mode, mesh=mesh)
-
     for i, p_ph in enumerate(p_values):
         if round(float(p_ph), 12) in done_p:
             continue
         time_start = datetime.now()
-        failures, total, osd = sweeper.run_point(p_ph, samples, seed, i)
+        if sweeper is not None:
+            failures, total, osd = sweeper.run_point(p_ph, samples, seed, i)
+        else:
+            logical_values = run_simulation(
+                samples, noise_model=noise_model, noise_model_args=noise_model_args(p_ph),
+                meas_prior=lambda xs, zs, p=p_ph: meas_prior(p, xs, zs),
+                data_prior=lambda xs, zs, p=p_ph: data_prior(p, xs, zs),
+                seed=(seed + i if seed is not None else None),
+                use_device_sampler=use_device_sampler, device=device, **kwargs)
+            failures, total = int(sum(logical_values)), len(logical_values)
         runtime = (datetime.now() - time_start).total_seconds()
         point = {"p_ph": p_ph, "failures": failures, "samples": total, "walltime": runtime,
                  **kwargs, **(kwargs["bp_osd_options"])}
         del point["code"]
         del point["bp_osd_options"]
-        if writer:
+        if sweeper is None:
+            _log.info("p=%g: %d/%d failures in %.1fs", p_ph, failures, total, runtime)
+        elif writer:
             _log.info("p=%g: %d/%d failures (%d OSD-decoded) in %.1fs", p_ph, failures, total,
                       osd, runtime)
         data.append(point)
@@ -252,15 +268,15 @@ def p_sweep_main(noise_model_args, noise_model, meas_prior, data_prior, argv=Non
         "--decoder_mode",
         choices=["bposd", "bposd_single_shot", "bposd_hybrid", "bpd_detector",
                  "relay_bp", "sliding_window", "ssf_single_shot"],
-        help="decode mode (the port implements bposd, bposd_single_shot and bposd_hybrid "
-        "through --pipeline)", default="bposd")
+        help="Operate decoder in BP+OSD, BP+OSD (single shot), hybrid BP + (BP+OSD), "
+        "detector-model BP, the OSD-free relay-BP ensemble, streaming sliding-window "
+        "BP+OSD, or single-shot small-set-flip", default="bposd")
     parser.add_argument("--linspace", type=bool,
                         help="linearly spaced sweep points (default: geometric spacing)",
                         default=False)
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--cpu_sampler", action="store_true",
-                        help="Use the CPU oracle sampler instead of the device sampler "
-                        "(not ported yet: raises)")
+                        help="Use the CPU oracle sampler instead of the device sampler")
     parser.add_argument("--x_basis", action="store_true",
                         help="Run the X-basis memory experiment instead of the Z basis")
     parser.add_argument("--checkpoint", type=Path, default=None,
@@ -268,7 +284,7 @@ def p_sweep_main(noise_model_args, noise_model, meas_prior, data_prior, argv=Non
                         "with the same file resumes after the last completed point")
     parser.add_argument("--pipeline", action="store_true",
                         help="Run each sweep point through the on-device sample+decode "
-                        "pipeline (required by the port)")
+                        "pipeline (bposd, bposd_single_shot and bposd_hybrid modes)")
     parser.add_argument("--mesh_devices", type=int, default=1,
                         help="Shard pipeline shots over this many devices")
     parser.add_argument("--shots_per_device", type=int, default=4096,

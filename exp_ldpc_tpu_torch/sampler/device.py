@@ -172,10 +172,7 @@ class DeviceSampler:
         self.device = resolve_device(device)
         self._sample = build_record_sampler(c, self.shots, self.device)
         self._noise_args = noise_args(c, self.device)
-        self._det = torch.as_tensor(c.detector_matrix().toarray().T.astype(np.float32)).to(
-            self.device)
-        self._obs = torch.as_tensor(c.observable_matrix().toarray().T.astype(np.float32)).to(
-            self.device)
+        self._det = self._obs = None   # dense (records x detectors), made at first use
 
     def sample(self, generator: torch.Generator) -> torch.Tensor:
         """uint8 (shots, num_measurements) measurement record."""
@@ -183,6 +180,11 @@ class DeviceSampler:
 
     def sample_detectors(self, generator: torch.Generator,
                          append_observables: bool = False) -> torch.Tensor:
+        if self._det is None:
+            c = self.circuit
+            self._det, self._obs = (
+                torch.as_tensor(m.toarray().T.astype(np.float32)).to(self.device)
+                for m in (c.detector_matrix(), c.observable_matrix()))
         record = self.sample(generator).to(torch.float32)
         det = torch.remainder(record @ self._det, 2.0).to(torch.uint8)
         if append_observables:

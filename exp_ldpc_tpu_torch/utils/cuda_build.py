@@ -20,8 +20,9 @@ from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 __all__ = ["CudaKernel", "RowShotPlan", "row_shot_plan", "BSRPlan", "bsr_widths", "bsr_plan",
-           "BSR_SHOT_ALIGN", "COOP_BLOCKS_PER_SM", "aligned", "ResidentPlan",
-           "resident_plan", "streamed_plan", "resident_max_threads", "device_limits"]
+           "BSR_SHOT_ALIGN", "BSR_MAX_SLOTS", "BSR_ROUTES", "COOP_BLOCKS_PER_SM", "aligned",
+           "ResidentPlan", "resident_plan", "streamed_plan", "resident_max_threads",
+           "device_limits"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "exp_ldpc_tpu_torch"
@@ -65,6 +66,7 @@ def row_shot_plan(rows: int, shots: int, vecs: Sequence[int], sm_count: int) -> 
 
 
 BSR_SHOT_ALIGN = 16   # K1/K5 pad a decode's shot axis to this multiple
+BSR_MAX_SLOTS = 32    # csrc/bsr_phases.cuh: the widest check of K1's and K5's register instances
 
 
 class BSRPlan(NamedTuple):
@@ -77,7 +79,9 @@ class BSRPlan(NamedTuple):
     phases of an iteration walk checks, variables and checks again.
     ``route`` "grids": one grid per phase; "coop" (K1 only): the whole
     decode in one cooperative launch of the largest of the three grids,
-    the phases separated by grid-wide barriers."""
+    the phases separated by grid-wide barriers; "wide": one grid per phase,
+    the check phase in two passes over the slots, for checks of more than
+    ``BSR_MAX_SLOTS`` slots (the register instances stop there)."""
 
     shots: int
     live: int
@@ -93,20 +97,26 @@ def bsr_widths(check_degree: int, var_degree: int, int8: bool = False):
     """The lane widths each phase of K1 (bf16) or K5 (int8) is compiled for,
     widest first (``csrc/bsr_bp.cu``, ``csrc/bsr_bp_int8.cu``: the kernels'
     instances).  Phase A keeps a check's messages of every owned shot in
-    registers: K1 4 shots a lane up to 16 slots and 2 above, as K3; K5 the
-    packed bytes, 16 shots up to 8 slots, 8 up to 24, 4 above.  Phase B
-    holds up to 8 (or 24) edges: K1 8 shots a lane up to 8 edges and 4
-    above, K5 16 and 8.  Phase C moves bytes: up to 16."""
+    registers up to ``BSR_MAX_SLOTS`` slots: K1 4 shots a lane up to 16
+    slots and 2 above, as K3; K5 the packed bytes, 16 shots up to 8 slots,
+    8 up to 24, 4 above.  Wider checks take route "wide", which holds a
+    few running values per shot whatever the degree: 16-byte accesses (K1
+    8 shots a lane, K5 16).  Phase B holds up to 8 (or 24) edges: K1 8
+    shots a lane up to 8 edges and 4 above, K5 16 and 8.  Phase C moves
+    bytes: up to 16."""
+    wide = check_degree > BSR_MAX_SLOTS
     if int8:
-        va = (16, 8, 4) if check_degree <= 8 else (8, 4) if check_degree <= 24 else (4,)
+        va = ((16, 8, 4) if check_degree <= 8 or wide else (8, 4) if check_degree <= 24
+              else (4,))
         vb = (8, 4) if 8 < var_degree <= 24 else (16, 8, 4)
         return va, vb, (16, 8, 4)
-    va = (4, 2) if check_degree <= 16 else (2,)
+    va = (8, 4, 2) if wide else (4, 2) if check_degree <= 16 else (2,)
     vb = (8, 4, 2) if var_degree <= 8 else (4, 2)
     return va, vb, (16, 8, 4, 2)
 
 
 COOP_BLOCKS_PER_SM = 2   # csrc/bsr_bp.cu: __launch_bounds__(ROW_THREADS, 2) of the coop kernel
+BSR_ROUTES = {"grids": 0, "coop": 1, "wide": 2}   # csrc/bsr_phases.cuh: BSR_GRIDS, ...
 
 
 def bsr_plan(checks: int, variables: int, check_degree: int, var_degree: int, shots: int,
@@ -120,7 +130,8 @@ def bsr_plan(checks: int, variables: int, check_degree: int, var_degree: int, sh
     cooperative route: min-sum) the route is "coop" where the kernel has the
     instance (checks of 7 or 8 slots, variables of up to 8 edges, lane
     widths 4 / 8 / 16) and every phase's grid fits ``COOP_BLOCKS_PER_SM``
-    blocks per SM at once, so all of them are resident together."""
+    blocks per SM at once, so all of them are resident together.  Checks of
+    more than ``BSR_MAX_SLOTS`` slots take route "wide"."""
     if shots < 1 or shot_block < 1:
         raise ValueError(f"shots ({shots}) and shot_block ({shot_block}) must be positive")
     padded = -(-shots // BSR_SHOT_ALIGN) * BSR_SHOT_ALIGN
@@ -132,7 +143,9 @@ def bsr_plan(checks: int, variables: int, check_degree: int, var_degree: int, sh
                    row_shot_plan(checks, padded, vc, sm_count))
     fits = max(plan.checks.blocks, plan.variables.blocks,
                plan.parity.blocks) <= COOP_BLOCKS_PER_SM * sm_count
-    if (coop and not int8 and check_degree in (7, 8) and var_degree <= 8 and fits
+    if check_degree > BSR_MAX_SLOTS:
+        plan = plan._replace(route="wide")
+    elif (coop and not int8 and check_degree in (7, 8) and var_degree <= 8 and fits
             and (plan.checks.vec, plan.variables.vec, plan.parity.vec) == (4, 8, 16)):
         plan = plan._replace(route="coop")
     return plan

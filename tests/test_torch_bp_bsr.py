@@ -182,3 +182,62 @@ def test_k1_refusals(code300):
         BSRBPDecoder.from_check_matrix(code300, error_rate=0.01, loop_mode="dynamic",
                                        device="cpu")
     assert bp_bsr.KERNEL.launches == 0  # the CPU never touches the kernel
+
+
+def _wide_code(rng, r=10, n=180):
+    """A detector-model-like matrix: every column of weight 2, so each of
+    the r checks has about 2n/r = 36 slots (here 30 to 46): past the 32
+    slots of K1's register instances (route "wide" on the card)."""
+    H = np.zeros((r, n), np.uint8)
+    for j in range(n):
+        H[rng.choice(r, size=2, replace=False), j] = 1
+    return H
+
+
+@pytest.mark.parametrize("method,msf", [("ms", 0.625), ("ps", 0.0)])
+def test_plain_k1_wide_checks_match_jax(method, msf):
+    """Check degree 46, early exit per shot block of 32 (the first block
+    all-zero: it stops after one iteration): the plain version of K1 against
+    the JAX kernel in interpret mode.  Min-sum: every output bit-identical.
+    Sum-product: XLA's CPU tanh/log are not PyTorch's (ROADMAP.md,
+    "Differences by design"); they differ where phi's argument sits near
+    its upper clamp, which gives c2v messages of a few 1e-7 (a bf16 step of
+    one can move a posterior by one f32 step only if it is below ~1e-4).
+    So after one iteration the posteriors are bit-identical; after three
+    they are within atol 1e-6, rtol 0 (here 4 of 11,520 differ, by one f32
+    step of posteriors near 6: a wrong phi total would move them by
+    tenths); after six, once such a step has flipped a bf16 rounding of a
+    posterior and spread, hard, conv and iters are equal and the posteriors
+    within rtol 2e-2 (steps of up to 0.5 on posteriors of ~29)."""
+    rng = np.random.default_rng(3)
+    H = _wide_code(rng)
+    assert H.sum(axis=1).max() == 46
+    err = (rng.random((64, H.shape[1])) < 0.004).astype(np.int64)
+    synd = ((err @ H.T) % 2).astype(np.uint8).T.copy()
+    synd[:, :32] = 0
+    prior = priors_to_llr(np.full(H.shape[1], 0.004))
+    tanner = TannerELL.from_check_matrix(H)
+    layout = BSRLayout.from_tanner(tanner, "cpu")
+
+    def both(iters):
+        want = [np.asarray(x) for x in bsr_bp_decode(
+            BSRSchedule.from_tanner(tanner), jnp.asarray(prior), jnp.asarray(synd), method,
+            iters, msf, True, SHOT_BLOCK, True)]
+        got = [x.numpy() for x in port_decode(layout, torch.as_tensor(prior),
+                                              torch.as_tensor(synd), method, iters, msf, True,
+                                              SHOT_BLOCK)]
+        return got, want
+
+    if method == "ps":
+        got, want = both(1)
+        np.testing.assert_array_equal(got[1], want[1])
+        got, want = both(3)
+        np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-6)
+    got, want = both(6)
+    for i in (0, 2, 3):
+        np.testing.assert_array_equal(got[i], want[i])
+    assert list(got[3][::SHOT_BLOCK]) == [1, 6] and 0 < got[2].mean() < 1
+    if method == "ms":
+        np.testing.assert_array_equal(got[1], want[1])
+    else:
+        np.testing.assert_allclose(got[1], want[1], rtol=2e-2)

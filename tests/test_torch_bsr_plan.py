@@ -18,8 +18,8 @@ import pytest
 import torch
 
 from exp_ldpc_tpu_torch.decoders.bp_bsr import _block_iters, _blocks
-from exp_ldpc_tpu_torch.utils.cuda_build import (BSR_SHOT_ALIGN, ROW_THREADS, bsr_plan,
-                                                 bsr_widths)
+from exp_ldpc_tpu_torch.utils.cuda_build import (BSR_MAX_SLOTS, BSR_SHOT_ALIGN, ROW_THREADS,
+                                                 bsr_plan, bsr_widths)
 
 torch.set_num_threads(1)
 SMS = 132                       # an H100's SM count
@@ -124,39 +124,66 @@ def test_cooperative_route():
 
 
 def _instances(source: str):
-    """The (check width, lane width) pairs of phase A, the (register edges,
-    lane width) pairs of phase B and the lane widths of phase C that a
-    kernel file dispatches to."""
+    """The (check width, lane width) pairs of phase A, the lane widths of its
+    route "wide" (``WIDE(vec)``), the (register edges, lane width) pairs of
+    phase B and the lane widths of phase C that a kernel file dispatches to."""
     text = (CSRC / source).read_text()
     checks = text[text.index("static bool checks("):text.index("static bool vars(")]
     vars_ = text[text.index("static bool vars("):text.index("static bool parity(")]
     parity = text[text.index("static bool parity("):]
     a = [(int(m), e == "true", int(v))
          for m, e, v in re.findall(r"CASE\((\d+), (true|false), (\d+)\)", checks)]
+    wide = [int(v) for v in re.findall(r"WIDE\((\d+)\)", checks)]
     b = [(int(d), int(v)) for d, v in re.findall(r"CASE\((\d+), (\d+)\)", vars_)]
     c = [int(v) for v in re.findall(r"case (\d+):", parity)]
-    return a, b, c
+    return a, wide, b, c
 
 
 @pytest.mark.parametrize("int8,source", [(False, "bsr_bp.cu"), (True, "bsr_bp_int8.cu")])
 def test_every_planned_width_is_compiled(int8, source):
-    """For every check degree up to 32, variable degree up to 30 and a
+    """For every check degree up to 64, variable degree up to 30 and a
     spread of shot blocks, the kernel file has an instance for each width
-    the plan picks (the C entry refuses the rest)."""
-    inst_a, inst_b, inst_c = _instances(source)
-    for dc in range(1, 33):
+    the plan picks (the C entry refuses the rest): a register instance up to
+    ``BSR_MAX_SLOTS`` slots, route "wide" above."""
+    inst_a, inst_wide, inst_b, inst_c = _instances(source)
+    assert sorted(inst_wide) == ([1, 4, 8, 16] if int8 else [1, 2, 4, 8])
+    for dc in range(1, 65):
         for dv in (1, 4, 8, 9, 18, 24, 25, 30):
             for sb in (1, 2, 4, 8, 16, 96, 98, 100, 128, 256):
                 plan = bsr_plan(10, 20, dc, dv, 256, sb, SMS, int8)
                 va, vb, vc = plan.checks.vec, plan.variables.vec, plan.parity.vec
-                width = next(m for m, exact, v in inst_a
-                             if (dc == m if exact else dc <= m) and v == va)
-                assert width >= dc
+                assert (plan.route == "wide") == (dc > BSR_MAX_SLOTS)
+                if plan.route == "wide":
+                    assert va in inst_wide
+                else:
+                    width = next(m for m, exact, v in inst_a
+                                 if (dc == m if exact else dc <= m) and v == va)
+                    assert width >= dc
                 dvr = 8 if dv <= 8 else 24 if dv <= 24 else 0
                 assert (dvr, vb) in inst_b, (dc, dv, sb)
                 assert vc in inst_c
-    for vecs in bsr_widths(7, 4, int8) + bsr_widths(24, 18, int8) + bsr_widths(32, 30, int8):
+    for vecs in (bsr_widths(7, 4, int8) + bsr_widths(24, 18, int8) + bsr_widths(32, 30, int8)
+                 + bsr_widths(53, 12, int8)):
         assert all(ROW_THREADS % v == 0 and 16 % v == 0 for v in vecs)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_wide_route(int8):
+    """Checks of more than 32 slots take route "wide" (K1 and K5; before
+    the launch, from the degree alone, whatever ``coop`` asks): at the
+    1-round circuit-noise detector model of HGP-225 (216 checks, 1,518
+    faults, check degree 53), 97 and 4,096 shots, 16-byte lanes on the
+    check phase (K1 8 bf16 shots, K5 16 int8), and the phases' items cover
+    rows x shots once.  Degree 32 keeps the register instances."""
+    vec = 16 if int8 else 8
+    for S, sb in ((97, 128), (4096, 256)):
+        plan = bsr_plan(216, 1518, 53, 12, S, sb, SMS, int8, coop=True)
+        assert plan.route == "wide" and plan.checks.vec == vec
+        assert plan.checks.items == 216 * plan.shots // vec
+    assert bsr_plan(216, 1518, 53, 12, 4096, 98, SMS, int8).checks.vec in (1, 2)
+    assert bsr_plan(216, 1518, 32, 12, 4096, 256, SMS, int8, coop=True).route == "grids"
+    assert bsr_plan(108, 333, 8, 4, 685, 256, SMS, int8, coop=True).route == (
+        "grids" if int8 else "coop")
 
 
 def test_block_iters_per_shot_block():

@@ -13,7 +13,8 @@ shots on the device; K1's min-sum at a few hundred shots in one cooperative
 launch, checked against its one-grid-per-phase route); the decode pads its shots to a multiple of 16, so
 S = 1, 77, 300 and 685 are ragged, and a batch whose first shot block has
 all-zero syndromes exits there after one iteration while the others run
-on; the cyclic lifted product holds the 24-slot checks.  K2 and K6 run each decode on one of two routes, picked from the shape: a
+on; the cyclic lifted product holds the 24-slot checks, and HGP-225's
+1-round circuit-noise detector model the 53-slot checks of route "wide".  K2 and K6 run each decode on one of two routes, picked from the shape: a
 block's shots resident in shared memory (S = 1 and 77 spread one shot per
 block), or streamed through device memory (the shapes whose state does not
 fit; forced here at HGP-225 too).  K3 and K4 split rows x shot vectors over
@@ -420,6 +421,64 @@ def test_k1_cyclic_code(cyclic, method, msf, early_stop):
     kern = bsr_bp_decode(layout, prior, synd, method, 12, msf, early_stop, 128)
     plain = bsr_bp_plain(layout, prior, synd, method, 12, msf, early_stop, 128)
     torch.cuda.synchronize()
+    _assert_equal(kern, plain, 128, early_stop)
+
+
+@pytest.fixture(scope="module")
+def dem_wide():
+    """The fault matrix of HGP-225's 1-round circuit-noise detector error
+    model (216 checks, 1,518 faults, check degree 53: route "wide") and 300
+    syndromes whose first 128 shots are all zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from exp_ldpc_tpu_torch.circuits.noise import circuit_noise
+    from exp_ldpc_tpu_torch.circuits.storage_sim import build_storage_simulation
+    from exp_ldpc_tpu_torch.decoders.dem import detector_error_model
+    from exp_ldpc_tpu_torch.decoders.spacetime import DetectorSpacetimeCode
+
+    code = biregular_hgp(12, 3, 4, seed=0)
+    sim = build_storage_simulation(1, circuit_noise(1e-3, 1e-3), code)
+    dsc = DetectorSpacetimeCode(detector_error_model(sim.circuit))
+    H = dsc.fault_check_matrix.tocsr().astype(np.int64)
+    rng = np.random.default_rng(12)
+    err = (rng.random((300, H.shape[1])) < dsc.fault_priors).astype(np.int64)
+    err[:128] = 0
+    synd = torch.as_tensor(((H @ err.T) % 2).astype(np.uint8)).cuda()
+    prior = torch.as_tensor(priors_to_llr(dsc.fault_priors)).cuda()
+    layout = BSRLayout.from_tanner(TannerELL.from_check_matrix(H), "cuda")
+    assert layout.tables.max_check_degree == 53
+    return layout, prior, synd
+
+
+@pytest.mark.parametrize("S", [97, 300])
+@pytest.mark.parametrize("method,msf,early_stop", [("ms", 0.625, False), ("ms", 0.0, True),
+                                                   ("ps", 0.0, False), ("ps", 0.0, True)])
+def test_k1_wide_checks(dem_wide, method, msf, early_stop, S):
+    """Checks of 53 slots: K1's route "wide" (the two-pass check phase), one
+    call per decode, every output equal to the plain version's bit for bit."""
+    layout, prior, synd = dem_wide
+    synd = synd[:, :S].contiguous()
+    plain = bsr_bp_plain(layout, prior, synd, method, 24, msf, early_stop, 128)
+    kern = _counted(K1, "wide", lambda: bsr_bp_decode(layout, prior, synd, method, 24, msf,
+                                                      early_stop, 128))
+    _assert_equal(kern, plain, 128, early_stop)
+    if early_stop and S == 300:
+        assert int(kern[3][0]) == 1
+
+
+@pytest.mark.parametrize("S", [97, 300])
+@pytest.mark.parametrize("early_stop", [False, True])
+def test_k5_wide_checks(dem_wide, early_stop, S):
+    """K5 at checks of 53 slots (route "wide"): every output equal."""
+    from exp_ldpc_tpu_torch.decoders.bp_bsr import (KERNEL_INT8 as K5, bsr_bp_decode_int8,
+                                                    bsr_bp_int8_plain)
+
+    layout, prior, synd = dem_wide
+    synd = synd[:, :S].contiguous()
+    prior_q = _k5_prior(prior)
+    plain = bsr_bp_int8_plain(layout, prior_q, synd, 24, 160, early_stop, 128)
+    kern = _counted(K5, "wide", lambda: bsr_bp_decode_int8(layout, prior_q, synd, 24, 160,
+                                                           early_stop, 128))
     _assert_equal(kern, plain, 128, early_stop)
 
 

@@ -13,6 +13,11 @@ difference:
     the checkout's ``build/exp_ldpc_tpu_torch/`` (``EXP_LDPC_TPU_TORCH_CACHE``
     overrides), not under the home directory.
 
+Functions of JAX-importing modules whose own code needs no JAX are copied
+into the port's counterparts and held to their originals the same way,
+function by function: ``flip.py``'s numpy oracles and subset tables,
+``sliding_window.window_check_matrix`` (:data:`COPIED_FUNCTIONS`).
+
 And the two packages give equal results where the port's path uses these
 modules: HGP-225's check matrices and logicals, its storage circuit text,
 the ``TannerELL`` tables, a spacetime check matrix, an OSD decode (C++ and
@@ -60,6 +65,33 @@ def test_copy_equals_original(name):
     assert differ == ALLOWED.get(name, set()), sorted(differ)
     assert not re.search(r"^\s*(import|from)\s+(jax|exp_ldpc_tpu\b(?!_torch))",
                          "\n".join(got), re.M)
+
+
+# module -> functions the port's counterpart carries as copies of the originals
+COPIED_FUNCTIONS = {
+    "decoders/flip.py": ["_dense01", "flip_decode_numpy", "_ssf_tables", "ssf_decode_numpy"],
+    "decoders/sliding_window.py": ["window_check_matrix"],
+}
+
+
+def _functions(path: Path) -> dict:
+    """Top-level function name -> its source text, from a file (not imported)."""
+    import ast
+
+    text = path.read_text()
+    return {node.name: ast.get_source_segment(text, node)
+            for node in ast.parse(text).body if isinstance(node, ast.FunctionDef)}
+
+
+@pytest.mark.parametrize("name", sorted(COPIED_FUNCTIONS))
+def test_copied_functions_equal_originals(name):
+    """The numpy oracles the port's tests hold its decoders to are the port's
+    own copies (defined in its module, not imported from the JAX package),
+    equal to the originals line for line."""
+    want, got = _functions(ORIG / name), _functions(COPY / name)
+    for fn in COPIED_FUNCTIONS[name]:
+        assert got[fn] == _normalised(want[fn]), fn
+    assert "exp_ldpc_tpu." not in (COPY / name).read_text()
 
 
 @pytest.fixture(scope="module")

@@ -4,7 +4,8 @@ A subprocess in which ``import jax`` fails imports every module of
 ``exp_ldpc_tpu_torch`` and runs a 64-shot HGP-225 sweep point on the CPU,
 through the library and through the CLI, a step of each of the
 single-shot and hybrid modes with the flat decoders, the check-partition
-decoders, the sharding experiments and ``dcn_dryrun --help``; afterwards no
+decoders, the four host-path modes of ``run_simulation`` and the sweep CLI
+without ``--pipeline``, the sharding experiments and ``dcn_dryrun --help``; afterwards no
 loaded module's file lies in the JAX package's directory.  A copy of the
 port alone (no ``exp_ldpc_tpu/`` beside it) runs a sweep point; a static
 scan finds no JAX import and no loader trick in the package or in
@@ -115,6 +116,33 @@ for dec in (make_bp_decoder(H, error_rate=0.01, max_iter=8, device="cpu"),
 """ + _CHECK_CLEAN + "print('OK')")
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().startswith("OK")
+
+
+def test_run_simulation_modes_run_without_jax():
+    """The four modes of ``run_simulation`` that have no pipeline (detector
+    model, relay, small-set-flip, sliding window) on both samplers, and the
+    sweep CLI without ``--pipeline``, with JAX blocked."""
+    proc = _run(_BLOCK_JAX + """
+from exp_ldpc_tpu_torch.circuits.noise import depolarizing_noise
+from exp_ldpc_tpu_torch.codes.hgp import biregular_hgp
+from exp_ldpc_tpu_torch.decoders.drivers import run_simulation
+from exp_ldpc_tpu_torch.experiments.p_sweep import cli_main
+code = biregular_hgp(6, 2, 3, seed=1, compute_logicals=True)
+opts = dict(max_iter=12, bp_method="ms", ms_scaling_factor=0.625, osd_method="osd0",
+            osd_order=0)
+for mode in ("bpd_detector", "relay_bp", "ssf_single_shot", "sliding_window"):
+    for dev_sampler in (False, True):
+        fails = run_simulation(32, code, lambda xs, zs: 0.003, lambda xs, zs: 0.003,
+                               depolarizing_noise, {"p": 0.005, "pm": 0.005}, dict(opts), 3,
+                               mode, seed=1, use_device_sampler=dev_sampler, device="cpu")
+        assert len(fails) == 32, mode
+cli_main(["artifacts/hgp225.qecc", "--samples", "16", "--p_sweep", "(0.004,0.004,1)",
+          "--rounds", "1", "--decoder_mode", "ssf_single_shot", "--cpu_sampler",
+          "--device", "cpu"])
+""" + _CHECK_CLEAN + "print('OK')")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1] == "OK" and lines[1].startswith("0,0.004,") and "ssf_single_shot" in lines[1]
 
 
 def test_sharded_decoders_and_mesh_run_without_jax():

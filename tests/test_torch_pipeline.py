@@ -166,7 +166,7 @@ def test_no_silent_cpu_or_dropped_options(small_code):
             p_sweep(p_values=[0.01], **_sweep_kw(small_code))
     with pytest.raises(TypeError, match="device is required"):
         StorageDecodePipeline(**_kw(small_code, device=None))
-    with pytest.raises(NotImplementedError, match="cpu_sampler"):
+    with pytest.raises(ValueError, match="cpu_sampler"):   # the pipeline samples on the device
         p_sweep(p_values=[0.01], device="cpu", use_device_sampler=False,
                 **_sweep_kw(small_code))
     with pytest.raises(ValueError, match="unsupported options"):
@@ -212,8 +212,9 @@ def test_p_sweep_checkpoint_resume(small_code, tmp_path):
 
 
 def test_p_sweep_refusals_and_seeds(small_code):
-    with pytest.raises(NotImplementedError, match="run_simulation is not ported"):
-        p_sweep(p_values=[0.01], device="cpu", **_sweep_kw(small_code, pipeline=None))
+    # without a pipeline the point runs run_simulation (the host path)
+    recs = p_sweep(p_values=[0.01], device="cpu", **_sweep_kw(small_code, pipeline=None))
+    assert [r["samples"] for r in recs] == [64]
     with pytest.raises(ValueError, match="world of 2 processes"):   # no joined world
         p_sweep(p_values=[0.01], device="cpu", **_sweep_kw(
             small_code, pipeline={"mesh_devices": 2, "shots_per_device": 16}))

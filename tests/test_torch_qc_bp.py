@@ -152,9 +152,10 @@ def test_make_bp_decoder_qc_route_matches_jax_rule():
 
 
 LARGE_KEYS = {"code", "n", "checks", "formulation", "iters", "shots", "p", "bp_iter_shots_per_s",
-              "bp_converged_frac", "compile_s", "shot_block"}
-INT8_KEYS = {"code", "kind", "n", "shots", "iters", "p", "bp_iter_shots_per_s",
+              "time_kind", "bp_converged_frac", "compile_s", "shot_block"}
+INT8_KEYS = {"code", "kind", "n", "shots", "iters", "p", "bp_iter_shots_per_s", "time_kind",
              "bp_converged_frac", "compile_s"}
+TIME_KINDS = ("slope", "upper_bound")
 TINY = ["--device", "cpu", "--shots", "16", "--iters", "3"]
 FEW_REPS = ["--reps-lo", "1", "--reps-hi", "2"]
 
@@ -171,12 +172,39 @@ def test_bench_large_codes_tiny(only, formulations, tmp_path, capsys):
     assert printed == recs == [json.loads(ln) for ln in path.read_text().splitlines()]
     for r in recs:
         assert set(r) == LARGE_KEYS | {"device"} and r["device"] == "cpu"
-        assert r["bp_iter_shots_per_s"] > 0 and 0.5 < r["bp_converged_frac"] <= 1.0
+        assert r["bp_iter_shots_per_s"] > 0 and r["time_kind"] in TIME_KINDS
+        assert 0.5 < r["bp_converged_frac"] <= 1.0
         assert (r["shot_block"] == 128) == r["formulation"].startswith("bsr")
     # a filtered rerun refreshes its own rows and keeps the rest
     again = bench_large_codes.main(TINY + FEW_REPS + ["--only", f"{only}/bsr", "--write", str(path)])
     merged = [json.loads(ln) for ln in path.read_text().splitlines()]
     assert len(merged) == len(recs) and all(r in merged for r in again)
+
+
+def test_slope_time_never_negative():
+    """The benchmarks' time per decode is the slope between two repeat
+    counts (kind "slope"); where the host's noise makes that slope
+    non-positive (a tiny decode on a loaded CPU: here the one-decode runs
+    are made slower than the two-decode ones) it is the longer run's time
+    per decode instead, marked "upper_bound", so no row reports a negative
+    rate and none passes an upper bound off as the slope.  A steady decode
+    gives its own time as the slope."""
+    import time
+
+    from exp_ldpc_tpu_torch.experiments.bench_bsr_shard import slope_time
+
+    dev = torch.device("cpu")
+    calls = []
+
+    def noisy(_batch):   # warm-up lo, warm-up hi (2), then 3 lo runs (slow), 3 hi runs (fast)
+        calls.append(1)
+        time.sleep(0.02 if len(calls) in (4, 5, 6) else 0.001)
+
+    per, kind = slope_time(noisy, lambda: None, 1, 2, dev)
+    assert len(calls) == 1 + 2 + 3 + 3 * 2
+    assert kind == "upper_bound" and 0.001 <= per < 0.02   # the two-decode runs' time per decode
+    per, kind = slope_time(lambda _b: time.sleep(0.005), lambda: None, 1, 3, dev)
+    assert kind == "slope" and 0.0025 < per < 0.05
 
 
 def test_bench_large_codes_cases_are_the_reference_s():
@@ -199,3 +227,4 @@ def test_bench_int8_tiny(capsys):
     assert len([ln for ln in capsys.readouterr().out.splitlines() if ln[:1] == "{"]) == 4
     for r in recs:
         assert set(r) == INT8_KEYS | {"device"} and r["bp_iter_shots_per_s"] > 0
+        assert r["time_kind"] in TIME_KINDS
