@@ -149,10 +149,46 @@ Phases, in order; any failure raises and exits nonzero:
      CPU; ``sliding_window`` at p = 0.001: ``sliding_window_v5e.jsonl``),
      failures, shots/s and K1/K2/K3 launches printed per mode; then
      ``bpd_detector`` under 1-round circuit noise (4,096 shots), whose fault
-     checks of 53 slots send every K1 call down route "wide".
+     checks of 53 slots send every K1 call down route "wide";
+ 24. route "wide" (checks of more than 32 slots) against the plain
+     versions, 24 iterations, min-sum and sum-product, at the bounds of
+     phase 3: at ``biregular_hgp(32, 16, 16, seed=0)`` (2,048 qubits, 1,024
+     Z checks of degree 32) over 4 rounds, 1,024 shots, K3 (the ``bposd``
+     device step; also at 97 shots, the host redecode's ragged size), K2
+     on its streamed route (the hybrid device step: one shot's state is 655
+     KB) and K6 on (H|I) (33 slots, the single-shot device step) on the
+     resident route (one shot a block) and the streamed one, and K1 on
+     (H|I) at 97 shots (the single-shot host redecode); K2's resident route
+     "wide" at a random 60 x 300 matrix of 33-40 slot checks over 2 rounds
+     (no repo code with checks that wide fits a shot in shared memory); K4
+     at phase 22's detector model (53 slots), D = 2 and 4; each wide shape
+     timed once (K4 per iteration, ``per_iter_slope`` 2 -> 6) beside its
+     plain version and its bound; then one ``p_sweep`` point per pipeline
+     mode on the dense HGP (256 shots, p = 5e-4, OSD-0), each on its route
+     "wide" (K3, K6 resident, K2 streamed), and the detector model's
+     check-partition decode (``ShardedBSRDecoder.decode_batch``, D = 4,
+     1,024 shots) with every K4 call on route "wide";
+ 25. the two-tier decode in ``experiments/bench_two_tier.py``'s regime
+     (cyclic lifted product n = 4,862, 4 rounds, p = 2e-4, 4 batches of
+     2,048 shots, 48 iterations; tier 1 = 8, cap 512): fixed and two-tier
+     on the same seeds agree within max(3, 10%) in failures and
+     unconverged shots, and each failure count within 4 combined binomial
+     sigma of ``artifacts/two_tier_v5e.jsonl``'s 1,081 / 8,192; shots/s of
+     both and the device step of both (median of 5 batches); K3 bit for
+     bit against its plain version on the compacted 512-shot stage-2
+     decode; and the flagship ``bposd`` point at p = 3.4822e-3 with
+     ``tier1_iters=8`` (32,768 shots) on phase 6's anchor;
+ 26. the rounds axis: two gloo ranks on the card (started beside the
+     parity phases), HGP-225 over 7 rounds (4 round blocks a rank), 2,048
+     shots x 24 min-sum iterations, the halo rows staged through the host:
+     sharded and unsharded decisions differ on at most 0.1% of converged
+     shots, and every converged shot satisfies its syndrome;
+ 27. ``utils/observability.py::profiler_trace`` of one ``bposd`` device
+     step (HGP-225, 4,096 shots): the trace must name K3's kernels.
 
 Each run of the main path (phases 6, 7, the two runs of phase 11, phases
-15, 16 and 20, and each run of phase 23) is driven with every launch count
+15, 16 and 20, each run of phase 23, the four runs of phase 24's second
+part and the two runs of phase 25) is driven with every launch count
 set to 0 just before it and read just after (phase 16 reads the counts of
 its two ranks); a kernel of that run that was not launched fails the
 script.  A count is one call of
@@ -162,8 +198,11 @@ K1 calls, a hybrid batch 1), for K2 and K6 one decode (one grid), for K4
 one iteration of one shard (two grids).  The line before the
 last is the kernel summary JSON (``launches`` summed over those runs,
 ``launches_by_run`` split by run, ``routes`` split by route: K2 and K6
-"resident" / "streamed", K1 "grids" / "coop" / "wide", K5 "grids" /
-"wide", the others "default"; ``routes_parity_phase``,
+"resident" / "streamed" / "resident_wide" / "streamed_wide", K1 "grids" /
+"coop" / "wide", K3, K4 and K5 "default" (K5 "grids") / "wide";
+``ms_wide_<shape>``, ``plain_ms_wide_<shape>``, ``bound_ms_wide_<shape>``
+and ``shape_wide_<shape>`` for phase 24's shapes, ``max_abs_err_wide``;
+K3's two-tier device steps; ``routes_parity_phase``,
 K2's and K6's routes in their parity phase; ``ms_streamed``, their
 streamed route at the main shape; K3b's row counts phase 17's K3 decodes,
 since no main-path run reaches its sizes; without ``--quick`` only, as are
@@ -1658,6 +1697,403 @@ def phase_host_path(code, dev: torch.device):
 
 
 # ---------------------------------------------------------------------------
+# Route "wide" of K2, K3, K4 and K6; the two-tier decode; the rounds axis;
+# the profiler trace
+# ---------------------------------------------------------------------------
+
+WIDE_ROUNDS, WIDE_ITERS, WIDE_P, WIDE_RAGGED = 4, 24, 5e-4, 97
+WIDE_OPTIONS = dict(max_iter=WIDE_ITERS, bp_method="ms", ms_scaling_factor=ALPHA,
+                    osd_method="osd0", osd_order=0)
+
+
+def wide_matrix(rows: int, cols: int, lo: int, hi: int, seed: int):
+    """A random check matrix with lo..hi distinct ones a row (the last row
+    hi): checks past the register instances, some with padded slots.  K2's
+    resident route "wide" needs one: no repo code with checks of more than
+    30 slots fits a shot's spacetime state in shared memory."""
+    from scipy import sparse
+
+    rng = np.random.default_rng(seed)
+    w = rng.integers(lo, hi + 1, rows)
+    w[-1] = hi
+    idx = np.concatenate([rng.choice(cols, k, replace=False) for k in w])
+    return sparse.csr_matrix((np.ones(len(idx), np.int64), idx,
+                              np.concatenate([[0], np.cumsum(w)])), (rows, cols))
+
+
+def dense_hgp():
+    """``biregular_hgp(32, 16, 16, seed=0)``: 2,048 qubits, 1,024 Z checks of
+    degree 32 (34-slot spacetime checks, 33-slot (H|I) checks)."""
+    return biregular_hgp(32, 16, 16, seed=0, compute_logicals=True)
+
+
+def _time_pair(t: dict, key: str, kern_fn, plain_fn) -> None:
+    """One timed run each (CUDA events; both warmed up by the parity run)."""
+    t[key] = _timed(kern_fn)[1]
+    t[f"{key}_plain"] = _timed(plain_fn)[1]
+    log(f"  {key}: {t[key]:.3f} ms, plain {t[key + '_plain']:.3f} ms")
+
+
+def phase_wide(code, dem: "PriorSetup", dev: torch.device, shots: int, timings: bool):
+    """K2 (both routes), K3, K4 and K6 against their plain versions on route
+    "wide"; returns (worst error by kernel, times, bounds, shapes)."""
+    log(f"== phase 24: route wide: K3, K2 (streamed), K6 (resident and streamed) at the "
+        f"dense HGP x{WIDE_ROUNDS} rounds, {shots} shots x {WIDE_ITERS}; K2 resident at a "
+        f"random 33-40 slot matrix x2 rounds; K4 at the Dc-53 DEM, D = 2 and 4")
+    H = code.checks.z
+    tables = tanner_tables(TannerELL.from_check_matrix(H), dev)
+    check(tables.max_check_degree == 32, "dense HGP: Z checks of degree 32")
+    st = Checks(SpacetimeCode(H, WIDE_ROUNDS).spacetime_check_matrix, dev,
+                f"dense HGP x{WIDE_ROUNDS}")
+    prior = st.prior(2 / 3 * WIDE_P)
+    synd = st.device_syndromes(shots, WIDE_P, seed=41)
+    ss = FlatSetup(SpacetimeCodeSingleShot(H).spacetime_check_matrix, dev, "dense HGP (H|I)")
+    rand_H = wide_matrix(60, 300, 33, 40, seed=21)
+    rtab = tanner_tables(TannerELL.from_check_matrix(rand_H), dev)
+    rst = Checks(SpacetimeCode(rand_H, 2).spacetime_check_matrix, dev, "random 60x300 x2")
+    worst = {k: 0.0 for k in ("K2", "K3", "K4", "K6")}
+    before = {name: dict(kern.routes) for name, kern in KERNELS.items()}
+    t, bounds, shapes = {}, {}, {}
+    R, I = WIDE_ROUNDS, WIDE_ITERS
+    # K3: the bposd device step, and a ragged host-redecode size
+    for S in (shots, WIDE_RAGGED):
+        s = synd[:, :S].contiguous()
+        for method, msf in (("ms", ALPHA), ("ps", 0.0)):
+            kern = k3.stbsr_decode(tables, R, prior, s, method, I, msf, False)
+            plain = k3.stbsr_decode(tables, R, prior, s, method, I, msf, False,
+                                    iterate=k3._stbsr_iter_plain)
+            torch.cuda.synchronize()
+            worst["K3"] = max(worst["K3"], _same(f"K3 {st.name} S={S} {method}", st, s, kern,
+                                                 plain))
+    # K2: the hybrid device step (one shot's state does not fit: streamed)
+    plan = k2.launch_plan(tables, R, shots, dev)
+    check(plan.route == "streamed" and plan.wide, f"K2 {st.name}: {plan.label}")
+    for method, msf in (("ms", ALPHA), ("ps", 0.0)):
+        kern = k2.stbp_fixed(tables, R, prior, synd, method, I, msf)
+        plain = stbp_core(tables, R, prior, synd, method, I, msf, early_stop=False)
+        torch.cuda.synchronize()
+        worst["K2"] = max(worst["K2"], _same(f"K2 {st.name} {method} [{_plan_tag(plan)}]", st,
+                                             synd, kern, plain))
+    # K2's resident route "wide" at the random matrix
+    rsynd = rst.syndromes(shots, 3e-3, seed=42)
+    rprior = rst.prior(3e-3)
+    plan = k2.launch_plan(rtab, 2, shots, dev)
+    check(plan.route == "resident" and plan.wide, f"K2 {rst.name}: {plan.label}")
+    for method, msf in (("ms", ALPHA), ("ps", 0.0)):
+        kern = k2.stbp_fixed(rtab, 2, rprior, rsynd, method, I, msf)
+        plain = stbp_core(rtab, 2, rprior, rsynd, method, I, msf, early_stop=False)
+        torch.cuda.synchronize()
+        worst["K2"] = max(worst["K2"], _same(f"K2 {rst.name} {method} [{_plan_tag(plan)}]", rst,
+                                             rsynd, kern, plain))
+    # K6: the single-shot device step on (H|I), resident (one shot a block) and streamed
+    ssynd = ss.syndromes(shots, WIDE_P, seed=43)
+    sprior = ss.prior(WIDE_P)
+    for route in ("auto", "streamed"):
+        plan = k6.launch_plan(ss.tables, shots, dev, route=route)
+        check(plan.wide, f"K6 {ss.name}: {plan.label}")
+        for method, msf in (("ms", ALPHA), ("ps", 0.0)):
+            kern = k6.bp_fixed(ss.tables, sprior, ssynd, method, I, msf, plan=plan)
+            plain = bp_core(ss.tables, sprior, ssynd, method, I, msf, early_stop=False)
+            torch.cuda.synchronize()
+            worst["K6"] = max(worst["K6"], _same(f"K6 {ss.name} {method} [{_plan_tag(plan)}]",
+                                                 ss, ssynd, kern, plain))
+    # K1 (route wide) at the single-shot host redecode's (H|I), ragged
+    _k1_case(ss, ssynd[:, :WIDE_RAGGED].contiguous(), sprior, "ms", ALPHA, True, I)
+    # K4 at the detector model's 53-slot checks
+    dsynd = dem.draw(shots, seed=44)
+    for D in (2, 4):
+        for method, msf in (("ms", ALPHA), ("ps", 0.0)):
+            dec = k4.ShardedBSRDecoder.from_check_matrix(
+                dem.H, D, channel_probs=dem.priors, max_iter=I, bp_method=method,
+                ms_scaling_factor=msf, device=dev)
+            kern = _k4(dec, dsynd)
+            plain = _k4(dec, dsynd, k4.bsr_shard_iter_plain)
+            torch.cuda.synchronize()
+            worst["K4"] = max(worst["K4"], _same(f"K4 {dem.name} D={D} {method}", dem, dsynd,
+                                                 kern, plain))
+    routes = {name: _routes_since(kern, before[name]) for name, kern in KERNELS.items()}
+    log(f"  routes of this phase: {routes}")
+    check(routes["K3"].get("wide", 0) > 0 and routes["K4"].get("wide", 0) > 0,
+          "K3 and K4 ran route wide")
+    check(all(routes["K2"].get(r, 0) > 0 for r in ("resident_wide", "streamed_wide"))
+          and all(routes["K6"].get(r, 0) > 0 for r in ("resident_wide", "streamed_wide")),
+          "K2 and K6 ran route wide on the resident and the streamed route")
+    if timings:   # min-sum, one run each
+        args = (tables, R, prior, synd, "ms", I, ALPHA)
+        _time_pair(t, "K3_wide_dense", lambda: k3.stbsr_decode(*args, False),
+                   lambda: k3.stbsr_decode(*args, False, iterate=k3._stbsr_iter_plain))
+        _time_pair(t, "K2_wide_dense_streamed", lambda: k2.stbp_fixed(*args),
+                   lambda: stbp_core(*args, early_stop=False))
+        rargs = (rtab, 2, rprior, rsynd, "ms", I, ALPHA)
+        _time_pair(t, "K2_wide_random_resident", lambda: k2.stbp_fixed(*rargs),
+                   lambda: stbp_core(*rargs, early_stop=False))
+        sargs = (ss.tables, sprior, ssynd, "ms", I, ALPHA)
+        splan = k6.launch_plan(ss.tables, shots, dev, route="streamed")
+        _time_pair(t, "K6_wide_ss", lambda: k6.bp_fixed(*sargs),
+                   lambda: bp_core(*sargs, early_stop=False))
+        _time_pair(t, "K6_wide_ss_streamed", lambda: k6.bp_fixed(*sargs, plan=splan),
+                   lambda: bp_core(*sargs, early_stop=False))
+        for D in (2, 4):   # per decode iteration, all shards: phase 18's slope (2 -> 6)
+            dec = k4.ShardedBSRDecoder.from_check_matrix(
+                dem.H, D, channel_probs=dem.priors, max_iter=I, bp_method="ms",
+                ms_scaling_factor=ALPHA, device=dev)
+            key = f"K4_wide_dem_D{D}"
+            for k, it in ((key, k4.bsr_shard_iter), (f"{key}_plain", k4.bsr_shard_iter_plain)):
+                t[k] = 1e3 * shard_capacity.per_iter_slope(
+                    lambda s, n, it=it: dec.decode_tensors(s, max_iter=n, iterate=it), dem.H,
+                    dev, shots, 2 * DEM_P, lo=2, hi=6, nrep=1)
+            log(f"  {key}: {t[key]:.4f} ms per iteration, plain {t[key + '_plain']:.4f}")
+        # the least time of the same work (the kernel_bounds formulas)
+        st_rows, st_cols = st.H.shape
+        bounds["K3_wide_dense"] = _bound(
+            I * (_st_io(st_rows, st_cols, tables, shots) + 2 * 2 * st.H.nnz * shots),
+            OPS_FLOAT * st.H.nnz * shots * I)
+        bounds["K2_wide_dense_streamed"] = _bound(_st_io(st_rows, st_cols, tables, shots),
+                                                  OPS_FLOAT * st.H.nnz * shots * I)
+        bounds["K2_wide_random_resident"] = _bound(_st_io(*rst.H.shape, rtab, shots),
+                                                   OPS_FLOAT * rst.H.nnz * shots * I)
+        bounds["K6_wide_ss"] = bounds["K6_wide_ss_streamed"] = _bound(
+            _flat_io(ss.tables, shots), OPS_FLOAT * ss.H.nnz * shots * I)
+        for D in (2, 4):
+            v_pad = k4.ShardedBSR.from_check_matrix(dem.H, D).v_pad
+            bounds[f"K4_wide_dem_D{D}"] = _bound(
+                D * 2 * 4 * v_pad * shots + 2 * 2 * dem.H.nnz * shots + dem.H.shape[0] * shots
+                + 2 * 4 * dem.H.nnz, OPS_FLOAT * dem.H.nnz * shots)
+        shapes = {"K3_wide_dense": f"dense HGP x{R} rounds (34-slot checks), {shots} x {I}",
+                  "K2_wide_dense_streamed": f"dense HGP x{R} rounds, {shots} x {I}, streamed",
+                  "K2_wide_random_resident": f"random 60x300 (33-40 slots) x2 rounds, {shots} x "
+                                             f"{I}, resident",
+                  "K6_wide_ss": f"dense HGP (H|I) (33 slots), {shots} x {I}, resident G=1",
+                  "K6_wide_ss_streamed": f"dense HGP (H|I), {shots} x {I}, streamed",
+                  "K4_wide_dem_D2": f"DEM 216x1518 (Dc 53), D=2, {shots} shots, per iteration",
+                  "K4_wide_dem_D4": f"DEM 216x1518 (Dc 53), D=4, {shots} shots, per iteration"}
+    return worst, t, bounds, shapes
+
+
+def phase_wide_sweeps(code, dem: "PriorSetup", dev: torch.device, shots: int) -> dict:
+    """One p_sweep point per pipeline mode on the dense HGP, and a
+    check-partition decode of the detector model: the entry points run end
+    to end on route wide (each run counted from 0)."""
+    log(f"== phase 24 (cont.): p_sweep, one point per pipeline mode on the dense HGP, "
+        f"{shots} shots, p = {WIDE_P:g}, min-sum {WIDE_ITERS} iterations, OSD-0")
+    by_run = {}
+    for mode in ("bposd", "bposd_single_shot", "bposd_hybrid"):
+        reset_counts()
+        routes0 = {name: dict(kern.routes) for name, kern in KERNELS.items()}
+        rec = p_sweep(
+            samples=shots, p_values=np.array([WIDE_P]), noise_model=depolarizing_noise,
+            noise_model_args=lambda p: {"p": p, "pm": p},
+            meas_prior=lambda p, xs, zs: 2 / 3 * p, data_prior=lambda p, xs, zs: 2 / 3 * p,
+            seed=3, pipeline={"mesh_devices": 1, "shots_per_device": shots}, device=dev,
+            code=code, rounds=WIDE_ROUNDS, decoder_mode=mode,
+            bp_osd_options=dict(WIDE_OPTIONS))[0]
+        torch.cuda.synchronize()
+        routes = {name: _routes_since(kern, routes0[name]) for name, kern in KERNELS.items()}
+        launches = launch_counts()
+        log(f"  {mode}: failures {rec['failures']}, shots {rec['samples']}, "
+            f"{rec['samples'] / rec['walltime']:.0f} shots/s; routes {routes}")
+        check(rec["samples"] == shots and rec["failures"] < shots // 2,
+              f"{mode} on the dense HGP: one result per shot, most shots decoded")
+        want = {"bposd": ("K3", "wide"), "bposd_single_shot": ("K6", "resident_wide"),
+                "bposd_hybrid": ("K2", "streamed_wide")}[mode]
+        check(routes[want[0]].get(want[1], 0) > 0, f"{mode}: {want[0]} ran route {want[1]}")
+        by_run[f"dense_hgp_{mode}"] = launches
+    # the model axis's entry point at 53-slot checks: ShardedBSRDecoder.decode_batch, D = 4
+    reset_counts()
+    synd = dem.draw(4 * shots, seed=45)
+    dec = k4.ShardedBSRDecoder.from_check_matrix(dem.H, 4, channel_probs=dem.priors,
+                                                 max_iter=WIDE_ITERS, bp_method="ms",
+                                                 ms_scaling_factor=ALPHA, device=dev)
+    hard, _post, conv = dec.decode_batch(synd.T.cpu().numpy())
+    torch.cuda.synchronize()
+    wide = k4.KERNEL.routes.get("wide", 0)
+    launches = launch_counts()
+    ok = ((hard.astype(np.int64) @ dem.H.T) % 2 == synd.T.cpu().numpy()).all(axis=1)
+    log(f"  check-partition decode of {dem.name}, D=4, {4 * shots} shots: conv rate "
+        f"{float(conv.mean()):.4f}, K4 launches {launches['K4']} ({wide} on route wide)")
+    check(launches["K4"] == 4 * WIDE_ITERS and wide == launches["K4"],
+          "every K4 call of the detector model's check-partition decode took route wide")
+    check(bool(ok[conv].all()), "every converged shot satisfies its syndrome")
+    by_run["dem_check_partition"] = launches
+    return by_run
+
+
+TT_REF_FAILURES, TT_REF_UNCONV, TT_REF_SHOTS = 1081, 1131, 8192   # artifacts/two_tier_v5e.jsonl
+
+
+def phase_two_tier(su: Setup, dev: torch.device) -> tuple:
+    """bench_two_tier's regime on the card; returns (launches by run, times, shots/s)."""
+    from exp_ldpc_tpu_torch.experiments import bench_two_tier as btt
+
+    log("== phase 25: two-tier decode: bench_two_tier's regime (cyclic LP n=4,862, 4 rounds, "
+        "p=2e-4, 4 x 2,048 shots x 48, tier 1 = 8, cap 512), fixed and two-tier on the same "
+        "seeds")
+    code = btt.build_code()
+    args = btt.parse_args(["--device", str(dev)])
+    args.device = dev
+    pipes = {v: btt.build(code, v, args) for v in btt.VARIANTS}
+    reset_counts()
+    rows = btt.compare(pipes, args)
+    launches = launch_counts()
+    fixed, two = rows[0], rows[1]
+    check(fixed["kernel"] == two["kernel"] == "stbsr", "both variants run K3")
+    for key in ("failures", "bp_unconverged"):
+        a, b = fixed[key], two[key]
+        check(abs(a - b) <= max(3, 0.1 * max(a, b)),
+              f"{key}: fixed {a} and two-tier {b} agree within max(3, 10%)")
+    for row in (fixed, two):
+        check(_ler_gap(row["failures"], row["shots"], TT_REF_FAILURES / TT_REF_SHOTS,
+                       TT_REF_SHOTS, f"{row['mode']} failures"),
+              f"{row['mode']}: failures within 4 sigma of the artifact's 1,081 / 8,192")
+    log(f"  shots/s: fixed {fixed['shots_per_s']:.0f}, two-tier {two['shots_per_s']:.0f} "
+        f"(ms per batch {fixed['ms_per_batch']:.2f} / {two['ms_per_batch']:.2f})")
+    # the device step alone, and K3 on the compacted stage-2 decode
+    pipe = pipes["two_tier"]
+    synds = []
+    for seed in range(6):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(200 + seed)
+        synds.append(pipe.spacetime_syndromes(*pipe._split_record(
+            pipe._sample(gen, pipe._noise_args))))
+    t = {"two_tier_fixed_step": _median_ms(pipe.decode_spacetime, synds[:5]),
+         "two_tier_step": _median_ms(pipe.decode_two_tier, synds[:5])}
+    log(f"  device step (spacetime decode of one batch, median of 5): fixed "
+        f"{t['two_tier_fixed_step']:.2f} ms, two-tier {t['two_tier_step']:.2f} ms")
+    _h, conv = pipe.decode_spacetime(synds[5], pipe.tier1_iters)
+    order = torch.argsort(conv.to(torch.int32), stable=True)[: pipe.tier2_cap]
+    s2 = synds[5][:, order].contiguous()
+    st = Checks(SpacetimeCode(code.checks.z, args.rounds).spacetime_check_matrix, dev,
+                "cyclic LP n=4862 x4")
+    kern = k3.stbsr_decode(pipe._tables, args.rounds, pipe._prior, s2, "ms", args.max_iter,
+                           ALPHA, False)
+    plain = k3.stbsr_decode(pipe._tables, args.rounds, pipe._prior, s2, "ms", args.max_iter,
+                            ALPHA, False, iterate=k3._stbsr_iter_plain)
+    torch.cuda.synchronize()
+    err = _same(f"K3 stage 2, {s2.shape[1]} compacted shots ({int((~conv).sum())} unconverged "
+                f"after stage 1)", st, s2, kern, plain)
+    check(bool(torch.equal(kern[1], plain[1])), "stage 2: K3's posteriors bit-identical to plain")
+    # the flagship bposd point with tier1_iters = 8, on phase 6's anchor
+    reset_counts()
+    rec = p_sweep(
+        samples=32768, p_values=np.array([P_HI]), noise_model=depolarizing_noise,
+        noise_model_args=lambda p: {"p": p, "pm": p},
+        meas_prior=lambda p, xs, zs: 2 / 3 * p, data_prior=lambda p, xs, zs: 2 / 3 * p,
+        seed=9, pipeline={"mesh_devices": 1, "shots_per_device": 16384}, device=dev,
+        code=su.code, rounds=ROUNDS, decoder_mode="bposd",
+        bp_osd_options=dict(OPTIONS, tier1_iters=8))[0]
+    torch.cuda.synchronize()
+    flagship = launch_counts()
+    log(f"  HGP-225 bposd, tier1_iters=8: failures {rec['failures']} of {rec['samples']}, "
+        f"{rec['samples'] / rec['walltime']:.0f} shots/s, launches {flagship}")
+    check(ler_within(rec["failures"], rec["samples"], P_HI),
+          f"two-tier p={P_HI:.6g}: LER within 4 sigma of the artifact")
+    check(flagship["K3"] >= 4, "two-tier flagship: K3 twice per batch (and in the redecode)")
+    speed = {"fixed": fixed["shots_per_s"], "two_tier": two["shots_per_s"],
+             "flagship_two_tier": rec["samples"] / rec["walltime"]}
+    return {"two_tier_bench": launches, "two_tier_flagship": flagship}, t, speed, err
+
+
+RS_ROUNDS, RS_SHOTS, RS_ITERS, RS_P = 7, 2048, 24, 3e-3
+
+
+def _rounds_case():
+    """HGP-225's Z checks over 7 rounds (8 blocks, 4 a rank), 2,048 shots."""
+    H = biregular_hgp(12, 3, 4, seed=0).checks.z
+    Hst = SpacetimeCode(H, RS_ROUNDS).spacetime_check_matrix.tocsr().astype(np.int64)
+    rng = np.random.default_rng(61)
+    err = (rng.random((RS_SHOTS, Hst.shape[1])) < RS_P).astype(np.int64)
+    return H, Hst, ((Hst @ err.T) % 2).T.astype(np.uint8)
+
+
+def _rounds_rank(rank: int, world: int) -> dict:
+    """One rank of phase 26 (runs in its own process): round blocks split
+    over a model group of 2 on the one card, gloo."""
+    from exp_ldpc_tpu_torch.parallel.rounds_shard import RoundsShardedSpacetimeBP
+
+    mesh = make_mesh(model_parallel=2, device="cuda")
+    H, _Hst, synd = _rounds_case()
+    dec = RoundsShardedSpacetimeBP.from_check_matrix(
+        H, RS_ROUNDS, mesh, error_rate=RS_P, max_iter=RS_ITERS, bp_method="ms",
+        ms_scaling_factor=ALPHA)
+    dec.decode_batch(synd[:64])   # warm-up
+    t0 = time.perf_counter()
+    hard, _post, conv, _iters = dec.decode_batch(synd)
+    return {"hard": hard, "conv": conv, "secs": time.perf_counter() - t0,
+            "device": str(mesh.device), "coords": mesh.coords}
+
+
+def rounds_world():
+    """Phase 26's two ranks: (their results, seconds from start to join)."""
+    t0 = time.perf_counter()
+    ranks = run_world(_rounds_rank, 2, backend="gloo", timeout=300, threads=None)
+    return ranks, time.perf_counter() - t0
+
+
+def phase_rounds_shard(dev: torch.device, world) -> None:
+    log(f"== phase 26: rounds axis: two gloo ranks on the card, HGP-225 x{RS_ROUNDS} rounds "
+        f"(4 blocks a rank), {RS_SHOTS} shots x {RS_ITERS}, halo rows staged through the host")
+    ranks, secs = world.result()
+    H, Hst, synd = _rounds_case()
+    tables = tanner_tables(TannerELL.from_check_matrix(H), dev)
+    prior = torch.as_tensor(priors_to_llr(np.full(Hst.shape[1], RS_P))).to(dev)
+    rh, _rp, rc, _ri = stbp_core(tables, RS_ROUNDS, prior, torch.as_tensor(synd.T.copy()).to(dev),
+                                 "ms", RS_ITERS, ALPHA, early_stop=False)
+    rh, rc = rh.T.cpu().numpy(), rc.cpu().numpy()
+    log(f"  ranks on {[r['device'] for r in ranks]}, coords {[r['coords'] for r in ranks]}; "
+        f"{secs:.1f} s from start to join (beside the parity phases), sharded decode "
+        f"{max(r['secs'] for r in ranks):.2f} s")
+    for k, r in enumerate(ranks):
+        conv = r["conv"]
+        differ = int((r["hard"][conv] != rh[conv]).any(axis=1).sum())
+        check(differ <= 0.001 * max(int(conv.sum()), 1),
+              f"rank {k}: sharded and unsharded decisions differ on {differ} of "
+              f"{int(conv.sum())} converged shots (at most 0.1%); conv agree "
+              f"{float((conv == rc).mean()):.4f}")
+        ok = ((r["hard"].astype(np.int64) @ Hst.T) % 2 == synd).all(axis=1)
+        check(bool(ok[conv].all()), f"rank {k}: every converged shot satisfies its syndrome")
+
+
+def phase_profiler(su: Setup, dev: torch.device) -> dict:
+    """A ``profiler_trace`` of one bposd pipeline batch (K3)."""
+    from exp_ldpc_tpu_torch.experiments.profile_batch import summarize
+    from exp_ldpc_tpu_torch.utils.observability import profiler_trace
+
+    log("== phase 27: profiler_trace of one bposd pipeline batch (HGP-225, 4,096 shots, K3; "
+        "the device step, no host OSD)")
+    p = P_HI
+    pipe = StorageDecodePipeline(
+        code=su.code, rounds=ROUNDS, noise_model=depolarizing_noise(p, p),
+        data_prior=2 / 3 * p, meas_prior=2 / 3 * p, shots_per_device=4096, max_iter=MAX_ITER,
+        bp_method="ms", ms_scaling_factor=ALPHA, device=dev)
+    gens = []
+    for seed in (71, 72):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        gens.append(g)
+    pipe.run(gens[0])
+    out = ROOT / "build" / "exp_ldpc_tpu_torch" / "chip_smoke_trace"
+    with profiler_trace(str(out)) as prof:
+        pipe.run(gens[1])
+    check(prof is not None, "the profiler started")
+    trace = json.loads((out / "trace.json").read_text())
+    names = {e.get("name", "") for e in trace["traceEvents"] if e.get("cat") == "kernel"}
+    summary = summarize(trace, MAX_ITER)
+    log(f"  {len(trace['traceEvents'])} trace events, {len(names)} kernel names; busy "
+        f"{summary['busy_ms']:.2f} ms, K3 grids {summary['k3_launches']}")
+    check(any("stbsr_check_kernel" in n for n in names),
+          "the trace names K3's kernels (stbsr_check_kernel)")
+    return {"busy_ms": summary["busy_ms"], "k3_grids": summary["k3_launches"]}
+
+
+def _st_io(rows: int, cols: int, tab, shots: int) -> int:
+    """Bytes a whole spacetime decode must move: spacetime syndromes and
+    priors in, base tables, posterior, conv, iters out."""
+    return (rows * shots + 4 * cols + 4 * (tab.num_checks * tab.max_check_degree
+                                           + tab.num_vars * tab.max_var_degree)
+            + 4 * cols * shots + 5 * shots)
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for each kernel's `ms` shape
 # ---------------------------------------------------------------------------
 
@@ -1727,12 +2163,7 @@ def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross, dem, t) ->
     # K2: the spacetime decode in one launch: spacetime syndromes and priors
     # in, base tables, posterior, conv, iters out
     rows, cols = su.H.shape
-
-    def st_io(rows, cols, tab, shots):
-        return (rows * shots + 4 * cols + 4 * (tab.num_checks * tab.max_check_degree
-                                               + tab.num_vars * tab.max_var_degree)
-                + 4 * cols * shots + 5 * shots)
-
+    st_io = _st_io
     out["K2"] = _bound(st_io(rows, cols, su.tables, S), OPS_FLOAT * su.H.nnz * S * MAX_ITER)
     gtab, gst = gross
     for tag, chk, tab, shots, iters in ((f"S{S_REDECODE}", su, su.tables, S_REDECODE, MAX_ITER),
@@ -1791,12 +2222,13 @@ def main() -> int:
     su = Setup(dev)
     n_dev, n_host = (8192, 2048) if args.quick else (65536, 16384)
     # host work beside the build and the first parity phases
-    bg = ThreadPoolExecutor(4)
+    bg = ThreadPoolExecutor(5)
     host = bg.submit(host_rates, su, n_host)
     dem_fut = bg.submit(dem_matrix, su.code)
     host_mats = None if args.quick else bg.submit(host_path_matrices, su.code)
     phase(phase_build)
     world = None if args.quick else bg.submit(dist_world)
+    rs_world = None if args.quick else bg.submit(rounds_world)
     # ragged shot edges (97, S_REDECODE) and the main path's batch (16,384)
     sizes = (97, 512) if args.quick else (S_REDECODE, 4096, 16384)
     err, parity_routes = {}, {}
@@ -1862,6 +2294,15 @@ def main() -> int:
         by_run["bench_large_codes"], fam_rows = phase(phase_families, dev)
         host_runs, host_speed = phase(phase_host_path, su.code, dev)
         by_run.update(host_runs)
+    dense = dense_hgp()
+    err_wide, t_wide, b_wide, shapes_wide = phase(phase_wide, dense, dem, dev,
+                                                  256 if args.quick else 1024, not args.quick)
+    if not args.quick:
+        by_run.update(phase(phase_wide_sweeps, dense, dem, dev, 256))
+        tt_runs, t_tt, tt_speed, err_tt = phase(phase_two_tier, su, dev)
+        by_run.update(tt_runs)
+        phase(phase_rounds_shard, dev, rs_world)
+        prof = phase(phase_profiler, su, dev)
         launches = {name: sum(c[name] for c in by_run.values()) for name in KERNELS}
         for name, n in launches.items():
             check(n > 0, f"{name} launched on the main path ({n} launches)")
@@ -1906,6 +2347,19 @@ def main() -> int:
                 kern["plain_ms_early_stop"] = t["K3_es_plain"]
                 kern[f"ms_S{S_REDECODE}_early_stop"] = t[f"K3_S{S_REDECODE}_es"]
                 kern[f"plain_ms_S{S_REDECODE}_early_stop"] = t[f"K3_S{S_REDECODE}_es_plain"]
+            for tag in (k for k in t_wide if k.startswith(f"{key}_wide_")
+                        and not k.endswith("_plain")):
+                short = tag[len(key) + 1:]
+                kern[f"ms_{short}"] = t_wide[tag]
+                kern[f"plain_ms_{short}"] = t_wide[f"{tag}_plain"]
+                kern[f"bound_ms_{short}"] = b_wide[tag]["bound_ms"]
+                kern[f"bound_by_{short}"] = b_wide[tag]["bound_by"]
+                kern[f"shape_{short}"] = shapes_wide[tag]
+            if key == "K3":
+                kern["ms_two_tier_fixed_step"] = t_tt["two_tier_fixed_step"]
+                kern["ms_two_tier_step"] = t_tt["two_tier_step"]
+                kern["max_abs_err_two_tier_stage2"] = err_tt
+                kern["trace_k3_grids"] = prof["k3_grids"]
             if key == "K4":
                 kern["ms_per"] = "decode iteration, all shards"
                 kern["k1_ms"] = t["K1_shard_capacity"]
@@ -1924,10 +2378,14 @@ def main() -> int:
             kern["max_abs_err_dem_dc53"] = err_dem[key]
         if key == "K1" and not args.quick:
             kern["max_abs_err_host_path_matrices"] = err_host_k1
+        if key in err_wide:
+            kern["max_abs_err_wide"] = err_wide[key]
     bg.shutdown()
     if not args.quick:
         log("host path (run_simulation through p_sweep, device sampler) shots/s: "
             + json.dumps({m: round(r, 1) for m, r in host_speed.items()}))
+        log("two-tier (bench_two_tier's regime; the flagship point) shots/s: "
+            + json.dumps({m: round(r, 1) for m, r in tt_speed.items()}))
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

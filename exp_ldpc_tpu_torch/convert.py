@@ -149,8 +149,10 @@ def pipeline_kwargs_from_jax(pipe) -> dict:
     JAX ``StorageDecodePipeline``, as plain numpy/Python values.
 
     The JAX ``"xla"`` and ``"pallas"`` spacetime backends both compute the
-    structured f32 BP that the port's ``"stbp"`` backend computes.  A mesh
-    or a two-tier budget is carried over so that the port refuses it."""
+    structured BP that the port's ``"stbp"`` backend computes.  The message
+    type and the two-tier budget (``tier2_cap`` as the JAX pipeline resolved
+    it) are carried over; a mesh too, so that the port refuses a model
+    axis."""
     return dict(
         code=pipe.code,
         rounds=int(pipe.rounds),
@@ -168,7 +170,9 @@ def pipeline_kwargs_from_jax(pipe) -> dict:
         use_x_logicals=bool(pipe.use_x_logicals),
         mode=str(pipe.mode),
         mesh=pipe.mesh,
+        msg_dtype=str(pipe.msg_dtype),
         tier1_iters=int(pipe.tier1_iters),
+        tier2_cap=None if pipe.tier2_cap is None else int(pipe.tier2_cap),
     )
 
 

@@ -38,6 +38,13 @@
 //   shots of one row: coalesced) and its 8 warps split each phase; the
 //   messages live in device memory, updated in place; the tables are read
 //   through the read-only cache.
+//
+// Checks of more than MAX_SLOTS (32) slots take route "wide" on either
+// route: the check phase in two passes over the slots (WideCheck,
+// spacetime_bp.cuh), whose registers do not grow with Dc, and the live slots
+// read from the tables' -1 sentinel instead of a 32-bit mask.  The caller's
+// plan names the route and the entry point refuses one that does not match
+// the degree.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,7 +55,7 @@
 // The streamed route
 // ---------------------------------------------------------------------------
 
-template <int MAXP>
+template <int MAXP, bool WIDE>
 __global__ void __launch_bounds__(LANES* WORKERS) bp_streamed_kernel(
     const uint8_t* __restrict__ synd,     // (C, S) 0/1
     const float* __restrict__ prior,      // (V,) LLRs
@@ -82,8 +89,19 @@ __global__ void __launch_bounds__(LANES* WORKERS) bp_streamed_kernel(
     // ---- phase A: check update of every check, in place (padded slots stay +BIG)
     if (active) {
       for (int c = w; c < C; c += WORKERS) {
-        float x[MAXP];
         const size_t e0 = (size_t)c * Dc;
+        if constexpr (WIDE) {
+          WideCheck wk;
+          wk.init(synd[(size_t)c * SS + s] ? -1.0f : 1.0f);
+          for (int i = 0; i < Dc; ++i) wk.fold(i, msg[(e0 + i) * SS + s], method);
+          for (int i = 0; i < Dc; ++i) {
+            if (__ldg(&chk_vars[e0 + i]) < 0) continue;
+            const size_t k = (e0 + i) * SS + s;
+            msg[k] = wk.out(i, msg[k], method, alpha);
+          }
+          continue;
+        }
+        float x[MAXP];
 #pragma unroll
         for (int i = 0; i < MAXP; ++i)
           if (i < Dc) x[i] = msg[(e0 + i) * SS + s];
@@ -152,7 +170,7 @@ static size_t bp_resident_bytes(int C, int V, int Dc, int Dv, int stride, int ta
   return 4 * words + (size_t)C * stride;
 }
 
-template <int MAXP, bool EXACT>
+template <int MAXP, bool EXACT, bool WIDE>
 __global__ void __launch_bounds__(ResidentThreads<MAXP>::value) bp_resident_kernel(
     const uint8_t* __restrict__ synd,     // (C, S) 0/1
     const float* __restrict__ prior,      // (V,) LLRs
@@ -178,7 +196,7 @@ __global__ void __launch_bounds__(ResidentThreads<MAXP>::value) bp_resident_kern
 
   // an edge of the variable->edge table as a slot-major row
   auto remap = [&](int k) { return k < 0 ? -1 : (k % Dc) * C + k / Dc; };
-  for (int c = tid; c < C; c += T) {
+  for (int c = tid; c < C && !WIDE; c += T) {  // route "wide" reads the tables' sentinel
     int m = 0;
     for (int i = 0; i < Dc; ++i)
       if (__ldg(&chk_vars_g[c * Dc + i]) >= 0) m |= 1 << i;
@@ -210,11 +228,22 @@ __global__ void __launch_bounds__(ResidentThreads<MAXP>::value) bp_resident_kern
     const bool last = (it == max_iter - 1);
     // ---- checks, in place (padded slots stay +BIG)
     walk(1, C, Gb, [&](int, int c, int g) {
+      const float ss = sy[c * stride + g] ? -1.0f : 1.0f;
+      if constexpr (WIDE) {
+        WideCheck wk;
+        wk.init(ss);
+        for (int i = 0; i < Dc; ++i) wk.fold(i, msg[(i * C + c) * stride + g], method);
+        for (int i = 0; i < Dc; ++i) {
+          if (cvar(c * Dc + i) < 0) continue;
+          const int k = (i * C + c) * stride + g;
+          msg[k] = wk.out(i, msg[k], method, alpha);
+        }
+        return;
+      }
       float x[MAXP];
 #pragma unroll
       for (int i = 0; i < MAXP; ++i)
         if (i < Dc) x[i] = msg[(i * C + c) * stride + g];
-      const float ss = sy[c * stride + g] ? -1.0f : 1.0f;
       check_update<MAXP>(x, Dc, ss, method, alpha);
       const int lv = live[c];
 #pragma unroll
@@ -277,18 +306,18 @@ __global__ void __launch_bounds__(ResidentThreads<MAXP>::value) bp_resident_kern
 // Entry point
 // ---------------------------------------------------------------------------
 
-template <int MAXP>
+template <int MAXP, bool WIDE = false>
 static int streamed(const uint8_t* synd, const float* prior, const int* chk_vars, const int* vm,
                     float* msg, float* post, uint8_t* conv, int C, int V, int Dc, int Dv, int S,
                     int max_iter, int method, float alpha0, cudaStream_t stream) {
   const dim3 threads(LANES, WORKERS);
   const int blocks = (S + LANES - 1) / LANES;
-  bp_streamed_kernel<MAXP><<<blocks, threads, 0, stream>>>(
+  bp_streamed_kernel<MAXP, WIDE><<<blocks, threads, 0, stream>>>(
       synd, prior, chk_vars, vm, msg, post, conv, C, V, Dc, Dv, S, max_iter, method, alpha0);
   return (int)cudaGetLastError();
 }
 
-template <int MAXP, bool EXACT>
+template <int MAXP, bool EXACT, bool WIDE = false>
 static int resident(const uint8_t* synd, const float* prior, const int* chk_vars, const int* vm,
                     float* post, uint8_t* conv, int C, int V, int Dc, int Dv, int S,
                     int max_iter, int method, float alpha0, int G, int stride, int threads,
@@ -296,7 +325,7 @@ static int resident(const uint8_t* synd, const float* prior, const int* chk_vars
   if (threads > ResidentThreads<MAXP>::value || G < 1 || stride < G ||
       (size_t)smem_bytes != bp_resident_bytes(C, V, Dc, Dv, stride, tables_smem))
     return (int)cudaErrorInvalidValue;
-  return launch_resident(bp_resident_kernel<MAXP, EXACT>, (S + G - 1) / G, threads, smem_bytes,
+  return launch_resident(bp_resident_kernel<MAXP, EXACT, WIDE>, (S + G - 1) / G, threads, smem_bytes,
                          stream, synd, prior, chk_vars, vm, post, conv, C, V, Dc, Dv, S,
                          max_iter, method, alpha0, G, stride, tables_smem);
 }
@@ -304,11 +333,13 @@ static int resident(const uint8_t* synd, const float* prior, const int* chk_vars
 // group > 0: the resident route (group shots per block, rows of `stride`
 // slots, `threads` per block, `smem_bytes` of dynamic shared memory, which
 // must equal the layout's); group == 0: the streamed route (msg is its
-// device-memory scratch; it takes no dynamic shared memory).
+// device-memory scratch; it takes no dynamic shared memory).  `wide`: route
+// "wide" on either route, exactly where Dc exceeds MAX_SLOTS.
 extern "C" int bp_fixed(const void* synd, const void* prior, const void* chk_vars, const void* vm,
                         void* msg, void* post, void* conv, int C, int V, int Dc, int Dv, int S,
                         int max_iter, int method, float alpha0, int group, int stride,
-                        int threads, int tables_smem, int smem_bytes, void* stream) {
+                        int threads, int tables_smem, int smem_bytes, int wide, void* stream) {
+  if ((wide != 0) != (Dc > MAX_SLOTS)) return (int)cudaErrorInvalidValue;
   const uint8_t* sy = (const uint8_t*)synd;
   const float* pr = (const float*)prior;
   const int* cv = (const int*)chk_vars;
@@ -319,6 +350,7 @@ extern "C" int bp_fixed(const void* synd, const void* prior, const void* chk_var
       return f(sy, pr, cv, vt, (float*)post, (uint8_t*)conv, C, V, Dc, Dv, S, max_iter, method,
                alpha0, group, stride, threads, tables_smem, smem_bytes, st);
     };
+    if (wide) return go([](auto... a) { return resident<32, false, true>(a...); });
     // exact widths: HGP's H (7) and (H|I) (8)
     if (Dc == 7) return go([](auto... a) { return resident<7, true>(a...); });
     if (Dc == 8) return go([](auto... a) { return resident<8, true>(a...); });
@@ -331,6 +363,7 @@ extern "C" int bp_fixed(const void* synd, const void* prior, const void* chk_var
     return f(sy, pr, cv, vt, (float*)msg, (float*)post, (uint8_t*)conv, C, V, Dc, Dv, S,
              max_iter, method, alpha0, st);
   };
+  if (wide) return go([](auto... a) { return streamed<32, true>(a...); });
   if (Dc <= 8) return go([](auto... a) { return streamed<8>(a...); });
   if (Dc <= 16) return go([](auto... a) { return streamed<16>(a...); });
   if (Dc <= 32) return go([](auto... a) { return streamed<32>(a...); });

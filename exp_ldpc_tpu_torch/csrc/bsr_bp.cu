@@ -52,7 +52,7 @@
 // shots: the host redecode), min-sum runs the same phases in one
 // cooperative launch with grid-wide barriers between them (route "coop",
 // below), where launches would bound the time.  Checks of more than
-// BSR_MAX_SLOTS (32) slots, as in the fault matrices of detector error
+// MAX_SLOTS (32) slots, as in the fault matrices of detector error
 // models, take route "wide": phase A in two passes over the slots, whose
 // registers do not grow with Dc (bsr_checks_wide).  Each check, variable and
 // parity is computed by one thread in the plain version's order, so results
@@ -119,14 +119,11 @@ __device__ __forceinline__ void bsr_checks(const BsrArgs& a, int it, float alpha
   }
 }
 
-// ---- phase A of route "wide": checks of more than BSR_MAX_SLOTS slots (the
-// fault matrices of detector error models), in two passes over the slots,
-// so that what a thread holds does not grow with Dc.  Pass 1 folds each
-// slot's incoming message into the running sign and into either the phi
-// total (ps, left to right) or min1 / min2 / argmin (ms, the first minimum
-// wins); pass 2 reads each slot again, forms its outgoing message as
-// check_update does and stores it in place (a slot is read before it is
-// written).  The same operations in the same order: the same bits.
+// ---- phase A of route "wide": checks of more than MAX_SLOTS slots (the
+// fault matrices of detector error models), in two passes over the slots
+// (WideCheck, spacetime_bp.cuh), so that what a thread holds does not grow
+// with Dc; pass 2 reads each slot again, forms its outgoing message and
+// stores it in place (a slot is read before it is written).
 template <int VEC>
 __device__ __forceinline__ void bsr_incoming(const BsrArgs& a, int it, size_t e, int var, int s0,
                                              float (&t)[VEC]) {
@@ -149,27 +146,14 @@ __device__ __forceinline__ void bsr_checks_wide(const BsrArgs& a, int it, float 
     if (bsr_stopped(a, it, s0 / a.sb)) continue;
     const size_t e0 = (size_t)c * Dc;
     const Pack<VEC> sy = ld_raw_ro<VEC>(a.synd + (size_t)c * a.S + s0);
-    float tsign[VEC], acc[VEC], min2[VEC], t[VEC];  // acc: the phi total (ps) or min1 (ms)
-    int arg[VEC];
+    WideCheck w[VEC];
+    float t[VEC];
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) tsign[v] = sy.u8[v] ? -1.0f : 1.0f;
+    for (int v = 0; v < VEC; ++v) w[v].init(sy.u8[v] ? -1.0f : 1.0f);
     for (int i = 0; i < Dc; ++i) {
       bsr_incoming<VEC>(a, it, e0 + i, __ldg(&a.chk_vars[e0 + i]), s0, t);
 #pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        if (t[v] < 0.0f) tsign[v] = -tsign[v];
-        const float m = fabsf(t[v]);
-        if (METHOD == 0) {
-          const float ph = phi_f(m);
-          acc[v] = i == 0 ? ph : acc[v] + ph;
-        } else if (i == 0 || m < acc[v]) {
-          min2[v] = i == 0 ? BIG : acc[v];
-          acc[v] = m;
-          arg[v] = i;
-        } else {
-          min2[v] = fminf(min2[v], m);
-        }
-      }
+      for (int v = 0; v < VEC; ++v) w[v].fold(i, t[v], METHOD);
     }
     const int ns = __ldg(&a.nslot[c]);
     for (int i = 0; i < Dc; ++i) {
@@ -180,9 +164,7 @@ __device__ __forceinline__ void bsr_checks_wide(const BsrArgs& a, int it, float 
       bsr_incoming<VEC>(a, it, e0 + i, var, s0, t);
 #pragma unroll
       for (int v = 0; v < VEC; ++v) {
-        const float s = t[v] < 0.0f ? -tsign[v] : tsign[v];
-        const float out = METHOD == 0 ? s * phi_f(acc[v] - phi_f(fabsf(t[v])))
-                                      : (s * (i == arg[v] ? min2[v] : acc[v])) * alpha;
+        const float out = w[v].out(i, t[v], METHOD, alpha);
         t[v] = var >= 0 ? out : (i < ns ? BIG - bf(out) : BIG);
       }
       st_bf16<VEC>(msg + (e0 + i) * a.S + s0, t);
@@ -313,7 +295,7 @@ static void launch_checks(const BsrArgs& a, int it, int method, float alpha, int
 // bound a constant, else the bounded scan up to 16 or 32 slots.  x[VEC][MAXP]
 // lives in registers: 4 shots a lane up to 16 slots, 2 above, 1 where 4 or 2
 // does not divide the shots and the shot block (the plan), as in K3.  Route
-// "wide" (more than BSR_MAX_SLOTS slots): the two-pass scan, 8, 4, 2 or 1
+// "wide" (more than MAX_SLOTS slots): the two-pass scan, 8, 4, 2 or 1
 // shots a lane.
 static bool checks(const BsrArgs& a, int it, int vec, int method, float alpha, int blocks,
                    bool wide, cudaStream_t st) {
@@ -427,7 +409,7 @@ static int launch_coop(const BsrArgs& a, float alpha, int adaptive, int n_iter, 
 // a 16-byte boundary).  route: the plan's, BSR_GRIDS, BSR_COOP (one launch
 // of the largest of the three grids, refused where the instance or the
 // grid does not exist) or BSR_WIDE (required exactly where Dc exceeds
-// BSR_MAX_SLOTS).
+// MAX_SLOTS).
 extern "C" int bsr_bp_run(const void* chk_vars, const void* vm, const void* nslot,
                           const void* synd, const void* prior, void* msg, void* post, void* conv,
                           void* hard, void* gbad, void* flags, int C, int V, int Dc, int Dv,

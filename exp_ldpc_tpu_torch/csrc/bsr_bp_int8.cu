@@ -114,7 +114,7 @@ __device__ __forceinline__ void bsr8_checks(const BsrArgs& a, int it, int alpha_
   }
 }
 
-// ---- phase A of route "wide": checks of more than BSR_MAX_SLOTS slots, in
+// ---- phase A of route "wide": checks of more than MAX_SLOTS slots, in
 // two passes over the slots (K1's bsr_checks_wide): pass 1 folds each slot's
 // byte into the negative count, min1, min2 and argmin; pass 2 reads each
 // live slot again and stores its outgoing message.  Integer arithmetic: the
@@ -298,7 +298,7 @@ __global__ void __launch_bounds__(ROW_THREADS) bsr_int8_parity_kernel(const BsrA
 // path's codes (7, 8, 24) and the bounded scan up to 16 or 32 slots; 16
 // shots a lane up to 8 slots, 8 up to 24, 4 above (the packed bytes of
 // every slot in registers), 1 where the plan's width does not divide.
-// Route "wide" (more than BSR_MAX_SLOTS slots): the two-pass scan, 16, 8, 4
+// Route "wide" (more than MAX_SLOTS slots): the two-pass scan, 16, 8, 4
 // or 1 shots a lane.
 static bool checks(const BsrArgs& a, int it, int vec, int alpha_num, int blocks, bool wide,
                    cudaStream_t st) {

@@ -17,10 +17,9 @@
 enum { BSR_DONE = 0, BSR_TICKET = 1 };
 // The plan's routes (utils/cuda_build.py::bsr_plan): one grid per phase; K1's
 // one cooperative launch; one grid per phase with the two-pass check phase
-// for checks of more than BSR_MAX_SLOTS slots, whose register instances
-// stop there.
+// for checks of more than MAX_SLOTS slots (spacetime_bp.cuh), whose
+// register instances stop there.
 enum { BSR_GRIDS = 0, BSR_COOP = 1, BSR_WIDE = 2 };
-#define BSR_MAX_SLOTS 32
 
 struct BsrArgs {
   const int* chk_vars;   // (C*Dc,) variable of each check-major slot, -1 = padded slot
@@ -107,5 +106,5 @@ static bool bsr_plan_ok(const BsrArgs& a, int vec_a, int vec_b, int vec_c, int r
   for (int i = 0; i < 3; ++i)
     if (vecs[i] < 1 || a.S % vecs[i] || a.sb % vecs[i]) return false;
   return a.S_live >= 1 && a.S_live <= a.S && a.sb >= 1 && (size_t)a.G * a.sb >= (size_t)a.S &&
-         a.Dc >= 1 && (route == BSR_WIDE) == (a.Dc > BSR_MAX_SLOTS);
+         a.Dc >= 1 && (route == BSR_WIDE) == (a.Dc > MAX_SLOTS);
 }

@@ -37,6 +37,11 @@
 //      (0 for a variable with no local edge), or, for the in-order sum of
 //      several shards on one device, added to the running total in place
 //      (a variable with no local edge is then left alone: + 0).
+// Checks of more than MAX_SLOTS (32) slots (the fault matrices of detector
+// error models) take route "wide": phase A in two passes over the slots,
+// whose registers do not grow with Dc (bsr_shard_checks_wide); the caller's
+// plan names the route and the entry point refuses one that does not match
+// the degree.
 // The all-reduce of the partials over the model axis runs between launches
 // (no collective runs inside a kernel).  Each check and variable is computed
 // by one thread in the plain version's order, so results are bit-identical.
@@ -50,6 +55,12 @@ template <int MAXP, int VEC, int METHOD>
 __global__ void __launch_bounds__(ROW_THREADS, 2) bsr_shard_check_kernel(const ShardArgs a,
                                                                       float alpha) {
   bsr_shard_checks<MAXP, VEC, METHOD>(a, alpha);
+}
+
+template <int VEC, int METHOD>
+__global__ void __launch_bounds__(ROW_THREADS, 2) bsr_shard_check_wide_kernel(const ShardArgs a,
+                                                                           float alpha) {
+  bsr_shard_checks_wide<VEC, METHOD>(a, alpha);
 }
 
 template <int VEC, bool ACCUMULATE>
@@ -68,9 +79,22 @@ static void launch_checks(const ShardArgs& a, int method, float alpha, int block
 
 // Phase A by padded check width and lane width: 4 shots a lane up to 16
 // slots, 2 above, 1 for a ragged S; x[VEC][MAXP] lives in registers, two
-// blocks per SM (at most 128 registers a thread), as in K3.
-static bool checks(const ShardArgs& a, int vec, int method, float alpha, int blocks,
+// blocks per SM (at most 128 registers a thread), as in K3.  Route "wide"
+// (more than MAX_SLOTS slots): the two-pass scan, 8, 4, 2 or 1 shots a lane.
+static bool checks(const ShardArgs& a, int vec, int method, float alpha, int blocks, bool wide,
                    cudaStream_t st) {
+#define WIDE(VEC)                                                                        \
+  if (vec == VEC) {                                                                      \
+    if (method == 0)                                                                     \
+      bsr_shard_check_wide_kernel<VEC, 0><<<blocks, ROW_THREADS, 0, st>>>(a, alpha);     \
+    else                                                                                 \
+      bsr_shard_check_wide_kernel<VEC, 1><<<blocks, ROW_THREADS, 0, st>>>(a, alpha);     \
+    return true;                                                                         \
+  }
+  if (wide) {
+    WIDE(1) WIDE(2) WIDE(4) WIDE(8)
+    return false;
+  }
 #define CASE(MAXP, VEC)                                      \
   if (a.Dc <= MAXP && vec == VEC) {                          \
     launch_checks<MAXP, VEC>(a, method, alpha, blocks, st);  \
@@ -79,6 +103,7 @@ static bool checks(const ShardArgs& a, int vec, int method, float alpha, int blo
   CASE(8, 1) CASE(8, 4) CASE(12, 1) CASE(12, 4) CASE(16, 1) CASE(16, 4)
   CASE(24, 1) CASE(24, 2) CASE(32, 1) CASE(32, 2)
 #undef CASE
+#undef WIDE
   return false;
 }
 
@@ -95,19 +120,20 @@ static bool vars(const ShardArgs& a, int vec, int blocks, cudaStream_t st) {
 // One iteration of one shard (two launches) on `stream`.  With `accumulate`
 // the partials are added to `part` in place.  vec_* / blocks_*: lane width
 // and grid of each phase, planned by the caller (S a multiple of every vec,
-// every array aligned to its access).
+// every array aligned to its access); `wide`: the check phase's route,
+// "wide" exactly where Dc exceeds MAX_SLOTS.
 extern "C" int bsr_shard(const void* chk_vars, const void* nslot, const void* lvar,
                          const void* lvm, const void* post, const void* msg_in, const void* synd,
                          void* msg_out, void* part, int Cl, int Dc, int V_pad, int n_loc, int Dv,
                          int S, int method, float alpha, int accumulate, int vec_a, int blocks_a,
-                         int vec_b, int blocks_b, void* stream) {
+                         int wide, int vec_b, int blocks_b, void* stream) {
   const ShardArgs a = {(const int*)chk_vars, (const int*)nslot, (const int*)lvar,
                        (const int*)lvm, (const float*)post, (const __nv_bfloat16*)msg_in,
                        (const uint8_t*)synd, (__nv_bfloat16*)msg_out, (float*)part,
                        Cl, Dc, V_pad, n_loc, Dv, S};
   cudaStream_t st = (cudaStream_t)stream;
-  if (S % vec_a || S % vec_b) return (int)cudaErrorInvalidValue;
-  if (!checks(a, vec_a, method, alpha, blocks_a, st)) return (int)cudaErrorInvalidValue;
+  if (S % vec_a || S % vec_b || (wide != 0) != (Dc > MAX_SLOTS)) return (int)cudaErrorInvalidValue;
+  if (!checks(a, vec_a, method, alpha, blocks_a, wide != 0, st)) return (int)cudaErrorInvalidValue;
   const bool ok = accumulate ? vars<true>(a, vec_b, blocks_b, st) : vars<false>(a, vec_b, blocks_b, st);
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

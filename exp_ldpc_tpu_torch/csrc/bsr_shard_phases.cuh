@@ -73,6 +73,55 @@ __device__ __forceinline__ void bsr_shard_checks(const ShardArgs& a, float alpha
   }
 }
 
+// ---- phase A of route "wide": checks of more than MAX_SLOTS slots, in two
+// passes over the scanned slots (WideCheck, spacetime_bp.cuh) after the
+// broadcast.  Pass 2 broadcasts each slot again and stores its outgoing
+// message (read before it is written: msg_out may alias msg_in); slots at
+// or past nslot store +BIG, as in the register instances.
+template <int VEC>
+__device__ __forceinline__ void shard_v2c(const ShardArgs& a, int i, int c, int s0,
+                                          float (&x)[VEC]) {
+  const size_t row = (size_t)i * a.Cl + c;
+  const int var = __ldg(&a.chk_vars[row]);
+  float t[VEC], m[VEC];
+  ld_bf16<VEC>(a.msg_in + row * a.S + s0, m);
+  if (var >= 0) ld_f32<VEC>(a.post + (size_t)var * a.S + s0, t);
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) x[v] = bf(((var >= 0) ? bf(t[v]) : BIG) - m[v]);
+}
+
+template <int VEC, int METHOD>
+__device__ __forceinline__ void bsr_shard_checks_wide(const ShardArgs& a, float alpha) {
+  const int Cl = a.Cl, Dc = a.Dc;
+  const size_t SS = (size_t)a.S;
+  RowItems items(Cl, a.S, VEC);
+  int c, s0;
+  while (items.next(c, s0, VEC)) {
+    const int ns = __ldg(&a.nslot[c]);
+    const Pack<VEC> sy = ld_raw_ro<VEC>(a.synd + (size_t)c * SS + s0);
+    WideCheck w[VEC];
+    float x[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) w[v].init(sy.u8[v] ? -1.0f : 1.0f);
+    for (int i = 0; i < ns; ++i) {
+      shard_v2c<VEC>(a, i, c, s0, x);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) w[v].fold(i, x[v], METHOD);
+    }
+    for (int i = 0; i < Dc; ++i) {
+      if (i < ns) {
+        shard_v2c<VEC>(a, i, c, s0, x);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) x[v] = w[v].out(i, x[v], METHOD, alpha);
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) x[v] = BIG;
+      }
+      st_bf16<VEC>(a.msg_out + ((size_t)i * Cl + c) * SS + s0, x);
+    }
+  }
+}
+
 // ---- phase B: partial totals of the variables with a local edge
 template <int VEC, bool ACCUMULATE>
 __device__ __forceinline__ void bsr_shard_vars(const ShardArgs& a) {

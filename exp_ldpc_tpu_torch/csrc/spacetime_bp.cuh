@@ -6,6 +6,7 @@
 #include <cuda_runtime.h>
 
 #define BIG 1e30f
+#define MAX_SLOTS 32  // the widest check of every kernel's register instances; wider: route "wide"
 #define LANES 32   // shots per block: one per lane, so warp accesses coalesce
 #define WORKERS 8  // warps per block, splitting each phase of an iteration
 
@@ -96,3 +97,41 @@ __device__ __forceinline__ void check_update_ms_all(float (&x)[N], float synd_si
     x[i] = (s * ((i == arg) ? min2 : min1)) * alpha;
   }
 }
+
+// Route "wide": check_update over the slots of a check wider than the
+// register instances, in two passes whose state does not grow with the slot
+// count.  Pass 1 folds each slot's incoming message, in slot order, into the
+// sign parity and into either the phi total (sum-product, left to right) or
+// min1 / min2 / the first argmin (min-sum); pass 2 forms each slot's outgoing
+// message from its incoming one with out(), as check_update stores it.  The
+// same operations in the same order as check_update: the same bits.
+struct WideCheck {
+  float tsign, acc, min2;  // acc: the phi total (ps) or min1 (ms)
+  int arg;
+
+  __device__ __forceinline__ void init(float synd_sign) {
+    tsign = synd_sign;
+    acc = 0.0f;
+    min2 = BIG;
+    arg = 0;
+  }
+  __device__ __forceinline__ void fold(int i, float x, int method) {
+    if (x < 0.0f) tsign = -tsign;
+    const float m = fabsf(x);
+    if (method == 0) {
+      const float ph = phi_f(m);
+      acc = (i == 0) ? ph : acc + ph;
+    } else if (i == 0 || m < acc) {
+      min2 = (i == 0) ? BIG : acc;
+      acc = m;
+      arg = i;
+    } else {
+      min2 = fminf(min2, m);
+    }
+  }
+  __device__ __forceinline__ float out(int i, float x, int method, float alpha) const {
+    const float s = (x < 0.0f) ? -tsign : tsign;
+    return (method == 0) ? s * phi_f(acc - phi_f(fabsf(x)))
+                         : (s * ((i == arg) ? min2 : acc)) * alpha;
+  }
+};

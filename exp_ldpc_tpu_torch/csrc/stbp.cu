@@ -44,6 +44,14 @@
 //   every warp access is 32 consecutive shots of one row, coalesced) and
 //   its 8 warps split each phase; the messages live in device memory,
 //   updated in place.
+//
+// Checks of more than MAX_SLOTS (32) slots, data and measurement slots
+// together (Dc > 30, as in dense hypergraph products), take route "wide" on
+// either route: the check phase in two passes over the slots (WideCheck,
+// spacetime_bp.cuh), whose registers do not grow with Dc, and the live slots
+// read from the tables' -1 sentinel instead of a 32-bit mask.  The caller's
+// plan names the route and the entry point refuses one that does not match
+// the degree.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,7 +62,7 @@
 // The streamed route
 // ---------------------------------------------------------------------------
 
-template <int MAXP>
+template <int MAXP, bool WIDE>
 __global__ void __launch_bounds__(LANES* WORKERS) stbp_streamed_kernel(
     const uint8_t* __restrict__ synd,     // (B*r, S) 0/1
     const float* __restrict__ prior,      // (B*n + R*r,) LLRs
@@ -120,15 +128,30 @@ __global__ void __launch_bounds__(LANES* WORKERS) stbp_streamed_kernel(
     if (active) {
       for (int q = w; q < B * r; q += WORKERS) {
         const int b = q / r, c = q - b * r;
-        float x[MAXP];
         const size_t e0 = (size_t)q * Dc;
-#pragma unroll
-        for (int i = 0; i < MAXP; ++i)
-          if (i < Dc) x[i] = msg[(e0 + i) * SS + s];
         const size_t m_prev = (size_t)(q - r) * SS + s;  // m_{b-1}
         const size_t m_next = (size_t)q * SS + s;        // m_b
         const float vhi = (b > 0) ? mhi[m_prev] : BIG;
         const float vlo = (b < R) ? mlo[m_next] : BIG;
+        if constexpr (WIDE) {  // the data slots, then the upper and the lower measurement slot
+          WideCheck wk;
+          wk.init(synd[(size_t)q * SS + s] ? -1.0f : 1.0f);
+          for (int i = 0; i < Dc; ++i) wk.fold(i, msg[(e0 + i) * SS + s], method);
+          wk.fold(Dc, vhi, method);
+          wk.fold(Dc + 1, vlo, method);
+          for (int i = 0; i < Dc; ++i) {
+            if (cvar(c * Dc + i) < 0) continue;
+            const size_t k = (e0 + i) * SS + s;
+            msg[k] = wk.out(i, msg[k], method, alpha);
+          }
+          if (b > 0) mhi[m_prev] = wk.out(Dc, vhi, method, alpha);
+          if (b < R) mlo[m_next] = wk.out(Dc + 1, vlo, method, alpha);
+          continue;
+        }
+        float x[MAXP];
+#pragma unroll
+        for (int i = 0; i < MAXP; ++i)
+          if (i < Dc) x[i] = msg[(e0 + i) * SS + s];
 #pragma unroll
         for (int i = 0; i < MAXP; ++i) {
           if (i == Dc) x[i] = vhi;
@@ -219,7 +242,7 @@ static size_t stbp_resident_bytes(int r, int n, int Dc, int Dv, int R, int strid
   return 4 * words + Q * stride;
 }
 
-template <int MAXP, bool EXACT>
+template <int MAXP, bool EXACT, bool WIDE>
 __global__ void __launch_bounds__(ResidentThreads<MAXP>::value) stbp_resident_kernel(
     const uint8_t* __restrict__ synd,     // (B*r, S) 0/1
     const float* __restrict__ prior,      // (B*n + R*r,) LLRs
@@ -251,7 +274,7 @@ __global__ void __launch_bounds__(ResidentThreads<MAXP>::value) stbp_resident_ke
 
   // an edge of the variable->edge table as a slot-major row of base block 0
   auto remap = [&](int k) { return k < 0 ? -1 : (k % Dc) * Q + k / Dc; };
-  for (int c = tid; c < r; c += T) {
+  for (int c = tid; c < r && !WIDE; c += T) {  // route "wide" reads the tables' sentinel
     int m = 0;
     for (int i = 0; i < Dc; ++i)
       if (__ldg(&chk_vars_g[c * Dc + i]) >= 0) m |= 1 << i;
@@ -292,13 +315,28 @@ __global__ void __launch_bounds__(ResidentThreads<MAXP>::value) stbp_resident_ke
     // in place into mhi (m_{b-1}) / mlo (m_b)
     walk(B, r, Gb, [&](int b, int c, int g) {
       const int q = b * r + c;
+      const int iprev = (q - r) * stride + g, inext = q * stride + g;
+      const float vhi = (b > 0) ? mhi[iprev] : BIG;
+      const float vlo = (b < R) ? mlo[inext] : BIG;
+      if constexpr (WIDE) {  // the data slots, then the upper and the lower measurement slot
+        WideCheck wk;
+        wk.init(sy[q * stride + g] ? -1.0f : 1.0f);
+        for (int i = 0; i < Dc; ++i) wk.fold(i, msg[(i * Q + q) * stride + g], method);
+        wk.fold(Dc, vhi, method);
+        wk.fold(Dc + 1, vlo, method);
+        for (int i = 0; i < Dc; ++i) {
+          if (cvar(c * Dc + i) < 0) continue;
+          const int k = (i * Q + q) * stride + g;
+          msg[k] = wk.out(i, msg[k], method, alpha);
+        }
+        if (b > 0) mhi[iprev] = wk.out(Dc, vhi, method, alpha);
+        if (b < R) mlo[inext] = wk.out(Dc + 1, vlo, method, alpha);
+        return;
+      }
       float x[MAXP];
 #pragma unroll
       for (int i = 0; i < MAXP; ++i)
         if (i < Dc) x[i] = msg[(i * Q + q) * stride + g];
-      const int iprev = (q - r) * stride + g, inext = q * stride + g;
-      const float vhi = (b > 0) ? mhi[iprev] : BIG;
-      const float vlo = (b < R) ? mlo[inext] : BIG;
       if constexpr (EXACT) {
         x[MAXP - 2] = vhi;
         x[MAXP - 1] = vlo;
@@ -400,7 +438,7 @@ __global__ void __launch_bounds__(ResidentThreads<MAXP>::value) stbp_resident_ke
 // Entry point
 // ---------------------------------------------------------------------------
 
-template <int MAXP>
+template <int MAXP, bool WIDE = false>
 static int streamed(const uint8_t* synd, const float* prior, const int* chk_vars, const int* vm,
                     float* msg, float* mlo, float* mhi, float* post, uint8_t* conv, int r, int n,
                     int Dc, int Dv, int R, int S, int max_iter, int method, float alpha0,
@@ -411,17 +449,17 @@ static int streamed(const uint8_t* synd, const float* prior, const int* chk_vars
     return (int)cudaErrorInvalidValue;
   const int shmem = tables_smem ? smem_bytes : 0;
   if (shmem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(stbp_streamed_kernel<MAXP>,
+    cudaError_t e = cudaFuncSetAttribute(stbp_streamed_kernel<MAXP, WIDE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, shmem);
     if (e != cudaSuccess) return (int)e;
   }
-  stbp_streamed_kernel<MAXP><<<blocks, threads, shmem, stream>>>(
+  stbp_streamed_kernel<MAXP, WIDE><<<blocks, threads, shmem, stream>>>(
       synd, prior, chk_vars, vm, msg, mlo, mhi, post, conv, r, n, Dc, Dv, R, S, max_iter, method,
       alpha0, tables_smem);
   return (int)cudaGetLastError();
 }
 
-template <int MAXP, bool EXACT>
+template <int MAXP, bool EXACT, bool WIDE = false>
 static int resident(const uint8_t* synd, const float* prior, const int* chk_vars, const int* vm,
                     float* post, uint8_t* conv, int r, int n, int Dc, int Dv, int R, int S,
                     int max_iter, int method, float alpha0, int G, int stride, int threads,
@@ -429,7 +467,7 @@ static int resident(const uint8_t* synd, const float* prior, const int* chk_vars
   if (threads > ResidentThreads<MAXP>::value || G < 1 || stride < G ||
       (size_t)smem_bytes != stbp_resident_bytes(r, n, Dc, Dv, R, stride, tables_smem))
     return (int)cudaErrorInvalidValue;
-  return launch_resident(stbp_resident_kernel<MAXP, EXACT>, (S + G - 1) / G, threads,
+  return launch_resident(stbp_resident_kernel<MAXP, EXACT, WIDE>, (S + G - 1) / G, threads,
                          smem_bytes, stream, synd, prior, chk_vars, vm, post, conv, r, n, Dc, Dv,
                          R, S, max_iter, method, alpha0, G, stride, tables_smem);
 }
@@ -438,12 +476,14 @@ static int resident(const uint8_t* synd, const float* prior, const int* chk_vars
 // slots, `threads` per block, `smem_bytes` of dynamic shared memory, which
 // must equal the layout's); group == 0: the streamed route (msg, mlo, mhi are
 // its device-memory scratch; the tables in shared memory if tables_smem).
+// `wide`: route "wide" on either route, exactly where Dc + 2 exceeds MAX_SLOTS.
 extern "C" int stbp_fixed(const void* synd, const void* prior, const void* chk_vars,
                           const void* vm, void* msg, void* mlo, void* mhi, void* post, void* conv,
                           int r, int n, int Dc, int Dv, int R, int S, int max_iter, int method,
                           float alpha0, int group, int stride, int threads, int tables_smem,
-                          int smem_bytes, void* stream) {
+                          int smem_bytes, int wide, void* stream) {
   const int P = Dc + 2;
+  if ((wide != 0) != (P > MAX_SLOTS)) return (int)cudaErrorInvalidValue;
   const uint8_t* sy = (const uint8_t*)synd;
   const float* pr = (const float*)prior;
   const int* cv = (const int*)chk_vars;
@@ -454,6 +494,7 @@ extern "C" int stbp_fixed(const void* synd, const void* prior, const void* chk_v
       return f(sy, pr, cv, vt, (float*)post, (uint8_t*)conv, r, n, Dc, Dv, R, S, max_iter,
                method, alpha0, group, stride, threads, tables_smem, smem_bytes, st);
     };
+    if (wide) return go([](auto... a) { return resident<32, false, true>(a...); });
     // exact widths: HGP's Dc 7 (+2) and the gross code's Dc 6 (+2)
     if (P == 9) return go([](auto... a) { return resident<9, true>(a...); });
     if (P == 8) return go([](auto... a) { return resident<8, true>(a...); });
@@ -467,6 +508,7 @@ extern "C" int stbp_fixed(const void* synd, const void* prior, const void* chk_v
              (uint8_t*)conv, r, n, Dc, Dv, R, S, max_iter, method, alpha0, tables_smem,
              smem_bytes, st);
   };
+  if (wide) return go([](auto... a) { return streamed<32, true>(a...); });
   if (P <= 8) return go([](auto... a) { return streamed<8>(a...); });
   if (P <= 16) return go([](auto... a) { return streamed<16>(a...); });
   if (P <= 32) return go([](auto... a) { return streamed<32>(a...); });

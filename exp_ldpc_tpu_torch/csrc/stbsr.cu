@@ -49,6 +49,11 @@
 // violated check, and counts the iteration in the device-side `iters`.  The
 // host reads nothing during the loop.  In fixed-iteration mode the flags
 // pointer is null and no flag traffic exists.
+// Checks of more than MAX_SLOTS (32) slots, data and measurement slots
+// together (Dc > 30, as in dense hypergraph products), take route "wide":
+// phase A in two passes over the slots, whose registers do not grow with Dc
+// (stbsr_checks_wide); the caller's plan names the route and the entry point
+// refuses one that does not match the degree.
 // The Tanner tables (identical for all threads of a row) come through the
 // read-only cache; the TPU's 128x128 one-hot tiles have no counterpart.
 // Each check, variable and parity is computed by one thread in the plain
@@ -66,6 +71,13 @@ template <int MAXP, int VEC, int METHOD>
 __global__ void __launch_bounds__(ROW_THREADS, 2) stbsr_check_kernel(const StArgs a, float alpha) {
   if (a.flags && a.flags[F_DONE]) return;
   stbsr_checks<MAXP, VEC, METHOD>(a, alpha);
+}
+
+template <int VEC, int METHOD>
+__global__ void __launch_bounds__(ROW_THREADS, 2) stbsr_check_wide_kernel(const StArgs a,
+                                                                       float alpha) {
+  if (a.flags && a.flags[F_DONE]) return;
+  stbsr_checks_wide<VEC, METHOD>(a, alpha);
 }
 
 template <int VEC>
@@ -91,17 +103,32 @@ static void launch_checks(const StArgs& a, int method, float alpha, int blocks, 
 // Phase A by padded check width and lane width: 4 shots a lane up to 16
 // slots, 2 above, 1 for a ragged S.  x[VEC][MAXP] lives in registers, and
 // two blocks per SM (at most 128 registers a thread) measured faster than
-// one block with more registers or three with spills.
-static bool checks(const StArgs& a, int vec, int method, float alpha, int blocks, cudaStream_t st) {
+// one block with more registers or three with spills.  Route "wide" (more
+// than MAX_SLOTS slots): the two-pass scan, 8, 4, 2 or 1 shots a lane.
+static bool checks(const StArgs& a, int vec, int method, float alpha, int blocks, bool wide,
+                   cudaStream_t st) {
   const int P = a.Dc + 2;
+#define WIDE(VEC)                                                                      \
+  if (vec == VEC) {                                                                    \
+    if (method == 0)                                                                   \
+      stbsr_check_wide_kernel<VEC, 0><<<blocks, ROW_THREADS, 0, st>>>(a, alpha);       \
+    else                                                                               \
+      stbsr_check_wide_kernel<VEC, 1><<<blocks, ROW_THREADS, 0, st>>>(a, alpha);       \
+    return true;                                                                       \
+  }
 #define CASE(MAXP, VEC)                                      \
   if (P <= MAXP && vec == VEC) {                             \
     launch_checks<MAXP, VEC>(a, method, alpha, blocks, st);  \
     return true;                                             \
   }
+  if (wide) {
+    WIDE(1) WIDE(2) WIDE(4) WIDE(8)
+    return false;
+  }
   CASE(8, 1) CASE(8, 4) CASE(10, 1) CASE(10, 4) CASE(12, 1) CASE(12, 4) CASE(16, 1) CASE(16, 4)
   CASE(24, 1) CASE(24, 2) CASE(28, 1) CASE(28, 2) CASE(32, 1) CASE(32, 2)
 #undef CASE
+#undef WIDE
   return false;
 }
 
@@ -126,26 +153,28 @@ static bool parity(const StArgs& a, int vec, int blocks, cudaStream_t st) {
 // Runs iterations it0 .. it0 + n_iter - 1 (three launches each) on `stream`.
 // alpha: the min-sum scaling, or with `adaptive` 1 - 2^-(it+1) per iteration.
 // vec_* / blocks_*: lane width and grid of each phase, planned by the caller
-// (S a multiple of every vec, every array aligned to its access).
+// (S a multiple of every vec, every array aligned to its access); `wide`: the
+// check phase's route, "wide" exactly where Dc + 2 exceeds MAX_SLOTS.
 extern "C" int stbsr_run(const void* chk_vars, const void* vm, void* msg, void* mlo, void* mhi,
                          const void* synd, const void* prior_d, const void* mprior, void* post_d,
                          void* post_m, void* conv, void* c2m, void* hard, void* flags, int r,
                          int n, int Dc, int Dv, int R, int S, int S_live, int method, float alpha,
-                         int adaptive, int it0, int n_iter, int vec_a, int blocks_a, int vec_b,
-                         int blocks_b, int vec_c, int blocks_c, void* stream) {
+                         int adaptive, int it0, int n_iter, int vec_a, int blocks_a, int wide,
+                         int vec_b, int blocks_b, int vec_c, int blocks_c, void* stream) {
   const StArgs a = {(const int*)chk_vars, (const int*)vm, (__nv_bfloat16*)msg,
                     (__nv_bfloat16*)mlo, (__nv_bfloat16*)mhi, (const uint8_t*)synd,
                     (const float*)prior_d, (const float*)mprior, (float*)post_d, (float*)post_m,
                     (uint8_t*)conv, (float*)c2m, (uint8_t*)hard, (int*)flags,
                     r, n, Dc, Dv, R, S, S_live};
   cudaStream_t st = (cudaStream_t)stream;
-  if (S % vec_a || S % vec_b || S % vec_c) return (int)cudaErrorInvalidValue;
+  if (S % vec_a || S % vec_b || S % vec_c || (wide != 0) != (Dc + 2 > MAX_SLOTS))
+    return (int)cudaErrorInvalidValue;
   for (int it = it0; it < it0 + n_iter; ++it) {
     const float al = adaptive ? (float)(1.0 - ldexp(1.0, -(it + 1))) : alpha;
     // the posteriors are outputs only: with a fixed count the last iteration's are the
     // ones returned; with the early exit any iteration may be the last
     const bool write_post = flags != nullptr || it == it0 + n_iter - 1;
-    if (!checks(a, vec_a, method, al, blocks_a, st) ||
+    if (!checks(a, vec_a, method, al, blocks_a, wide != 0, st) ||
         !vars(a, vec_b, write_post, blocks_b, st) ||
         !parity(a, vec_c, blocks_c, st))
       return (int)cudaErrorInvalidValue;

@@ -119,6 +119,60 @@ __device__ __forceinline__ void stbsr_checks(const StArgs& a, float alpha) {
   }
 }
 
+// ---- phase A of route "wide": checks of more than MAX_SLOTS slots (Dc + 2
+// > 32), in two passes over the slots (WideCheck, spacetime_bp.cuh): the Dc
+// data messages, then the upper (slot Dc) and the lower (slot Dc + 1)
+// measurement message, the order of the register instances.  Pass 2 reads
+// each data slot again and stores its outgoing message in place.
+template <int VEC, int METHOD>
+__device__ __forceinline__ void stbsr_checks_wide(const StArgs& a, float alpha) {
+  const int B = a.R + 1, Dc = a.Dc, R = a.R, r = a.r;
+  const size_t SS = (size_t)a.S;
+  float* c2m_lo = a.c2m;
+  float* c2m_hi = a.c2m + (size_t)R * r * SS;
+  RowItems items(B * r, a.S, VEC);
+  int q, s0;
+  while (items.next(q, s0, VEC)) {
+    const int b = q / r, c = q - b * r;
+    const size_t e0 = (size_t)q * Dc;
+    const size_t m_prev = (size_t)(q - r) * SS + s0;  // m_{b-1}
+    const size_t m_next = (size_t)q * SS + s0;        // m_b
+    float vhi[VEC], vlo[VEC], t[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) vhi[v] = vlo[v] = BIG;
+    if (b > 0) ld_bf16<VEC>(a.mhi + m_prev, vhi);
+    if (b < R) ld_bf16<VEC>(a.mlo + m_next, vlo);
+    const Pack<VEC> sy = ld_raw_ro<VEC>(a.synd + (size_t)q * SS + s0);
+    WideCheck w[VEC];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) w[v].init(sy.u8[v] ? -1.0f : 1.0f);
+    for (int i = 0; i < Dc; ++i) {
+      ld_bf16<VEC>(a.msg + (e0 + i) * SS + s0, t);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) w[v].fold(i, t[v], METHOD);
+    }
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      w[v].fold(Dc, vhi[v], METHOD);
+      w[v].fold(Dc + 1, vlo[v], METHOD);
+    }
+    for (int i = 0; i < Dc; ++i) {
+      if (__ldg(&a.chk_vars[c * Dc + i]) < 0) continue;
+      ld_bf16<VEC>(a.msg + (e0 + i) * SS + s0, t);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) t[v] = w[v].out(i, t[v], METHOD, alpha);
+      st_bf16<VEC>(a.msg + (e0 + i) * SS + s0, t);
+    }
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      vhi[v] = w[v].out(Dc, vhi[v], METHOD, alpha);
+      vlo[v] = w[v].out(Dc + 1, vlo[v], METHOD, alpha);
+    }
+    if (b > 0) st_f32<VEC>(c2m_hi + m_prev, vhi);
+    if (b < R) st_f32<VEC>(c2m_lo + m_next, vlo);
+  }
+}
+
 // ---- phase B: measurement variables (closed form), then data variables
 template <int VEC>
 __device__ __forceinline__ void stbsr_vars(const StArgs& a, bool write_post) {

@@ -42,7 +42,7 @@ import torch
 from scipy import sparse
 
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh, all_gather_cols, all_reduce_sum)
-from ..utils.cuda_build import CudaKernel, aligned, row_shot_plan
+from ..utils.cuda_build import MAX_SLOTS, WIDE_VECS, CudaKernel, aligned, row_shot_plan
 from ..utils.device import DeviceLike, resolve_device
 from .bp import BIG, alpha_at, channel_priors, normalize_method, phi, priors_to_llr
 
@@ -51,9 +51,10 @@ __all__ = ["ShardedBSR", "ShardTables", "ShardedBSRDecoder", "auto_num_shards",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # csrc/bsr_shard.cu::bsr_shard: 9 arrays; Cl, Dc, V_pad, n_loc, Dv, S, method; alpha;
-# accumulate and (vec, blocks) of the two phases; the stream.  One call = one iteration of
-# one shard = 2 grids: ``KERNEL.launches`` counts calls.
-KERNEL = CudaKernel("bsr_shard.cu", "bsr_shard", [_P] * 9 + [_I] * 7 + [_F] + [_I] * 5 + [_P])
+# accumulate, (vec, blocks, wide) of the check phase, (vec, blocks) of the variable phase;
+# the stream.  One call = one iteration of one shard = 2 grids: ``KERNEL.launches`` counts
+# calls, ``KERNEL.routes`` splits them by the check phase's route.
+KERNEL = CudaKernel("bsr_shard.cu", "bsr_shard", [_P] * 9 + [_I] * 7 + [_F] + [_I] * 6 + [_P])
 
 _TILE = 128
 _BF16 = torch.bfloat16
@@ -329,11 +330,17 @@ def launch_plans(sh: ShardTables, shots: int, sm_count: int, accumulate: bool = 
     A walks the shard's checks, phase B every variable (or, accumulating,
     only those with a local edge), each times the shot vectors.  Phase A
     keeps a check's Dc messages of every owned shot in registers, so it
-    takes 4 shots a lane up to 16 slots and 2 above; phase B takes up to 8.
-    ``vectors`` is false when an array does not start on a 16-byte
-    boundary."""
-    va, vb = ((4,) if sh.dc <= 16 else (2,), (8, 4, 2)) if vectors else ((), ())
-    return (row_shot_plan(sh.c_pad_loc, shots, va, sm_count),
+    takes 4 shots a lane up to 16 slots and 2 above; past ``MAX_SLOTS``
+    slots it takes route "wide" (the two-pass scan, up to 8 shots a lane);
+    phase B takes up to 8.  ``vectors`` is false when an array does not
+    start on a 16-byte boundary."""
+    wide = sh.dc > MAX_SLOTS
+    va = WIDE_VECS if wide else (4,) if sh.dc <= 16 else (2,)
+    vb = (8, 4, 2)
+    if not vectors:
+        va, vb = (), ()
+    return (row_shot_plan(sh.c_pad_loc, shots, va, sm_count)._replace(
+                route="wide" if wide else "default"),
             row_shot_plan(sh.n_loc if accumulate else sh.v_pad, shots, vb, sm_count))
 
 
@@ -360,8 +367,6 @@ def bsr_shard_iter(sh: ShardTables, posterior: torch.Tensor, messages: torch.Ten
         raise ValueError(f"bsr_shard_iter: unsupported device {dev}")
     Dc, Cl, V_pad = sh.dc, sh.c_pad_loc, sh.v_pad
     S = posterior.shape[1]
-    if Dc > 32:
-        raise ValueError(f"bsr_shard_iter supports check degree <= 32, got {Dc}")
     if out is None:
         out = torch.empty_like(messages)
     if out_part is None:
@@ -388,8 +393,9 @@ def bsr_shard_iter(sh: ShardTables, posterior: torch.Tensor, messages: torch.Ten
         sh.chk_vars_k.data_ptr(), sh.nslot(method).data_ptr(), sh.lvar_k.data_ptr(),
         sh.lvm_k.data_ptr(), posterior.data_ptr(), messages.data_ptr(), syndromes.data_ptr(),
         out.data_ptr(), out_part.data_ptr(), Cl, Dc, V_pad, sh.n_loc, sh.dv, S,
-        0 if method == "ps" else 1, float(alpha), int(accumulate), pa.vec, pa.blocks, pb.vec,
-        pb.blocks, torch.cuda.current_stream(dev).cuda_stream)
+        0 if method == "ps" else 1, float(alpha), int(accumulate), pa.vec, pa.blocks,
+        int(pa.route == "wide"), pb.vec, pb.blocks, torch.cuda.current_stream(dev).cuda_stream,
+        route=pa.route)
     return out, out_part
 
 

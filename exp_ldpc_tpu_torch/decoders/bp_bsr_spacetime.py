@@ -37,7 +37,8 @@ from typing import NamedTuple
 import torch
 
 from ..convert import TannerTables
-from ..utils.cuda_build import CudaKernel, RowShotPlan, aligned, row_shot_plan
+from ..utils.cuda_build import (MAX_SLOTS, WIDE_VECS, CudaKernel, RowShotPlan, aligned,
+                                row_shot_plan)
 from .bp import BIG, alpha_at, check_update_cm, normalize_method
 from .spacetime_bp import SpacetimeDecoderBase, spacetime_syndrome_ok
 
@@ -45,9 +46,10 @@ __all__ = ["stbsr_iter", "stbsr_decode", "SpacetimeBSRDecoder", "KERNEL"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # csrc/stbsr.cu::stbsr_run: 14 arrays; r, n, Dc, Dv, R, S, S_live, method; alpha; adaptive,
-# it0, n_iter, and (vec, blocks) of the three phases; the stream.  One call = n_iter
-# iterations = 3 * n_iter grids: ``KERNEL.launches`` counts calls.
-KERNEL = CudaKernel("stbsr.cu", "stbsr_run", [_P] * 14 + [_I] * 8 + [_F] + [_I] * 9 + [_P])
+# it0, n_iter, (vec, blocks, wide) of the check phase, (vec, blocks) of the other two; the
+# stream.  One call = n_iter iterations = 3 * n_iter grids: ``KERNEL.launches`` counts
+# calls, ``KERNEL.routes`` splits them by the check phase's route.
+KERNEL = CudaKernel("stbsr.cu", "stbsr_run", [_P] * 14 + [_I] * 8 + [_F] + [_I] * 10 + [_P])
 
 _BF16 = torch.bfloat16
 # The device-side loop pads its shot axis to this multiple (all-zero
@@ -109,13 +111,20 @@ def launch_plans(t: TannerTables, num_rounds: int, shots: int, sm_count: int,
     (R+1)·n data variables, phase C the (R+1)·r parities, each times the
     shot vectors.  Phase A keeps a check's Dc + 2 messages of every owned
     shot in registers, so it takes 4 shots a lane up to 16 slots and 2
-    above; phase B takes up to 8 (16 bytes of bf16, two accesses of f32),
-    the parity phase moves bytes and takes up to 16.  ``vectors`` is false
-    when an array does not start on a 16-byte boundary."""
+    above; past ``MAX_SLOTS`` slots it takes route "wide" (the two-pass
+    scan, a few running values per shot: up to 8 shots a lane); phase B
+    takes up to 8 (16 bytes of bf16, two accesses of f32), the parity phase
+    moves bytes and takes up to 16.  ``vectors`` is false when an array
+    does not start on a 16-byte boundary."""
     R, B = num_rounds, num_rounds + 1
     r, n, P = t.num_checks, t.num_vars, t.max_check_degree + 2
-    va, vb, vc = ((4,) if P <= 16 else (2,), (8, 4, 2), (16, 8, 4)) if vectors else ((), (), ())
-    return _Plans(row_shot_plan(B * r, shots, va, sm_count),
+    wide = P > MAX_SLOTS
+    va = WIDE_VECS if wide else (4,) if P <= 16 else (2,)
+    vb, vc = (8, 4, 2), (16, 8, 4)
+    if not vectors:
+        va, vb, vc = (), (), ()
+    return _Plans(row_shot_plan(B * r, shots, va, sm_count)._replace(
+                      route="wide" if wide else "default"),
                   row_shot_plan(R * r + B * n, shots, vb, sm_count),
                   row_shot_plan(B * r, shots, vc, sm_count))
 
@@ -135,8 +144,8 @@ def _run(t: TannerTables, R: int, msg, mlo, mhi, synd, prior_d, mprior, post_d, 
         None if flags is None else flags.data_ptr(),
         t.num_checks, t.num_vars, t.max_check_degree, t.max_var_degree, R, S, live,
         0 if method == "ps" else 1, float(alpha), int(adaptive), 0, n_iter,
-        pa.vec, pa.blocks, pb.vec, pb.blocks, pc.vec, pc.blocks,
-        torch.cuda.current_stream(dev).cuda_stream)
+        pa.vec, pa.blocks, int(pa.route == "wide"), pb.vec, pb.blocks, pc.vec, pc.blocks,
+        torch.cuda.current_stream(dev).cuda_stream, route=pa.route)
 
 
 def stbsr_iter(t: TannerTables, num_rounds: int, msg, mlo, mhi, synd, prior_d, mprior,
@@ -160,8 +169,6 @@ def stbsr_iter(t: TannerTables, num_rounds: int, msg, mlo, mhi, synd, prior_d, m
     R, B = num_rounds, num_rounds + 1
     r, n, Dc = t.num_checks, t.num_vars, t.max_check_degree
     S = msg.shape[1]
-    if Dc + 2 > 32:
-        raise ValueError(f"stbsr_iter supports check degree <= 30, got {Dc}")
     shapes = {"msg": (msg, (B * r * Dc, S), _BF16), "mlo": (mlo, (R * r, S), _BF16),
               "mhi": (mhi, (R * r, S), _BF16), "synd": (synd, (B * r, S), torch.uint8),
               "prior_d": (prior_d, (B * n,), torch.float32),
@@ -225,8 +232,6 @@ def stbsr_decode(tables: TannerTables, num_rounds: int, prior_llr: torch.Tensor,
     conv = torch.zeros((Sp,), dtype=torch.uint8, device=dev)
     c2m = torch.empty((2 * R * r, Sp), dtype=torch.float32, device=dev) if on_card else None
     if device_loop:
-        if Dc + 2 > 32:
-            raise ValueError(f"stbsr_decode supports check degree <= 30, got {Dc}")
         if t.device != dev:
             raise ValueError("stbsr_decode: tables and syndromes must share one device")
         hard = torch.empty((B * n + R * r, Sp), dtype=torch.uint8, device=dev)

@@ -11,8 +11,10 @@ The kernel has two routes, picked by :func:`launch_plan` from the shape
 before the launch (never after a failure): "resident" keeps every message
 of a block's shots in shared memory for the whole decode; "streamed" (one
 shot's state exceeds the card's opt-in shared memory, e.g. the n = 40,000
-HGP) keeps them in device memory.  ``KERNEL.launches`` counts decodes,
-``KERNEL.routes`` splits the count by route.
+HGP) keeps them in device memory.  Checks of more than ``MAX_SLOTS`` (32)
+slots take route "wide" on either route (a two-pass check phase), which the
+plan sets from the degree.  ``KERNEL.launches`` counts decodes,
+``KERNEL.routes`` splits the count by route (``ResidentPlan.label``).
 
 :func:`bp_fixed` takes the plain version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises.
@@ -26,14 +28,14 @@ from typing import Optional, Tuple
 import torch
 
 from ..convert import TannerTables
-from ..utils.cuda_build import (CudaKernel, ResidentPlan, device_limits, resident_plan,
-                                streamed_plan)
+from ..utils.cuda_build import (MAX_SLOTS, CudaKernel, ResidentPlan, device_limits,
+                                resident_plan, streamed_plan)
 from .bp import bp_core, normalize_method
 
 __all__ = ["bp_fixed", "launch_plan", "resident_bytes", "streamed_scratch", "KERNEL"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-KERNEL = CudaKernel("bpflat.cu", "bp_fixed", [_P] * 7 + [_I] * 7 + [_F] + [_I] * 5 + [_P])
+KERNEL = CudaKernel("bpflat.cu", "bp_fixed", [_P] * 7 + [_I] * 7 + [_F] + [_I] * 6 + [_P])
 _log = logging.getLogger(__name__)
 # Blocks side by side per SM at batches past one wave: the winner of
 # experiments/bench_resident.py's sweep at (H|I) 16,384 x 48 (PERF.md §6).
@@ -63,7 +65,8 @@ def launch_plan(tables: TannerTables, shots: int, device: torch.device, route: s
     :data:`BLOCKS_PER_SM`), ``threads``, ``max_group``, ``pad``).  The
     streamed kernel reads its tables through the read-only cache and takes
     no dynamic shared memory.  ``route="streamed"`` forces the streamed
-    route (before/after measurements in one run)."""
+    route (before/after measurements in one run).  Checks of more than
+    ``MAX_SLOTS`` slots set ``wide`` (route "wide") on either route."""
     smem, sms = device_limits(KERNEL, device)
     per_shot, fixed, table = resident_bytes(tables)
     if route not in ("auto", "streamed"):
@@ -74,7 +77,7 @@ def launch_plan(tables: TannerTables, shots: int, device: torch.device, route: s
                           width=tables.max_check_degree, **tune))
     if plan.route == "streamed":   # its tables are read through the read-only cache
         plan = plan._replace(tables_smem=False, smem_bytes=0)
-    return plan
+    return plan._replace(wide=tables.max_check_degree > MAX_SLOTS)
 
 
 def bp_fixed(tables: TannerTables, prior_llr: torch.Tensor, syndromes: torch.Tensor,
@@ -96,8 +99,6 @@ def bp_fixed(tables: TannerTables, prior_llr: torch.Tensor, syndromes: torch.Ten
     Cs, S = syndromes.shape
     if Cs != C:
         raise ValueError(f"syndromes have {Cs} rows, expected {C}")
-    if Dc > 32:
-        raise ValueError(f"bp_fixed supports check degree <= 32, got {Dc}")
     if t.device != dev or prior_llr.device != dev:
         raise ValueError("bp_fixed: tables, priors and syndromes must share one device")
     prior = prior_llr.to(torch.float32).contiguous()
@@ -117,13 +118,13 @@ def bp_fixed(tables: TannerTables, prior_llr: torch.Tensor, syndromes: torch.Ten
     post = torch.empty((V, S), dtype=torch.float32, device=dev)
     conv = torch.empty((S,), dtype=torch.uint8, device=dev)
     (_log.info if plan.route == "streamed" else _log.debug)(
-        "K6 %s route: %d shots, C=%d V=%d, %s", plan.route, S, C, V, plan)
+        "K6 %s route: %d shots, C=%d V=%d, %s", plan.label, S, C, V, plan)
     KERNEL.launch(
         synd.data_ptr(), prior.data_ptr(), t.chk_vars_k.data_ptr(), t.vm_k.data_ptr(),
         0 if msg is None else msg.data_ptr(), post.data_ptr(), conv.data_ptr(),
         C, V, Dc, Dv, S, int(max_iter), 0 if method == "ps" else 1, float(ms_scaling_factor),
         plan.group, plan.stride, plan.threads, int(plan.tables_smem), plan.smem_bytes,
-        torch.cuda.current_stream(dev).cuda_stream, route=plan.route)
+        int(plan.wide), torch.cuda.current_stream(dev).cuda_stream, route=plan.label)
     hard = (post <= 0).to(torch.uint8)
     iters = torch.full((S,), int(max_iter), dtype=torch.int32, device=dev)
     return hard, post, conv.bool(), iters

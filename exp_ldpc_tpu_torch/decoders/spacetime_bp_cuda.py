@@ -10,8 +10,11 @@ The kernel has two routes, picked by :func:`launch_plan` from the shape
 before the launch (never after a failure): "resident" keeps every message
 of a block's shots in shared memory for the whole decode; "streamed" (one
 shot's state exceeds the card's opt-in shared memory) keeps them in device
-memory.  ``KERNEL.launches`` counts decodes, ``KERNEL.routes`` splits the
-count by route.
+memory.  Checks of more than ``MAX_SLOTS`` (32) slots, data and
+measurement slots together, take route "wide" on either route (a two-pass
+check phase), which the plan sets from the degree.  ``KERNEL.launches``
+counts decodes, ``KERNEL.routes`` splits the count by route
+(``ResidentPlan.label``).
 
 :func:`stbp_fixed` takes the plain version only for CPU tensors; for CUDA
 tensors it launches the kernel or raises.
@@ -25,8 +28,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..convert import TannerTables
-from ..utils.cuda_build import (CudaKernel, ResidentPlan, device_limits, resident_plan,
-                                streamed_plan)
+from ..utils.cuda_build import (MAX_SLOTS, CudaKernel, ResidentPlan, device_limits,
+                                resident_plan, streamed_plan)
 from .bp import normalize_method
 from .spacetime_bp import stbp_core
 
@@ -34,7 +37,7 @@ __all__ = ["stbp_fixed", "launch_plan", "resident_bytes", "streamed_scratch", "K
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = CudaKernel("stbp.cu", "stbp_fixed",
-                    [_P] * 9 + [_I] * 8 + [_F] + [_I] * 5 + [_P])
+                    [_P] * 9 + [_I] * 8 + [_F] + [_I] * 6 + [_P])
 _log = logging.getLogger(__name__)
 # Blocks side by side per SM at batches past one wave: the winner of
 # experiments/bench_resident.py's sweep at HGP-225 16,384 x 48 (PERF.md §6).
@@ -66,16 +69,20 @@ def launch_plan(tables: TannerTables, num_rounds: int, shots: int, device: torch
     (``tune``: ``resident_plan``'s ``blocks_per_sm`` (default
     :data:`BLOCKS_PER_SM`), ``threads``, ``max_group``, ``pad``).
     ``route="streamed"`` forces the streamed route (before/after
-    measurements in one run)."""
+    measurements in one run).  Checks of more than ``MAX_SLOTS`` slots
+    (Dc + 2) set ``wide`` (route "wide") on either route."""
     smem, sms = device_limits(KERNEL, device)
     per_shot, fixed, table = resident_bytes(tables, num_rounds)
+    width = tables.max_check_degree + 2
     if route == "streamed":
-        return streamed_plan(shots, table, smem)
-    if route != "auto":
+        plan = streamed_plan(shots, table, smem)
+    elif route == "auto":
+        tune.setdefault("blocks_per_sm", BLOCKS_PER_SM)
+        plan = resident_plan(per_shot, table, shots, smem, sms, fixed_bytes=fixed, width=width,
+                             **tune)
+    else:
         raise ValueError(f"unknown route {route!r}")
-    tune.setdefault("blocks_per_sm", BLOCKS_PER_SM)
-    return resident_plan(per_shot, table, shots, smem, sms, fixed_bytes=fixed,
-                         width=tables.max_check_degree + 2, **tune)
+    return plan._replace(wide=width > MAX_SLOTS)
 
 
 def stbp_fixed(tables: TannerTables, num_rounds: int, prior_llr: torch.Tensor,
@@ -98,8 +105,6 @@ def stbp_fixed(tables: TannerTables, num_rounds: int, prior_llr: torch.Tensor,
     Cst, S = syndromes.shape
     if Cst != B * r:
         raise ValueError(f"syndromes have {Cst} rows, expected {B * r}")
-    if Dc + 2 > 32:
-        raise ValueError(f"stbp_fixed supports check degree <= 30, got {Dc}")
     if t.device != dev or prior_llr.device != dev:
         raise ValueError("stbp_fixed: tables, priors and syndromes must share one device")
     n_st = B * n + R * r
@@ -121,13 +126,14 @@ def stbp_fixed(tables: TannerTables, num_rounds: int, prior_llr: torch.Tensor,
     post = torch.empty((n_st, S), dtype=torch.float32, device=dev)
     conv = torch.empty((S,), dtype=torch.uint8, device=dev)
     (_log.info if plan.route == "streamed" else _log.debug)(
-        "K2 %s route: %d shots, %d rounds, r=%d n=%d, %s", plan.route, S, R, r, n, plan)
+        "K2 %s route: %d shots, %d rounds, r=%d n=%d, %s", plan.label, S, R, r, n, plan)
     KERNEL.launch(
         synd.data_ptr(), prior.data_ptr(), t.chk_vars_k.data_ptr(), t.vm_k.data_ptr(),
         *(0 if a is None else a.data_ptr() for a in scratch), post.data_ptr(), conv.data_ptr(),
         r, n, Dc, Dv, R, S, int(max_iter), 0 if method == "ps" else 1,
         float(ms_scaling_factor), plan.group, plan.stride, plan.threads, int(plan.tables_smem),
-        plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream, route=plan.route)
+        plan.smem_bytes, int(plan.wide), torch.cuda.current_stream(dev).cuda_stream,
+        route=plan.label)
     hard = (post <= 0).to(torch.uint8)
     iters = torch.full((S,), int(max_iter), dtype=torch.int32, device=dev)
     return hard, post, conv.bool(), iters

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import csv
 import json
-import logging
 import subprocess
 import sys
 import time
@@ -39,11 +38,12 @@ import torch.distributed as dist
 from ..decoders.drivers import add_bposd_args, load_code, run_simulation, unpack_bposd_args
 from ..parallel.mesh import DATA_AXIS, Mesh, free_port, init_distributed, make_mesh
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.observability import get_logger
 
 __all__ = ["p_sweep", "p_sweep_main", "parse_sweep_spec", "write_csv", "batch_seed",
            "cli_main"]
 
-_log = logging.getLogger("exp_ldpc_tpu_torch.p_sweep")
+_log = get_logger("p_sweep")
 
 
 def _load_checkpoint(path: Path) -> List[dict]:
@@ -110,7 +110,10 @@ class _PipelineSweeper:
                 ms_scaling_factor=float(opts.get("ms_scaling_factor", 0.0)),
                 osd_fallback_cap=self.shots_per_device, osd_options=opts,
                 use_x_logicals=self.use_x_logicals, mode=self.mode,
-                tier1_iters=int(opts.get("tier1_iters", 0) or 0),
+                # two-tier decode (mode "bposd" only, as in JAX): a short stage-1
+                # budget, then a fixed-size redecode of the unconverged shots
+                tier1_iters=(int(opts.get("tier1_iters", 0) or 0)
+                             if self.mode == "bposd" else 0),
                 mesh=self.mesh, device=self.device)
         else:
             self.pipe.rebind_noise(noise, data_p, meas_p)

@@ -10,8 +10,8 @@ priors, min-sum α=0.625, 48 iterations, OSD-CS order 7) in ``--mode``
 card (``--route streamed``: K2 and K6 on their streamed route, the kernels
 before the shared-memory design, for a before/after trace in one run),
 times ``--repeats`` untraced batches, then traces one more ``run_bposd``
-with ``torch.profiler`` (CPU and CUDA activities) and reads the Chrome
-trace:
+with :func:`..utils.observability.profiler_trace` (``torch.profiler``, CPU
+and CUDA activities; the Chrome trace moved to ``--trace``) and reads it:
 
   * ``span_ms``: host wall time of the traced batch, synchronised;
   * ``busy_ms``: the union of kernel, memcpy and memset intervals on the
@@ -50,6 +50,7 @@ from ..codes.hgp import biregular_hgp
 from ..decoders import bp_bsr, bp_cuda, spacetime_bp_cuda
 from ..parallel.pipeline import StorageDecodePipeline
 from ..utils.cuda_build import BUILD_DIR
+from ..utils.observability import profiler_trace
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 MODES = ("bposd", "bposd_single_shot", "bposd_hybrid")
@@ -62,6 +63,7 @@ _FAMILIES = {"bsr_bp_check_kernel": "K1", "bsr_bp_var_kernel": "K1",
              "bsr_int8_parity_kernel": "K5", "stbp_resident_kernel": "K2 resident",
              "stbp_streamed_kernel": "K2 streamed", "stbsr_check_kernel": "K3",
              "stbsr_var_kernel": "K3", "stbsr_parity_kernel": "K3",
+             "stbsr_check_wide_kernel": "K3", "bsr_bp_check_wide_kernel": "K1",
              "bp_resident_kernel": "K6 resident", "bp_streamed_kernel": "K6 streamed"}
 
 
@@ -174,15 +176,13 @@ def main(argv=None) -> dict:
             walls.append(time.perf_counter() - t0)
         for mod in kernels + (bp_bsr,):
             mod.KERNEL.reset_counts()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
+        with profiler_trace(str(args.trace.parent)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             failures, shots, osd = pipe.run_bposd(gens[-1])
             torch.cuda.synchronize()
             span = time.perf_counter() - t0
-    args.trace.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(args.trace))
+    (args.trace.parent / "trace.json").replace(args.trace)
     trace = json.loads(args.trace.read_text())
     out = {"mode": args.mode, "route": args.route,
            "routes": {"K2": dict(spacetime_bp_cuda.KERNEL.routes),

@@ -19,7 +19,12 @@ on one device.  One call of :meth:`StorageDecodePipeline.run_bposd`:
      every flat stage without ``early_stop`` is kernel K6 on a CUDA device
      (its contract is that stage's); with ``early_stop`` the stages run the
      plain per-shot-freezing cores, as JAX does; on the CPU each kernel is
-     replaced by its plain version;
+     replaced by its plain version.  With ``tier1_iters`` (mode
+     ``"bposd"``) the spacetime stage is the two-tier decode: every shot at
+     ``tier1_iters`` iterations, then the first ``tier2_cap`` shots of the
+     stable order "unconverged first" redecoded from scratch at
+     ``max_iter``; overflow shots keep their stage-1 result and count as
+     unconverged;
   3. counts logical failures of the shots it keeps and ships the others
      (compacted to the front, stable order) to the host, where the mode's
      BP+OSD driver (:mod:`..decoders.drivers`) redecodes them: any shot
@@ -30,8 +35,13 @@ With a ``mesh`` (:mod:`.mesh`, model axis 1) each rank is one device of
 the data axis: it samples its own ``shots_per_device`` shots with the
 generator it is given, decodes them, redecodes its own shipped shots on
 its host, and the counts are summed over the data group, so every rank
-returns the totals.  The two-tier decode (``tier1_iters``) is not ported
-yet (ROADMAP.md, Queue 1); asking for it raises ``NotImplementedError``.
+returns the totals.
+
+``msg_dtype`` ("float32" or "bfloat16") is the message type of the plain
+spacetime core (:func:`..decoders.spacetime_bp.stbp_core`), which runs
+with ``early_stop`` and, for K2, on the CPU.  As in the JAX package, whose
+Pallas kernels ignore the option, the kernels take precedence on the card:
+K2 keeps f32 messages and K3 bf16 ones.
 """
 from __future__ import annotations
 
@@ -53,7 +63,7 @@ from ..decoders.bp_cuda import bp_fixed
 from ..decoders.drivers import (BPOSDCorrect, BPOSDCorrectSingleShot, BPOSDHybridCorrect,
                                 spacetime_prior)
 from ..decoders.select import stbsr_selected
-from ..decoders.spacetime_bp import stbp_core
+from ..decoders.spacetime_bp import MSG_DTYPES, stbp_core
 from ..decoders.spacetime_bp_cuda import stbp_fixed
 from ..sampler.device import build_record_sampler
 from ..utils.device import DeviceLike, resolve_device
@@ -94,7 +104,11 @@ class StorageDecodePipeline:
     osd_options: Optional[dict] = None
     use_x_logicals: bool = False
     mode: str = "bposd"
+    msg_dtype: str = "float32"
+    # > 0: the two-tier decode of mode "bposd" (module docstring); tier2_cap
+    # defaults to max(128, shots_per_device // 4), clipped to the batch
     tier1_iters: int = 0
+    tier2_cap: Optional[int] = None
     device: DeviceLike = "cuda"
 
     def __post_init__(self):
@@ -103,11 +117,18 @@ class StorageDecodePipeline:
                 raise ValueError("the pipeline shards shots over the data axis only; "
                                  f"got a model axis of {self.mesh.shape[MODEL_AXIS]}")
             self.device = self.mesh.device
-        if self.tier1_iters > 0:
-            raise NotImplementedError("two-tier decode (tier1_iters): not ported yet "
-                                      "(ROADMAP.md, Queue 1, the two-tier decode)")
         if self.mode not in ("bposd", "bposd_single_shot", "bposd_hybrid"):
             raise ValueError(f"unknown pipeline mode {self.mode!r}")
+        if self.msg_dtype not in MSG_DTYPES:
+            raise ValueError(f"msg_dtype must be one of {MSG_DTYPES}, got {self.msg_dtype!r}")
+        if self.tier1_iters > 0:
+            if self.mode != "bposd":
+                raise ValueError("tier1_iters applies to mode='bposd' only")
+            if self.early_stop:
+                raise ValueError("tier1_iters requires early_stop=False (two fixed-shape passes)")
+            if self.tier2_cap is None:
+                self.tier2_cap = max(128, self.shots_per_device // 4)
+            self.tier2_cap = min(self.tier2_cap, self.shots_per_device)
         if self.bp_backend not in ("auto", "stbp", "stbsr"):
             raise ValueError(f"unknown bp_backend {self.bp_backend!r}")
         self.device = resolve_device(self.device)
@@ -197,17 +218,35 @@ class StorageDecodePipeline:
         return cls(self.code, self.rounds, opts, (self.data_prior, self.meas_prior),
                    basis="x" if self.use_x_logicals else "z", device=self.device)
 
-    def decode_spacetime(self, synd: torch.Tensor):
-        """(B·r, S) syndromes -> (hard (Vst, S) uint8, conv (S,) bool)."""
-        args = (self._tables, self.rounds, self._prior, synd, self._method, self.max_iter,
+    def decode_spacetime(self, synd: torch.Tensor, max_iter: Optional[int] = None):
+        """(B·r, S) syndromes -> (hard (Vst, S) uint8, conv (S,) bool), at
+        ``max_iter`` iterations (default the pipeline's)."""
+        n_iter = self.max_iter if max_iter is None else int(max_iter)
+        args = (self._tables, self.rounds, self._prior, synd, self._method, n_iter,
                 float(self.ms_scaling_factor))
         if self.kernel == "stbsr":
             h, _p, c, _i = stbsr_decode(*args, early_stop=False)
-        elif self.kernel == "stbp":
+        elif self.kernel == "stbp" and synd.device.type == "cuda":
             h, _p, c, _i = stbp_fixed(*args)
-        else:
-            h, _p, c, _i = stbp_core(*args, early_stop=True)
+        else:   # the plain core: K2's plain version on the CPU, or per-shot freezing
+            h, _p, c, _i = stbp_core(*args, early_stop=self.kernel == "core",
+                                     msg_dtype=self.msg_dtype)
         return h, c
+
+    def decode_two_tier(self, synd: torch.Tensor):
+        """The two-tier spacetime decode of (B·r, S) syndromes: every shot at
+        ``tier1_iters``, then the first ``tier2_cap`` shots of the stable
+        order "unconverged first" redecoded from scratch at ``max_iter``;
+        a redecoded shot takes its stage-2 result where stage 1 left it
+        unconverged, and converged shots in the block keep theirs
+        (``exp_ldpc_tpu/parallel/pipeline.py``, the same merge)."""
+        hard, conv = self.decode_spacetime(synd, self.tier1_iters)
+        order = torch.argsort(conv.to(torch.int32), stable=True)[: self.tier2_cap]
+        hard2, conv2 = self.decode_spacetime(synd[:, order].contiguous(), self.max_iter)
+        take = ~conv[order]
+        hard[:, order] = torch.where(take[None], hard2, hard[:, order])
+        conv[order] = conv[order] | conv2
+        return hard, conv
 
     def decode_flat(self, tables, prior: torch.Tensor, synd: torch.Tensor):
         """A flat BP stage: (C, S) syndromes -> (hard (V, S) uint8, conv (S,) bool)."""
@@ -218,17 +257,31 @@ class StorageDecodePipeline:
             h, _p, c, _i = bp_core(*args, early_stop=True)
         return h, c
 
+    def _split_record(self, record: torch.Tensor):
+        """(S, M) record -> (history (S, rounds, r), readout (S, n)), f32."""
+        S, rounds, n = record.shape[0], self.rounds, self.num_data
+        r = self.x_count if self.use_x_logicals else self.z_count
+        mpr = self.x_count + self.z_count
+        blk = 0 if self.use_x_logicals else self.x_count
+        rec = record.to(torch.float32)
+        return (rec[:, : mpr * rounds].reshape(S, rounds, mpr)[:, :, blk: blk + r],
+                rec[:, mpr * rounds: mpr * rounds + n])
+
+    def spacetime_syndromes(self, history: torch.Tensor, readout: torch.Tensor):
+        """The differenced spacetime syndromes ((rounds+1)·r, S) uint8 of the
+        rounds' syndromes and the final one from the readout."""
+        S = history.shape[0]
+        final = torch.remainder(readout @ self._Hz.T, 2.0)                  # (S, r)
+        synd = torch.cat([history, final[:, None, :]], dim=1)
+        synd = torch.cat([synd[:, :1], torch.remainder(synd[:, 1:] + synd[:, :-1], 2.0)], dim=1)
+        return synd.reshape(S, -1).T.to(torch.uint8).contiguous()
+
     def _decode_records(self, record: torch.Tensor):
         """(S, M) record -> (failures, shots, unconverged) and, with the OSD
         fallback, the compacted (history, readout, ship) of up to cap shots."""
         S = record.shape[0]
         rounds, n = self.rounds, self.num_data
-        r = self.x_count if self.use_x_logicals else self.z_count
-        mpr = self.x_count + self.z_count
-        blk = 0 if self.use_x_logicals else self.x_count
-        rec = record.to(torch.float32)
-        readout = rec[:, mpr * rounds: mpr * rounds + n]
-        history = rec[:, : mpr * rounds].reshape(S, rounds, mpr)[:, :, blk: blk + r]
+        history, readout = self._split_record(record)
         HzT = self._Hz.T
         if self.mode == "bposd_single_shot":
             # per round: (H|I) BP of the round's syndrome plus the syndrome
@@ -247,12 +300,9 @@ class StorageDecodePipeline:
             ship = bad | ~conv_f
             correction = torch.remainder(hard_f.T.to(torch.float32) + acc, 2.0)
         else:
-            final = torch.remainder(readout @ HzT, 2.0)                         # (S, r)
-            synd = torch.cat([history, final[:, None, :]], dim=1)
-            synd = torch.cat([synd[:, :1], torch.remainder(synd[:, 1:] + synd[:, :-1], 2.0)],
-                             dim=1)
-            synd = synd.reshape(S, (rounds + 1) * r).T.to(torch.uint8).contiguous()
-            hard, conv = self.decode_spacetime(synd)
+            synd = self.spacetime_syndromes(history, readout)
+            hard, conv = (self.decode_two_tier(synd) if self.tier1_iters > 0
+                          else self.decode_spacetime(synd))
             # mod-2 sum of the per-round data blocks
             data_blocks = hard[: (rounds + 1) * n].reshape(rounds + 1, n, S).to(torch.int32)
             correction = (data_blocks.sum(dim=0) % 2).T.to(torch.float32)   # (S, n)

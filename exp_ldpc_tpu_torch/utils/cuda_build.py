@@ -20,8 +20,8 @@ from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 __all__ = ["CudaKernel", "RowShotPlan", "row_shot_plan", "BSRPlan", "bsr_widths", "bsr_plan",
-           "BSR_SHOT_ALIGN", "BSR_MAX_SLOTS", "BSR_ROUTES", "COOP_BLOCKS_PER_SM", "aligned",
-           "ResidentPlan", "resident_plan", "streamed_plan", "resident_max_threads",
+           "BSR_SHOT_ALIGN", "MAX_SLOTS", "WIDE_VECS", "BSR_ROUTES", "COOP_BLOCKS_PER_SM",
+           "aligned", "ResidentPlan", "resident_plan", "streamed_plan", "resident_max_threads",
            "device_limits"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -45,11 +45,14 @@ class RowShotPlan(NamedTuple):
     items, rows outermost, walked by ``blocks`` blocks of ``ROW_THREADS``
     threads in a grid-stride loop (``csrc/vec_io.cuh::RowItems``): thread t
     takes items t, t + blocks*ROW_THREADS, ...; item i is row
-    ``i // (shots // vec)``, shots ``(i % (shots // vec)) * vec`` on."""
+    ``i // (shots // vec)``, shots ``(i % (shots // vec)) * vec`` on.
+    ``route`` names the check phase's instances of K3 and K4: "default"
+    (registers) or "wide" (the two-pass scan past ``MAX_SLOTS`` slots)."""
 
     vec: int
     items: int
     blocks: int
+    route: str = "default"
 
 
 def row_shot_plan(rows: int, shots: int, vecs: Sequence[int], sm_count: int) -> RowShotPlan:
@@ -66,7 +69,12 @@ def row_shot_plan(rows: int, shots: int, vecs: Sequence[int], sm_count: int) -> 
 
 
 BSR_SHOT_ALIGN = 16   # K1/K5 pad a decode's shot axis to this multiple
-BSR_MAX_SLOTS = 32    # csrc/bsr_phases.cuh: the widest check of K1's and K5's register instances
+# csrc/spacetime_bp.cuh: the widest check (K2 and K3: data and measurement
+# slots together) of every kernel's register instances; wider checks take
+# route "wide", the two-pass check phase, whose lane widths are WIDE_VECS
+# (K1, K3, K4: 8 bf16 shots a lane at most; K2 and K6: one shot a thread).
+MAX_SLOTS = 32
+WIDE_VECS = (8, 4, 2)
 
 
 class BSRPlan(NamedTuple):
@@ -81,7 +89,7 @@ class BSRPlan(NamedTuple):
     decode in one cooperative launch of the largest of the three grids,
     the phases separated by grid-wide barriers; "wide": one grid per phase,
     the check phase in two passes over the slots, for checks of more than
-    ``BSR_MAX_SLOTS`` slots (the register instances stop there)."""
+    ``MAX_SLOTS`` slots (the register instances stop there)."""
 
     shots: int
     live: int
@@ -97,20 +105,20 @@ def bsr_widths(check_degree: int, var_degree: int, int8: bool = False):
     """The lane widths each phase of K1 (bf16) or K5 (int8) is compiled for,
     widest first (``csrc/bsr_bp.cu``, ``csrc/bsr_bp_int8.cu``: the kernels'
     instances).  Phase A keeps a check's messages of every owned shot in
-    registers up to ``BSR_MAX_SLOTS`` slots: K1 4 shots a lane up to 16
+    registers up to ``MAX_SLOTS`` slots: K1 4 shots a lane up to 16
     slots and 2 above, as K3; K5 the packed bytes, 16 shots up to 8 slots,
     8 up to 24, 4 above.  Wider checks take route "wide", which holds a
     few running values per shot whatever the degree: 16-byte accesses (K1
     8 shots a lane, K5 16).  Phase B holds up to 8 (or 24) edges: K1 8
     shots a lane up to 8 edges and 4 above, K5 16 and 8.  Phase C moves
     bytes: up to 16."""
-    wide = check_degree > BSR_MAX_SLOTS
+    wide = check_degree > MAX_SLOTS
     if int8:
         va = ((16, 8, 4) if check_degree <= 8 or wide else (8, 4) if check_degree <= 24
               else (4,))
         vb = (8, 4) if 8 < var_degree <= 24 else (16, 8, 4)
         return va, vb, (16, 8, 4)
-    va = (8, 4, 2) if wide else (4, 2) if check_degree <= 16 else (2,)
+    va = WIDE_VECS if wide else (4, 2) if check_degree <= 16 else (2,)
     vb = (8, 4, 2) if var_degree <= 8 else (4, 2)
     return va, vb, (16, 8, 4, 2)
 
@@ -131,7 +139,7 @@ def bsr_plan(checks: int, variables: int, check_degree: int, var_degree: int, sh
     instance (checks of 7 or 8 slots, variables of up to 8 edges, lane
     widths 4 / 8 / 16) and every phase's grid fits ``COOP_BLOCKS_PER_SM``
     blocks per SM at once, so all of them are resident together.  Checks of
-    more than ``BSR_MAX_SLOTS`` slots take route "wide"."""
+    more than ``MAX_SLOTS`` slots take route "wide"."""
     if shots < 1 or shot_block < 1:
         raise ValueError(f"shots ({shots}) and shot_block ({shot_block}) must be positive")
     padded = -(-shots // BSR_SHOT_ALIGN) * BSR_SHOT_ALIGN
@@ -143,7 +151,7 @@ def bsr_plan(checks: int, variables: int, check_degree: int, var_degree: int, sh
                    row_shot_plan(checks, padded, vc, sm_count))
     fits = max(plan.checks.blocks, plan.variables.blocks,
                plan.parity.blocks) <= COOP_BLOCKS_PER_SM * sm_count
-    if check_degree > BSR_MAX_SLOTS:
+    if check_degree > MAX_SLOTS:
         plan = plan._replace(route="wide")
     elif (coop and not int8 and check_degree in (7, 8) and var_degree <= 8 and fits
             and (plan.checks.vec, plan.variables.vec, plan.parity.vec) == (4, 8, 16)):
@@ -153,6 +161,10 @@ def bsr_plan(checks: int, variables: int, check_degree: int, var_degree: int, sh
 
 class ResidentPlan(NamedTuple):
     """Launch of a whole-decode flat or spacetime BP kernel (K2, K6).
+
+    ``wide``: checks of more than ``MAX_SLOTS`` slots, on either route, take
+    the two-pass check phase (route "wide"; the wrappers set it from the
+    degree, the kernels' entry points refuse a mismatch).
 
     ``route`` "resident": a block owns ``group`` consecutive shots and keeps
     all their messages and syndromes in dynamic shared memory for every
@@ -171,6 +183,13 @@ class ResidentPlan(NamedTuple):
     threads: int
     tables_smem: bool
     smem_bytes: int
+    wide: bool = False
+
+    @property
+    def label(self) -> str:
+        """The route as ``KERNEL.routes`` counts it: "resident", "streamed",
+        "resident_wide" or "streamed_wide"."""
+        return self.route + ("_wide" if self.wide else "")
 
 
 STREAMED_SHOTS, STREAMED_THREADS = 32, 256   # csrc/spacetime_bp.cuh: LANES, LANES * WORKERS

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from exp_ldpc_tpu_torch.decoders.bp_bsr import _block_iters, _blocks
-from exp_ldpc_tpu_torch.utils.cuda_build import (BSR_MAX_SLOTS, BSR_SHOT_ALIGN, ROW_THREADS,
+from exp_ldpc_tpu_torch.utils.cuda_build import (MAX_SLOTS, BSR_SHOT_ALIGN, ROW_THREADS,
                                                  bsr_plan, bsr_widths)
 
 torch.set_num_threads(1)
@@ -144,7 +144,7 @@ def test_every_planned_width_is_compiled(int8, source):
     """For every check degree up to 64, variable degree up to 30 and a
     spread of shot blocks, the kernel file has an instance for each width
     the plan picks (the C entry refuses the rest): a register instance up to
-    ``BSR_MAX_SLOTS`` slots, route "wide" above."""
+    ``MAX_SLOTS`` slots, route "wide" above."""
     inst_a, inst_wide, inst_b, inst_c = _instances(source)
     assert sorted(inst_wide) == ([1, 4, 8, 16] if int8 else [1, 2, 4, 8])
     for dc in range(1, 65):
@@ -152,7 +152,7 @@ def test_every_planned_width_is_compiled(int8, source):
             for sb in (1, 2, 4, 8, 16, 96, 98, 100, 128, 256):
                 plan = bsr_plan(10, 20, dc, dv, 256, sb, SMS, int8)
                 va, vb, vc = plan.checks.vec, plan.variables.vec, plan.parity.vec
-                assert (plan.route == "wide") == (dc > BSR_MAX_SLOTS)
+                assert (plan.route == "wide") == (dc > MAX_SLOTS)
                 if plan.route == "wide":
                     assert va in inst_wide
                 else:

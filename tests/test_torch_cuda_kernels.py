@@ -26,7 +26,10 @@ per iteration, the early exit on the device, no copy to the host); one K4
 call is one iteration of one shard (two grids); its messages and partials
 are equal to the plain version's after one iteration, stored or
 accumulated, and decodes at D = 1 and 3 agree to the same bounds as the
-other kernels'.
+other kernels'.  Checks wider than the register instances (more than 32
+slots) take route "wide" in K2 (both routes), K3, K4 and K6: a random check
+matrix made from a seed (row weights 33 to 40, so some checks have padded
+slots) holds each to its plain version at the same bounds.
 """
 import numpy as np
 import pytest
@@ -657,3 +660,105 @@ def test_bsr_wrappers_degenerate_calls(flat, int8):
     with pytest.raises(ValueError, match="max_iter"):
         decode(synd[:, :8].contiguous(), 0)
     assert kernel.launches == before
+
+
+def wide_matrix(rows: int, cols: int, lo: int, hi: int, seed: int):
+    """A random check matrix whose rows have lo..hi distinct ones (the last
+    row hi): checks wider than the register instances, with padded slots."""
+    from scipy import sparse
+
+    rng = np.random.default_rng(seed)
+    weights = rng.integers(lo, hi + 1, rows)
+    weights[-1] = hi
+    cols_of = [rng.choice(cols, w, replace=False) for w in weights]
+    indices = np.concatenate(cols_of)
+    indptr = np.concatenate([[0], np.cumsum(weights)])
+    return sparse.csr_matrix((np.ones(len(indices), np.int64), indices, indptr), (rows, cols))
+
+
+@pytest.fixture(scope="module")
+def wide_case():
+    """A 60 x 300 matrix of 33- to 40-slot checks; over 2 rounds (42-slot
+    spacetime checks) and alone; 300 syndromes of each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    H = wide_matrix(60, 300, 33, 40, seed=21)
+    rng = np.random.default_rng(22)
+    out = {}
+    for name, M in (("st", SpacetimeCode(H, 2).spacetime_check_matrix.tocsr()), ("flat", H)):
+        M = M.astype(np.int64)
+        err = (rng.random((300, M.shape[1])) < 3e-3).astype(np.int64)
+        out[name] = (torch.as_tensor(((M @ err.T) % 2).astype(np.uint8)).cuda(),
+                     torch.as_tensor(priors_to_llr(np.full(M.shape[1], 3e-3))).cuda())
+    return tanner_tables(TannerELL.from_check_matrix(H), "cuda"), H, out
+
+
+@pytest.mark.parametrize("route", ["auto", "streamed"])
+@pytest.mark.parametrize("S", [1, 77, 300])
+@pytest.mark.parametrize("method,msf", [("ms", 0.625), ("ms", 0.0), ("ps", 0.0)])
+def test_k2_wide_checks(wide_case, method, msf, S, route):
+    """K2 at 42-slot spacetime checks: route "wide" on the resident and the
+    streamed route."""
+    tables, _H, out = wide_case
+    synd, prior = out["st"]
+    synd = synd[:, :S].contiguous()
+    plan = k2_launch_plan(tables, 2, S, synd.device, route=route)
+    assert plan.wide and plan.route == ("resident" if route == "auto" else "streamed")
+    kern = _counted(K2, plan.label,
+                    lambda: stbp_fixed(tables, 2, prior, synd, method, 24, msf, plan=plan))
+    _assert_same(kern, stbp_core(tables, 2, prior, synd, method, 24, msf, early_stop=False))
+
+
+@pytest.mark.parametrize("route", ["auto", "streamed"])
+@pytest.mark.parametrize("S", [1, 77, 300])
+@pytest.mark.parametrize("method,msf", [("ms", 0.625), ("ms", 0.0), ("ps", 0.0)])
+def test_k6_wide_checks(wide_case, method, msf, S, route):
+    """K6 at 33- to 40-slot checks: route "wide" on both routes."""
+    tables, _H, out = wide_case
+    synd, prior = out["flat"]
+    synd = synd[:, :S].contiguous()
+    plan = k6_launch_plan(tables, S, synd.device, route=route)
+    assert plan.wide and plan.route == ("resident" if route == "auto" else "streamed")
+    kern = _counted(K6, plan.label,
+                    lambda: bp_fixed(tables, prior, synd, method, 24, msf, plan=plan))
+    _assert_same(kern, bp_core(tables, prior, synd, method, 24, msf, early_stop=False))
+
+
+@pytest.mark.parametrize("S", [77, 300])
+@pytest.mark.parametrize("method,msf,early_stop", [("ms", 0.625, False), ("ps", 0.0, False),
+                                                   ("ms", 0.0, True)])
+def test_k3_wide_checks(wide_case, method, msf, early_stop, S):
+    """K3 at 42-slot spacetime checks: route "wide", one call per decode;
+    and one iteration on the caller's (ragged) tensors."""
+    tables, _H, out = wide_case
+    synd, prior = out["st"]
+    synd = synd[:, :S].contiguous()
+    before = K3.routes.get("wide", 0)
+    kern = stbsr_decode(tables, 2, prior, synd, method, 24, msf, early_stop)
+    plain = stbsr_decode(tables, 2, prior, synd, method, 24, msf, early_stop,
+                         iterate=_stbsr_iter_plain)
+    single = stbsr_decode(tables, 2, prior, synd, method, 3, msf, False, iterate=stbsr_iter)
+    torch.cuda.synchronize()
+    assert K3.routes.get("wide", 0) == before + 4
+    _assert_same(kern, plain)
+    _assert_same(single, stbsr_decode(tables, 2, prior, synd, method, 3, msf, False,
+                                      iterate=_stbsr_iter_plain))
+
+
+@pytest.mark.parametrize("S", [77, 256])
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("method,msf", [("ms", 0.625), ("ms", 0.0), ("ps", 0.0)])
+def test_k4_wide_checks(wide_case, method, msf, D, S):
+    """K4 at 33- to 40-slot checks: route "wide" in every shard."""
+    _tables, H, out = wide_case
+    synd = out["flat"][0][:, :S].contiguous()
+    dec = ShardedBSRDecoder.from_check_matrix(H, D, error_rate=3e-3, max_iter=12,
+                                              bp_method=method, ms_scaling_factor=msf,
+                                              device="cuda")
+    before = K4.routes.get("wide", 0)
+    hk, pk, ck = dec.decode_tensors(synd)
+    hp, pp, cp = dec.decode_tensors(synd, iterate=bsr_shard_iter_plain)
+    torch.cuda.synchronize()
+    assert K4.routes.get("wide", 0) == before + D * 12
+    assert bool(((pk - pp).abs() <= 1e-6 * pp.abs().clamp(min=1.0)).all())
+    assert torch.equal(hk, hp) and torch.equal(ck, cp)

@@ -6,10 +6,15 @@ per block, row stride, threads, tables in shared memory, bytes) and check
 the bytes against their own layout.  Here: the budget is never exceeded,
 the blocks cover every shot once, a few hundred shots spread over every SM,
 the shapes whose state does not fit take the streamed route, the per-shot
-bytes are the arrays the streamed route allocates, and ``walk`` (the
+bytes are the arrays the streamed route allocates, ``walk`` (the
 kernels' item loop, ``csrc/resident_bp.cuh``) visits every (row, shot) item
-once.
+once, and checks of more than 32 slots take route "wide" on either route,
+whose instances the kernels' entry points dispatch to.
 """
+import re
+from pathlib import Path
+
+import numpy as np
 import pytest
 import torch
 
@@ -20,11 +25,12 @@ from exp_ldpc_tpu_torch.decoders import bp_cuda as k6
 from exp_ldpc_tpu_torch.decoders import spacetime_bp_cuda as k2
 from exp_ldpc_tpu_torch.decoders.spacetime import SpacetimeCodeSingleShot
 from exp_ldpc_tpu_torch.decoders.tanner import TannerELL
-from exp_ldpc_tpu_torch.utils.cuda_build import (ResidentPlan, resident_max_threads,
-                                                 resident_plan)
+from exp_ldpc_tpu_torch.utils.cuda_build import (MAX_SLOTS, ResidentPlan,
+                                                 resident_max_threads, resident_plan)
 
 torch.set_num_threads(1)
 H100 = dict(smem_optin=232448, sm_count=132)   # cudaDevAttrMaxSharedMemoryPerBlockOptin, SMs
+CSRC = Path(__file__).resolve().parents[1] / "exp_ldpc_tpu_torch" / "csrc"
 
 
 def _tables(H):
@@ -190,3 +196,71 @@ def test_card_only_scripts_refuse_the_cpu(module):
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         script.main(["--repeats", "1"])
+
+
+def _wide_matrix(rows, cols, lo, hi, seed):
+    """Random check matrix with lo..hi ones a row (the last row hi)."""
+    from scipy import sparse
+
+    rng = np.random.default_rng(seed)
+    w = rng.integers(lo, hi + 1, rows)
+    w[-1] = hi
+    idx = np.concatenate([rng.choice(cols, k, replace=False) for k in w])
+    return sparse.csr_matrix((np.ones(len(idx), np.int64), idx,
+                              np.concatenate([[0], np.cumsum(w)])), (rows, cols))
+
+
+@pytest.fixture
+def h100_limits(monkeypatch):
+    """The plans read the card's limits through the kernels' library: an
+    H100's here."""
+    for mod in (k2, k6):
+        monkeypatch.setattr(mod, "device_limits",
+                            lambda _kern, _dev: (H100["smem_optin"], H100["sm_count"]))
+
+
+@pytest.mark.parametrize("dc", [29, 30, 31, 32, 33, 40, 53])
+@pytest.mark.parametrize("route", ["auto", "streamed"])
+def test_wide_route_from_the_degree(h100_limits, dc, route):
+    """K2 takes route "wide" exactly past 32 slots of data and measurement
+    messages together (Dc > 30), K6 past 32 data slots, on the resident and
+    the streamed route alike; the wide resident kernels run 512 threads."""
+    t = _tables(_wide_matrix(40, 160, dc - 4, dc, seed=dc))
+    assert t.max_check_degree == dc
+    cpu = torch.device("cpu")
+    for plan, width in ((k2.launch_plan(t, 2, 300, cpu, route=route), dc + 2),
+                        (k6.launch_plan(t, 300, cpu, route=route), dc)):
+        assert plan.wide == (width > MAX_SLOTS)
+        assert plan.route == ("resident" if route == "auto" else "streamed")
+        assert plan.label == plan.route + ("_wide" if plan.wide else "")
+        if plan.route == "resident":
+            assert plan.threads <= resident_max_threads(width)
+
+
+def test_wide_route_at_the_dense_hgp(h100_limits):
+    """biregular_hgp(32, 16, 16): 1,024 checks of degree 32.  Its spacetime
+    checks (34 slots) over 4 rounds take K2's streamed route "wide" (655 KB
+    a shot); its (H|I) (33 slots, 136 KB a shot) K6's resident route "wide"
+    at one shot per block; H alone (32 slots) keeps the register instances."""
+    H = biregular_hgp(32, 16, 16, seed=0).checks.z
+    cpu = torch.device("cpu")
+    t = _tables(H)
+    assert t.max_check_degree == 32
+    plan = k2.launch_plan(t, 4, 1024, cpu)
+    assert (plan.route, plan.wide) == ("streamed", True)
+    plan = k6.launch_plan(_tables(SpacetimeCodeSingleShot(H).spacetime_check_matrix), 1024, cpu)
+    assert (plan.route, plan.wide, plan.group) == ("resident", True, 1)
+    assert not k6.launch_plan(t, 1024, cpu).wide
+
+
+@pytest.mark.parametrize("source,width", [("stbp.cu", "P"), ("bpflat.cu", "Dc")])
+def test_wide_instances_exist(source, width):
+    """Each entry point refuses a route that does not match the degree and
+    dispatches route "wide" to a resident and a streamed instance; the
+    slot limit is the Python plans'."""
+    text = (CSRC / source).read_text()
+    assert f"if ((wide != 0) != ({width} > MAX_SLOTS)) return (int)cudaErrorInvalidValue;" in text
+    assert "if (wide) return go([](auto... a) { return resident<32, false, true>(a...); });" in text
+    assert "if (wide) return go([](auto... a) { return streamed<32, true>(a...); });" in text
+    header = (CSRC / "spacetime_bp.cuh").read_text()
+    assert int(re.search(r"#define MAX_SLOTS (\d+)", header).group(1)) == MAX_SLOTS

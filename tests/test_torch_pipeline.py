@@ -142,7 +142,8 @@ def test_pipeline_refusals(small_code):
     kw = _kw(small_code, device="cpu")
     model2 = Mesh({DATA_AXIS: 1, MODEL_AXIS: 2}, 0, (0, 0), None, None, torch.device("cpu"))
     for over, exc in ((dict(mesh=model2), ValueError),     # shots shard over data only
-                      (dict(tier1_iters=4), NotImplementedError),
+                      (dict(tier1_iters=4, mode="bposd_hybrid"), ValueError),  # JAX's refusals
+                      (dict(tier1_iters=4, early_stop=True), ValueError),
                       (dict(mode="bposd_single_shot", bp_backend="stbp"), ValueError),
                       (dict(mode="bposd_hybrid", bp_backend="stbsr"), ValueError),
                       (dict(mode="zzz"), ValueError),

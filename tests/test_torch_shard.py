@@ -352,3 +352,36 @@ def test_in_place_accumulation_equals_summing_fresh_partials(case, method, msf, 
     hard, post, _conv = dec.decode_tensors(s)
     want_hard, want_post = _decode_summing_fresh_partials(dec, s, 6)
     assert torch.equal(post, want_post) and torch.equal(hard, want_hard)
+
+
+@pytest.mark.parametrize("dc", [31, 32, 33, 53])
+def test_wide_route_from_the_degree(dc):
+    """K4's check phase takes route "wide" exactly past 32 slots, in every
+    shard, with lanes of up to 8 shots, each compiled in
+    ``csrc/bsr_shard.cu``'s dispatch; the entry point refuses a route that
+    does not match the degree."""
+    import re
+    from pathlib import Path
+
+    from scipy import sparse as sp
+
+    from exp_ldpc_tpu_torch.utils.cuda_build import WIDE_VECS
+
+    text = (Path(__file__).resolve().parents[1] / "exp_ldpc_tpu_torch" / "csrc"
+            / "bsr_shard.cu").read_text()
+    compiled = {int(v) for v in re.findall(r"WIDE\((\d+)\)", text)}
+    assert compiled == set(WIDE_VECS) | {1}
+    assert "(wide != 0) != (Dc > MAX_SLOTS)" in text
+    rng = np.random.default_rng(dc)
+    rows = [rng.choice(300, dc - 3 * (i % 2), replace=False) for i in range(40)]
+    H = sp.csr_matrix((np.ones(sum(map(len, rows)), np.int64), np.concatenate(rows),
+                       np.concatenate([[0], np.cumsum([len(r) for r in rows])])), (40, 300))
+    for D in (1, 2):
+        sb = P.ShardedBSR.from_check_matrix(H, D)
+        for d in range(D):
+            tab = sb.tables(d, "cpu")
+            assert tab.dc == dc
+            for shots in (77, 256):
+                pa = P.launch_plans(tab, shots, 132)[0]
+                assert pa.route == ("wide" if dc > 32 else "default")
+                assert pa.vec in compiled and shots % pa.vec == 0

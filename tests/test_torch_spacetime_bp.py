@@ -204,3 +204,57 @@ def test_decoder_option_validation(hgp225):
     with pytest.raises(TypeError, match="unexpected keyword"):  # never dropped unread
         SpacetimeBPDecoder.from_check_matrix(H, 2, error_rate=1e-3, osd_order=7,
                                              device="cpu")
+
+
+@pytest.mark.parametrize("rounds,p", [(1, 0.01), (2, 0.005), (2, 0.01)])
+@pytest.mark.parametrize("early_stop", [False, True])
+@pytest.mark.parametrize("method,msf", METHODS)
+def test_bf16_messages_match_jax_core(hgp225, rounds, p, early_stop, method, msf):
+    """``msg_dtype="bfloat16"``: the plain core against ``_stbp_core(...,
+    msg_dtype="bfloat16")`` (its matrix-product formulation, the one
+    ``"auto"`` takes here).  Hard decisions, conv and iters equal;
+    posteriors within one bf16 step (2^-8 relative).  Every operation of the
+    bf16 check update rounds as XLA's does, so on these inputs no shot
+    differs and the posteriors are equal too; a shot could differ only where
+    XLA's f32 tanh or log and PyTorch's differ in the last f32 bit at a bf16
+    rounding boundary (sum-product only)."""
+    H, tanner, tables = hgp225
+    _, synd, llr = _inputs(H, rounds, p, 128, seed=rounds)
+    want = tuple(np.asarray(x) for x in _stbp_core(
+        tanner, rounds, jnp.asarray(llr), jnp.asarray(synd.T), method, 24, jnp.float32(msf),
+        early_stop, "auto", dense_ops_device(tanner), "bfloat16"))
+    got = tuple(x.numpy() for x in stbp_core(
+        tables, rounds, torch.as_tensor(llr), torch.as_tensor(synd.T.copy()), method, 24, msf,
+        early_stop, "bfloat16"))
+    for i, name in ((0, "hard"), (2, "conv"), (3, "iters")):
+        np.testing.assert_array_equal(got[i], want[i], err_msg=name)
+    assert (np.abs(got[1] - want[1]) <= 2.0 ** -8 * np.maximum(np.abs(want[1]), 1.0)).all()
+    assert got[2].mean() < 1.0 or p < 0.01   # unconverged shots at the harder points
+
+
+def test_bf16_messages_statistically_equivalent():
+    """The JAX package's statistical case through the port: bf16 messages
+    decode interchangeably with f32 (converged bf16 shots satisfy their
+    syndrome; convergence and hard decisions agree on nearly every shot)."""
+    from exp_ldpc_tpu_torch.codes.hgp import biregular_hgp as port_hgp
+    from exp_ldpc_tpu_torch.decoders.spacetime import SpacetimeCode as PortSpacetimeCode
+
+    H = port_hgp(6, 2, 3, seed=1, compute_logicals=False).checks.z
+    rounds = 2
+    Hst = PortSpacetimeCode(H, rounds).spacetime_check_matrix.toarray()
+    rng = np.random.default_rng(11)
+    S = 256
+    errs = (rng.random((S, Hst.shape[1])) < 0.02).astype(np.uint8)
+    synd = (errs @ Hst.T) % 2
+    kw = dict(error_rate=0.015, max_iter=32, bp_method="ms", ms_scaling_factor=0.625,
+              device="cpu")
+    f32 = SpacetimeBPDecoder.from_check_matrix(H, rounds, **kw)
+    b16 = SpacetimeBPDecoder.from_check_matrix(H, rounds, msg_dtype="bfloat16", **kw)
+    h1, _, c1, _ = f32.decode_batch(synd)
+    h2, _, c2, _ = b16.decode_batch(synd)
+    ok = ((h2.astype(np.int64) @ Hst.T) % 2 == synd).all(axis=1)
+    assert ok[c2].all()
+    assert (c1 == c2).mean() > 0.95
+    assert (h1 == h2).all(axis=1).mean() > 0.9
+    with pytest.raises(ValueError, match="msg_dtype"):
+        SpacetimeBPDecoder.from_check_matrix(H, rounds, msg_dtype="float16", **kw)

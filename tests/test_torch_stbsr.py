@@ -270,3 +270,32 @@ def test_card_benchmarks_refuse_to_run_without_a_card(module):
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         bench.main([])
+
+
+def test_wide_route_from_the_degree():
+    """K3's check phase takes route "wide" exactly where Dc + 2 passes the
+    register instances' 32 slots (HGP-225: 9; the dense
+    ``biregular_hgp(32, 16, 16)``: 34), with lanes of up to 8 shots, each
+    compiled in ``csrc/stbsr.cu``'s dispatch; the entry point refuses a
+    route that does not match the degree."""
+    import re
+    from pathlib import Path
+
+    from exp_ldpc_tpu_torch.codes.hgp import biregular_hgp as hgp
+    from exp_ldpc_tpu_torch.decoders.bp_bsr_spacetime import launch_plans
+    from exp_ldpc_tpu_torch.utils.cuda_build import WIDE_VECS
+
+    text = (Path(__file__).resolve().parents[1] / "exp_ldpc_tpu_torch" / "csrc"
+            / "stbsr.cu").read_text()
+    compiled = {int(v) for v in re.findall(r"WIDE\((\d+)\)", text)}
+    assert compiled == set(WIDE_VECS) | {1}
+    assert "(wide != 0) != (Dc + 2 > MAX_SLOTS)" in text
+    for H, wide in ((hgp(12, 3, 4, seed=0).checks.z, False),
+                    (hgp(32, 16, 16, seed=0).checks.z, True)):
+        t = SpacetimeBSRDecoder.from_check_matrix(H, 4, error_rate=0.01, device="cpu").tables
+        for shots in (77, 688, 1024):
+            pa = launch_plans(t, 4, shots, 132)[0]
+            assert pa.route == ("wide" if wide else "default")
+            assert pa.vec in compiled and shots % pa.vec == 0
+        if wide:
+            assert launch_plans(t, 4, 1024, 132)[0].vec == 8
