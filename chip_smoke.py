@@ -184,11 +184,43 @@ Phases, in order; any failure raises and exits nonzero:
      sharded and unsharded decisions differ on at most 0.1% of converged
      shots, and every converged shot satisfies its syndrome;
  27. ``utils/observability.py::profiler_trace`` of one ``bposd`` device
-     step (HGP-225, 4,096 shots): the trace must name K3's kernels.
+     step (HGP-225, 4,096 shots): the trace must name K3's kernels;
+ 28. ``experiments/validate_ler.py`` (its ``sweep`` and ``crosscheck``):
+     phenomenological ``bp`` at p = 3.4822e-3, circuit ``bp`` at 5.2233e-4
+     and circuit ``bposd`` at 2.2736e-4, 16,384 shots each (the artifacts
+     hold 1,000,000 and 401,408), each LER within 4 combined binomial sigma
+     of its row (``ler_hgp225_v5e.jsonl``, ``ler_hgp225_circuit_v5e.jsonl``,
+     ``ler_hgp225_bposd_circuit_v5e.jsonl``); the ``bposd`` run's
+     cross-check (2,000 host ``FrameSampler`` shots through
+     ``BPOSDCorrect``) must agree; K3 launched in each;
+ 29. ``experiments/bench_gross.py`` at its defaults (gross code x 12
+     rounds, 20,000 shots x 60, grid (1e-3, 5e-3, 4)): K2; p = 2.924e-3 and
+     5e-3 within 4 sigma of ``gross_memory_12r_v5e.jsonl`` (66 and 323 of
+     50,000); shots/s printed;
+ 30. ``experiments/validate_dem.py`` on its default relay path at p =
+     7.917e-4, the artifact's 8,192 samples in batches of 2,048 (the other
+     options as default): the 4-round detector model (864 x 36,491, ~150 s of host
+     Python) is built in a spawned process from the start of the run; the
+     selection's stage 1 there is the plain per-shot-freezing BP (the JAX
+     rule refuses K1), so the run launches no kernel, which is checked;
+     stage times printed; LER within 4 sigma of 69 / 8,192;
+ 31. ``experiments/demo_sliding_window.py`` at its defaults (64 and 128
+     rounds x 512 shots): K1; each LER within 4 sigma of its row of
+     ``sliding_window_v5e.jsonl`` (7 and 16 of 512); the walltime ratio
+     printed;
+ 32. ``experiments/bench_osd_host.py`` at its defaults (the harvest on K2,
+     host OSD rows; every OSD output satisfies its syndrome);
+ 33. ``experiments/bench_spacetime.py``: K6 (generic) and K2 (structured)
+     first held to their plain versions on the benchmark's own first two
+     batches (1,024 shots x 32 iterations, min-sum and sum-product; as
+     ``_same``), then the benchmark and its plain versions, every time a
+     slope (none an upper bound), no LER gate;
+ 34. ``experiments/bench_scaling.py`` on the one card: one row, K3.
 
 Each run of the main path (phases 6, 7, the two runs of phase 11, phases
 15, 16 and 20, each run of phase 23, the four runs of phase 24's second
-part and the two runs of phase 25) is driven with every launch count
+part, the two runs of phase 25, the three runs of phase 28 and the runs of
+phases 29-34) is driven with every launch count
 set to 0 just before it and read just after (phase 16 reads the counts of
 its two ranks); a kernel of that run that was not launched fails the
 script.  A count is one call of
@@ -202,6 +234,9 @@ last is the kernel summary JSON (``launches`` summed over those runs,
 "coop" / "wide", K3, K4 and K5 "default" (K5 "grids") / "wide";
 ``ms_wide_<shape>``, ``plain_ms_wide_<shape>``, ``bound_ms_wide_<shape>``
 and ``shape_wide_<shape>`` for phase 24's shapes, ``max_abs_err_wide``;
+K2's and K6's ``ms_spacetime`` / ``plain_ms_spacetime`` / ``bound_ms_spacetime``
+(phase 33's shapes); K3's bounds at 685 shots and with the exit armed, K4's
+at the cyclic code's D = 1, 2, 4;
 K3's two-tier device steps; ``routes_parity_phase``,
 K2's and K6's routes in their parity phase; ``ms_streamed``, their
 streamed route at the main shape; K3b's row counts phase 17's K3 decodes,
@@ -213,9 +248,11 @@ times are printed.  It imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import atexit
 import csv
 import json
 import logging
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -239,6 +276,8 @@ from exp_ldpc_tpu_torch.circuits.storage_sim import build_storage_simulation  # 
 from exp_ldpc_tpu_torch.codes.bivariate_bicycle import gross_code  # noqa: E402
 from exp_ldpc_tpu_torch.codes.hgp import biregular_hgp  # noqa: E402
 from exp_ldpc_tpu_torch.codes.io import read_quantum_code  # noqa: E402
+from exp_ldpc_tpu_torch.core import QuantumCode, QuantumCodeLogicals  # noqa: E402
+from exp_ldpc_tpu_torch.utils.gf2 import rank as gf2_rank  # noqa: E402
 from exp_ldpc_tpu_torch.codes.lifted import lifted_product_code_cyclic  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.dem import detector_error_model  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.spacetime import (DetectorSpacetimeCode, SpacetimeCode,  # noqa: E402
@@ -749,6 +788,11 @@ def phase_timings(su: Setup, dev: torch.device, shots: int) -> dict:
     t[f"K3_S{S_REDECODE}_es_plain"] = _median_ms(
         lambda s: k3.stbsr_decode(*args, s, "ms", MAX_ITER, ALPHA, True, iterate=plain),
         small[:5])
+    # the shot-iterations those armed-exit batches need (their bound's work)
+    for tag, batch in (("es", synds), (f"S{S_REDECODE}_es", small)):
+        t[f"K3_{tag}_shot_iters"] = float(np.mean([
+            int(k3.stbsr_decode(*args, x, "ms", MAX_ITER, ALPHA, True)[3].sum())
+            for x in batch[:5]]))
     sim = build_storage_simulation(ROUNDS, depolarizing_noise(p, p), su.code)
     ds = DeviceSampler(sim.circuit, shots, dev)
     gens = []
@@ -784,7 +828,8 @@ def phase_timings(su: Setup, dev: torch.device, shots: int) -> dict:
     for k, v in stages.items():
         t[f"{k}_s"] = float(np.median(v))
     for k, v in t.items():
-        log(f"  {k}: {v:.4f}" + (" s" if k.endswith("_s") else " ms"))
+        if not k.endswith("_shot_iters"):
+            log(f"  {k}: {v:.4f}" + (" s" if k.endswith("_s") else " ms"))
     log(f"  end to end: {shots / t['e2e_s']:.0f} decoded shots/s at p={p:.6g}")
     return t
 
@@ -2085,6 +2130,254 @@ def phase_profiler(su: Setup, dev: torch.device) -> dict:
     return {"busy_ms": summary["busy_ms"], "k3_grids": summary["k3_launches"]}
 
 
+# ---------------------------------------------------------------------------
+# The counterparts of scripts/: validate_ler, bench_gross, validate_dem,
+# demo_sliding_window, bench_osd_host, bench_spacetime, bench_scaling
+# ---------------------------------------------------------------------------
+
+LER_SHOTS = 16384          # per gated validate_ler point (the artifacts' 401,408-1,000,000 cut)
+CROSS_SHOTS = 2000         # host shots of validate_ler's cross-check
+# (noise, decode, p, artifact, its samples, cross-check); every run's spacetime stage is K3
+LER_CASES = (
+    ("pheno", "bp", 0.0034822022531844966, "ler_hgp225_v5e.jsonl", 1000000, False),
+    ("circuit", "bp", 0.000522330337977674, "ler_hgp225_circuit_v5e.jsonl", 1000000, False),
+    ("circuit", "bposd", 0.0002273574849765597, "ler_hgp225_bposd_circuit_v5e.jsonl", 401408,
+     True),
+)
+# The Z logical representatives that scored ler_hgp225_v5e.jsonl and
+# ler_hgp225_circuit_v5e.jsonl (both "--decode bp") are those of
+# artifacts/hgp225.qecc: those rows were taken before the homological
+# logical extraction was rewritten, and biregular_hgp(12, 3, 4, seed=0) has
+# had other representatives since (the same checks).  A BP-unconverged shot
+# keeps a correction that leaves a syndrome, and its logical outcome depends
+# on the representatives; a syndrome-free shot's does not, so the bposd rows
+# hold with either set.
+GROSS_GATES = (0.002924017738212867, 0.005)   # the rows of gross_memory_12r_v5e.jsonl gated
+DEM_GATE_P = 0.0007917047464637365            # ler_hgp225_dem_circuit_v5e.jsonl: 69 / 8,192
+DEM_SAMPLES, DEM_BATCH = 8192, 2048           # the artifact's sample count, uncut
+
+
+def _artifact_row(name: str, p: float, key: str = "p_ph", **match) -> dict:
+    """The row of ``artifacts/<name>`` at ``p`` (relative 1e-9) matching ``match``."""
+    for line in (ROOT / "artifacts" / name).read_text().splitlines():
+        rec = json.loads(line)
+        if key in rec and abs(rec[key] - p) <= 1e-9 * p and all(
+                rec.get(k) == v for k, v in match.items()):
+            return rec
+    raise KeyError((name, p, match))
+
+
+def _gate(fails: int, shots: int, name: str, p: float, label: str, key: str = "p_ph",
+          **match) -> None:
+    art = _artifact_row(name, p, key, **match)
+    n_ref = art.get("samples", art.get("shots"))
+    check(_ler_gap(fails, shots, art["failures"] / n_ref, n_ref, label),
+          f"{label}: LER within 4 combined sigma of {name}'s {art['failures']} / {n_ref}")
+
+
+def bp_artifact_code(code):
+    """``code`` (HGP-225) with the Z logicals of :data:`CODE_FILE`, after
+    checking that they are Z logicals spanning today's modulo the Z checks."""
+    with CODE_FILE.open() as f:
+        Lz = np.asarray(read_quantum_code(f).logicals.z, dtype=code.logicals.z.dtype)
+    Hx, Hz = code.checks.x.toarray(), code.checks.z.toarray()
+    now = np.asarray(code.logicals.z)
+    r = gf2_rank(Hz)
+    if ((Hx.astype(np.int64) @ Lz.T) % 2).any() or gf2_rank(np.vstack([Hz, Lz])) != r + len(Lz) \
+            or gf2_rank(np.vstack([Hz, Lz, now])) != r + len(Lz):
+        raise AssertionError(f"{CODE_FILE.name}'s Z logicals are not Z logicals of this code")
+    return QuantumCode(code.checks, QuantumCodeLogicals(np.array(code.logicals.x), Lz))
+
+
+def _run_counted(fn, *a):
+    """fn(*a) with every launch count reset before it; (its result, the launches)."""
+    reset_counts()
+    out = fn(*a)
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def phase_validate_ler(code) -> dict:
+    """validate_ler's three gated points and the cross-check (one run each).
+    A ``bp`` point runs twice on the same seeds, hence the same records and
+    decisions: scored by today's representatives, then by the artifact's
+    (:func:`bp_artifact_code`), which the gate reads."""
+    from exp_ldpc_tpu_torch.experiments import validate_ler as vl
+
+    log(f"== phase 28: validate_ler on the card: pheno bp, circuit bp, circuit bposd at one "
+        f"artifact point each, {LER_SHOTS} shots (cut from 401,408-1,000,000), cross-check "
+        f"{CROSS_SHOTS} host shots at the bposd point")
+    art_code = bp_artifact_code(code)
+    by_run = {}
+    for noise, decode, p, art, n_art, cross in LER_CASES:
+        argv = ["--noise", noise, "--decode", decode, "--samples", str(LER_SHOTS),
+                "--p-grid", f"({p!r},{p!r},1)", "--crosscheck-samples", str(CROSS_SHOTS),
+                "--device", "cuda"] + ([] if cross else ["--skip-crosscheck"])
+        args = vl.parse_args(argv)
+
+        def run():
+            rows, pipe, grid, priors = vl.sweep(args, code)
+            checks = vl.crosscheck(args, rows, pipe, grid, priors) if cross else []
+            scored = vl.sweep(args, art_code)[0] if decode == "bp" else rows
+            return rows, pipe, checks, scored
+        (rows, pipe, checks, scored), launches = _run_counted(run)
+        (row,), (srow,) = rows, scored
+        key = f"validate_ler_{noise}_{decode}"
+        log(f"  {key}: kernel {pipe.kernel}, failures {row['failures']} / {row['samples']}, "
+            f"{row['samples'] / row['walltime']:.0f} shots/s ({row['walltime']:.2f} s), "
+            f"launches {launches}")
+        if decode == "bp":
+            log(f"  the same records scored by the artifact's representatives: failures "
+                f"{srow['failures']} (today's: {row['failures']}); unconverged "
+                f"{srow['bp_unconverged']} / {row['bp_unconverged']}")
+            check(srow["bp_unconverged"] == row["bp_unconverged"],
+                  f"{key}: both runs decoded the same records alike")
+        _gate(srow["failures"], srow["samples"], art, p, key, noise=noise, samples=n_art)
+        check(launches["K3"] > 0, f"{key}: K3 launched")
+        for c in checks:
+            log(f"  cross-check ({c['crosscheck_chain']}): host {c['host_failures']} / "
+                f"{c['host_samples']}, gap {c['gap']:.5f}, 2 sigma {c['two_sigma']:.5f}")
+            check(c["agree"], f"{key}: the cross-check agrees (pooled two-proportion, 2 sigma)")
+        by_run[key] = launches
+    return by_run
+
+
+def phase_bench_gross() -> tuple:
+    from exp_ldpc_tpu_torch.experiments import bench_gross as bg
+
+    log("== phase 29: bench_gross on the card (defaults: gross code x12 rounds, 20,000 shots "
+        "x 60 iterations, --msg-dtype bfloat16, grid (1e-3,5e-3,4), one warm-up batch)")
+    (rows, pipe), launches = _run_counted(bg.sweep, bg.parse_args(["--device", "cuda"]))
+    check(pipe.kernel == "stbp" and launches["K2"] > 0,
+          f"the gross code's spacetime stage is K2 ({launches['K2']} launches: warm-up + 4)")
+    for row in rows:
+        log(f"  p={row['p_ph']:.6g}: failures {row['failures']} / {row['samples']}, "
+            f"ler_per_round {row['ler_per_round']:.4g}, {row['shots_per_s']:.0f} shots/s")
+    for p in GROSS_GATES:
+        (row,) = [r for r in rows if abs(r["p_ph"] - p) <= 1e-9 * p]
+        _gate(row["failures"], row["samples"], "gross_memory_12r_v5e.jsonl", p,
+              f"bench_gross p={p:.6g}")
+    return launches, {f"{r['p_ph']:.4g}": r["shots_per_s"] for r in rows}
+
+
+def dem4(p: float):
+    """validate_dem's 4-round detector model at p (~150 s of host Python;
+    built in a spawned process from the start of the run)."""
+    from exp_ldpc_tpu_torch.experiments import validate_dem as vd
+
+    return vd.point_dem(p, 4, vd.build_code())
+
+
+def phase_validate_dem(code, dem_result) -> tuple:
+    from exp_ldpc_tpu_torch.experiments import validate_dem as vd
+
+    log(f"== phase 30: validate_dem on the card, default relay path, p={DEM_GATE_P:.6g}, "
+        f"{DEM_SAMPLES} samples (the artifact's, uncut) in batches of {DEM_BATCH}, the other "
+        "options as default")
+    t0 = time.perf_counter()
+    dem = dem_result.get()
+    log(f"  detector model ready ({time.perf_counter() - t0:.1f} s waited here)")
+    H = DetectorSpacetimeCode(dem).fault_check_matrix
+    tanner = TannerELL.from_check_matrix(H)
+    log(f"  fault matrix {H.shape[0]} x {H.shape[1]}, {H.nnz} edges, check degree "
+        f"{tanner.max_check_degree}, {k1.BSRLayout.from_tanner(tanner, 'cpu').num_tiles} BSR "
+        "tiles")
+    check(not bsr_selected(tanner, torch.device("cuda")),
+          "stage 1: the JAX rule refuses K1 here (fits_bsr fails): BPDecoder with per-shot "
+          "freezing, the plain core, as in JAX")
+    torch.cuda.empty_cache()
+    args = vd.parse_args(["--p-list", repr(DEM_GATE_P), "--samples", str(DEM_SAMPLES),
+                          "--batch-shots", str(DEM_BATCH), "--device", "cuda"])
+    ((row,), (times,)), launches = _run_counted(vd.run, args, code, {DEM_GATE_P: dem})
+    log(f"  {json.dumps(row)}")
+    log(f"  stage times: stage-1 BP {times['stage1_s']:.2f} s (sampling included), relay "
+        f"{times['relay_s']:.2f} s, host OSD {times['osd_s']:.2f} s for {row['osd_decoded']} "
+        f"shots; launches {launches}")
+    check(row["samples"] == DEM_SAMPLES and row["osd_overflow"] == 0,
+          "every residue shot relay left reached OSD")
+    check(not any(launches.values()), "no kernel on this path (plain BP, plain relay, host OSD)")
+    _gate(row["failures"], row["samples"], "ler_hgp225_dem_circuit_v5e.jsonl", DEM_GATE_P,
+          "validate_dem")
+    return launches, times
+
+
+def phase_sliding_window_demo() -> tuple:
+    from exp_ldpc_tpu_torch.experiments import demo_sliding_window as dsw
+
+    log("== phase 31: demo_sliding_window on the card (defaults: HGP-225, 64 and 128 rounds, "
+        "512 shots, p=1e-3, window 4, commit 2)")
+    rows, launches = _run_counted(dsw.main, ["--device", "cuda"])
+    for row in rows[:2]:
+        log(f"  {row['rounds']} rounds: failures {row['failures']} / {row['shots']}, decode "
+            f"{row['decode_walltime_s']:.2f} s, {row['decode_ms_per_round_per_kshot']:.1f} ms "
+            "per round per 1,000 shots")
+        _gate(row["failures"], row["shots"], "sliding_window_v5e.jsonl", row["rounds"],
+              f"demo_sliding_window {row['rounds']} rounds", key="rounds",
+              bench="sliding_window")
+    ratio = rows[2]["walltime_ratio_vs_rounds_ratio"]
+    log(f"  walltime ratio / rounds ratio: {ratio:.3f} (the artifact's: 1.09)")
+    check(launches["K1"] > 0, f"K1 launched ({launches['K1']} calls: the windows and tails)")
+    return launches, ratio
+
+
+def phase_bench_osd_host() -> tuple:
+    from exp_ldpc_tpu_torch.experiments import bench_osd_host as boh
+
+    log("== phase 32: bench_osd_host (defaults: HGP-225 x4 circuit noise p=1.2e-3, 4,096 "
+        "shots harvested by K2, 512 OSD shots, order 7, 1/2/all threads; host numbers)")
+    rows, launches = _run_counted(boh.main, ["--device", "cuda"])
+    check(len(rows) == 6, "six rows: every output satisfied its syndrome")
+    check(launches["K2"] > 0, "the harvest ran K2")
+    return launches, {f"{r['method']}_t{r['nthreads']}": r["shots_per_s"] for r in rows}
+
+
+def phase_bench_spacetime(su: Setup) -> tuple:
+    """K6 and K2 held to their plain versions on the benchmark's own first
+    batches (both methods), then the benchmark, counted.  Returns its
+    launches, its ms per batch and the worst posterior error by kernel."""
+    from exp_ldpc_tpu_torch.experiments import bench_spacetime as bst
+
+    log(f"== phase 33: bench_spacetime (generic K6 vs structured K2, plain versions beside; "
+        f"HGP-225 x{ROUNDS}, {bst.SHOTS} shots x {bst.ITERS}, slope over {bst.N_LO} and "
+        f"{bst.N_HI} batches); first K6 and K2 vs plain on its {bst.N_LO} first batches")
+    gen, base, prior, lo, _hi = bst.inputs(ROUNDS, su.dev)
+    check((gen.num_checks, gen.num_vars) == su.H.shape,
+          f"the benchmark's flat matrix is HGP-225's {ROUNDS}-round spacetime matrix")
+    err = {"K6": 0.0, "K2": 0.0}
+    for b, synd in enumerate(lo):
+        for method, msf in (("ms", bst.ALPHA), ("ps", 0.0)):
+            tag = f"batch {b} {method} alpha={msf} S={synd.shape[1]} x {bst.ITERS}"
+            plan = k6.launch_plan(gen, synd.shape[1], su.dev)
+            kern = k6.bp_fixed(gen, prior, synd, method, bst.ITERS, msf, plan=plan)
+            plain = bp_core(gen, prior, synd, method, bst.ITERS, msf, early_stop=False)
+            torch.cuda.synchronize()
+            err["K6"] = max(err["K6"], _same(f"K6 generic {tag} [{_plan_tag(plan)}]", su, synd,
+                                             kern, plain))
+            plan = k2.launch_plan(base, ROUNDS, synd.shape[1], su.dev)
+            kern = k2.stbp_fixed(base, ROUNDS, prior, synd, method, bst.ITERS, msf, plan=plan)
+            plain = stbp_core(base, ROUNDS, prior, synd, method, bst.ITERS, msf,
+                              early_stop=False)
+            torch.cuda.synchronize()
+            err["K2"] = max(err["K2"], _same(f"K2 structured {tag} [{_plan_tag(plan)}]", su,
+                                             synd, kern, plain))
+    out, launches = _run_counted(bst.main, ["--device", "cuda"])
+    check(launches["K6"] > 0 and launches["K2"] > 0, "K6 and K2 launched")
+    check(all(kind == "slope" for kind in out["time_kind"].values()),
+          f"every time is a slope, none an upper bound: {out['time_kind']}")
+    return launches, out["ms_per_batch"], err
+
+
+def phase_bench_scaling() -> tuple:
+    from exp_ldpc_tpu_torch.experiments import bench_scaling as bsc
+
+    log("== phase 34: bench_scaling on this card (devices = 1: HGP-225 x4, 1,024 shots x 32, "
+        "4 batches)")
+    rows, launches = _run_counted(bsc.main, [])
+    check([r["devices"] for r in rows] == [1] and launches["K3"] > 0,
+          f"one row, devices = 1, K3 launched ({launches['K3']})")
+    return launches, rows[0]["decoded_shots_per_s"]
+
+
 def _st_io(rows: int, cols: int, tab, shots: int) -> int:
     """Bytes a whole spacetime decode must move: spacetime syndromes and
     priors in, base tables, posterior, conv, iters out."""
@@ -2128,7 +2421,8 @@ def _flat_io(tab, S: int) -> int:
             + 4 * V * S + S + 4 * S)
 
 
-def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross, dem, t) -> dict:
+def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross, dem, t,
+                  cyclic_H) -> dict:
     """Bound of each kernel at the shape its ``ms`` was timed at (K1, K2, K5
     and K6 also at their other timed shapes: ``bound_ms_<tag>``).  With the
     early exit the operations are those of the shot-iterations the timed
@@ -2175,6 +2469,16 @@ def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross, dem, t) ->
     # bf16 message arrays (one value per spacetime edge)
     out["K3"] = _bound(MAX_ITER * (st_io(rows, cols, su.tables, S) + 2 * 2 * su.H.nnz * S),
                        OPS_FLOAT * su.H.nnz * S * MAX_ITER)
+    # K3 at the redecode's 685 shots, and both shapes with the exit armed: the
+    # iterations the timed batches needed (one global exit: shot-iterations / S)
+    for tag, shots, shot_iters in ((f"S{S_REDECODE}", S_REDECODE, S_REDECODE * MAX_ITER),
+                                   ("early_stop", S, t["K3_es_shot_iters"]),
+                                   (f"S{S_REDECODE}_early_stop", S_REDECODE,
+                                    t[f"K3_S{S_REDECODE}_es_shot_iters"])):
+        b = _bound(shot_iters / shots * (st_io(rows, cols, su.tables, shots)
+                                         + 2 * 2 * su.H.nnz * shots),
+                   OPS_FLOAT * su.H.nnz * shot_iters)
+        out["K3"][f"bound_ms_{tag}"], out["K3"][f"bound_by_{tag}"] = b["bound_ms"], b["bound_by"]
     (rows, cols, nnz, tab), shots, iters = k3b_shape
     out["K3b"] = _bound(iters * (st_io(rows, cols, tab, shots) + 2 * 2 * nnz * shots),
                         OPS_FLOAT * nnz * shots * iters)
@@ -2185,6 +2489,16 @@ def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross, dem, t) ->
     D, sb = rec["shards"], dec.sharded
     out["K4"] = _bound(D * 2 * 4 * sb.v_pad * 128 + 2 * 2 * H.nnz * 128 + H.shape[0] * 128
                        + 2 * 4 * H.nnz, OPS_FLOAT * H.nnz * 128)
+    # the same per iteration at bench_bsr_shard's cyclic n = 4,862, 1,024 shots, D = 1, 2, 4
+    for D in (1, 2, 4):
+        v_pad = k4.ShardedBSRDecoder.from_check_matrix(
+            cyclic_H, D, error_rate=1e-3, max_iter=32, bp_method="ms",
+            device=su.dev).sharded.v_pad
+        b = _bound(D * 2 * 4 * v_pad * 1024 + 2 * 2 * cyclic_H.nnz * 1024
+                   + cyclic_H.shape[0] * 1024 + 2 * 4 * cyclic_H.nnz,
+                   OPS_FLOAT * cyclic_H.nnz * 1024)
+        out["K4"][f"bound_ms_bench_D{D}"] = b["bound_ms"]
+        out["K4"][f"bound_by_bench_D{D}"] = b["bound_by"]
     # K5: the cyclic n = 4,862 code and the QC-LP, 1,024 shots x 32 iterations, fixed
     out["K5"] = _bound(_flat_io(cyc.tables, FAM_SHOTS),
                        OPS_INT8 * cyc.H.nnz * FAM_SHOTS * FAM_ITERS)
@@ -2195,6 +2509,14 @@ def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross, dem, t) ->
         b = _bound(_flat_io(dem.tables, 4096) + (4 * dem.tables.num_checks if key == "K1" else 0),
                    ops * dem.H.nnz * 4096 * MAX_ITER)
         out[key]["bound_ms_dem_dc53"], out[key]["bound_by_dem_dc53"] = b["bound_ms"], b["bound_by"]
+    # bench_spacetime's shapes (phase 33): HGP-225 x4, 1,024 shots x 32 iterations, K6 flat on
+    # the spacetime matrix, K2 structured
+    st_tables = tanner_tables(TannerELL.from_check_matrix(su.H), su.dev)
+    for key, nbytes in (("K6", _flat_io(st_tables, 1024)),
+                        ("K2", _st_io(*su.H.shape, su.tables, 1024))):
+        b = _bound(nbytes, OPS_FLOAT * su.H.nnz * 1024 * 32)
+        out[key]["bound_ms_spacetime"], out[key]["bound_by_spacetime"] = (b["bound_ms"],
+                                                                          b["bound_by"])
     # the streamed routes of K2 and K6 do the same work at the main shape: the same bound
     for key in ("K2", "K6"):
         out[key]["bound_ms_streamed"] = out[key]["bound_ms"]
@@ -2223,6 +2545,13 @@ def main() -> int:
     n_dev, n_host = (8192, 2048) if args.quick else (65536, 16384)
     # host work beside the build and the first parity phases
     bg = ThreadPoolExecutor(5)
+    dem4_result = None
+    if not args.quick:
+        # validate_dem's 4-round detector model (~150 s of host Python) in its
+        # own process from the start: a thread would hold the GIL the phases need
+        dem_pool = multiprocessing.get_context("spawn").Pool(1)
+        atexit.register(dem_pool.terminate)
+        dem4_result = dem_pool.apply_async(dem4, (DEM_GATE_P,))
     host = bg.submit(host_rates, su, n_host)
     dem_fut = bg.submit(dem_matrix, su.code)
     host_mats = None if args.quick else bg.submit(host_path_matrices, su.code)
@@ -2303,6 +2632,14 @@ def main() -> int:
         by_run.update(tt_runs)
         phase(phase_rounds_shard, dev, rs_world)
         prof = phase(phase_profiler, su, dev)
+        # the counterparts of scripts/, each run counted from 0
+        by_run.update(phase(phase_validate_ler, su.code))
+        by_run["bench_gross"], gross_speed = phase(phase_bench_gross)
+        by_run["validate_dem"], vdem_times = phase(phase_validate_dem, su.code, dem4_result)
+        by_run["demo_sliding_window"], sw_ratio = phase(phase_sliding_window_demo)
+        by_run["bench_osd_host"], osd_speed = phase(phase_bench_osd_host)
+        by_run["bench_spacetime"], st_ms, err_st = phase(phase_bench_spacetime, su)
+        by_run["bench_scaling"], scaling_rate = phase(phase_bench_scaling)
         launches = {name: sum(c[name] for c in by_run.values()) for name in KERNELS}
         for name, n in launches.items():
             check(n > 0, f"{name} launched on the main path ({n} launches)")
@@ -2310,7 +2647,8 @@ def main() -> int:
         t.update(phase(phase_shard_timings, dev, cap, cyclic_H))
         t.update(phase(phase_family_timings, fams, fam_rows))
         t.update(dem_times)
-        bounds = kernel_bounds(su, flats, big, fams, cap, k3b_shapes["HGP"], _gross(dev), dem, t)
+        bounds = kernel_bounds(su, flats, big, fams, cap, k3b_shapes["HGP"], _gross(dev), dem, t,
+                               cyclic_H)
         timing = {"K1": ("K1_S16384", "bench", "S16384_es", f"S{S_REDECODE}_es", "fam_cyclic",
                          "fam_qclp", "dem_dc53"),
                   "K1b": ("K1_n40000",),
@@ -2339,6 +2677,11 @@ def main() -> int:
             if key in parity_routes:
                 kern["routes_parity_phase"] = parity_routes[key]
                 kern["ms_streamed"] = t[f"{main_t}_streamed"]
+                # bench_spacetime's slope times (phase 33): K6 generic, K2 structured
+                name = {"K6": "generic", "K2": "structured"}[key]
+                kern["ms_spacetime"] = st_ms[name]
+                kern["plain_ms_spacetime"] = st_ms[f"{name}_plain"]
+                kern["max_abs_err_spacetime"] = err_st[key]
             if key == "K5":
                 kern["rows_iter_shots_per_s"] = {
                     f"{c}/{f}": r["bp_iter_shots_per_s"] for (c, f), r in fam_rows.items()}
@@ -2386,6 +2729,16 @@ def main() -> int:
             + json.dumps({m: round(r, 1) for m, r in host_speed.items()}))
         log("two-tier (bench_two_tier's regime; the flagship point) shots/s: "
             + json.dumps({m: round(r, 1) for m, r in tt_speed.items()}))
+        log("bench_gross shots/s by p: " + json.dumps({p: round(r, 1)
+                                                       for p, r in gross_speed.items()}))
+        log("validate_dem stage seconds: " + json.dumps({k: round(v, 3)
+                                                         for k, v in vdem_times.items()}))
+        log(f"demo_sliding_window walltime ratio / rounds ratio: {sw_ratio:.4f}")
+        log("bench_osd_host host OSD shots/s: " + json.dumps({k: round(v, 1)
+                                                              for k, v in osd_speed.items()}))
+        log("bench_spacetime ms per batch: " + json.dumps({k: round(v, 4)
+                                                           for k, v in st_ms.items()}))
+        log(f"bench_scaling decoded shots/s (1 device): {scaling_rate:.1f}")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -36,7 +36,7 @@ from ..decoders.bp_bsr_shard import ShardedBSR, ShardedBSRDecoder, allreduce_byt
 from ..utils.device import resolve_device
 from .shard_capacity import _sync, device_name
 
-__all__ = ["build_code", "slope_time", "main"]
+__all__ = ["build_code", "slope_time", "slope_or_bound", "main"]
 
 
 def build_code(name: str) -> sparse.csr_matrix:
@@ -75,9 +75,15 @@ def slope_time(decode, make_batch, reps_lo: int, reps_hi: int, dev: torch.device
 
     run(los[0])
     run(his[0])
-    t_lo, t_hi = min(run(x) for x in los), min(run(x) for x in his)
-    slope = (t_hi - t_lo) / (reps_hi - reps_lo)
-    return (slope, "slope") if slope > 0 else (t_hi / reps_hi, "upper_bound")
+    return slope_or_bound(min(run(x) for x in los), min(run(x) for x in his), reps_lo, reps_hi)
+
+
+def slope_or_bound(t_lo: float, t_hi: float, n_lo: int, n_hi: int) -> Tuple[float, str]:
+    """(seconds per decode, its kind) from the times of ``n_lo`` and ``n_hi``
+    decodes: the slope, kind "slope", where it is positive, else ``t_hi /
+    n_hi`` with the fixed costs in, kind "upper_bound"."""
+    slope = (t_hi - t_lo) / (n_hi - n_lo)
+    return (slope, "slope") if slope > 0 else (t_hi / n_hi, "upper_bound")
 
 
 def main(argv=None) -> int:

@@ -5,8 +5,9 @@ A subprocess in which ``import jax`` fails imports every module of
 through the library and through the CLI, a step of each of the
 single-shot and hybrid modes with the flat decoders, the check-partition
 decoders, the four host-path modes of ``run_simulation`` and the sweep CLI
-without ``--pipeline``, the sharding experiments and ``dcn_dryrun --help``; afterwards no
-loaded module's file lies in the JAX package's directory.  A copy of the
+without ``--pipeline``, the sharding experiments and ``dcn_dryrun --help``, and the seven
+counterparts of ``scripts/`` entry points (``validate_ler`` ... ``bench_scaling``); afterwards
+no loaded module's file lies in the JAX package's directory.  A copy of the
 port alone (no ``exp_ldpc_tpu/`` beside it) runs a sweep point; a static
 scan finds no JAX import and no loader trick in the package or in
 ``chip_smoke.py``; ``chip_smoke.py`` refuses to run without a card, and
@@ -181,6 +182,44 @@ except SystemExit as e:
     assert [r["config"] for r in recs[1:]] == ["k1_fixed", "shard1", "shard2"]
     assert recs[3]["allreduce_bytes_per_iter"] == 4 * 640 * 16
     assert any("--init-method" in ln for ln in lines)
+
+
+def test_script_counterparts_run_without_jax():
+    """The seven entry points that stand for ``scripts/`` (validate_ler,
+    bench_gross, validate_dem, demo_sliding_window, bench_osd_host,
+    bench_spacetime, bench_scaling) at tiny sizes on the CPU, JAX blocked."""
+    proc = _run(_BLOCK_JAX + """
+import json
+from exp_ldpc_tpu_torch.codes.hgp import biregular_hgp
+from exp_ldpc_tpu_torch.experiments import (bench_gross, bench_osd_host, bench_scaling,
+                                            bench_spacetime, demo_sliding_window, validate_dem,
+                                            validate_ler)
+small = biregular_hgp(6, 2, 3, seed=1, compute_logicals=True)
+assert validate_ler.main(["--device", "cpu", "--samples", "64", "--rounds", "1", "--p-grid",
+                          "(4e-3,4e-3,1)", "--max-iter", "8", "--skip-crosscheck"]) == 0
+assert bench_gross.main(["--device", "cpu", "--samples", "16", "--rounds", "1",
+                         "--max-iter", "4", "--p-grid", "(5e-3,5e-3,1)"]) == 0
+assert validate_dem.main(["--device", "cpu", "--rounds", "1", "--p-list", "2e-3", "--samples",
+                          "32", "--batch-shots", "32", "--max-iter", "8", "--relay-legs", "2",
+                          "--relay-iters", "4", "--osd-cap", "4"], code=small) == 0
+demo_sliding_window.main(["--device", "cpu", "--rounds", "6,12", "--shots", "8"], code=small)
+bench_osd_host.main(["--device", "cpu", "--rounds", "1", "--p", "3e-3", "--shots", "64",
+                     "--bench-shots", "8", "--osd-order", "1"])
+bench_spacetime.SHOTS, bench_spacetime.ITERS = 8, 2
+bench_spacetime.main(["--device", "cpu", "--rounds", "1"])
+bench_scaling.main(["--device", "cpu", "--shots-per-device", "16", "--reps", "1",
+                    "--rounds", "1", "--max-iter", "4"])
+""" + _CHECK_CLEAN + "print('OK')")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-1] == "OK"
+    rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+    assert rows[0]["decode"] == "bp" and rows[1]["code"] == "gross_144_12_12"
+    assert rows[2]["decode"] == "bpd_detector"
+    assert [r.get("bench") for r in rows[3:6]] == ["sliding_window"] * 2 + [
+        "sliding_window_scaling"]
+    assert [r["method"] for r in rows[6:12]] == ["osd0"] * 3 + ["osd_cs"] * 3
+    assert rows[12]["bench"] == "spacetime" and rows[13]["devices"] == 1
 
 
 def test_cli_writes_csv_without_jax():
