@@ -174,9 +174,9 @@ Phases, in order; any failure raises and exits nonzero:
      on the same seeds agree within max(3, 10%) in failures and
      unconverged shots, and each failure count within 4 combined binomial
      sigma of ``artifacts/two_tier_v5e.jsonl``'s 1,081 / 8,192; shots/s of
-     both and the device step of both (median of 5 batches); K3 bit for
-     bit against its plain version on the compacted 512-shot stage-2
-     decode; and the flagship ``bposd`` point at p = 3.4822e-3 with
+     both and the device step of both (median of 5 batches) beside the
+     bound of each; K3 bit for bit against its plain version on the
+     compacted 512-shot stage-2 decode; and the flagship ``bposd`` point at p = 3.4822e-3 with
      ``tier1_iters=8`` (32,768 shots) on phase 6's anchor;
  26. the rounds axis: two gloo ranks on the card (started beside the
      parity phases), HGP-225 over 7 rounds (4 round blocks a rank), 2,048
@@ -215,12 +215,26 @@ Phases, in order; any failure raises and exits nonzero:
      batches (1,024 shots x 32 iterations, min-sum and sum-product; as
      ``_same``), then the benchmark and its plain versions, every time a
      slope (none an upper bound), no LER gate;
- 34. ``experiments/bench_scaling.py`` on the one card: one row, K3.
+ 34. ``experiments/bench_scaling.py`` on the one card: one row, K3;
+ 35. ``experiments/bench_stbsr.py --ler`` uncut (``ler_chain``: the cyclic
+     lifted product n = 4,862 x 8 rounds, device sampler, K3 at 64 min-sum
+     iterations with the global exit armed, 2,048 shots at p = 3e-4, 6e-4,
+     1.2e-3): each failure count within 4 combined binomial sigma of its row
+     of ``stbsr_ler_v5e.jsonl`` (603 / 830 / 1,105 of 2,048; its
+     BP-unconverged counts printed beside), the LERs monotone, K3 once a
+     point; then K3 held to its plain version on the p = 1.2e-3 point's
+     syndromes (as ``_same``) and timed (median of the three points) beside
+     its bound;
+ 36. the README quickstart as written, on the card: ``import
+     exp_ldpc_tpu_torch as qldpc``, ``biregular_hgp(12, 3, 4, seed=42)``
+     (225, 9), a circuit-noise storage simulation, and ``from
+     exp_ldpc_tpu_torch.misc import run_simulation`` at 4,096 samples
+     (``bposd``): failures and launches printed, K3 launched.
 
 Each run of the main path (phases 6, 7, the two runs of phase 11, phases
 15, 16 and 20, each run of phase 23, the four runs of phase 24's second
 part, the two runs of phase 25, the three runs of phase 28 and the runs of
-phases 29-34) is driven with every launch count
+phases 29-36) is driven with every launch count
 set to 0 just before it and read just after (phase 16 reads the counts of
 its two ranks); a kernel of that run that was not launched fails the
 script.  A count is one call of
@@ -237,9 +251,10 @@ and ``shape_wide_<shape>`` for phase 24's shapes, ``max_abs_err_wide``;
 K2's and K6's ``ms_spacetime`` / ``plain_ms_spacetime`` / ``bound_ms_spacetime``
 (phase 33's shapes); K3's bounds at 685 shots and with the exit armed, K4's
 at the cyclic code's D = 1, 2, 4;
-K3's two-tier device steps; ``routes_parity_phase``,
-K2's and K6's routes in their parity phase; ``ms_streamed``, their
-streamed route at the main shape; K3b's row counts phase 17's K3 decodes,
+K3's two-tier device steps with their bounds (phase 25), and the LER
+chain's decode (``ms_stbsr_ler``, its plain time and bound, phase 35);
+``routes_parity_phase``, K2's and K6's routes in their parity phase;
+``ms_streamed``, their streamed route at the main shape; K3b's row counts phase 17's K3 decodes,
 since no main-path run reaches its sizes; without ``--quick`` only, as are
 the times, ``bound_ms``, ``bound_by`` and ``library_ms``: a BP decode is
 no single PyTorch call, so that is null); the last line is ``{"ok": true, "device": {...}}``.  Phase
@@ -1294,7 +1309,7 @@ def phase_distributed(dev: torch.device, world) -> dict:
 def phase_k3b(dev: torch.device, t: dict):
     """Returns the worst posterior error, the K3 launches of the kernel
     decodes (counted from 0) and, by code tag, the shape each was timed at
-    ((spacetime rows, columns, nonzeros, base tables), shots, iterations)."""
+    (the spacetime ``Checks``, the base tables, shots, iterations)."""
     rounds, S, iters, p = 8, 128, 32, 1e-3
     log(f"== phase 17: K3 vs plain in the K3b regime, {rounds} rounds, S={S}, {iters} "
         "iterations")
@@ -1315,7 +1330,7 @@ def phase_k3b(dev: torch.device, t: dict):
         prior = st.prior(p)
         synd = st.syndromes(S, p, seed=40)
         tag = name.split()[0]
-        shapes[tag] = ((*st.H.shape, st.H.nnz, tables), S, iters)
+        shapes[tag] = (st, tables, S, iters)
         for method, msf in methods:
             args = (tables, rounds, prior, synd, method, iters, msf, False)
             reset_counts()
@@ -2009,6 +2024,19 @@ def phase_two_tier(su: Setup, dev: torch.device) -> tuple:
     s2 = synds[5][:, order].contiguous()
     st = Checks(SpacetimeCode(code.checks.z, args.rounds).spacetime_check_matrix, dev,
                 "cyclic LP n=4862 x4")
+    # the bounds of both device steps: the fixed decode (every shot, max_iter), and the
+    # two-tier one, its two decodes in turn (every shot at tier 1, the cap at max_iter)
+    S = synds[0].shape[1]
+    b_fixed = _k3_bound(st, pipe._tables, S, S * args.max_iter)
+    b_tiers = [_k3_bound(st, pipe._tables, S, S * pipe.tier1_iters),
+               _k3_bound(st, pipe._tables, pipe.tier2_cap, pipe.tier2_cap * args.max_iter)]
+    t["two_tier_fixed_step_bound"] = b_fixed
+    t["two_tier_step_bound"] = {
+        "bound_ms": sum(b["bound_ms"] for b in b_tiers),
+        "bound_by": max(b_tiers, key=lambda b: b["bound_ms"])["bound_by"]}
+    log(f"  bounds: fixed step {b_fixed['bound_ms']:.3f} ms ({b_fixed['bound_by']}; {S} x "
+        f"{args.max_iter}), two-tier step {t['two_tier_step_bound']['bound_ms']:.3f} ms "
+        f"({S} x {pipe.tier1_iters}, then {pipe.tier2_cap} x {args.max_iter})")
     kern = k3.stbsr_decode(pipe._tables, args.rounds, pipe._prior, s2, "ms", args.max_iter,
                            ALPHA, False)
     plain = k3.stbsr_decode(pipe._tables, args.rounds, pipe._prior, s2, "ms", args.max_iter,
@@ -2378,6 +2406,84 @@ def phase_bench_scaling() -> tuple:
     return launches, rows[0]["decoded_shots_per_s"]
 
 
+STBSR_LER_ART = "stbsr_ler_v5e.jsonl"   # 603 / 830 / 1,105 of 2,048 (629 / 881 / 1,195 unconverged)
+STBSR_LER_SHOTS, STBSR_LER_ROUNDS = 2048, 8
+
+
+def phase_stbsr_ler(dev: torch.device) -> tuple:
+    """bench_stbsr --ler uncut, counted; then K3 at the chain's shape held to
+    its plain version (the p = 1.2e-3 point) and timed.  Returns the
+    launches, K3's times and bound, and the worst posterior error."""
+    from exp_ldpc_tpu_torch.experiments import bench_stbsr as bs
+
+    log(f"== phase 35: bench_stbsr --ler on the card, uncut: cyclic LP n=4,862 x"
+        f"{STBSR_LER_ROUNDS} rounds, {STBSR_LER_SHOTS} shots a point at p = "
+        f"{', '.join(f'{p:g}' for p in bs.LER_PS)}: device sampler -> spacetime syndromes -> K3 "
+        f"({bs.LER_ITERS} min-sum iterations, the global exit armed) -> final correction -> "
+        "logical test")
+    inputs = []
+    rows, launches = _run_counted(
+        lambda: bs.ler_chain(STBSR_LER_SHOTS, STBSR_LER_ROUNDS, dev, inputs=inputs))
+    for row in rows:
+        art = _artifact_row(STBSR_LER_ART, row["p"], key="p")
+        log(f"  p={row['p']:g}: failures {row['failures']} / {row['shots']} (artifact "
+            f"{art['failures']}), bp_unconverged {row['bp_unconverged']} (artifact "
+            f"{art['bp_unconverged']}), iters {row['iters']} (artifact {art['iters']}), decode "
+            f"{row['decode_walltime_s']:.3f} s")
+        _gate(row["failures"], row["shots"], STBSR_LER_ART, row["p"],
+              f"bench_stbsr --ler p={row['p']:g}", key="p")
+    lers = [row["ler"] for row in rows]
+    check(lers == sorted(lers), f"the LERs grow with p: {lers}")
+    check(launches["K3"] == len(rows), f"K3 launched once a point ({launches['K3']})")
+    Hz = bs._cyclic(logicals=True).checks.z   # the chain's code (cached)
+    st = Checks(SpacetimeCode(Hz, STBSR_LER_ROUNDS).spacetime_check_matrix, dev,
+                f"cyclic LP n=4862 x{STBSR_LER_ROUNDS}")
+    dec, synd = inputs[-1]
+    kern = dec.decode_tensors(synd)
+    plain, ms_plain = _timed(lambda: k3.stbsr_decode(
+        dec.tables, dec.num_rounds, dec._prior, synd, dec.method, dec.max_iter,
+        dec.ms_scaling_factor, True, iterate=k3._stbsr_iter_plain))
+    err = _same(f"K3 at the chain's shape, p={rows[-1]['p']:g}, {STBSR_LER_SHOTS} shots, exit "
+                "armed", st, synd, kern, plain)
+    runs = [_timed(lambda s=s, d=d: d.decode_tensors(s)) for d, s in inputs]
+    t = {"K3_stbsr_ler": float(np.median([ms for _out, ms in runs])),
+         "K3_stbsr_ler_plain": ms_plain}
+    shot_iters = float(np.median([STBSR_LER_SHOTS * int(out[3][0]) for out, _ms in runs]))
+    t["stbsr_ler_bound"] = _k3_bound(st, dec.tables, STBSR_LER_SHOTS, shot_iters)
+    log(f"  K3 decode (CUDA events, median of the 3 points): {t['K3_stbsr_ler']:.2f} ms, plain "
+        f"{ms_plain:.1f} ms (the p={rows[-1]['p']:g} point, one run); bound "
+        f"{t['stbsr_ler_bound']['bound_ms']:.3f} ms ({t['stbsr_ler_bound']['bound_by']}, "
+        f"{shot_iters / STBSR_LER_SHOTS:.0f} iterations)")
+    return launches, t, err
+
+
+def phase_quickstart() -> dict:
+    """The README quickstart, its three steps as written, on the card."""
+    import exp_ldpc_tpu_torch as qldpc
+    from exp_ldpc_tpu_torch.misc import run_simulation
+
+    log("== phase 36: the README quickstart on the card (import exp_ldpc_tpu_torch as qldpc; "
+        "biregular_hgp(12, 3, 4, seed=42), circuit noise, run_simulation 4,096 samples bposd)")
+    code = qldpc.biregular_hgp(12, 3, 4, seed=42, compute_logicals=True)
+    check((code.num_qubits, code.num_logicals) == (225, 9), "the code is (225, 9)")
+    sim = qldpc.build_storage_simulation(
+        rounds=4, noise_model=qldpc.noise_model.circuit_noise(1e-3, 1e-3), code=code)
+    for line in sim.circuit[:6]:
+        log(f"  {line[:100]}")
+    failures, launches = _run_counted(lambda: run_simulation(
+        samples=4096, code=code, rounds=4,
+        noise_model=qldpc.noise_model.depolarizing_noise,
+        noise_model_args=dict(p=1e-3, pm=1e-3),
+        meas_prior=lambda xs, zs: 2e-3 / 3, data_prior=lambda xs, zs: 2e-3 / 3,
+        bp_osd_options=dict(bp_method="ms", ms_scaling_factor=0.625,
+                            max_iter=60, osd_method="osd_cs", osd_order=7),
+        decoder_mode="bposd", seed=0, device="cuda"))
+    log(f"  {sum(failures)} logical failures of {len(failures)}; launches {launches}")
+    check(len(failures) == 4096 and 0 <= sum(failures) < 4096, "4,096 decoded samples")
+    check(launches["K3"] > 0, f"the bposd spacetime BP ran K3 ({launches['K3']})")
+    return launches
+
+
 def _st_io(rows: int, cols: int, tab, shots: int) -> int:
     """Bytes a whole spacetime decode must move: spacetime syndromes and
     priors in, base tables, posterior, conv, iters out."""
@@ -2411,6 +2517,17 @@ def _bound(nbytes: float, ops: float) -> dict:
     tb, to = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / OPS_PER_S
     return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
             "bound_bytes": int(nbytes), "bound_ops": int(ops), "library_ms": None}
+
+
+def _k3_bound(st: Checks, tab, shots: int, shot_iters: float) -> dict:
+    """K3's bound for a decode of ``shots`` over the spacetime matrix
+    ``st.H`` (base tables ``tab``) that ran ``shot_iters`` shot-iterations
+    (one global exit: ``shot_iters / shots`` iterations).  Every iteration
+    moves the decode's bytes and reads and writes the bf16 messages (one
+    value per spacetime edge and shot)."""
+    nnz = st.H.nnz
+    return _bound(shot_iters / shots * (_st_io(*st.H.shape, tab, shots) + 2 * 2 * nnz * shots),
+                  OPS_FLOAT * nnz * shot_iters)
 
 
 def _flat_io(tab, S: int) -> int:
@@ -2465,23 +2582,21 @@ def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross, dem, t,
         b = _bound(st_io(*chk.H.shape, tab, shots), OPS_FLOAT * chk.H.nnz * shots * iters)
         out["K2"][f"bound_ms_{tag}"] = b["bound_ms"]
         out["K2"][f"bound_by_{tag}"] = b["bound_by"]
-    # K3: one launch per iteration; each launch also reads and writes the
-    # bf16 message arrays (one value per spacetime edge)
-    out["K3"] = _bound(MAX_ITER * (st_io(rows, cols, su.tables, S) + 2 * 2 * su.H.nnz * S),
-                       OPS_FLOAT * su.H.nnz * S * MAX_ITER)
-    # K3 at the redecode's 685 shots, and both shapes with the exit armed: the
-    # iterations the timed batches needed (one global exit: shot-iterations / S)
+    # K3: 16,384 x 48; at the redecode's 685 shots, and both shapes with the exit armed (the
+    # iterations the timed batches needed); the two-tier device steps (phase 25); the LER
+    # chain's decode (phase 35: the iterations its decodes ran)
+    out["K3"] = _k3_bound(su, su.tables, S, S * MAX_ITER)
     for tag, shots, shot_iters in ((f"S{S_REDECODE}", S_REDECODE, S_REDECODE * MAX_ITER),
                                    ("early_stop", S, t["K3_es_shot_iters"]),
                                    (f"S{S_REDECODE}_early_stop", S_REDECODE,
                                     t[f"K3_S{S_REDECODE}_es_shot_iters"])):
-        b = _bound(shot_iters / shots * (st_io(rows, cols, su.tables, shots)
-                                         + 2 * 2 * su.H.nnz * shots),
-                   OPS_FLOAT * su.H.nnz * shot_iters)
+        b = _k3_bound(su, su.tables, shots, shot_iters)
         out["K3"][f"bound_ms_{tag}"], out["K3"][f"bound_by_{tag}"] = b["bound_ms"], b["bound_by"]
-    (rows, cols, nnz, tab), shots, iters = k3b_shape
-    out["K3b"] = _bound(iters * (st_io(rows, cols, tab, shots) + 2 * 2 * nnz * shots),
-                        OPS_FLOAT * nnz * shots * iters)
+    for tag in ("two_tier_fixed_step", "two_tier_step", "stbsr_ler"):
+        b = t[f"{tag}_bound"]
+        out["K3"][f"bound_ms_{tag}"], out["K3"][f"bound_by_{tag}"] = b["bound_ms"], b["bound_by"]
+    st, tab, shots, iters = k3b_shape
+    out["K3b"] = _k3_bound(st, tab, shots, shots * iters)
     # K4: one decode iteration, all D shards: per shard the posterior in and
     # the partial out (f32, V_pad x S), its messages in and out (bf16), its
     # syndromes and tables
@@ -2640,6 +2755,8 @@ def main() -> int:
         by_run["bench_osd_host"], osd_speed = phase(phase_bench_osd_host)
         by_run["bench_spacetime"], st_ms, err_st = phase(phase_bench_spacetime, su)
         by_run["bench_scaling"], scaling_rate = phase(phase_bench_scaling)
+        by_run["bench_stbsr_ler"], t_ler, err_ler = phase(phase_stbsr_ler, dev)
+        by_run["quickstart"] = phase(phase_quickstart)
         launches = {name: sum(c[name] for c in by_run.values()) for name in KERNELS}
         for name, n in launches.items():
             check(n > 0, f"{name} launched on the main path ({n} launches)")
@@ -2647,12 +2764,15 @@ def main() -> int:
         t.update(phase(phase_shard_timings, dev, cap, cyclic_H))
         t.update(phase(phase_family_timings, fams, fam_rows))
         t.update(dem_times)
+        t.update(t_tt)
+        t.update(t_ler)
         bounds = kernel_bounds(su, flats, big, fams, cap, k3b_shapes["HGP"], _gross(dev), dem, t,
                                cyclic_H)
         timing = {"K1": ("K1_S16384", "bench", "S16384_es", f"S{S_REDECODE}_es", "fam_cyclic",
                          "fam_qclp", "dem_dc53"),
                   "K1b": ("K1_n40000",),
-                  "K2": ("K2", f"S{S_REDECODE}", "gross"), "K3": ("K3", f"S{S_REDECODE}"),
+                  "K2": ("K2", f"S{S_REDECODE}", "gross"),
+                  "K3": ("K3", f"S{S_REDECODE}", "stbsr_ler"),
                   "K3b": ("K3b_HGP", "cyclic"),
                   "K4": ("K4_capacity_D8", "bench_D1", "bench_D2", "bench_D4"),
                   "K5": ("K5_cyclic", "qclp", "dem_dc53"),
@@ -2702,6 +2822,7 @@ def main() -> int:
                 kern["ms_two_tier_fixed_step"] = t_tt["two_tier_fixed_step"]
                 kern["ms_two_tier_step"] = t_tt["two_tier_step"]
                 kern["max_abs_err_two_tier_stage2"] = err_tt
+                kern["max_abs_err_stbsr_ler"] = err_ler
                 kern["trace_k3_grids"] = prof["k3_grids"]
             if key == "K4":
                 kern["ms_per"] = "decode iteration, all shards"
