@@ -34,12 +34,18 @@ Phases, in order; any failure raises and exits nonzero:
      in a thread beside phases 2-4);
   6. the main path: ``p_sweep(..., pipeline=...)`` on HGP-225, 4 rounds,
      min-sum 48 iterations, OSD-CS 7, at two grid points of
-     ``artifacts/ler_hgp225_bposd_v5e.jsonl``, each LER within 4 combined
-     binomial sigma of the artifact, through K3;
-  7. the same pipeline on K2 (``bp_backend="stbp"``);
+     ``artifacts/ler_hgp225_bposd_v5e.jsonl`` and at p = 0.006 (anchor:
+     ``artifacts/pipeline_modes_jax_cpu.jsonl``, made by the JAX package on a
+     CPU), each LER within 4 combined binomial sigma of its anchor, through
+     the selection's kernels: K2 in the device step (fixed iterations), K3
+     with its exit in the host redecode (whose BP+OSD asks the exit);
+  7. the same pipeline on K3 (``bp_backend="stbsr"``, the JAX package's
+     choice on a TPU);
   8. timings (CUDA events, median of 5 distinct-input runs): K2 at 16,384
      shots on both routes and at 685, the gross code over 12 rounds (16,384
-     x 60), each with its plan; K3; the sampler; the ``bposd`` stages;
+     x 60), each with its plan; K3; the sampler; the ``bposd`` stages of
+     the automatic pipeline (K2 in the device step) and of
+     ``bp_backend="stbsr"`` (K3), in turns;
   9. K6 against its plain version on HGP-225's H and (H|I) at S = 685,
      4,096, 16,384, 77 and 5,001 (resident), 685 on the streamed route, and
      the n = 40,000 HGP (128 shots, 4 iterations: streamed), bounds as in
@@ -54,9 +60,12 @@ Phases, in order; any failure raises and exits nonzero:
      posteriors bit for bit; one K1 call per decode; each case prints its
      plan (padded shots, shot blocks, lane width and grid per phase);
  11. the single-shot and hybrid modes through ``p_sweep(...,
-     pipeline=...)`` on ``artifacts/hgp225.qecc`` at p = 0.002, each LER
-     within 4 combined binomial sigma of its row of
-     ``artifacts/pipeline_modes_hgp225_v5e.csv``;
+     pipeline=...)`` on ``artifacts/hgp225.qecc`` at p = 0.002 and 0.006,
+     each LER within 4 combined binomial sigma of its row of
+     ``artifacts/pipeline_modes_hgp225_v5e.csv`` (0.002) or
+     ``artifacts/pipeline_modes_jax_cpu.jsonl`` (0.006); K6 in the device
+     step and K1 in the host redecode, K2 and K3 in the hybrid's
+     spacetime stages;
  12. timings of K1 and K6 against their plain versions (``bench_bp``'s
      configuration, 16,384 and 685 shots x 48 iterations; K1 also at the
      >= 3,000-tile code), beside K1's times before its redesign
@@ -147,7 +156,9 @@ Phases, in order; any failure raises and exits nonzero:
      ``relay_bp`` and ``ssf_single_shot`` at p = 0.002:
      ``run_simulation_modes_jax_cpu.jsonl``, made by the JAX package on a
      CPU; ``sliding_window`` at p = 0.001: ``sliding_window_v5e.jsonl``),
-     failures, shots/s and K1/K2/K3 launches printed per mode; then
+     failures, shots/s and K1/K2/K3 launches printed per mode (every
+     BP+OSD asks the early exit: the selection's K3 for the spacetime
+     matrix, K1 for the flat ones); then
      ``bpd_detector`` under 1-round circuit noise (4,096 shots), whose fault
      checks of 53 slots send every K1 call down route "wide";
  24. route "wide" (checks of more than 32 slots) against the plain
@@ -176,15 +187,18 @@ Phases, in order; any failure raises and exits nonzero:
      sigma of ``artifacts/two_tier_v5e.jsonl``'s 1,081 / 8,192; shots/s of
      both and the device step of both (median of 5 batches) beside the
      bound of each; K3 bit for bit against its plain version on the
-     compacted 512-shot stage-2 decode; and the flagship ``bposd`` point at p = 3.4822e-3 with
-     ``tier1_iters=8`` (32,768 shots) on phase 6's anchor;
+     compacted 512-shot stage-2 decode (the selection takes K3 there: one
+     shot of K2 does not fit shared memory); and the flagship ``bposd``
+     point at p = 3.4822e-3 with ``tier1_iters=8`` (32,768 shots, on the
+     selection's K2; K3 in the host redecode) on phase 6's anchor;
  26. the rounds axis: two gloo ranks on the card (started beside the
      parity phases), HGP-225 over 7 rounds (4 round blocks a rank), 2,048
      shots x 24 min-sum iterations, the halo rows staged through the host:
      sharded and unsharded decisions differ on at most 0.1% of converged
      shots, and every converged shot satisfies its syndrome;
  27. ``utils/observability.py::profiler_trace`` of one ``bposd`` device
-     step (HGP-225, 4,096 shots): the trace must name K3's kernels;
+     step (HGP-225, 4,096 shots, ``bp_backend="stbsr"``): the trace must
+     name K3's kernels;
  28. ``experiments/validate_ler.py`` (its ``sweep`` and ``crosscheck``):
      phenomenological ``bp`` at p = 3.4822e-3, circuit ``bp`` at 5.2233e-4
      and circuit ``bposd`` at 2.2736e-4, 16,384 shots each (the artifacts
@@ -192,7 +206,8 @@ Phases, in order; any failure raises and exits nonzero:
      of its row (``ler_hgp225_v5e.jsonl``, ``ler_hgp225_circuit_v5e.jsonl``,
      ``ler_hgp225_bposd_circuit_v5e.jsonl``); the ``bposd`` run's
      cross-check (2,000 host ``FrameSampler`` shots through
-     ``BPOSDCorrect``) must agree; K3 launched in each;
+     ``BPOSDCorrect``) must agree; the selection's K2 (the device step)
+     launched in each;
  29. ``experiments/bench_gross.py`` at its defaults (gross code x 12
      rounds, 20,000 shots x 60, grid (1e-3, 5e-3, 4)): K2; p = 2.924e-3 and
      5e-3 within 4 sigma of ``gross_memory_12r_v5e.jsonl`` (66 and 323 of
@@ -201,9 +216,12 @@ Phases, in order; any failure raises and exits nonzero:
      7.917e-4, the artifact's 8,192 samples in batches of 2,048 (the other
      options as default): the 4-round detector model (864 x 36,491, ~150 s of host
      Python) is built in a spawned process from the start of the run; the
-     selection's stage 1 there is the plain per-shot-freezing BP (the JAX
-     rule refuses K1), so the run launches no kernel, which is checked;
-     stage times printed; LER within 4 sigma of 69 / 8,192;
+     selection's stage 1 there is K1 on route "wide" (the JAX fit rule
+     refuses K1 on a TPU), the only kernel of the run, which is checked;
+     before the run K1 is held bit for bit to its plain version there, with
+     stage 1's own decoder (min-sum, alpha 0, 48 iterations, the exit
+     armed, and fixed) on two shot blocks, the first all zero; stage times
+     printed; LER within 4 sigma of 69 / 8,192;
  31. ``experiments/demo_sliding_window.py`` at its defaults (64 and 128
      rounds x 512 shots): K1; each LER within 4 sigma of its row of
      ``sliding_window_v5e.jsonl`` (7 and 16 of 512); the walltime ratio
@@ -215,7 +233,7 @@ Phases, in order; any failure raises and exits nonzero:
      batches (1,024 shots x 32 iterations, min-sum and sum-product; as
      ``_same``), then the benchmark and its plain versions, every time a
      slope (none an upper bound), no LER gate;
- 34. ``experiments/bench_scaling.py`` on the one card: one row, K3;
+ 34. ``experiments/bench_scaling.py`` on the one card: one row, K2;
  35. ``experiments/bench_stbsr.py --ler`` uncut (``ler_chain``: the cyclic
      lifted product n = 4,862 x 8 rounds, device sampler, K3 at 64 min-sum
      iterations with the global exit armed, 2,048 shots at p = 3e-4, 6e-4,
@@ -229,7 +247,19 @@ Phases, in order; any failure raises and exits nonzero:
      exp_ldpc_tpu_torch as qldpc``, ``biregular_hgp(12, 3, 4, seed=42)``
      (225, 9), a circuit-noise storage simulation, and ``from
      exp_ldpc_tpu_torch.misc import run_simulation`` at 4,096 samples
-     (``bposd``): failures and launches printed, K3 launched.
+     (``bposd``): failures and launches printed, K3 launched;
+ 37. the decoder selection (``decoders/select.py``) against every
+     candidate it chooses among, at one shape per selection point and
+     regime (``experiments/bench_select.py``'s cases, cut: the ``bposd``
+     device step and host redecode at HGP-225 x 4, the two-tier regime, the
+     single-shot host redecode and a converging batch on (H|I),
+     ``bench_bp``'s fixed call, a converging QC-LP batch, flat BP at
+     n = 40,000, the 1- and
+     4-round detector models): each candidate timed on the same syndromes,
+     the table printed with the card's name and power limit, and the
+     automatic choice within 10% of the fastest candidate of the caller's
+     request (fixed iterations, or an exit); the rule's shared memory per
+     block must be the card's.
 
 Each run of the main path (phases 6, 7, the two runs of phase 11, phases
 15, 16 and 20, each run of phase 23, the four runs of phase 24's second
@@ -297,7 +327,9 @@ from exp_ldpc_tpu_torch.codes.lifted import lifted_product_code_cyclic  # noqa: 
 from exp_ldpc_tpu_torch.decoders.dem import detector_error_model  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.spacetime import (DetectorSpacetimeCode, SpacetimeCode,  # noqa: E402
                                                    SpacetimeCodeSingleShot)
-from exp_ldpc_tpu_torch.decoders.select import bsr_selected  # noqa: E402
+from exp_ldpc_tpu_torch.decoders import select  # noqa: E402
+from exp_ldpc_tpu_torch.decoders.select import (flat_choice,  # noqa: E402
+                                                spacetime_choice)
 from exp_ldpc_tpu_torch.decoders.sliding_window import window_check_matrix  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.tanner import TannerELL  # noqa: E402
 from exp_ldpc_tpu_torch.sampler.reference import FrameSampler  # noqa: E402
@@ -323,11 +355,19 @@ ARTIFACT = ROOT / "artifacts" / "ler_hgp225_bposd_v5e.jsonl"
 MODES_ARTIFACT = ROOT / "artifacts" / "pipeline_modes_hgp225_v5e.csv"
 FAMILIES_ARTIFACT = ROOT / "artifacts" / "bp_families_v5e.jsonl"
 CODE_FILE = ROOT / "artifacts" / "hgp225.qecc"
-# The MODES_ARTIFACT rows checked.  Its p=0.006 rows are not: they were
-# taken while the host redecode ran f32 per-shot-freezing BP (the port
-# reproduces them with those decoders swapped in); the current selection,
-# K3/K1 (bf16, shared exit), decodes ~10% fewer failures there (PERF.md).
-P_MODES = (0.002,)
+# The p = 0.006 anchor of the three pipeline modes (phases 6 and 11), made
+# by the JAX package on a CPU (artifacts/make_pipeline_modes_jax_cpu.py),
+# its rows with the host redecode at fixed iterations.  The selection runs
+# that redecode on K3 and K1 with their exits armed; an exit shared by a
+# block (K1) or the batch (K3) of the shots the device step left unconverged
+# does not fire there (artifacts/select_h100.jsonl: 48 of 48 iterations in
+# the rows hgp225_hard and hgp225_HI_hard), so the fixed rows are the
+# contract it runs.  MODES_ARTIFACT's p = 0.006 rows, taken while the host
+# redecode ran f32 per-shot-freezing BP (~10% more failures in the hybrid
+# mode there), are not read.
+JAX_MODES_ARTIFACT = ROOT / "artifacts" / "pipeline_modes_jax_cpu.jsonl"
+P_MODES = (0.002, 0.006)
+P_GATE = 0.006
 ROUNDS = 4
 MAX_ITER = 48
 ALPHA = 0.625
@@ -336,7 +376,7 @@ OPTIONS = dict(max_iter=MAX_ITER, bp_method="ms", ms_scaling_factor=ALPHA,
 METHODS = (("ms", ALPHA), ("ms", 0.0), ("ps", 0.0))
 P_LO, P_HI = 0.0015157165665103977, 0.0034822022531844966
 # ~ the BP-unconverged shots per 16,384-shot batch at P_HI: the ragged size
-# at which the host BP+OSD redecode runs K3
+# at which the host BP+OSD redecode runs (K3 with its exit armed)
 S_REDECODE = 685
 
 
@@ -634,6 +674,32 @@ def ler_within(failures: int, samples: int, p: float, k: float = 4.0) -> bool:
     return _ler_gap(failures, samples, art["ler"], art["samples"], f"p={p:.6g}", k)
 
 
+def jax_modes_anchor(mode: str, p: float) -> tuple:
+    """(LER, samples, source) of ``mode`` at ``p`` in :data:`JAX_MODES_ARTIFACT`,
+    the row whose host redecode runs at fixed iterations (f32): the
+    contract the armed K3 and K1 run on those shots, whose shared exit does
+    not fire there."""
+    for line in JAX_MODES_ARTIFACT.read_text().splitlines():
+        rec = json.loads(line)
+        if rec["mode"] == mode and abs(rec["p"] - p) <= 1e-12 and rec["redecode"] == "fixed":
+            return rec["failures"] / rec["samples"], rec["samples"], JAX_MODES_ARTIFACT.name
+    raise KeyError((mode, p))
+
+
+def mode_anchor(mode: str, p: float) -> tuple:
+    """(LER, samples, source) a pipeline mode's point is gated on: the bposd
+    artifact (``bposd`` at its grid points), ``pipeline_modes_hgp225_v5e.csv``
+    (the single-shot and hybrid modes at p = 0.002), the JAX package's CPU
+    rows at p = 0.006."""
+    if abs(p - P_GATE) <= 1e-12:
+        return jax_modes_anchor(mode, p)
+    if mode == "bposd":
+        art = artifact_point(p)
+        return art["ler"], art["samples"], ARTIFACT.name
+    art = modes_artifact(mode, p)
+    return int(art["failures"]) / int(art["samples"]), int(art["samples"]), MODES_ARTIFACT.name
+
+
 def modes_artifact(mode: str, p: float) -> dict:
     """The row of ``pipeline_modes_hgp225_v5e.csv`` for ``mode`` at ``p``."""
     rows = [ln for ln in MODES_ARTIFACT.read_text().splitlines() if not ln.startswith("#")]
@@ -662,7 +728,7 @@ def phase_main_path(su: Setup, dev: torch.device, samples: int, shots: int) -> d
     lg.setLevel(logging.INFO)
     reset_counts()
     records = p_sweep(
-        samples=samples, p_values=np.array([P_LO, P_HI]),
+        samples=samples, p_values=np.array([P_LO, P_HI, P_GATE]),
         noise_model=depolarizing_noise,
         noise_model_args=lambda p: {"p": p, "pm": p},
         meas_prior=lambda p, xs, zs: 2 / 3 * p, data_prior=lambda p, xs, zs: 2 / 3 * p,
@@ -676,21 +742,25 @@ def phase_main_path(su: Setup, dev: torch.device, samples: int, shots: int) -> d
         log(f"  p={p:.6g}: failures {f}, shots {n}, OSD-decoded {osd}, "
             f"{n / secs:.0f} decoded shots/s ({secs:.2f} s)")
     for rec in records:
-        check(ler_within(rec["failures"], rec["samples"], rec["p_ph"]),
-              f"p={rec['p_ph']:.6g}: LER within 4 sigma of the artifact")
-    check(launches["K3"] > 0, "K3 launched on the main path")
+        ler, n_ref, src = mode_anchor("bposd", rec["p_ph"])
+        check(_ler_gap(rec["failures"], rec["samples"], ler, n_ref, f"p={rec['p_ph']:.6g}"),
+              f"p={rec['p_ph']:.6g}: LER within 4 sigma of {src}")
+    check(spacetime_choice(su.tables, ROUNDS, dev, early_stop=False) == "K2"
+          and launches["K2"] > 0 and launches["K3"] > 0,
+          "the selection's kernels at HGP-225 x4 launched on the main path: K2 in the device "
+          "step (fixed iterations), K3 with its exit in the host redecode (early stop)")
     return launches
 
 
-def phase_k2_pipeline(su: Setup, dev: torch.device, shots: int) -> dict:
-    log(f"== phase 7: pipeline on K2 (bp_backend='stbp'), {shots} shots at p={P_HI:.6g}")
+def phase_k3_pipeline(su: Setup, dev: torch.device, shots: int) -> dict:
+    log(f"== phase 7: pipeline on K3 (bp_backend='stbsr'), {shots} shots at p={P_HI:.6g}")
     p = P_HI
     pipe = StorageDecodePipeline(
         code=su.code, rounds=ROUNDS, noise_model=depolarizing_noise(p, p),
         data_prior=2 / 3 * p, meas_prior=2 / 3 * p, shots_per_device=shots,
-        max_iter=MAX_ITER, bp_method="ms", ms_scaling_factor=ALPHA, bp_backend="stbp",
+        max_iter=MAX_ITER, bp_method="ms", ms_scaling_factor=ALPHA, bp_backend="stbsr",
         osd_fallback_cap=shots, osd_options=dict(OPTIONS), device=dev)
-    check(pipe.kernel == "stbp", "pipeline resolved to K2")
+    check(pipe.kernel == "stbsr", "pipeline resolved to K3")
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     reset_counts()
@@ -698,8 +768,8 @@ def phase_k2_pipeline(su: Setup, dev: torch.device, shots: int) -> dict:
     torch.cuda.synchronize()
     launches = launch_counts()
     log(f"  failures {f}, shots {n}, OSD-decoded {osd}, kernel launches {launches}")
-    check(launches["K2"] > 0, "K2 launched on the pipeline")
-    check(ler_within(f, n, p), "K2 pipeline LER within 4 sigma of the artifact")
+    check(launches["K3"] > 0, "K3 launched on the pipeline")
+    check(ler_within(f, n, p), "K3 pipeline LER within 4 sigma of the artifact")
     return launches
 
 
@@ -817,35 +887,45 @@ def phase_timings(su: Setup, dev: torch.device, shots: int) -> dict:
         gens.append(g)
     ds.sample(gens[5])
     t["sampler"] = _median_ms(ds.sample, gens[:5])
-    pipe = StorageDecodePipeline(
+    # the automatic choice (K2 in the device step, K3 armed in the host redecode)
+    # and the JAX package's TPU choice (bp_backend "stbsr": K3 in both), in turns
+    pipes = {f"_{backend}" if backend == "stbsr" else "": StorageDecodePipeline(
         code=su.code, rounds=ROUNDS, noise_model=depolarizing_noise(p, p),
         data_prior=2 / 3 * p, meas_prior=2 / 3 * p, shots_per_device=shots,
-        max_iter=MAX_ITER, bp_method="ms", ms_scaling_factor=ALPHA,
+        max_iter=MAX_ITER, bp_method="ms", ms_scaling_factor=ALPHA, bp_backend=backend,
         osd_fallback_cap=shots, osd_options=dict(OPTIONS), device=dev)
-    pipe.run_bposd(gens[5])
+        for backend in ("auto", "stbsr")}
+    check(pipes[""].kernel == "stbp" and pipes["_stbsr"].kernel == "stbsr",
+          "the automatic bposd stage is K2; bp_backend='stbsr' is K3")
     # run_bposd = sample, device decode (syndromes, BP, failure count, OSD
     # compaction), host BP+OSD of the unconverged shots; timed stage by stage
-    stages = {"sample": [], "device_decode": [], "host_osd": [], "e2e": []}
+    stages = {tag: {"sample": [], "device_decode": [], "host_osd": [], "e2e": []}
+              for tag in pipes}
+    for pipe in pipes.values():
+        pipe.run_bposd(gens[5])
     for g in gens[:5]:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        record = pipe._sample(g, pipe._noise_args)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out = pipe._decode_records(record)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        pipe._finish_bposd(*out)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for k, v in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t3 - t0)):
-            stages[k].append(v)
-    for k, v in stages.items():
-        t[f"{k}_s"] = float(np.median(v))
+        for tag, pipe in pipes.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            record = pipe._sample(g, pipe._noise_args)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = pipe._decode_records(record)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            pipe._finish_bposd(*out)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            for k, v in zip(stages[tag], (t1 - t0, t2 - t1, t3 - t2, t3 - t0)):
+                stages[tag][k].append(v)
+    for tag, st in stages.items():
+        for k, v in st.items():
+            t[f"{k}{tag}_s"] = float(np.median(v))
     for k, v in t.items():
         if not k.endswith("_shot_iters"):
             log(f"  {k}: {v:.4f}" + (" s" if k.endswith("_s") else " ms"))
-    log(f"  end to end: {shots / t['e2e_s']:.0f} decoded shots/s at p={p:.6g}")
+    log(f"  end to end: {shots / t['e2e_s']:.0f} decoded shots/s at p={p:.6g} (K2 in the device "
+        f"step; K3 there too: {shots / t['e2e_stbsr_s']:.0f})")
     return t
 
 
@@ -1023,18 +1103,20 @@ def phase_modes(dev: torch.device, samples: int, shots: int) -> dict:
         torch.cuda.synchronize()
         launches = launch_counts()
         lg.removeHandler(handler)
-        log(f"  kernel launches during the sweep: {launches}; K1 calls per batch "
-            f"{launches['K1'] / (samples // shots * len(P_MODES)):g}")
+        batches = samples // shots * len(P_MODES)
+        log(f"  kernel launches during the sweep: {launches}; per batch K6 (device step) "
+            f"{launches['K6'] / batches:g}, K1 (host redecode) {launches['K1'] / batches:g}")
         for (p, f, n, osd, secs) in handler.points:
             log(f"  p={p:.6g}: failures {f}, shots {n}, OSD-decoded {osd}, "
                 f"{n / secs:.0f} decoded shots/s ({secs:.2f} s)")
         for rec in records:
-            art = modes_artifact(mode, rec["p_ph"])
-            ref_n = int(art["samples"])
-            check(_ler_gap(rec["failures"], rec["samples"], int(art["failures"]) / ref_n, ref_n,
+            ler, ref_n, src = mode_anchor(mode, rec["p_ph"])
+            check(_ler_gap(rec["failures"], rec["samples"], ler, ref_n,
                            f"{mode} p={rec['p_ph']:.6g}"),
-                  f"{mode} p={rec['p_ph']:.6g}: LER within 4 sigma of {MODES_ARTIFACT.name}")
-        for name in ("K1", "K6") + (("K2",) if mode == "bposd_hybrid" else ()):
+                  f"{mode} p={rec['p_ph']:.6g}: LER within 4 sigma of {src}")
+        # fixed iterations in the device step: K6, and K2 in the hybrid spacetime
+        # stage; the early exit in the host redecode: K1, and K3 in the hybrid's
+        for name in ("K6", "K1") + (("K2", "K3") if mode == "bposd_hybrid" else ()):
             check(launches[name] > 0, f"{mode}: {name} launched on the main path")
         by_run[f"p_sweep_{mode}"] = launches
     return by_run
@@ -1643,8 +1725,9 @@ def phase_host_path_kernels(setups) -> float:
                     f"{fs.tables.max_check_degree}), S={S}" for fs, S, _o in setups))
     worst = 0.0
     for i, (fs, S, opts) in enumerate(setups):
-        check(bsr_selected(TannerELL.from_check_matrix(fs.H), fs.dev),
-              f"{fs.name}: the selection sends it to K1 on the card")
+        check(flat_choice(TannerELL.from_check_matrix(fs.H), fs.dev) == "K1",
+              f"{fs.name}: the selection sends it to K1 on the card (its BP+OSD asks the "
+              "early exit)")
         prior = torch.as_tensor(priors_to_llr(fs.priors)).to(fs.dev)
         synd = torch.cat([fs.draw(S // 2, seed=50 + i, scale=1.0),
                           fs.draw(S - S // 2, seed=60 + i, scale=4.0)], dim=1)
@@ -1685,6 +1768,8 @@ def host_cases():
     kernels the run must launch) of the host-path phase."""
     art = artifact_point(P_HI)
     modes = {m: modes_artifact(m, 0.002) for m in ("bposd_single_shot", "bposd_hybrid")}
+    # the kernels of each run by the selection: every BP+OSD asks the early exit,
+    # so K3 for HGP-225 x4's spacetime matrix and K1 for the flat matrices
     return [
         ("bposd", P_HI, ROUNDS, HOST_SHOTS, OPTIONS, (art["ler"], art["samples"], ARTIFACT.name),
          ("K3",)),
@@ -1992,6 +2077,9 @@ def phase_two_tier(su: Setup, dev: torch.device) -> tuple:
     args = btt.parse_args(["--device", str(dev)])
     args.device = dev
     pipes = {v: btt.build(code, v, args) for v in btt.VARIANTS}
+    check(spacetime_choice(pipes["fixed"]._tables, args.rounds, dev, early_stop=False) == "K3",
+          "the selection takes K3 at the cyclic code x4 (one shot of K2 does not fit shared "
+          "memory)")
     reset_counts()
     rows = btt.compare(pipes, args)
     launches = launch_counts()
@@ -2060,7 +2148,9 @@ def phase_two_tier(su: Setup, dev: torch.device) -> tuple:
         f"{rec['samples'] / rec['walltime']:.0f} shots/s, launches {flagship}")
     check(ler_within(rec["failures"], rec["samples"], P_HI),
           f"two-tier p={P_HI:.6g}: LER within 4 sigma of the artifact")
-    check(flagship["K3"] >= 4, "two-tier flagship: K3 twice per batch (and in the redecode)")
+    check(flagship["K2"] >= 4 and flagship["K3"] > 0,
+          "two-tier flagship: K2 (the selection's fixed-iteration kernel at HGP-225 x4) twice "
+          "per batch, K3 in the host redecode")
     speed = {"fixed": fixed["shots_per_s"], "two_tier": two["shots_per_s"],
              "flagship_two_tier": rec["samples"] / rec["walltime"]}
     return {"two_tier_bench": launches, "two_tier_flagship": flagship}, t, speed, err
@@ -2131,13 +2221,13 @@ def phase_profiler(su: Setup, dev: torch.device) -> dict:
     from exp_ldpc_tpu_torch.experiments.profile_batch import summarize
     from exp_ldpc_tpu_torch.utils.observability import profiler_trace
 
-    log("== phase 27: profiler_trace of one bposd pipeline batch (HGP-225, 4,096 shots, K3; "
-        "the device step, no host OSD)")
+    log("== phase 27: profiler_trace of one bposd pipeline batch (HGP-225, 4,096 shots, K3 by "
+        "bp_backend='stbsr'; the device step, no host OSD)")
     p = P_HI
     pipe = StorageDecodePipeline(
         code=su.code, rounds=ROUNDS, noise_model=depolarizing_noise(p, p),
         data_prior=2 / 3 * p, meas_prior=2 / 3 * p, shots_per_device=4096, max_iter=MAX_ITER,
-        bp_method="ms", ms_scaling_factor=ALPHA, device=dev)
+        bp_method="ms", ms_scaling_factor=ALPHA, bp_backend="stbsr", device=dev)
     gens = []
     for seed in (71, 72):
         g = torch.Generator(device=dev)
@@ -2165,7 +2255,7 @@ def phase_profiler(su: Setup, dev: torch.device) -> dict:
 
 LER_SHOTS = 16384          # per gated validate_ler point (the artifacts' 401,408-1,000,000 cut)
 CROSS_SHOTS = 2000         # host shots of validate_ler's cross-check
-# (noise, decode, p, artifact, its samples, cross-check); every run's spacetime stage is K3
+# (noise, decode, p, artifact, its samples, cross-check); every run's spacetime stage is K2
 LER_CASES = (
     ("pheno", "bp", 0.0034822022531844966, "ler_hgp225_v5e.jsonl", 1000000, False),
     ("circuit", "bp", 0.000522330337977674, "ler_hgp225_circuit_v5e.jsonl", 1000000, False),
@@ -2261,7 +2351,10 @@ def phase_validate_ler(code) -> dict:
             check(srow["bp_unconverged"] == row["bp_unconverged"],
                   f"{key}: both runs decoded the same records alike")
         _gate(srow["failures"], srow["samples"], art, p, key, noise=noise, samples=n_art)
-        check(launches["K3"] > 0, f"{key}: K3 launched")
+        kern = {"stbp": "K2", "stbsr": "K3"}[pipe.kernel]
+        check(kern == spacetime_choice(pipe.tanner, pipe.rounds, pipe.device,
+                                       early_stop=False) == "K2"
+              and launches[kern] > 0, f"{key}: the selection's K2 launched")
         for c in checks:
             log(f"  cross-check ({c['crosscheck_chain']}): host {c['host_failures']} / "
                 f"{c['host_samples']}, gap {c['gap']:.5f}, 2 sigma {c['two_sigma']:.5f}")
@@ -2296,6 +2389,42 @@ def dem4(p: float):
     return vd.point_dem(p, 4, vd.build_code())
 
 
+def _dem4_k1_parity(dem) -> float:
+    """K1 against its plain version on the 4-round detector model, with the
+    decoder validate_dem's stage 1 builds (``BPDetectorCorrect``: min-sum,
+    the adaptive alpha 0, 48 iterations, the exit armed) and again at fixed
+    iterations: two shot blocks, the first all zero (it stops after one
+    iteration), the second drawn at the fault priors.  Returns the worst
+    posterior error."""
+    from exp_ldpc_tpu_torch.decoders.bp_bsr import BSRBPDecoder
+    from exp_ldpc_tpu_torch.decoders.drivers import BPDetectorCorrect
+
+    dev = torch.device("cuda")
+    corr = BPDetectorCorrect(dem, {"max_iter": MAX_ITER, "bp_method": "ms",
+                                   "ms_scaling_factor": 0.0}, device=dev)
+    bp = corr._bpd
+    check(type(bp) is BSRBPDecoder and bp.early_stop and bp.check_perm is None
+          and bp.inv_var_perm is None,
+          "stage 1's decoder is K1's BSRBPDecoder with the exit armed, in the matrix's order")
+    dsc = DetectorSpacetimeCode(dem)
+    fs = PriorSetup(dsc.fault_check_matrix, dsc.fault_priors, dev, "dem_4r")
+    fs.layout = bp.layout
+    sb = bp.shot_block
+    synd = fs.draw(2 * sb, seed=91, scale=1.0)
+    synd[:, :sb] = 0
+    log(f"  K1 vs plain on the detector model: {2 * sb} shots (blocks of {sb}, the first all "
+        f"zero), min-sum alpha 0, {MAX_ITER} iterations, the exit armed and fixed")
+    wide = k1.KERNEL.routes.get("wide", 0)
+    worst = 0.0
+    for es in (True, False):
+        worst = max(worst, _k1_case(fs, synd, bp._prior, "ms", 0.0, es, MAX_ITER, sb))
+    it = k1.bsr_bp_decode(bp.layout, bp._prior, synd, "ms", MAX_ITER, 0.0, True, sb)[3]
+    check(int(it[0]) == 1 and int(it[sb]) > 1,
+          f"the all-zero block stops after 1 iteration, the next after {int(it[sb])}")
+    check(k1.KERNEL.routes.get("wide", 0) - wide == 3, "every K1 decode here took route wide")
+    return worst
+
+
 def phase_validate_dem(code, dem_result) -> tuple:
     from exp_ldpc_tpu_torch.experiments import validate_dem as vd
 
@@ -2310,9 +2439,10 @@ def phase_validate_dem(code, dem_result) -> tuple:
     log(f"  fault matrix {H.shape[0]} x {H.shape[1]}, {H.nnz} edges, check degree "
         f"{tanner.max_check_degree}, {k1.BSRLayout.from_tanner(tanner, 'cpu').num_tiles} BSR "
         "tiles")
-    check(not bsr_selected(tanner, torch.device("cuda")),
-          "stage 1: the JAX rule refuses K1 here (fits_bsr fails): BPDecoder with per-shot "
-          "freezing, the plain core, as in JAX")
+    check(flat_choice(tanner, torch.device("cuda")) == "K1",
+          "stage 1: the selection sends the detector model to K1 (route wide; the JAX fit "
+          "rule refuses K1 here, and its CPU choice is the plain per-shot-freezing core)")
+    worst = _dem4_k1_parity(dem)
     torch.cuda.empty_cache()
     args = vd.parse_args(["--p-list", repr(DEM_GATE_P), "--samples", str(DEM_SAMPLES),
                           "--batch-shots", str(DEM_BATCH), "--device", "cuda"])
@@ -2323,10 +2453,12 @@ def phase_validate_dem(code, dem_result) -> tuple:
         f"shots; launches {launches}")
     check(row["samples"] == DEM_SAMPLES and row["osd_overflow"] == 0,
           "every residue shot relay left reached OSD")
-    check(not any(launches.values()), "no kernel on this path (plain BP, plain relay, host OSD)")
+    check(launches["K1"] > 0 and launches["K1"] == k1.KERNEL.routes.get("wide", 0)
+          and sum(launches.values()) == launches["K1"],
+          f"stage 1 ran K1 on route wide ({launches['K1']} calls; relay plain, OSD on the host)")
     _gate(row["failures"], row["samples"], "ler_hgp225_dem_circuit_v5e.jsonl", DEM_GATE_P,
           "validate_dem")
-    return launches, times
+    return launches, times, worst
 
 
 def phase_sliding_window_demo() -> tuple:
@@ -2401,8 +2533,8 @@ def phase_bench_scaling() -> tuple:
     log("== phase 34: bench_scaling on this card (devices = 1: HGP-225 x4, 1,024 shots x 32, "
         "4 batches)")
     rows, launches = _run_counted(bsc.main, [])
-    check([r["devices"] for r in rows] == [1] and launches["K3"] > 0,
-          f"one row, devices = 1, K3 launched ({launches['K3']})")
+    check([r["devices"] for r in rows] == [1] and launches["K2"] > 0,
+          f"one row, devices = 1, K2 launched ({launches['K2']})")
     return launches, rows[0]["decoded_shots_per_s"]
 
 
@@ -2482,6 +2614,91 @@ def phase_quickstart() -> dict:
     check(len(failures) == 4096 and 0 <= sum(failures) < 4096, "4,096 decoded samples")
     check(launches["K3"] > 0, f"the bposd spacetime BP ran K3 ({launches['K3']})")
     return launches
+
+
+def selection_regimes(dem1: "PriorSetup", dem4):
+    """(label, request, case) of phase 37: one shape per selection point and
+    regime of the rule (``experiments/bench_select.py``'s cases, cut), the
+    early-stop calls both where the exit never fires (the host redecodes) and
+    where the batch converges in a few iterations."""
+    from exp_ldpc_tpu_torch.experiments import bench_select as bs
+
+    hz = biregular_hgp(12, 3, 4, seed=0).checks.z
+    HI = SpacetimeCodeSingleShot(hz).spacetime_check_matrix
+    big = biregular_hgp(160, 3, 4, seed=11).checks.z
+    dsc4 = DetectorSpacetimeCode(dem4)
+    return [
+        ("bposd device step: K2 resident", "fixed",
+         bs.spacetime_case("hgp225", hz, ROUNDS, P_HI, (16384,), MAX_ITER)),
+        ("bposd host redecode (drivers.py BPOSDCorrect; hard shots): K3 armed", "early_stop",
+         bs.spacetime_case("hgp225_hard", hz, ROUNDS, 3 * P_HI, (S_REDECODE,), MAX_ITER)),
+        ("two-tier regime: K2 streams, K3", "fixed",
+         bs.spacetime_case("cyclic_lp_4862", bench_bsr_shard.build_code("cyclic4862"), 4, 2e-4,
+                           (2048,), MAX_ITER)),
+        ("bench_bp's fixed call on HGP-225's H (1,024 shots x 32): K6, 71 shots a block",
+         "fixed", bs.flat_case("hgp_225", hz, 1e-3, shots=(1024,), iters=32)),
+        ("(H|I) at the single-shot mode's p, 16,384 shots (it converges): K1 armed",
+         "early_stop", bs.flat_case("hgp225_HI", HI, 2 / 3 * 0.002, shots=(16384,))),
+        ("single-shot host redecode on (H|I) (hard shots): K1 armed", "early_stop",
+         bs.flat_case("hgp225_HI_hard", HI, 9 * 2 / 3 * 0.002, shots=(S_REDECODE,))),
+        ("QC-LP [[1054,140]], 16,384 shots at p = 1e-3 (it converges): K1 armed", "early_stop",
+         bs.flat_case("qclp_1054_140", bench_large_codes._qclp_H(), 1e-3, (31,),
+                      shots=(16384,))),
+        ("flat BP at n = 40,000 (K1b's shape): K6 streams, K1", "fixed",
+         bs.flat_case("hgp_40000", big, 5e-4, shots=(256,), iters=8)),
+        ("flat BP at n = 40,000, the callers' 48 iterations: K1 armed", "early_stop",
+         bs.flat_case("hgp_40000", big, 5e-4, shots=(S_REDECODE,))),
+        ("1-round circuit DEM, 53-slot checks: 2 shots of K6 a block, K1", "fixed",
+         bs.flat_case("dem_1r", dem1.H, dem1.priors, shots=(1024,))),
+        ("validate_dem stage 1, 4-round DEM (435 slots): K1 armed", "early_stop",
+         bs.flat_case("dem_4r", dsc4.fault_check_matrix, dsc4.fault_priors, shots=(1024,))),
+    ]
+
+
+def phase_selection(dev: torch.device, smi: str, dem1: "PriorSetup", dem4_result) -> list:
+    """The decoder selection against every candidate it chooses among, at one
+    shape per selection point and regime: each candidate timed on the same
+    syndromes (``bench_select.measure``: CUDA events, median of 3 distinct
+    batches); the automatic choice must be within 10% of the fastest
+    candidate of the caller's request.  A fixed-iteration call allows the
+    fixed-iteration decoders (K6, K2, K1 and K3 unarmed, the plain roll
+    decoder); an early-stop call the decoders with an exit (K1's and K3's
+    armed exits, the plain cores' per-shot freezing, the roll decoder's).
+    At an early-stop call the fixed-iteration decoders are timed and printed
+    beside, not allowed: what the exit saves or costs in that regime.  The
+    rule's shared memory must be the card's.  Returns the rows."""
+    from exp_ldpc_tpu_torch.experiments import bench_select as bs
+
+    log("== phase 37: the decoder selection against its candidates, one shape per "
+        "selection point and regime (bench_select's cases, cut)")
+    info = bs.card(dev)   # raises unless the selection reads the card's shared memory
+    log(f"  the selection reads the card's {select.smem_optin(dev)} B of opt-in shared memory "
+        f"per block (the rows' H100: {select.H100_SMEM_OPTIN})")
+    rows = []
+    for label, request, case in selection_regimes(dem1, dem4_result.get()):
+        S = case.shots[0]
+        auto = bs.auto_candidate(case, request, dev)
+        pool = [c for c in bs.candidates(case) if request == "early_stop"
+                or c.request == "fixed"]
+        measured = [bs.measure(case, S, c, 3, dev, info) for c in pool]
+        timed = [r for r in measured if r["ms"] is not None]
+        allowed = [r for r in timed if r["request"] == request]
+        best = min(allowed, key=lambda r: r["ms"])
+        (mine,) = [r for r in timed if (r["candidate"], r["request"]) ==
+                   (auto.name, auto.request)]
+        log(f"  {label}: {case.code} {'x' + str(case.rounds) + ' ' if case.rounds else ''}"
+            f"{S} shots x {case.iters}, {request}: "
+            + ", ".join(f"{r['candidate']}/{r['request']} "
+                        + (f"{r['ms']:.3f} ms [{r['route']}; conv {r['converged']:.3f}, iters "
+                           f"{r['iters_mean']:.1f}]" if r["ms"] is not None
+                           else "not run (" + r["skipped"] + ")") for r in measured))
+        check(mine["ms"] <= 1.10 * best["ms"],
+              f"{case.code}: the selection's {auto.name}/{auto.request} ({mine['ms']:.3f} ms) "
+              f"within 10% of the fastest allowed, {best['candidate']}/{best['request']} "
+              f"({best['ms']:.3f} ms)")
+        rows += [dict(r, regime=label, auto=r is mine, allowed=r in allowed) for r in measured]
+    log(f"  card: {smi}")
+    return rows
 
 
 def _st_io(rows: int, cols: int, tab, shots: int) -> int:
@@ -2705,13 +2922,14 @@ def main() -> int:
     ]
     if not args.quick:
         # The main path, run by run, each counted from 0: the bposd p_sweep
-        # (K3 at HGP-225), the same pipeline on K2 (bp_backend "stbp"), and
-        # the single-shot and hybrid p_sweeps (K6 on the device, K1 in the
-        # host redecode; K2 in the hybrid spacetime stage, K3 in its redecode);
+        # (the selection's K2 in the device step at HGP-225, K3 in the host
+        # redecode), the same pipeline on K3 (bp_backend "stbsr"), and the
+        # single-shot and hybrid p_sweeps (K6 on the device, K1 in the host
+        # redecode; K2 in the hybrid spacetime stage, K3 in its redecode);
         # later the capacity decode (K4) and the code-family benchmark (K1, K5).
         by_run = {"distributed_2rank": phase(phase_distributed, dev, world),
                   "p_sweep_bposd": phase(phase_main_path, su, dev, 65536, 16384),
-                  "pipeline_stbp": phase(phase_k2_pipeline, su, dev, 16384)}
+                  "pipeline_stbsr": phase(phase_k3_pipeline, su, dev, 16384)}
         t = phase(phase_timings, su, dev, 16384)
     flats, big = flat_setups(su, dev)
     err["K6"], parity_routes["K6"] = phase(phase_k6, flats, big, sizes, dev)
@@ -2750,13 +2968,15 @@ def main() -> int:
         # the counterparts of scripts/, each run counted from 0
         by_run.update(phase(phase_validate_ler, su.code))
         by_run["bench_gross"], gross_speed = phase(phase_bench_gross)
-        by_run["validate_dem"], vdem_times = phase(phase_validate_dem, su.code, dem4_result)
+        by_run["validate_dem"], vdem_times, err_dem4 = phase(phase_validate_dem, su.code,
+                                                             dem4_result)
         by_run["demo_sliding_window"], sw_ratio = phase(phase_sliding_window_demo)
         by_run["bench_osd_host"], osd_speed = phase(phase_bench_osd_host)
         by_run["bench_spacetime"], st_ms, err_st = phase(phase_bench_spacetime, su)
         by_run["bench_scaling"], scaling_rate = phase(phase_bench_scaling)
         by_run["bench_stbsr_ler"], t_ler, err_ler = phase(phase_stbsr_ler, dev)
         by_run["quickstart"] = phase(phase_quickstart)
+        sel_rows = phase(phase_selection, dev, smi, dem, dem4_result)
         launches = {name: sum(c[name] for c in by_run.values()) for name in KERNELS}
         for name, n in launches.items():
             check(n > 0, f"{name} launched on the main path ({n} launches)")
@@ -2842,6 +3062,7 @@ def main() -> int:
             kern["max_abs_err_dem_dc53"] = err_dem[key]
         if key == "K1" and not args.quick:
             kern["max_abs_err_host_path_matrices"] = err_host_k1
+            kern["max_abs_err_dem4"] = err_dem4
         if key in err_wide:
             kern["max_abs_err_wide"] = err_wide[key]
     bg.shutdown()
@@ -2860,6 +3081,9 @@ def main() -> int:
         log("bench_spacetime ms per batch: " + json.dumps({k: round(v, 4)
                                                            for k, v in st_ms.items()}))
         log(f"bench_scaling decoded shots/s (1 device): {scaling_rate:.1f}")
+        log("selection (phase 37) ms by regime: " + json.dumps(
+            {r["regime"]: {f"{x['candidate']}/{x['request']}": x["ms"] for x in sel_rows
+                           if x["regime"] == r["regime"]} for r in sel_rows if r["auto"]}))
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -33,9 +33,9 @@ class BPOSDDecoder:
                           osd_method: str = "osd_cs", osd_order: int = 7, qc_dims=None,
                           qc_check_perm=None, qc_var_perm=None,
                           device: DeviceLike = "cuda") -> "BPOSDDecoder":
-        """Flat BP chosen by :func:`.select.make_bp_decoder` (kernel K1 past
-        the crossover on a CUDA device), OSD on ``H`` in the original column
-        order."""
+        """Flat BP chosen by :func:`.select.make_bp_decoder` with the early
+        exit (kernel K1 on a CUDA device), OSD on ``H`` in the original
+        column order."""
         from .select import make_bp_decoder
 
         bp = make_bp_decoder(H, error_rate=error_rate, channel_probs=channel_probs,

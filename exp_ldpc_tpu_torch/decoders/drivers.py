@@ -107,8 +107,8 @@ class BPOSDCorrect:
 class BPOSDCorrectSingleShot:
     """Per-round (H|I) BP+OSD with an accumulated correction, then BP+OSD of
     the final round on H (JAX ``drivers.py:83-120``).  The flat BP of both
-    decoders is chosen by :func:`.select.make_bp_decoder`: kernel K1 past
-    the crossover on a CUDA device (HGP-225's (H|I) and H both are)."""
+    decoders is chosen by :func:`.select.make_bp_decoder`: on a CUDA device
+    kernel K1 with its exit per shot block armed (BP+OSD asks the exit)."""
 
     def __init__(self, code, rounds: int, bp_osd_options: Dict,
                  priors: Tuple[float, float], basis: str = "z", device: DeviceLike = "cuda"):
@@ -262,7 +262,7 @@ class RelayBPCorrect:
 class BPDetectorCorrect:
     """BP on the detector error model's fault matrix (JAX
     ``drivers.py:272-339``): flat BP chosen by
-    :func:`.select.make_bp_decoder` (kernel K1 past the crossover on a card,
+    :func:`.select.make_bp_decoder` (on a card kernel K1 for detector models,
     route "wide" where a fault check has more than 32 slots); with
     ``relay_legs`` > 0 the relay ensemble instead (α 0.625 unless set); with
     ``detector_osd`` OSD (``osd_method`` default "osd0", ``osd_order`` 0) of

@@ -18,9 +18,10 @@ overlapping-window scheme:
     readout round, so a window >= total rounds is the full spacetime decode.
 
 Every window reuses one decoder on ``device``: BP+OSD (flat BP chosen by
-:func:`.select.make_bp_decoder`, kernel K1 past the crossover on a card;
-OSD on the host) or, with ``use_osd=False``, :class:`.bp.BPDecoder`
-(per-shot freezing).
+:func:`.select.make_bp_decoder`: on a card kernel K1 with its exit per shot
+block armed, as BP+OSD asks the exit; OSD on the host) or, with
+``use_osd=False``,
+:class:`.bp.BPDecoder` (per-shot freezing).
 """
 from __future__ import annotations
 

@@ -14,10 +14,14 @@ method:
     best of three each, and the per-batch time is the slope between them,
     which removes the fixed cost of one dispatch and the final transfer.
 
-The decode is the one ``make_bp_decoder`` selects for this code on the
-card: kernel K1 (``csrc/bsr_bp.cu``, bf16 messages) at the JAX default shot
-block, fixed iterations.  Where ``bench.py`` reports ``xla_matmul_rate``
-(the XLA matmul formulation that K1 replaced on the TPU), this reports
+The decode is the one ``make_bp_decoder`` (``early_stop=False``) selects
+for this code on the card: kernel K6 (``csrc/bpflat.cu``, f32 messages
+resident in shared memory, 71 shots of HGP-225 to a block), where
+``bench.py`` times the JAX package's choice on a TPU, the bf16 BSR kernel
+(K1's contract; ``artifacts/select_h100.jsonl``, flat ``hgp_225``, fixed:
+K6 0.247 ms against K1 0.469 ms at 1,024 shots x 48, NVIDIA H100 80GB
+HBM3, 700 W).  Where ``bench.py`` reports ``xla_matmul_rate`` (the XLA
+matmul formulation that the BSR kernel replaced on the TPU), this reports
 ``plain_rate``: the plain PyTorch ``bp_core`` (f32, gather form) on the
 same card, the plain version the port holds its flat kernels against; the
 port has no XLA formulation.
@@ -34,9 +38,9 @@ import numpy as np
 import torch
 
 from ..codes.hgp import biregular_hgp
-from ..decoders.tanner import TannerELL
+from ..decoders import bp_cuda
 from ..decoders.bp import bp_core, priors_to_llr
-from ..decoders.bp_bsr import BSRLayout, auto_shot_block, bsr_bp_decode
+from ..decoders.select import make_bp_decoder
 
 SHOTS, ITERS, P, ALPHA = 1024, 32, 1e-3, 0.625
 REPS_LO, REPS_HI = 8, 64
@@ -47,10 +51,11 @@ def main() -> None:
         raise SystemExit("bench_bp measures a CUDA device; none is present")
     dev = torch.device("cuda")
     Hz = biregular_hgp(12, 3, 4, seed=0, compute_logicals=False).checks.z
-    layout = BSRLayout.from_tanner(TannerELL.from_check_matrix(Hz), dev)
+    dec = make_bp_decoder(Hz, error_rate=P, max_iter=ITERS, bp_method="ms",
+                          ms_scaling_factor=ALPHA, early_stop=False, device=dev)
+    tables = dec.tables
     prior = torch.as_tensor(priors_to_llr(np.full(Hz.shape[1], P))).to(dev)
     Hz_dense = Hz.T.toarray().astype(np.uint8)
-    sblk = auto_shot_block(layout)
     rng = np.random.default_rng(0)
 
     def make_syndromes(n_batches):
@@ -61,13 +66,13 @@ def main() -> None:
     def run_kernel(synds):
         total = torch.zeros((), dtype=torch.int64, device=dev)
         for synd in synds:
-            total += bsr_bp_decode(layout, prior, synd, "ms", ITERS, ALPHA, False, sblk)[0].sum()
+            total += dec.decode_tensors(synd)[0].sum()
         return total
 
     def run_plain(synds):
         total = torch.zeros((), dtype=torch.int64, device=dev)
         for synd in synds:
-            total += bp_core(layout.tables, prior, synd, "ms", ITERS, ALPHA, False)[0].sum()
+            total += bp_core(tables, prior, synd, "ms", ITERS, ALPHA, False)[0].sum()
         return total
 
     los = [make_syndromes(REPS_LO) for _ in range(3)]
@@ -90,13 +95,17 @@ def main() -> None:
         return ITERS * SHOTS / per_batch
 
     plain = rate_of(run_plain)
+    launched = bp_cuda.KERNEL.launches
     value = rate_of(run_kernel)
+    if bp_cuda.KERNEL.launches == launched:
+        raise SystemExit(f"the selected {type(dec).__name__} launched no K6 decode")
+    plan = bp_cuda.launch_plan(tables, SHOTS, dev)
     print(json.dumps({
         "metric": "bp_iter_shots_per_s_per_chip",
         "value": value,
         "unit": "iter*shots/s",
         "vs_baseline": value / 1e7,
-        "formulation": f"bsr-cuda[{layout.num_tiles} tiles, shot_block {sblk}]",
+        "formulation": f"bpflat-cuda[{plan.label}, {plan.group} shots a block]",
         "plain_rate": plain,
         "device": torch.cuda.get_device_name(0),
     }), flush=True)

@@ -13,8 +13,9 @@ warm-up batch (``keys.key_generator(device, 0)``, the script's
 500 + i)``.  One JSON row per point, with ``ler_per_round``
 (:func:`ler_per_round`) and ``shots_per_s``.
 
-The gross code's Z sector lies under the 1 MiB crossover, so the spacetime
-stage is kernel K2 (its resident route).  ``--msg-dtype`` is the message
+The selection takes kernel K2 (its resident route: 7 shots of the gross
+code over 12 rounds fit a block) for the fixed-iteration spacetime stage.
+``--msg-dtype`` is the message
 type of the plain spacetime core: as in the JAX package, whose Pallas
 kernel ignores it, K2 keeps f32 messages on the card
 (``parallel/pipeline.py``'s docstring); ``--device cpu`` runs the plain

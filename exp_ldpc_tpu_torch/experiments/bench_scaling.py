@@ -21,8 +21,9 @@ size: ``devices``, ``decoded_shots_per_s`` (rank 0's clock) and
 ``--device cpu`` runs one device on the CPU; ``--virtual N`` runs the
 sizes up to N as gloo ranks on the CPU: it checks the sharded program, not
 speed (the ranks share one host's cores, so the total rate stays roughly
-flat).  On the card the spacetime stage is kernel K3 (HGP-225 is past the
-1 MiB crossover).
+flat).  On the card the spacetime stage is the one the selection takes
+for HGP-225 over ``--rounds`` rounds: kernel K2 (one shot fits shared
+memory).
 """
 from __future__ import annotations
 

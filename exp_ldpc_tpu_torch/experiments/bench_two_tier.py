@@ -6,7 +6,8 @@ Counterpart of ``scripts/bench_two_tier.py``'s large-code regime: the
 cyclic lifted product ``lifted_product_code_cyclic(q=22, m=1, w=14, r=5,
 seed=42)`` (n = 4,862), 4 rounds, phenomenological noise at p = 2e-4 with
 2/3·p priors, 2,048 shots a batch, min-sum alpha = 0.625, 48 iterations;
-the spacetime stage is K3 (the code is past the crossover).  Two variants
+the spacetime stage is K3 (the selection's choice: one shot of K2 does not
+fit shared memory).  Two variants
 on the same generator seeds: "fixed" (every shot 48 iterations) and
 "two_tier" (every shot 8 iterations, then the first 512 of the stable
 order "unconverged first" redecoded from scratch at 48).  Each variant

@@ -16,9 +16,9 @@ the ``sliding_window_scaling`` row: the walltime ratio over the rounds
 ratio of the first two (:func:`walltime_ratio`; 1 is a constant cost per
 round).
 
-On the card the window's and the tail's BP is kernel K1 (their matrices
-are past the 1 MiB crossover): 31 calls per 64-round stream at window 4,
-commit 2 (30 windows and the tail); OSD runs on the host.
+On the card the window's and the tail's BP is the selection's kernel K1
+with its exit armed (BP+OSD asks the exit): 31 calls per 64-round stream
+at window 4, commit 2 (30 windows and the tail); OSD runs on the host.
 """
 from __future__ import annotations
 

@@ -35,20 +35,30 @@ It does not copy the four faults of the script (ADVICE.md, round 5):
   * a ``--samples-list`` whose length differs from the p grid's is an
     argparse error.
 
-Differences from the script, with no effect on any result: the relay
-chunks are not padded to ``--relay-cap`` (the script pads for one XLA
-compile; a shot's relay decode and its per-shot-freezing stage-1 decode do
-not depend on the other shots of the batch), and stage 1 runs in chunks of
-:data:`STAGE1_CHUNK` shots for the same reason (the plain core's
-(checks x slots x shots) f32 temporaries at 8,192 shots of the 4-round
-model would need ~100 GB).
-
-The decoder of stage 1 is the JAX rule's choice (:func:`..decoders.select.
-make_bp_decoder`): at 4 rounds the fault matrix is 864 x 36,491 with
-checks of 435 slots, and :func:`..decoders.select.fits_bsr` refuses it
-(54,750 BSR tiles), so stage 1 is ``BPDecoder`` with per-shot freezing, the
-plain core on the card as in the JAX package (no kernel); relay is plain
+The decoder of stage 1 is the one :func:`..decoders.select.make_bp_decoder`
+chooses.  At 4 rounds the fault matrix is 864 x 36,491 with checks of 435
+slots: on the card that is kernel K1 on route "wide" (bf16 messages, the
+early exit per shot block; ``artifacts/select_h100.jsonl``: 150 ms at 2,048
+shots x 48 against 1.2-1.6 s of the plain per-shot-freezing core at 685 and
+1,024 shots, NVIDIA H100 80GB HBM3, 700 W), where the JAX package on a CPU,
+and the port on the CPU, run ``BPDecoder`` with per-shot freezing (the JAX
+fit rule refuses K1 there on a TPU: 54,750 BSR tiles).  Relay is plain
 PyTorch (the JAX relay has no Pallas kernel); OSD runs on the host.
+
+Differences from the script: the relay chunks are not padded to
+``--relay-cap`` (the script pads for one XLA compile; a shot's relay decode
+does not depend on the other shots of the batch), and stage 1 runs in
+chunks of :data:`STAGE1_CHUNK` shots.  On the card K1's exit is per shot
+block (128 or 256 shots, ``bp_bsr.auto_shot_block``), so a shot's stage-1
+decode depends on the shots of its block: it runs until every shot of the
+block converges, or to ``--max-iter``.  The chunk is a multiple of the
+block, so the chunk size itself changes no result; on the CPU the
+per-shot-freezing core depends on no other shot.  :data:`STAGE1_CHUNK` is
+sized by K1's device state at the 4-round model: bf16 messages of 864 x 435
+slots and an f32 posterior and hard decisions of 36,491 columns a shot,
+~0.94 MB, so 8,192 shots (the default batch, one call) take ~7.7 GB of the
+card's 80 GB, ~9.2 GB with the returned copies (the plain core's
+(checks x slots x shots) f32 temporaries would need ~100 GB there).
 Building the 4-round detector model is ~150 s of host Python
 (:func:`point_dem`; it pickles, so a caller may build it elsewhere and pass
 it to :func:`run`).
@@ -79,7 +89,7 @@ from .validate_ler import wilson_interval
 
 __all__ = ["STAGE1_CHUNK", "parse_args", "point_dem", "DemPoint", "run_point", "run", "main"]
 
-STAGE1_CHUNK = 2048
+STAGE1_CHUNK = 8192
 
 
 def parse_args(argv=None) -> argparse.Namespace:

@@ -34,10 +34,11 @@ host with seed 999 + k, as the script does.  A rise of the LER against p
 beyond the Wilson intervals prints a warning; a cross-check outside 2
 pooled sigma exits 1.
 
-On the card the spacetime stage is kernel K3 at HGP-225 (past the 1 MiB
-crossover), in the device step and in the host redecode's BP; the pipeline
-picks K2 where the JAX rule does.  ``--device cpu`` runs the kernels'
-plain versions.
+On the card the spacetime stage is the selection's kernel at HGP-225 over 4
+rounds (``decoders/select.py``): K2 in the fixed-iteration device step,
+where the JAX package on a TPU runs its K3 contract, and K3 with its exit
+armed in the host redecode's BP, which asks the exit.  ``--device cpu``
+runs the kernels' plain versions.
 """
 from __future__ import annotations
 

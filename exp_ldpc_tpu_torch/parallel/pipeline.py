@@ -7,8 +7,9 @@ on one device.  One call of :meth:`StorageDecodePipeline.run_bposd`:
   2. decodes by ``mode``:
 
      * ``"bposd"``: differenced spacetime syndromes, then fixed-iteration
-       spacetime BP: kernel K3 (streamed, bf16) past the ~1 MiB
-       dense-operand crossover on a CUDA device, else kernel K2 (f32);
+       spacetime BP, the kernel :func:`..decoders.select.spacetime_choice`
+       names on a CUDA device: K2 (f32) where one shot of it fits shared
+       memory, else K3 (streamed, bf16);
      * ``"bposd_single_shot"``: per round, flat BP on (H|I) of the round's
        syndrome plus the accumulated correction, then flat BP of the final
        round on H;
@@ -62,7 +63,7 @@ from ..decoders.bp_bsr_spacetime import stbsr_decode
 from ..decoders.bp_cuda import bp_fixed
 from ..decoders.drivers import (BPOSDCorrect, BPOSDCorrectSingleShot, BPOSDHybridCorrect,
                                 spacetime_prior)
-from ..decoders.select import stbsr_selected
+from ..decoders.select import spacetime_choice
 from ..decoders.spacetime_bp import MSG_DTYPES, stbp_core
 from ..decoders.spacetime_bp_cuda import stbp_fixed
 from ..sampler.device import build_record_sampler
@@ -77,8 +78,8 @@ __all__ = ["StorageDecodePipeline"]
 class StorageDecodePipeline:
     """End-to-end sample+decode step for a storage experiment on one device.
 
-    ``bp_backend`` picks the spacetime stage: ``"auto"`` (K3 past the
-    crossover on a CUDA device in mode ``"bposd"``, else K2), ``"stbp"``
+    ``bp_backend`` picks the spacetime stage: ``"auto"`` (in mode
+    ``"bposd"`` on a CUDA device the selection's K2 or K3, else K2), ``"stbp"``
     (K2) or ``"stbsr"`` (K3, mode ``"bposd"`` only); mode
     ``"bposd_single_shot"`` has no spacetime stage and takes ``"auto"``
     only.  ``kernel`` names the spacetime stage's choice (None without
@@ -188,7 +189,8 @@ class StorageDecodePipeline:
             return "core"
         if self.bp_backend == "stbp":
             return "stbp"
-        if self.mode == "bposd" and stbsr_selected(self.tanner, self.rounds, self.device):
+        if self.mode == "bposd" and spacetime_choice(self.tanner, self.rounds, self.device,
+                                                     early_stop=False) == "K3":
             return "stbsr"
         return "stbp"
 

@@ -211,6 +211,18 @@ def streamed_plan(shots: int, table_bytes: int, smem_optin: int) -> ResidentPlan
                         table_bytes if tables else 0)
 
 
+def resident_fit(per_shot_bytes: int, table_bytes: int, budget: int, fixed_bytes: int = 0,
+                 pad: int = 0) -> Tuple[bool, int]:
+    """(tables in shared memory, shots that fit) of one resident block in
+    ``budget`` bytes: the tables go beside the shots where they fit beside
+    one shot (of stride ``1 + pad``)."""
+    def need(stride: int, tables: bool) -> int:
+        return stride * per_shot_bytes + fixed_bytes + (table_bytes if tables else 0)
+
+    tables = need(1 + pad, True) <= budget
+    return tables, (budget - need(0, tables)) // per_shot_bytes - pad
+
+
 def resident_plan(per_shot_bytes: int, table_bytes: int, shots: int, smem_optin: int,
                   sm_count: int, *, fixed_bytes: int = 0, width: int = 16,
                   blocks_per_sm: int = 1, threads: Optional[int] = None,
@@ -240,8 +252,7 @@ def resident_plan(per_shot_bytes: int, table_bytes: int, shots: int, smem_optin:
         return stride * per_shot_bytes + fixed_bytes + (table_bytes if tables else 0)
 
     def fit(budget: int) -> Tuple[bool, int]:
-        tables = need(1 + pad, True) <= budget
-        return tables, (budget - need(0, tables)) // per_shot_bytes - pad
+        return resident_fit(per_shot_bytes, table_bytes, budget, fixed_bytes, pad)
 
     if need(1 + pad, False) > smem_optin:
         return streamed_plan(shots, table_bytes, smem_optin)

@@ -30,7 +30,7 @@ from exp_ldpc_tpu_torch.convert import bp_decoder_from_jax, tanner_tables
 from exp_ldpc_tpu_torch.decoders.bp import BPDecoder, bp_core, bp_decode_batch, priors_to_llr
 from exp_ldpc_tpu_torch.decoders.bp_bsr import BSRBPDecoder
 from exp_ldpc_tpu_torch.decoders.bp_cuda import bp_fixed
-from exp_ldpc_tpu_torch.decoders.select import bsr_selected, make_bp_decoder
+from exp_ldpc_tpu_torch.decoders.select import flat_choice, make_bp_decoder
 
 RTOL, ATOL = 1e-5, 1e-4
 METHODS = [("ms", 0.625), ("ms", 0.0), ("ps", 0.0)]
@@ -184,17 +184,21 @@ def test_bp_decoder_defaults_and_errors(code):
 
 
 def test_make_bp_decoder_rule():
-    """K1 from 1 MiB of dense routing operands up on a CUDA device;
-    BPDecoder below it or on the CPU; int8 is passed through with a warning
-    and the QC route builds the roll decoder (tests/test_torch_qc_bp.py)."""
+    """On a CUDA device K1 where the exit is asked for (the default) and
+    where int8 is; K6 (BPDecoder at fixed iterations) for a fixed call at
+    these small codes, whose shots fit shared memory 8 and more to a block
+    (the H100 rule has no operand crossover); BPDecoder on the CPU, as JAX
+    builds there; int8 is passed through with a warning and the QC route
+    builds the roll decoder (tests/test_torch_qc_bp.py)."""
     H = biregular_hgp(12, 3, 4, seed=0).checks.z
     Hss = SpacetimeCodeSingleShot(H).spacetime_check_matrix
     small = biregular_hgp(8, 3, 4, seed=2).checks.z
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    for M in (H, Hss):  # 1,360,800 and 2,301,696 bytes
+    for M in (H, Hss, small):  # 1,360,800, 2,301,696 and ~0.4 MB of dense operands
         t = TannerELL.from_check_matrix(M)
-        assert bsr_selected(t, cuda) and not bsr_selected(t, cpu)
-    assert not bsr_selected(TannerELL.from_check_matrix(small), cuda)
+        assert flat_choice(t, cuda) == "K1" and flat_choice(t, cpu) == "bp_core"
+        assert flat_choice(t, cuda, early_stop=False) == "K6"
+        assert flat_choice(t, cuda, early_stop=False, msg_dtype="int8") == "K1"
     dec = make_bp_decoder(H, error_rate=0.01, max_iter=4, bp_method="ms", shot_block=128,
                           device="cpu")
     assert type(dec) is BPDecoder and dec.max_iter == 4
@@ -213,3 +217,5 @@ def test_make_bp_decoder_rule():
             make_bp_decoder(H, error_rate=0.01)
     else:
         assert type(make_bp_decoder(H, error_rate=0.01)) is BSRBPDecoder
+        dec = make_bp_decoder(H, error_rate=0.01, early_stop=False)
+        assert type(dec) is BPDecoder and not dec.early_stop
