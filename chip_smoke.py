@@ -168,10 +168,11 @@ Phases, in order; any failure raises and exits nonzero:
      device step; also at 97 shots, the host redecode's ragged size), K2
      on its streamed route (the hybrid device step: one shot's state is 655
      KB) and K6 on (H|I) (33 slots, the single-shot device step) on the
-     resident route (one shot a block) and the streamed one, and K1 on
-     (H|I) at 97 shots (the single-shot host redecode); K2's resident route
-     "wide" at a random 60 x 300 matrix of 33-40 slot checks over 2 rounds
-     (no repo code with checks that wide fits a shot in shared memory); K4
+     streamed route (one shot would fit a resident block: K6's rule,
+     ``bp_cuda.STREAMED_MAX_FIT``), and K1 on (H|I) at 97 shots (the
+     single-shot host redecode); K2 (over 2 rounds) and K6 on the resident
+     route "wide" at a random 60 x 300 matrix of 33-40 slot checks (no repo
+     code with checks that wide fits several shots in shared memory); K4
      at phase 22's detector model (53 slots), D = 2 and 4; each wide shape
      timed once (K4 per iteration, ``per_iter_slope`` 2 -> 6) beside its
      plain version and its bound; then one ``p_sweep`` point per pipeline
@@ -255,22 +256,39 @@ Phases, in order; any failure raises and exits nonzero:
      single-shot host redecode and a converging batch on (H|I),
      ``bench_bp``'s fixed call, a converging QC-LP batch, flat BP at
      n = 40,000, the 1- and
-     4-round detector models): each candidate timed on the same syndromes,
+     4-round detector models, the cyclic code's flat fixed call, where K6
+     streams): each candidate timed on the same syndromes,
      the table printed with the card's name and power limit, and the
      automatic choice within 10% of the fastest candidate of the caller's
      request (fixed iterations, or an exit); the rule's shared memory per
-     block must be the card's.
+     block must be the card's;
+ 38. the streamed routes of K2 and K6 (each phase of an iteration one grid
+     over (row, shot vector) items, the messages in device memory): K2 at
+     the cyclic lifted product n = 4,862 x 4 rounds (2,048, 685, 77 and 1
+     shots), K6 at the n = 40,000 HGP (685, 77, 1), both at the dense HGP's
+     route "wide" (77), min-sum and sum-product, against their plain
+     versions (as phase 3); K2 at the cyclic code, 2,048 x 48, and K6 at
+     n = 40,000, 685 x 48, timed beside the rows of
+     ``artifacts/select_h100.jsonl`` that timed the same shapes before the
+     redesign, the on-chip bound and the device-memory bound (every
+     iteration reads and writes each f32 message once); then the slice's
+     path: the ``bposd_hybrid`` ``p_sweep`` point on the cyclic code x 4
+     (2,048 shots, p = 1e-4, min-sum 48 iterations, OSD-0: K2 streamed in
+     the spacetime stage, K6 in the final round), its routes and shots/s,
+     and the ``bposd_single_shot`` device step at HGP n = 15,625 (two
+     batches of 2,048 x 48: every (H|I) round on K6 streamed).
 
 Each run of the main path (phases 6, 7, the two runs of phase 11, phases
 15, 16 and 20, each run of phase 23, the four runs of phase 24's second
 part, the two runs of phase 25, the three runs of phase 28 and the runs of
-phases 29-36) is driven with every launch count
+phases 29-36, the two of phase 38) is driven with every launch count
 set to 0 just before it and read just after (phase 16 reads the counts of
 its two ranks); a kernel of that run that was not launched fails the
 script.  A count is one call of
 a kernel's C entry point: for K1, K3 and K5 one whole decode (up to three
 grids per iteration, all enqueued by the one call: a single-shot batch is 5
-K1 calls, a hybrid batch 1), for K2 and K6 one decode (one grid), for K4
+K1 calls, a hybrid batch 1), for K2 and K6 one decode (resident: one grid;
+streamed: two grids an iteration and a parity grid), for K4
 one iteration of one shard (two grids).  The line before the
 last is the kernel summary JSON (``launches`` summed over those runs,
 ``launches_by_run`` split by run, ``routes`` split by route: K2 and K6
@@ -284,7 +302,9 @@ at the cyclic code's D = 1, 2, 4;
 K3's two-tier device steps with their bounds (phase 25), and the LER
 chain's decode (``ms_stbsr_ler``, its plain time and bound, phase 35);
 ``routes_parity_phase``, K2's and K6's routes in their parity phase;
-``ms_streamed``, their streamed route at the main shape; K3b's row counts phase 17's K3 decodes,
+``ms_streamed``, their streamed route at the main shape, ``bound_dm_ms_*`` the device-memory
+bound of each streamed shape (``utils/bounds.py::streamed_bound``), phase 38's
+``ms_streamed_*`` and ``plain_ms_streamed_*`` with both bounds; K3b's row counts phase 17's K3 decodes,
 since no main-path run reaches its sizes; without ``--quick`` only, as are
 the times, ``bound_ms``, ``bound_by`` and ``library_ms``: a BP decode is
 no single PyTorch call, so that is null); the last line is ``{"ok": true, "device": {...}}``.  Phase
@@ -350,6 +370,10 @@ from exp_ldpc_tpu_torch.experiments.p_sweep import p_sweep  # noqa: E402
 from exp_ldpc_tpu_torch.parallel.mesh import make_mesh, run_world  # noqa: E402
 from exp_ldpc_tpu_torch.parallel.pipeline import StorageDecodePipeline  # noqa: E402
 from exp_ldpc_tpu_torch.sampler.device import DeviceSampler  # noqa: E402
+from exp_ldpc_tpu_torch.utils.bounds import (OPS_FLOAT, OPS_INT8, bound,  # noqa: E402
+                                             streamed_bound)
+from exp_ldpc_tpu_torch.utils.bounds import flat_io as _flat_io  # noqa: E402
+from exp_ldpc_tpu_torch.utils.bounds import st_io as _st_io  # noqa: E402
 
 ARTIFACT = ROOT / "artifacts" / "ler_hgp225_bposd_v5e.jsonl"
 MODES_ARTIFACT = ROOT / "artifacts" / "pipeline_modes_hgp225_v5e.csv"
@@ -495,7 +519,11 @@ def _same(tag: str, su, synd, kern, plain) -> float:
 
 
 def _plan_tag(plan) -> str:
-    return (f"{plan.route} G={plan.group} stride={plan.stride} blocks={plan.blocks} "
+    if plan.route == "streamed":   # the device-memory grids: lane width and blocks of each
+        return (f"{plan.label} shots={plan.shots} (live {plan.live}) " + " ".join(
+            f"{k}=vec {g.vec} x {g.blocks} blocks" for k, g in
+            (("checks", plan.checks), ("variables", plan.variables), ("parity", plan.parity))))
+    return (f"{plan.label} G={plan.group} stride={plan.stride} blocks={plan.blocks} "
             f"threads={plan.threads} tables_smem={plan.tables_smem} smem={plan.smem_bytes} B")
 
 
@@ -548,7 +576,7 @@ def phase_k2(su: Setup, sizes, dev: torch.device):
           f"{S_RAGGED % plan.group})")
     check(k2.launch_plan(su.tables, ROUNDS, S_SMALL, dev).blocks == S_SMALL,
           f"S={S_SMALL}: one shot per block, {S_SMALL} blocks")
-    # the streamed route (the 32-shot-block kernel) at a main-path size
+    # the streamed route (the device-memory grids) at a main-path size
     synd = su.syndromes(sizes[0], p, seed=1)
     worst = max(worst, case(f"S={sizes[0]} streamed", su, su.tables, ROUNDS, prior, synd, "ms",
                             ALPHA, MAX_ITER, route="streamed"))
@@ -820,7 +848,7 @@ def phase_timings(su: Setup, dev: torch.device, shots: int) -> dict:
     t["K2"] = _median_ms(lambda s: k2.stbp_fixed(*args, s, "ms", MAX_ITER, ALPHA), synds[:5])
     t["K2_plain"] = _median_ms(
         lambda s: stbp_core(*args, s, "ms", MAX_ITER, ALPHA, early_stop=False), synds[:5])
-    # the streamed route (the 32-shot-block kernel) on the same inputs
+    # the streamed route (the device-memory grids) on the same inputs
     streamed = k2.launch_plan(su.tables, ROUNDS, shots, dev, route="streamed")
     k2.stbp_fixed(*args, warm, "ms", MAX_ITER, ALPHA, plan=streamed)
     t["K2_streamed"] = _median_ms(
@@ -1179,7 +1207,7 @@ def phase_flat_timings(flats, big, dev: torch.device, shots: int) -> dict:
             t[f"K1_{tag}_grids"] = _median_ms(fn, synds[:5])
         finally:
             k1.COOPERATIVE = True
-    # K6's streamed route (the 32-shot-block kernel) at the main shape
+    # K6's streamed route (the device-memory grids) at the main shape
     prior = Hss.prior(FLAT_P)
     synds = [Hss.device_syndromes(shots, FLAT_P, seed=300 + i) for i in range(6)]
     streamed = k6.launch_plan(Hss.tables, shots, dev, route="streamed")
@@ -1882,9 +1910,9 @@ def _time_pair(t: dict, key: str, kern_fn, plain_fn) -> None:
 def phase_wide(code, dem: "PriorSetup", dev: torch.device, shots: int, timings: bool):
     """K2 (both routes), K3, K4 and K6 against their plain versions on route
     "wide"; returns (worst error by kernel, times, bounds, shapes)."""
-    log(f"== phase 24: route wide: K3, K2 (streamed), K6 (resident and streamed) at the "
-        f"dense HGP x{WIDE_ROUNDS} rounds, {shots} shots x {WIDE_ITERS}; K2 resident at a "
-        f"random 33-40 slot matrix x2 rounds; K4 at the Dc-53 DEM, D = 2 and 4")
+    log(f"== phase 24: route wide: K3, K2 (streamed), K6 (streamed) at the dense HGP "
+        f"x{WIDE_ROUNDS} rounds, {shots} shots x {WIDE_ITERS}; K2 (x2 rounds) and K6 resident at "
+        f"a random 33-40 slot matrix; K4 at the Dc-53 DEM, D = 2 and 4")
     H = code.checks.z
     tables = tanner_tables(TannerELL.from_check_matrix(H), dev)
     check(tables.max_check_degree == 32, "dense HGP: Z checks of degree 32")
@@ -1930,18 +1958,23 @@ def phase_wide(code, dem: "PriorSetup", dev: torch.device, shots: int, timings: 
         torch.cuda.synchronize()
         worst["K2"] = max(worst["K2"], _same(f"K2 {rst.name} {method} [{_plan_tag(plan)}]", rst,
                                              rsynd, kern, plain))
-    # K6: the single-shot device step on (H|I), resident (one shot a block) and streamed
+    # K6: the single-shot device step on (H|I) (one shot would fit a resident block: the
+    # streamed route, K6's rule), and the resident route "wide" at the random matrix
     ssynd = ss.syndromes(shots, WIDE_P, seed=43)
     sprior = ss.prior(WIDE_P)
-    for route in ("auto", "streamed"):
-        plan = k6.launch_plan(ss.tables, shots, dev, route=route)
-        check(plan.wide, f"K6 {ss.name}: {plan.label}")
+    rflat = FlatSetup(rand_H, dev, "random 60x300")
+    fsynd = rflat.syndromes(shots, 3e-3, seed=45)
+    fprior = rflat.prior(3e-3)
+    for fs, synd_k6, prior_k6, route in ((ss, ssynd, sprior, "streamed"),
+                                         (rflat, fsynd, fprior, "resident")):
+        plan = k6.launch_plan(fs.tables, shots, dev)
+        check(plan.wide and plan.route == route, f"K6 {fs.name}: {plan.label}")
         for method, msf in (("ms", ALPHA), ("ps", 0.0)):
-            kern = k6.bp_fixed(ss.tables, sprior, ssynd, method, I, msf, plan=plan)
-            plain = bp_core(ss.tables, sprior, ssynd, method, I, msf, early_stop=False)
+            kern = k6.bp_fixed(fs.tables, prior_k6, synd_k6, method, I, msf, plan=plan)
+            plain = bp_core(fs.tables, prior_k6, synd_k6, method, I, msf, early_stop=False)
             torch.cuda.synchronize()
-            worst["K6"] = max(worst["K6"], _same(f"K6 {ss.name} {method} [{_plan_tag(plan)}]",
-                                                 ss, ssynd, kern, plain))
+            worst["K6"] = max(worst["K6"], _same(f"K6 {fs.name} {method} [{_plan_tag(plan)}]",
+                                                 fs, synd_k6, kern, plain))
     # K1 (route wide) at the single-shot host redecode's (H|I), ragged
     _k1_case(ss, ssynd[:, :WIDE_RAGGED].contiguous(), sprior, "ms", ALPHA, True, I)
     # K4 at the detector model's 53-slot checks
@@ -1973,11 +2006,11 @@ def phase_wide(code, dem: "PriorSetup", dev: torch.device, shots: int, timings: 
         _time_pair(t, "K2_wide_random_resident", lambda: k2.stbp_fixed(*rargs),
                    lambda: stbp_core(*rargs, early_stop=False))
         sargs = (ss.tables, sprior, ssynd, "ms", I, ALPHA)
-        splan = k6.launch_plan(ss.tables, shots, dev, route="streamed")
-        _time_pair(t, "K6_wide_ss", lambda: k6.bp_fixed(*sargs),
+        _time_pair(t, "K6_wide_ss_streamed", lambda: k6.bp_fixed(*sargs),
                    lambda: bp_core(*sargs, early_stop=False))
-        _time_pair(t, "K6_wide_ss_streamed", lambda: k6.bp_fixed(*sargs, plan=splan),
-                   lambda: bp_core(*sargs, early_stop=False))
+        fargs = (rflat.tables, fprior, fsynd, "ms", I, ALPHA)
+        _time_pair(t, "K6_wide_random_resident", lambda: k6.bp_fixed(*fargs),
+                   lambda: bp_core(*fargs, early_stop=False))
         for D in (2, 4):   # per decode iteration, all shards: phase 18's slope (2 -> 6)
             dec = k4.ShardedBSRDecoder.from_check_matrix(
                 dem.H, D, channel_probs=dem.priors, max_iter=I, bp_method="ms",
@@ -1997,8 +2030,10 @@ def phase_wide(code, dem: "PriorSetup", dev: torch.device, shots: int, timings: 
                                                   OPS_FLOAT * st.H.nnz * shots * I)
         bounds["K2_wide_random_resident"] = _bound(_st_io(*rst.H.shape, rtab, shots),
                                                    OPS_FLOAT * rst.H.nnz * shots * I)
-        bounds["K6_wide_ss"] = bounds["K6_wide_ss_streamed"] = _bound(
-            _flat_io(ss.tables, shots), OPS_FLOAT * ss.H.nnz * shots * I)
+        bounds["K6_wide_ss_streamed"] = _bound(_flat_io(ss.tables, shots),
+                                               OPS_FLOAT * ss.H.nnz * shots * I)
+        bounds["K6_wide_random_resident"] = _bound(_flat_io(rflat.tables, shots),
+                                                   OPS_FLOAT * rflat.H.nnz * shots * I)
         for D in (2, 4):
             v_pad = k4.ShardedBSR.from_check_matrix(dem.H, D).v_pad
             bounds[f"K4_wide_dem_D{D}"] = _bound(
@@ -2008,8 +2043,9 @@ def phase_wide(code, dem: "PriorSetup", dev: torch.device, shots: int, timings: 
                   "K2_wide_dense_streamed": f"dense HGP x{R} rounds, {shots} x {I}, streamed",
                   "K2_wide_random_resident": f"random 60x300 (33-40 slots) x2 rounds, {shots} x "
                                              f"{I}, resident",
-                  "K6_wide_ss": f"dense HGP (H|I) (33 slots), {shots} x {I}, resident G=1",
-                  "K6_wide_ss_streamed": f"dense HGP (H|I), {shots} x {I}, streamed",
+                  "K6_wide_ss_streamed": f"dense HGP (H|I) (33 slots), {shots} x {I}, streamed",
+                  "K6_wide_random_resident": f"random 60x300 (33-40 slots), {shots} x {I}, "
+                                             f"resident",
                   "K4_wide_dem_D2": f"DEM 216x1518 (Dc 53), D=2, {shots} shots, per iteration",
                   "K4_wide_dem_D4": f"DEM 216x1518 (Dc 53), D=4, {shots} shots, per iteration"}
     return worst, t, bounds, shapes
@@ -2039,7 +2075,7 @@ def phase_wide_sweeps(code, dem: "PriorSetup", dev: torch.device, shots: int) ->
             f"{rec['samples'] / rec['walltime']:.0f} shots/s; routes {routes}")
         check(rec["samples"] == shots and rec["failures"] < shots // 2,
               f"{mode} on the dense HGP: one result per shot, most shots decoded")
-        want = {"bposd": ("K3", "wide"), "bposd_single_shot": ("K6", "resident_wide"),
+        want = {"bposd": ("K3", "wide"), "bposd_single_shot": ("K6", "streamed_wide"),
                 "bposd_hybrid": ("K2", "streamed_wide")}[mode]
         check(routes[want[0]].get(want[1], 0) > 0, f"{mode}: {want[0]} ran route {want[1]}")
         by_run[f"dense_hgp_{mode}"] = launches
@@ -2061,6 +2097,202 @@ def phase_wide_sweeps(code, dem: "PriorSetup", dev: torch.device, shots: int) ->
     check(bool(ok[conv].all()), "every converged shot satisfies its syndrome")
     by_run["dem_check_partition"] = launches
     return by_run
+
+
+# ---------------------------------------------------------------------------
+# The streamed routes of K2 and K6 on the codes past shared memory (phase 38)
+# ---------------------------------------------------------------------------
+
+SELECT_ROWS = ROOT / "artifacts" / "select_h100.jsonl"
+# The streamed shapes this phase times, each with the row of SELECT_ROWS (its
+# line number) that timed the same shape on an H100 before the route ran as
+# device-memory grids: K2 at the cyclic code x4, 2,048 x 48 (row 24); K6 at
+# the n = 40,000 HGP, 685 x 48 (row 220).
+STREAMED_ROWS = {"K2_streamed_cyclic_x4": 24, "K6_streamed_n40000": 220}
+STREAMED_P_HYBRID, STREAMED_P_SS = 1e-4, 5e-4
+STREAMED_SHOTS = 2048
+
+
+def _select_row(line: int) -> dict:
+    with SELECT_ROWS.open() as f:
+        return json.loads(f.read().splitlines()[line - 1])
+
+
+def streamed_setups():
+    """The slice's codes (host work, built in a thread at the start): the
+    cyclic lifted product n = 4,862 with its logicals (phases 17, 25, 35)
+    and HGP n = 15,625 (``biregular_hgp(100, 3, 4)``) with its logicals,
+    the n = 40,000 HGP of ``bench_select``'s rows (seed 11)."""
+    from exp_ldpc_tpu_torch.experiments import bench_two_tier as btt
+
+    return (btt.build_code(), biregular_hgp(100, 3, 4, seed=0, compute_logicals=True),
+            biregular_hgp(160, 3, 4, seed=11).checks.z)
+
+
+def phase_streamed(dev: torch.device, setups) -> tuple:
+    """K2 and K6 on their streamed route (the device-memory grids): held bit
+    for bit to their plain versions at the slice's shapes, timed beside the
+    rows measured before the redesign and both bounds, then the slice's path
+    through its entry points.  Returns (worst error by kernel, launches by
+    run, times, bounds)."""
+    cyc, hgp15k, H40k = setups.result()
+    log(f"== phase 38: the streamed routes of K2 and K6: parity at the cyclic code x4 "
+        f"(2,048, 685, 77, 1 shots), the n = 40,000 HGP (685, 77, 1), the dense HGP's route "
+        f"wide (77); timings; the hybrid p_sweep on the cyclic code x4 and the single-shot "
+        f"flat stage on HGP n = 15,625 (H|I), {STREAMED_SHOTS} shots x {MAX_ITER}")
+    worst = {"K2": 0.0, "K6": 0.0}
+    t, bounds = {}, {}
+    Hc = cyc.checks.z
+    ctab = tanner_tables(TannerELL.from_check_matrix(Hc), dev)
+    cst = Checks(SpacetimeCode(Hc, ROUNDS).spacetime_check_matrix, dev, "cyclic LP n=4862 x4")
+    cprior = cst.prior(2 / 3 * 2e-4)
+    csyn = cst.device_syndromes(STREAMED_SHOTS, 2e-4, seed=61)
+    big = FlatSetup(H40k, dev, "HGP n=40000")
+    bprior = big.prior(5e-4)
+    bsyn = big.device_syndromes(S_REDECODE, 5e-4, seed=62)
+    dense = dense_hgp().checks.z
+    dtab = tanner_tables(TannerELL.from_check_matrix(dense), dev)
+    dst = Checks(SpacetimeCode(dense, WIDE_ROUNDS).spacetime_check_matrix, dev,
+                 f"dense HGP x{WIDE_ROUNDS}")
+    dss = FlatSetup(SpacetimeCodeSingleShot(dense).spacetime_check_matrix, dev,
+                    "dense HGP (H|I)")
+    before = {name: dict(k.routes) for name, k in (("K2", k2.KERNEL), ("K6", k6.KERNEL))}
+
+    def k2_case(chk, tab, R, prior, synd, method, msf, iters):
+        plan = k2.launch_plan(tab, R, synd.shape[1], dev)
+        check(plan.route == "streamed", f"K2 {chk.name} S={synd.shape[1]}: {plan.label}")
+        kern = k2.stbp_fixed(tab, R, prior, synd, method, iters, msf)
+        plain = stbp_core(tab, R, prior, synd, method, iters, msf, early_stop=False)
+        torch.cuda.synchronize()
+        worst["K2"] = max(worst["K2"], _same(
+            f"K2 {chk.name} S={synd.shape[1]} {method} alpha={msf} [{_plan_tag(plan)}]", chk,
+            synd, kern, plain))
+
+    def k6_case(fs, prior, synd, method, msf, iters, route="auto"):
+        plan = k6.launch_plan(fs.tables, synd.shape[1], dev, route=route)
+        check(plan.route == "streamed", f"K6 {fs.name} S={synd.shape[1]}: {plan.label}")
+        kern = k6.bp_fixed(fs.tables, prior, synd, method, iters, msf, plan=plan)
+        plain = bp_core(fs.tables, prior, synd, method, iters, msf, early_stop=False)
+        torch.cuda.synchronize()
+        worst["K6"] = max(worst["K6"], _same(
+            f"K6 {fs.name} S={synd.shape[1]} {method} alpha={msf} [{_plan_tag(plan)}]", fs,
+            synd, kern, plain))
+
+    k2_case(cst, ctab, ROUNDS, cprior, csyn, "ms", ALPHA, MAX_ITER)
+    for S, method, msf in ((S_REDECODE, "ps", 0.0), (S_SMALL, "ms", 0.0), (1, "ps", 0.0)):
+        k2_case(cst, ctab, ROUNDS, cprior, csyn[:, :S].contiguous(), method, msf, MAX_ITER)
+    for S, method, msf in ((S_REDECODE, "ms", ALPHA), (S_SMALL, "ps", 0.0), (1, "ms", 0.0)):
+        k6_case(big, bprior, bsyn[:, :S].contiguous(), method, msf, MAX_ITER)
+    # route wide: the dense HGP's 34-slot spacetime checks and 33-slot (H|I), ragged
+    wsyn = dst.syndromes(S_SMALL, WIDE_P, seed=63)
+    ssyn = dss.syndromes(S_SMALL, WIDE_P, seed=64)
+    for method, msf in (("ms", ALPHA), ("ps", 0.0)):
+        k2_case(dst, dtab, WIDE_ROUNDS, dst.prior(2 / 3 * WIDE_P), wsyn, method, msf,
+                WIDE_ITERS)
+        k6_case(dss, dss.prior(WIDE_P), ssyn, method, msf, WIDE_ITERS, route="streamed")
+    routes = {name: _routes_since(k, before[name])
+              for name, k in (("K2", k2.KERNEL), ("K6", k6.KERNEL))}
+    check(all(routes[k].get(r, 0) > 0 for k in ("K2", "K6") for r in ("streamed",
+                                                                      "streamed_wide")),
+          f"K2 and K6 ran the streamed route and its route wide: {routes}")
+    # timings (CUDA events, median of 3 distinct batches; plain once) beside the row
+    # measured before the redesign, the on-chip bound and the device-memory bound
+    cs = [cst.device_syndromes(STREAMED_SHOTS, 2e-4, seed=70 + i) for i in range(4)]
+    bs = [big.device_syndromes(S_REDECODE, 5e-4, seed=75 + i) for i in range(4)]
+    cargs = (ctab, ROUNDS, cprior)
+    cases = {
+        "K2_streamed_cyclic_x4": (
+            lambda s: k2.stbp_fixed(*cargs, s, "ms", MAX_ITER, ALPHA),
+            lambda s: stbp_core(*cargs, s, "ms", MAX_ITER, ALPHA, early_stop=False), cs,
+            _st_io(*cst.H.shape, ctab, STREAMED_SHOTS), cst.H.shape[0], ctab, cst.H.nnz,
+            STREAMED_SHOTS, f"cyclic LP n=4862 x{ROUNDS}, {STREAMED_SHOTS} x {MAX_ITER}"),
+        "K6_streamed_n40000": (
+            lambda s: k6.bp_fixed(big.tables, bprior, s, "ms", MAX_ITER, ALPHA),
+            lambda s: bp_core(big.tables, bprior, s, "ms", MAX_ITER, ALPHA, early_stop=False),
+            bs, _flat_io(big.tables, S_REDECODE), big.H.shape[0], big.tables, big.H.nnz,
+            S_REDECODE,
+            f"HGP n=40000, {S_REDECODE} x {MAX_ITER}")}
+    for key, (kern, plain, synds, io, rows, tab, nnz, shots, shape) in cases.items():
+        kern(synds[3])
+        t[key] = _median_ms(kern, synds[:3])
+        t[f"{key}_plain"] = _timed(lambda: plain(synds[0]))[1]
+        row = _select_row(STREAMED_ROWS[key])
+        check(row["shots"] == shots and row["iters"] == MAX_ITER and "streamed" in row["route"],
+              f"{SELECT_ROWS.name} row {STREAMED_ROWS[key]} times the same shape")
+        bounds[key] = {"on_chip": _bound(io, OPS_FLOAT * nnz * shots * MAX_ITER),
+                       "device_memory": streamed_bound(io, rows, tab, nnz, shots, MAX_ITER),
+                       "shape": shape}
+        b0, b1 = bounds[key]["on_chip"], bounds[key]["device_memory"]
+        log(f"  {key} ({shape}): {t[key]:.3f} ms (before the redesign, not measured in this "
+            f"run: {row['ms']:.2f} ms, {SELECT_ROWS.name} row {STREAMED_ROWS[key]}, "
+            f"{row['nvidia_smi']}); plain "
+            f"{t[key + '_plain']:.2f} ms; bound on chip {b0['bound_ms']:.4f} ms "
+            f"({b0['bound_by']}), through device memory {b1['bound_ms']:.4f} ms "
+            f"({b1['bound_by']})")
+    # the slice's path: the hybrid p_sweep point on the cyclic code x4 (K2 streamed in the
+    # spacetime stage, K6 in the final-round flat stage, K3 and K1 in the host redecode)
+    by_run = {}
+    reset_counts()
+    routes0 = {name: dict(kern.routes) for name, kern in KERNELS.items()}
+    rec = p_sweep(
+        samples=STREAMED_SHOTS, p_values=np.array([STREAMED_P_HYBRID]),
+        noise_model=depolarizing_noise, noise_model_args=lambda p: {"p": p, "pm": p},
+        meas_prior=lambda p, xs, zs: 2 / 3 * p, data_prior=lambda p, xs, zs: 2 / 3 * p,
+        seed=11, pipeline={"mesh_devices": 1, "shots_per_device": STREAMED_SHOTS}, device=dev,
+        code=cyc, rounds=ROUNDS, decoder_mode="bposd_hybrid",
+        bp_osd_options=dict(max_iter=MAX_ITER, bp_method="ms", ms_scaling_factor=ALPHA,
+                            osd_method="osd0", osd_order=0))[0]
+    torch.cuda.synchronize()
+    routes = {name: _routes_since(kern, routes0[name]) for name, kern in KERNELS.items()}
+    launches = launch_counts()
+    t["hybrid_cyclic_shots_per_s"] = rec["samples"] / rec["walltime"]
+    log(f"  bposd_hybrid, cyclic LP n=4862 x{ROUNDS}, p={STREAMED_P_HYBRID:g}: failures "
+        f"{rec['failures']} of {rec['samples']}, {t['hybrid_cyclic_shots_per_s']:.0f} shots/s; "
+        f"routes {routes}")
+    check(rec["samples"] == STREAMED_SHOTS and rec["failures"] < rec["samples"] // 2,
+          "hybrid at the cyclic code: one result per shot, most shots decoded")
+    check(routes["K2"].get("streamed", 0) > 0 and launches["K6"] > 0,
+          "hybrid at the cyclic code: K2 streamed in the spacetime stage, K6 in the flat stage")
+    by_run["hybrid_cyclic_x4"] = launches
+    # the single-shot flat stages on HGP n = 15,625 ((H|I) and H: 247 KB a shot each with
+    # the fixed bytes, K6 streamed), the device step of two batches through the pipeline
+    # (no host OSD)
+    pipe = StorageDecodePipeline(
+        code=hgp15k, rounds=ROUNDS, noise_model=depolarizing_noise(STREAMED_P_SS, STREAMED_P_SS),
+        data_prior=2 / 3 * STREAMED_P_SS, meas_prior=2 / 3 * STREAMED_P_SS,
+        shots_per_device=STREAMED_SHOTS,
+        max_iter=MAX_ITER, bp_method="ms", ms_scaling_factor=ALPHA, mode="bposd_single_shot",
+        device=dev)
+    check(k6.launch_plan(pipe._tables_ss, STREAMED_SHOTS, dev).route == "streamed",
+          f"HGP n=15,625 (H|I): {k6.resident_bytes(pipe._tables_ss)[0]} B a shot, streamed")
+    gens = []
+    for i in range(3):
+        g = torch.Generator(device=dev)
+        g.manual_seed(500 + i)
+        gens.append(g)
+    pipe.run(gens[2])   # warm-up
+    reset_counts()
+    routes0 = dict(k6.KERNEL.routes)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fails = unconv = shots = 0
+    for g in gens[:2]:
+        f, n, u = pipe.run(g)
+        fails, shots, unconv = fails + f, shots + n, unconv + u
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    routes = _routes_since(k6.KERNEL, routes0)
+    launches = launch_counts()
+    t["single_shot_hgp15625_shots_per_s"] = shots / wall
+    log(f"  bposd_single_shot device step, HGP n=15,625 x{ROUNDS}, p={STREAMED_P_SS:g}, {shots} "
+        f"shots: "
+        f"failures {fails}, BP-unconverged {unconv}, {shots / wall:.0f} shots/s; K6 routes "
+        f"{routes}")
+    check(routes.get("streamed", 0) == 2 * (ROUNDS + 1) and fails < shots // 2,
+          "single-shot at HGP n=15,625: every flat stage on K6 streamed (one shot of (H|I) or "
+          "of H does not fit shared memory), most shots decoded")
+    by_run["single_shot_hgp15625"] = launches
+    return worst, by_run, t, bounds
 
 
 TT_REF_FAILURES, TT_REF_UNCONV, TT_REF_SHOTS = 1081, 1131, 8192   # artifacts/two_tier_v5e.jsonl
@@ -2648,8 +2880,11 @@ def selection_regimes(dem1: "PriorSetup", dem4):
          bs.flat_case("hgp_40000", big, 5e-4, shots=(256,), iters=8)),
         ("flat BP at n = 40,000, the callers' 48 iterations: K1 armed", "early_stop",
          bs.flat_case("hgp_40000", big, 5e-4, shots=(S_REDECODE,))),
-        ("1-round circuit DEM, 53-slot checks: 2 shots of K6 a block, K1", "fixed",
+        ("1-round circuit DEM, 53-slot checks: K6 streams (2 shots would fit a block), K1",
+         "fixed",
          bs.flat_case("dem_1r", dem1.H, dem1.priors, shots=(1024,))),
+        ("cyclic lifted product n = 4,862 flat, 2,048 x 48 (24 slots): K6 streams, K1", "fixed",
+         bs.flat_case("cyclic_lp_4862", bench_large_codes._cyclic_H(), 1e-3, shots=(2048,))),
         ("validate_dem stage 1, 4-round DEM (435 slots): K1 armed", "early_stop",
          bs.flat_case("dem_4r", dsc4.fault_check_matrix, dsc4.fault_priors, shots=(1024,))),
     ]
@@ -2701,39 +2936,15 @@ def phase_selection(dev: torch.device, smi: str, dem1: "PriorSetup", dem4_result
     return rows
 
 
-def _st_io(rows: int, cols: int, tab, shots: int) -> int:
-    """Bytes a whole spacetime decode must move: spacetime syndromes and
-    priors in, base tables, posterior, conv, iters out."""
-    return (rows * shots + 4 * cols + 4 * (tab.num_checks * tab.max_check_degree
-                                           + tab.num_vars * tab.max_var_degree)
-            + 4 * cols * shots + 5 * shots)
-
-
 # ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for each kernel's `ms` shape
+# (exp_ldpc_tpu_torch/utils/bounds.py: bytes over 3.35 TB/s, operations over
+# 67 TFLOP/s)
 # ---------------------------------------------------------------------------
-
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-OPS_PER_S = 67e12           # float32 / int32 outside the tensor cores: these functions hold no
-#                             matrix product of their own (the TPU's one-hot products are routing)
-# Arithmetic per edge, shot and iteration, counted from the plain versions:
-# compares, selects, minima, adds and multiplies only.  A type conversion
-# (the bf16 kernels round a message three times) is not counted, so one count
-# serves the f32 and the bf16 kernels and errs towards a lower bound.
-# Min-sum in float (check_update_cm and the variable update): sign test, sign
-# product, abs, min1, min2 select, is-min select, sign multiply, alpha
-# multiply (8 on the check side); add into the total, subtract (2 on the
-# variable side); the parity xor (1): 11.  int8 (check_update_int,
-# int8_step): abs, negative count, min1, min2, is-min select, multiply,
-# shift, sign parity, negate-select (9); add, clip, subtract, clip (4);
-# parity (1): 14.
-OPS_FLOAT, OPS_INT8 = 11, 14
 
 
 def _bound(nbytes: float, ops: float) -> dict:
-    tb, to = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / OPS_PER_S
-    return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
-            "bound_bytes": int(nbytes), "bound_ops": int(ops), "library_ms": None}
+    return {**bound(nbytes, ops), "library_ms": None}
 
 
 def _k3_bound(st: Checks, tab, shots: int, shot_iters: float) -> dict:
@@ -2745,14 +2956,6 @@ def _k3_bound(st: Checks, tab, shots: int, shot_iters: float) -> dict:
     nnz = st.H.nnz
     return _bound(shot_iters / shots * (_st_io(*st.H.shape, tab, shots) + 2 * 2 * nnz * shots),
                   OPS_FLOAT * nnz * shot_iters)
-
-
-def _flat_io(tab, S: int) -> int:
-    """Bytes a whole-decode flat kernel must move: syndromes (u8), priors,
-    both Tanner tables (i32), posterior out (4 bytes), conv (u8), iters (i32)."""
-    C, V = tab.num_checks, tab.num_vars
-    return (C * S + 4 * V + 4 * (C * tab.max_check_degree + V * tab.max_var_degree)
-            + 4 * V * S + S + 4 * S)
 
 
 def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross, dem, t,
@@ -2856,6 +3059,25 @@ def kernel_bounds(su: Setup, flats, big, fams, cap, k3b_shape, gross, dem, t,
     return out
 
 
+def streamed_dm_bounds(su: Setup, flats, dense) -> dict:
+    """The device-memory bound (``streamed_bound``) of the streamed shapes
+    timed in phases 8, 12 and 24: HGP-225 x4 and (H|I) at 16,384 x 48 forced
+    streamed, the dense HGP x4 and its (H|I), 1,024 x 24 (route wide)."""
+    S, Hss = 16384, flats[1]
+    H = dense.checks.z
+    dtab = tanner_tables(TannerELL.from_check_matrix(H), su.dev)
+    dst = SpacetimeCode(H, WIDE_ROUNDS).spacetime_check_matrix.tocsr()
+    dss = FlatSetup(SpacetimeCodeSingleShot(H).spacetime_check_matrix, su.dev, "dense (H|I)")
+    return {"K2_streamed": streamed_bound(_st_io(*su.H.shape, su.tables, S), su.H.shape[0],
+                                          su.tables, su.H.nnz, S, MAX_ITER),
+            "K6_streamed": streamed_bound(_flat_io(Hss.tables, S), Hss.H.shape[0], Hss.tables,
+                                          Hss.H.nnz, S, MAX_ITER),
+            "K2_wide_dense_streamed": streamed_bound(_st_io(*dst.shape, dtab, 1024), dst.shape[0],
+                                                     dtab, dst.nnz, 1024, WIDE_ITERS),
+            "K6_wide_ss_streamed": streamed_bound(_flat_io(dss.tables, 1024), dss.H.shape[0],
+                                                  dss.tables, dss.H.nnz, 1024, WIDE_ITERS)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2887,6 +3109,7 @@ def main() -> int:
     host = bg.submit(host_rates, su, n_host)
     dem_fut = bg.submit(dem_matrix, su.code)
     host_mats = None if args.quick else bg.submit(host_path_matrices, su.code)
+    st_codes = None if args.quick else bg.submit(streamed_setups)
     phase(phase_build)
     world = None if args.quick else bg.submit(dist_world)
     rs_world = None if args.quick else bg.submit(rounds_world)
@@ -2961,6 +3184,8 @@ def main() -> int:
                                                   256 if args.quick else 1024, not args.quick)
     if not args.quick:
         by_run.update(phase(phase_wide_sweeps, dense, dem, dev, 256))
+        err_st38, st38_runs, t_st38, b_st38 = phase(phase_streamed, dev, st_codes)
+        by_run.update(st38_runs)
         tt_runs, t_tt, tt_speed, err_tt = phase(phase_two_tier, su, dev)
         by_run.update(tt_runs)
         phase(phase_rounds_shard, dev, rs_world)
@@ -2988,6 +3213,7 @@ def main() -> int:
         t.update(t_ler)
         bounds = kernel_bounds(su, flats, big, fams, cap, k3b_shapes["HGP"], _gross(dev), dem, t,
                                cyclic_H)
+        b_dm = streamed_dm_bounds(su, flats, dense)
         timing = {"K1": ("K1_S16384", "bench", "S16384_es", f"S{S_REDECODE}_es", "fam_cyclic",
                          "fam_qclp", "dem_dc53"),
                   "K1b": ("K1_n40000",),
@@ -3022,6 +3248,21 @@ def main() -> int:
                 kern["ms_spacetime"] = st_ms[name]
                 kern["plain_ms_spacetime"] = st_ms[f"{name}_plain"]
                 kern["max_abs_err_spacetime"] = err_st[key]
+            if key in err_st38:   # phase 38: the streamed route at the slice's shapes
+                kern["max_abs_err_streamed"] = err_st38[key]
+                for tag, b in b_st38.items():
+                    if tag.startswith(key + "_"):
+                        short = tag[len(key) + 1:]
+                        kern[f"ms_{short}"] = t_st38[tag]
+                        kern[f"plain_ms_{short}"] = t_st38[f"{tag}_plain"]
+                        kern[f"bound_ms_{short}"] = b["on_chip"]["bound_ms"]
+                        kern[f"bound_by_{short}"] = b["on_chip"]["bound_by"]
+                        kern[f"bound_dm_ms_{short}"] = b["device_memory"]["bound_ms"]
+                        kern[f"bound_dm_by_{short}"] = b["device_memory"]["bound_by"]
+                        kern[f"shape_{short}"] = b["shape"]
+                for tag, b in b_dm.items():
+                    if tag.startswith(key + "_"):
+                        kern[f"bound_dm_ms_{tag[len(key) + 1:]}"] = b["bound_ms"]
             if key == "K5":
                 kern["rows_iter_shots_per_s"] = {
                     f"{c}/{f}": r["bp_iter_shots_per_s"] for (c, f), r in fam_rows.items()}

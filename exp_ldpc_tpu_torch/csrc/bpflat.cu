@@ -1,4 +1,4 @@
-// K6: fixed-iteration flat flooding BP, f32, all iterations in one launch.
+// K6: fixed-iteration flat flooding BP, f32, a whole decode in one call.
 //
 // Replaces exp_ldpc_tpu/decoders/bp_pallas.py::_kernel (the VMEM-resident
 // Pallas kernel launched by bp_pallas_fixed).  Same contract as
@@ -18,9 +18,8 @@
 //
 // What bounds it on an H100.  A shot's state is C*Dc f32 messages and C
 // syndrome bytes: 3,564 B at HGP-225's (H|I), 57 MB at 16,384 shots, just
-// past the 50 MB L2; streamed through device memory (four passes per
-// message per iteration) the kernel is bound by memory latency and
-// bandwidth.  Two routes, chosen in Python from the shape before the launch
+// past the 50 MB L2; 538 KB a shot at the n = 40,000 HGP.  Two routes,
+// chosen in Python from the shape before the launch
 // (utils/cuda_build.py::resident_plan), as in K2 (csrc/stbp.cu):
 //
 // * resident (bp_resident_kernel): a block owns G shots (~62 at (H|I)) and
@@ -32,12 +31,20 @@
 //   slot-major (row i*C + c for slot i of check c), so a warp's check items
 //   read consecutive words.  The tables sit in shared memory where they fit
 //   beside a shot, else they are read through the read-only cache.
-// * streamed (bp_streamed_kernel, the first port of this kernel) where one shot's state
-//   exceeds the opt-in limit (the n = 40,000 HGP: 538 KB a shot): a block
-//   owns 32 shots (one per lane, so every warp access is 32 consecutive
-//   shots of one row: coalesced) and its 8 warps split each phase; the
-//   messages live in device memory, updated in place; the tables are read
-//   through the read-only cache.
+// * streamed (bp_streamed_*_kernel) where one shot's state exceeds the
+//   opt-in limit (the n = 40,000 HGP, the 4-round detector model): the
+//   messages live in device memory, (C*Dc, S) shot-minor, and every
+//   iteration reads and writes each of them twice (grid A, grid B): bound by
+//   device-memory bandwidth.  K1's and K3's frame at f32
+//   (csrc/streamed_bp.cuh): each phase is one grid over a flat list of
+//   (row, 4 shots or 1) items, sized from the item count and the SM count,
+//   so a few hundred shots of a large code fill the card; grid A updates
+//   every check in place (the first iteration reads the priors through the
+//   tables instead of an initialised message array), grid B every variable
+//   (the sum in edge order, then the prior; the posterior in the last
+//   iteration), and one parity grid follows the last iteration.  The C
+//   entry point enqueues the whole decode (2 grids an iteration + 1); the
+//   host reads nothing back.  The tables come through the read-only cache.
 //
 // Checks of more than MAX_SLOTS (32) slots take route "wide" on either
 // route: the check phase in two passes over the slots (WideCheck,
@@ -50,106 +57,187 @@
 
 #include "resident_bp.cuh"
 #include "spacetime_bp.cuh"
+#include "streamed_bp.cuh"
 
 // ---------------------------------------------------------------------------
 // The streamed route
 // ---------------------------------------------------------------------------
 
-template <int MAXP, bool WIDE>
-__global__ void __launch_bounds__(LANES* WORKERS) bp_streamed_kernel(
-    const uint8_t* __restrict__ synd,     // (C, S) 0/1
-    const float* __restrict__ prior,      // (V,) LLRs
-    const int* __restrict__ chk_vars,     // (C*Dc,), -1 = padded slot
-    const int* __restrict__ vm,           // (V*Dv,), flat check-major slot, -1 = pad
-    float* __restrict__ msg,              // (C*Dc, S) scratch
-    float* __restrict__ post,             // (V, S) out
-    uint8_t* __restrict__ conv,           // (S,) out
-    int C, int V, int Dc, int Dv, int S, int max_iter, int method, float alpha0) {
-  __shared__ int bad[LANES];
-  const int lane = threadIdx.x;
-  const int w = threadIdx.y;
-  const int s = blockIdx.x * LANES + lane;
-  const bool active = s < S;
-  const size_t SS = (size_t)S;
-  if (w == 0) bad[lane] = 0;
+struct FlatArgs {
+  const uint8_t* synd;    // (C, S) 0/1
+  const float* prior;     // (V,) LLRs
+  const int* chk_vars;    // (C*Dc,), -1 = padded slot
+  const int* vm;          // (V*Dv,), flat check-major slot, -1 = pad
+  float* msg;             // (C*Dc, S) scratch: v2c in, v2c out (real slots only)
+  float* post;            // (V, S) out
+  uint8_t* conv;          // (S,) out
+  int C, V, Dc, Dv, S;
+};
 
-  // init: v2c = priors; posterior = priors (the answer for max_iter == 0)
-  if (active) {
-    for (int e = w; e < C * Dc; e += WORKERS) {
-      const int v = __ldg(&chk_vars[e]);
-      msg[(size_t)e * SS + s] = (v >= 0) ? __ldg(&prior[v]) : BIG;
+// ---- grid A: every check, in place.  x[VEC][MAXP] lives in registers: 4
+// shots a lane up to 16 slots; one above (two spilled, and ran 23% slower at
+// the cyclic code's 24 slots on an H100).
+template <int MAXP, int VEC, int METHOD>
+__global__ void __launch_bounds__(ROW_THREADS, 2) bp_streamed_check_kernel(const FlatArgs a,
+                                                                         float alpha,
+                                                                         bool first) {
+  const size_t SS = (size_t)a.S;
+  const int Dc = a.Dc;
+  RowItems items(a.C, a.S, VEC);
+  int c, s0;
+  while (items.next(c, s0, VEC)) {
+    const size_t e0 = (size_t)c * Dc;
+    float x[VEC][MAXP], t[VEC];
+#pragma unroll
+    for (int i = 0; i < MAXP; ++i) {
+      if (i < Dc) {
+        stream_slot<VEC>(__ldg(&a.chk_vars[e0 + i]), first, a.prior,
+                         a.msg + (e0 + i) * SS + s0, t);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) x[k][i] = t[k];
+      }
     }
-    for (int v = w; v < V; v += WORKERS) post[(size_t)v * SS + s] = __ldg(&prior[v]);
+    const Pack<VEC> sy = ld_raw_ro<VEC>(a.synd + (size_t)c * SS + s0);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) check_update<MAXP>(x[k], Dc, sy.u8[k] ? -1.0f : 1.0f, METHOD, alpha);
+#pragma unroll
+    for (int i = 0; i < MAXP; ++i) {
+      if (i < Dc && __ldg(&a.chk_vars[e0 + i]) >= 0) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) t[k] = x[k][i];
+        st_f32<VEC>(a.msg + (e0 + i) * SS + s0, t);
+      }
+    }
   }
-  __syncthreads();
+}
 
+// ---- grid A of route "wide" (more than MAX_SLOTS slots): two passes over
+// the slots (WideCheck), whose registers do not grow with Dc; pass 2 reads
+// each live slot again and stores its outgoing message in place.
+template <int VEC, int METHOD>
+__global__ void __launch_bounds__(ROW_THREADS) bp_streamed_check_wide_kernel(const FlatArgs a,
+                                                                           float alpha,
+                                                                           bool first) {
+  const size_t SS = (size_t)a.S;
+  const int Dc = a.Dc;
+  RowItems items(a.C, a.S, VEC);
+  int c, s0;
+  while (items.next(c, s0, VEC)) {
+    const size_t e0 = (size_t)c * Dc;
+    float t[VEC];
+    const Pack<VEC> sy = ld_raw_ro<VEC>(a.synd + (size_t)c * SS + s0);
+    WideCheck w[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) w[k].init(sy.u8[k] ? -1.0f : 1.0f);
+    for (int i = 0; i < Dc; ++i) {
+      stream_slot<VEC>(__ldg(&a.chk_vars[e0 + i]), first, a.prior, a.msg + (e0 + i) * SS + s0, t);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) w[k].fold(i, t[k], METHOD);
+    }
+    for (int i = 0; i < Dc; ++i) {
+      const int v = __ldg(&a.chk_vars[e0 + i]);
+      if (v < 0) continue;
+      float* p = a.msg + (e0 + i) * SS + s0;
+      stream_slot<VEC>(v, first, a.prior, p, t);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) t[k] = w[k].out(i, t[k], METHOD, alpha);
+      st_f32<VEC>(p, t);
+    }
+  }
+}
+
+// ---- grid B: every variable: its messages summed in edge order, then the
+// prior; the last iteration writes the posterior and sets conv to 1 (row 0's
+// items).  With no iteration at all (`none`), the posterior is the prior.
+template <int VEC>
+__global__ void __launch_bounds__(ROW_THREADS) bp_streamed_var_kernel(const FlatArgs a, bool last,
+                                                                     bool none) {
+  const size_t SS = (size_t)a.S;
+  RowItems items(a.V, a.S, VEC);
+  int v, s0;
+  while (items.next(v, s0, VEC)) {
+    if (v == 0 && last) stream_conv_one<VEC>(a.conv + s0);
+    float* post = a.post + (size_t)v * SS + s0;
+    const float pr = __ldg(&a.prior[v]);
+    if (none) {
+      float t[VEC];
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) t[k] = pr;
+      st_f32<VEC>(post, t);
+      continue;
+    }
+    stream_var<VEC>(a.msg, 0, a.vm + (size_t)v * a.Dv, a.Dv, pr, SS, s0, last, post);
+  }
+}
+
+// ---- the parity grid, once after the last iteration: the syndrome check
+// of the final estimate; a violated check stores conv 0.
+template <int VEC>
+__global__ void __launch_bounds__(ROW_THREADS) bp_streamed_parity_kernel(const FlatArgs a) {
+  const size_t SS = (size_t)a.S;
+  RowItems items(a.C, a.S, VEC);
+  int c, s0;
+  while (items.next(c, s0, VEC)) {
+    Pack<VEC> par = ld_raw_ro<VEC>(a.synd + (size_t)c * SS + s0);
+    for (int i = 0; i < a.Dc; ++i) {
+      const int v = __ldg(&a.chk_vars[(size_t)c * a.Dc + i]);
+      if (v >= 0) stream_parity_xor<VEC>(par, a.post + (size_t)v * SS + s0);
+    }
+    stream_parity_store<VEC>(par, a.conv + s0);
+  }
+}
+
+template <int MAXP, int VEC>
+static void launch_checks(const FlatArgs& a, int method, float alpha, bool first, int blocks,
+                          cudaStream_t st) {
+  if (method == 0)
+    bp_streamed_check_kernel<MAXP, VEC, 0><<<blocks, ROW_THREADS, 0, st>>>(a, alpha, first);
+  else
+    bp_streamed_check_kernel<MAXP, VEC, 1><<<blocks, ROW_THREADS, 0, st>>>(a, alpha, first);
+}
+
+// Grid A by padded check width and lane width (the plan's: 4 up to 16
+// slots, 1 to 32, 4 on route "wide"); false where no instance exists.
+static bool streamed_checks(const FlatArgs& a, int vec, int method, float alpha, bool first,
+                            int blocks, bool wide, cudaStream_t st) {
+  if (wide) {
+    if (vec != 4) return false;
+    if (method == 0)
+      bp_streamed_check_wide_kernel<4, 0><<<blocks, ROW_THREADS, 0, st>>>(a, alpha, first);
+    else
+      bp_streamed_check_wide_kernel<4, 1><<<blocks, ROW_THREADS, 0, st>>>(a, alpha, first);
+    return true;
+  }
+#define CASE(MAXP, VEC)                                            \
+  if (a.Dc <= MAXP && vec == VEC) {                                \
+    launch_checks<MAXP, VEC>(a, method, alpha, first, blocks, st); \
+    return true;                                                   \
+  }
+  CASE(8, 4) CASE(16, 4) CASE(24, 1) CASE(32, 1)
+#undef CASE
+  return false;
+}
+
+// The whole decode on `stream`: max_iter iterations of grids A and B, then
+// the parity grid (no iteration: grid B writes the priors as posteriors).
+// The host reads nothing back.  S is the padded shot count (a multiple of
+// 4); vec_a: grid A's lane width (the variable and parity grids take 4);
+// blocks_*: each grid's blocks.
+static int streamed(const FlatArgs& a, int max_iter, int method, float alpha0, bool wide,
+                    int vec_a, int blocks_a, int blocks_b, int blocks_c, cudaStream_t st) {
+  if (a.S % STREAM_SHOT_ALIGN || a.S % vec_a)
+    return (int)cudaErrorInvalidValue;
   for (int it = 0; it < max_iter; ++it) {
-    const float alpha = (alpha0 == 0.0f) ? 1.0f - ldexpf(1.0f, -(it + 1)) : alpha0;
-    const bool last = (it == max_iter - 1);
-    // ---- phase A: check update of every check, in place (padded slots stay +BIG)
-    if (active) {
-      for (int c = w; c < C; c += WORKERS) {
-        const size_t e0 = (size_t)c * Dc;
-        if constexpr (WIDE) {
-          WideCheck wk;
-          wk.init(synd[(size_t)c * SS + s] ? -1.0f : 1.0f);
-          for (int i = 0; i < Dc; ++i) wk.fold(i, msg[(e0 + i) * SS + s], method);
-          for (int i = 0; i < Dc; ++i) {
-            if (__ldg(&chk_vars[e0 + i]) < 0) continue;
-            const size_t k = (e0 + i) * SS + s;
-            msg[k] = wk.out(i, msg[k], method, alpha);
-          }
-          continue;
-        }
-        float x[MAXP];
-#pragma unroll
-        for (int i = 0; i < MAXP; ++i)
-          if (i < Dc) x[i] = msg[(e0 + i) * SS + s];
-        const float ss = synd[(size_t)c * SS + s] ? -1.0f : 1.0f;
-        check_update<MAXP>(x, Dc, ss, method, alpha);
-#pragma unroll
-        for (int i = 0; i < MAXP; ++i)
-          if (i < Dc && __ldg(&chk_vars[e0 + i]) >= 0) msg[(e0 + i) * SS + s] = x[i];
-      }
-    }
-    __syncthreads();
-    // ---- phase B: variable update: edges summed in order, then the prior
-    if (active) {
-      for (int v = w; v < V; v += WORKERS) {
-        float total = 0.0f;
-        for (int j = 0; j < Dv; ++j) {
-          const int k = __ldg(&vm[v * Dv + j]);
-          if (k >= 0) total += msg[(size_t)k * SS + s];
-        }
-        const float pv = __ldg(&prior[v]) + total;
-        if (last) post[(size_t)v * SS + s] = pv;
-        for (int j = 0; j < Dv; ++j) {
-          const int k = __ldg(&vm[v * Dv + j]);
-          if (k >= 0) {
-            const size_t idx = (size_t)k * SS + s;
-            msg[idx] = pv - msg[idx];
-          }
-        }
-      }
-    }
-    __syncthreads();
+    if (!streamed_checks(a, vec_a, method, stream_alpha(alpha0, it), it == 0, blocks_a, wide, st))
+      return (int)cudaErrorInvalidValue;
+    bp_streamed_var_kernel<4><<<blocks_b, ROW_THREADS, 0, st>>>(a, it == max_iter - 1, false);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
   }
-
-  // ---- syndrome check of the final estimate
-  if (active) {
-    int any = 0;
-    for (int c = w; c < C; c += WORKERS) {
-      int par = synd[(size_t)c * SS + s];
-      for (int i = 0; i < Dc; ++i) {
-        const int v = __ldg(&chk_vars[c * Dc + i]);
-        if (v >= 0) par ^= (post[(size_t)v * SS + s] <= 0.0f);
-      }
-      any |= par;
-    }
-    if (any) atomicOr(&bad[lane], 1);
-  }
-  __syncthreads();
-  if (active && w == 0) conv[s] = bad[lane] ? 0 : 1;
+  if (max_iter == 0)
+    bp_streamed_var_kernel<4><<<blocks_b, ROW_THREADS, 0, st>>>(a, true, true);
+  bp_streamed_parity_kernel<4><<<blocks_c, ROW_THREADS, 0, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -306,17 +394,6 @@ __global__ void __launch_bounds__(ResidentThreads<MAXP>::value) bp_resident_kern
 // Entry point
 // ---------------------------------------------------------------------------
 
-template <int MAXP, bool WIDE = false>
-static int streamed(const uint8_t* synd, const float* prior, const int* chk_vars, const int* vm,
-                    float* msg, float* post, uint8_t* conv, int C, int V, int Dc, int Dv, int S,
-                    int max_iter, int method, float alpha0, cudaStream_t stream) {
-  const dim3 threads(LANES, WORKERS);
-  const int blocks = (S + LANES - 1) / LANES;
-  bp_streamed_kernel<MAXP, WIDE><<<blocks, threads, 0, stream>>>(
-      synd, prior, chk_vars, vm, msg, post, conv, C, V, Dc, Dv, S, max_iter, method, alpha0);
-  return (int)cudaGetLastError();
-}
-
 template <int MAXP, bool EXACT, bool WIDE = false>
 static int resident(const uint8_t* synd, const float* prior, const int* chk_vars, const int* vm,
                     float* post, uint8_t* conv, int C, int V, int Dc, int Dv, int S,
@@ -333,12 +410,15 @@ static int resident(const uint8_t* synd, const float* prior, const int* chk_vars
 // group > 0: the resident route (group shots per block, rows of `stride`
 // slots, `threads` per block, `smem_bytes` of dynamic shared memory, which
 // must equal the layout's); group == 0: the streamed route (msg is its
-// device-memory scratch; it takes no dynamic shared memory).  `wide`: route
-// "wide" on either route, exactly where Dc exceeds MAX_SLOTS.
+// device-memory scratch, S the padded shot count; vec_a: grid A's lane
+// width; blocks_*: the blocks of grids A, B and the parity grid; no dynamic
+// shared memory).  `wide`: route "wide" on either route, exactly where Dc exceeds
+// MAX_SLOTS.
 extern "C" int bp_fixed(const void* synd, const void* prior, const void* chk_vars, const void* vm,
                         void* msg, void* post, void* conv, int C, int V, int Dc, int Dv, int S,
                         int max_iter, int method, float alpha0, int group, int stride,
-                        int threads, int tables_smem, int smem_bytes, int wide, void* stream) {
+                        int threads, int tables_smem, int smem_bytes, int wide, int vec_a,
+                        int blocks_a, int blocks_b, int blocks_c, void* stream) {
   if ((wide != 0) != (Dc > MAX_SLOTS)) return (int)cudaErrorInvalidValue;
   const uint8_t* sy = (const uint8_t*)synd;
   const float* pr = (const float*)prior;
@@ -359,13 +439,7 @@ extern "C" int bp_fixed(const void* synd, const void* prior, const void* chk_var
     if (Dc <= 32) return go([](auto... a) { return resident<32, false>(a...); });
     return (int)cudaErrorInvalidValue;
   }
-  auto go = [&](auto f) {
-    return f(sy, pr, cv, vt, (float*)msg, (float*)post, (uint8_t*)conv, C, V, Dc, Dv, S,
-             max_iter, method, alpha0, st);
-  };
-  if (wide) return go([](auto... a) { return streamed<32, true>(a...); });
-  if (Dc <= 8) return go([](auto... a) { return streamed<8>(a...); });
-  if (Dc <= 16) return go([](auto... a) { return streamed<16>(a...); });
-  if (Dc <= 32) return go([](auto... a) { return streamed<32>(a...); });
-  return (int)cudaErrorInvalidValue;
+  const FlatArgs a = {sy, pr, cv, vt, (float*)msg, (float*)post, (uint8_t*)conv, C, V, Dc, Dv, S};
+  return streamed(a, max_iter, method, alpha0, wide != 0, vec_a, blocks_a, blocks_b, blocks_c,
+                  st);
 }

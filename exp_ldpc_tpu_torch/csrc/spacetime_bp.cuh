@@ -7,8 +7,6 @@
 
 #define BIG 1e30f
 #define MAX_SLOTS 32  // the widest check of every kernel's register instances; wider: route "wide"
-#define LANES 32   // shots per block: one per lane, so warp accesses coalesce
-#define WORKERS 8  // warps per block, splitting each phase of an iteration
 
 __device__ __forceinline__ float phi_f(float x) {
   x = fminf(fmaxf(x, 1e-7f), 30.0f);

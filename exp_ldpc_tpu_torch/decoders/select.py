@@ -30,7 +30,10 @@ in the JAX package, and the code's shape picks the decoder that has it:
   * a fixed-iteration call (:func:`make_bp_decoder`): kernel K6
     (``BPDecoder`` at fixed iterations, f32) where at least
     :data:`K6_MIN_SHOTS` shots of it fit one block's shared memory
-    (:func:`k6_shots`), else K1 with the exit unarmed;
+    (:func:`k6_shots`), or where K6 takes its streamed route by its own
+    rule (1 or 2 shots of checks of 17 slots or more would fit a block:
+    ``bp_cuda.STREAMED_MAX_FIT``, ``STREAMED_MIN_WIDTH``), else K1 with the
+    exit unarmed;
     :func:`make_spacetime_bp_decoder` (rounds >= 1): kernel K2
     (``SpacetimeBPDecoder`` at fixed iterations, f32) where one shot of it
     fits (:func:`k2_shots`), else K3 unarmed.  No rounds:
@@ -64,6 +67,7 @@ from ..utils.cuda_build import resident_fit
 from ..utils.device import DeviceLike, resolve_device
 from .bp import dense_ops_bytes
 from .bp_cuda import resident_bytes as k6_resident_bytes
+from .bp_cuda import streams as k6_streams
 from .spacetime_bp_cuda import resident_bytes as k2_resident_bytes
 from .tanner import TannerELL
 
@@ -100,8 +104,20 @@ H100_SMEM_OPTIN = 232448
 # leads.  K2 resident against K3 (spacetime rows, "fixed"): K2 ahead at every
 # shape where one shot fits, down to one shot a block (hgp_1600 x4: 4.88 vs
 # 7.12 ms at 685 shots, 98.9 vs 129.4 at 16,384; hgp_625 x4 at 4 shots: 2.27
-# vs 2.36, 42.3 vs 51.4), and 9-136x behind on the streamed route
-# (cyclic_lp_4862 x4 and x8, hgp_10000 x8, hgp_15625 x4).
+# vs 2.36, 42.3 vs 51.4), and 9-136x behind on the streamed route as it was
+# (cyclic_lp_4862 x4 and x8, hgp_10000 x8, hgp_15625 x4).  The streamed route
+# as device-memory grids (rows 329-346) still trails K3 there (1.3-1.4x at the
+# cyclic code, 1.4x at hgp_10000 x8 and hgp_15625 x4) and K1 where one
+# shot does not fit (hgp_15625, hgp_40000: 1.6-1.8x; dem_4r), but where
+# K6's own rule streams, 1 or 2 shots of wide checks a block, it leads K1
+# at three of four counts (rows 347-370: cyclic_lp_4862, 24 slots, 1 shot:
+# 12.7 / 23.6 / 174.1 vs 15.1 / 25.9 / 187.5 ms at 1,024 / 2,048 / 16,384,
+# 4% behind at 685; dem_1r, 53 slots, 2 shots: 2.23 / 2.60 / 5.62 vs 2.95 /
+# 2.87 / 6.23 at 685 / 1,024 / 2,048, 15% behind at 16,384, which the rule,
+# blind to the shot count, does not see), and 1.4-4.3x ahead at the 18- and
+# 20-slot probes (rows 371-430: hgp_2880_w18, hgp_4500_w18, hgp_3200_w20,
+# 685-16,384 shots), where K1 leads the resident K6 at the 12-slot ones
+# (1.01-1.43x: hgp_4500_w12, hgp_8000_w12).
 K6_MIN_SHOTS = 8
 
 _TILE = 128   # the reference's BSR tile (exp_ldpc_tpu/decoders/bp_bsr.py:66)
@@ -198,7 +214,10 @@ def flat_choice(tanner, device: torch.device, *, early_stop: bool = True,
         return "bp_core" if early_stop else "K6"
     if msg_dtype == "int8" or early_stop:
         return "K1"
-    return "K6" if k6_shots(tanner, smem_optin(device)) >= K6_MIN_SHOTS else "K1"
+    smem = smem_optin(device)
+    shots = k6_shots(tanner, smem)
+    # where one shot fits yet K6 streams by its own rule (wide checks, 1-2 shots a block)
+    return "K6" if shots >= K6_MIN_SHOTS or (shots >= 1 and k6_streams(tanner, smem)) else "K1"
 
 
 def spacetime_choice(tanner, num_rounds: int, device: torch.device, *,

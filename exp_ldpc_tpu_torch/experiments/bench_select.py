@@ -1,6 +1,7 @@
 """What each decoder-selection point can choose, timed on one NVIDIA GPU.
 
     python -m exp_ldpc_tpu_torch.experiments.bench_select [--only SUBSTR] [--repeats N]
+                                                         [--candidates NAMES] [--tag TEXT]
                                                          [--write PATH]
 
 For each call that :mod:`..decoders.select` answers, every decoder the JAX
@@ -21,8 +22,8 @@ builds excluded).  A candidate is a decoder class and an exit request:
 
 The codes and shot counts are those of the selection's callers: the family
 benchmark's nine codes, HGP n = 15,625 and 40,000, HGP-225's single-shot
-matrix (H|I) and HGP-225's 1- and 4-round circuit-noise detector models
-(flat: 685, 1,024, 2,048 and 16,384 shots, 48 min-sum iterations); HGP-225
+matrix (H|I), HGP-225's 1- and 4-round circuit-noise detector models and
+five HGP codes of 12-20 slot checks (:data:`WIDTH_PROBES`) (flat: 685, 1,024, 2,048 and 16,384 shots, 48 min-sum iterations); HGP-225
 over 4 rounds, the gross code over 12, the cyclic lifted product n = 4,862
 over 4 and 8, HGP n = 10,000 over 8 and n = 15,625 over 4 (spacetime, at
 their callers' shots and iterations).  Syndromes are drawn on the card from
@@ -33,7 +34,9 @@ not run (its row says so).
 One JSON row per (code, shots, candidate): ms per decode, the contract
 (message dtype; exit per shot, per block, global or none), the launched
 kernel's route, the converged share, the mean iterations, the card's name,
-power limit and opt-in shared memory per block.  ``--write PATH`` appends
+power limit and opt-in shared memory per block.  ``--candidates K2,K6``
+times only the named candidates; ``--tag TEXT`` adds ``"tag": TEXT`` to
+every row (which run of a rule's inputs it is).  ``--write PATH`` appends
 the rows.  The 4-round detector model takes ~150 s of host Python; it is
 built in a spawned process while the other rows are timed.  Needs a CUDA
 device.
@@ -151,7 +154,22 @@ def flat_cases() -> List[Case]:
     # the host redecode's regime: shots BP leaves unconverged (faults at 9x the prior)
     out.append(flat_case("hgp225_HI_hard", HI, 9 * q, shots=(685,)))
     out.append(flat_case("dem_1r", *_dem(1)))
+    out += [flat_case(name, H, 1e-3) for name, H in width_probes()]
     return out
+
+
+# HGP codes of (dv, dc)-biregular classical codes, whose checks hold dv + dc
+# slots: 12, 18 and 20, between HGP n = 10,000's 7 and the cyclic lifted
+# product's 24, with 1 or 2 shots of K6 a resident block on an H100
+# (``bp_cuda.STREAMED_MIN_WIDTH``): (name, num_data, dv, dc).
+WIDTH_PROBES = (("hgp_4500_w12", 60, 4, 8), ("hgp_8000_w12", 80, 4, 8),
+                ("hgp_2880_w18", 48, 6, 12), ("hgp_4500_w18", 60, 6, 12),
+                ("hgp_3200_w20", 40, 10, 10))
+
+
+def width_probes() -> List[tuple]:
+    """(name, Z check matrix) of each code of :data:`WIDTH_PROBES`."""
+    return [(name, biregular_hgp(m, dv, dc, seed=0).checks.z) for name, m, dv, dc in WIDTH_PROBES]
 
 
 def dem4_case(dem4) -> Case:
@@ -331,7 +349,8 @@ def candidates(case: Case) -> Sequence[Candidate]:
 
 
 def run_cases(cases: Sequence[Case], repeats: int, dev: torch.device, info: dict,
-              only: Optional[str] = None, write: Optional[str] = None) -> List[dict]:
+              only: Optional[str] = None, write: Optional[str] = None,
+              names: Optional[Sequence[str]] = None, tag: Optional[str] = None) -> List[dict]:
     rows = []
     for case in cases:
         if only and not any(o in f"{case.point}/{case.code}" for o in only.split(",")):
@@ -341,7 +360,11 @@ def run_cases(cases: Sequence[Case], repeats: int, dev: torch.device, info: dict
             synds = [draw_syndromes(M, case.priors, S, 1000 + i, dev)
                      for i in range(repeats + 1)]
             for cand in candidates(case):
+                if names and cand.name not in names:
+                    continue
                 row = measure(case, S, cand, repeats, dev, info, synds)
+                if tag is not None:
+                    row["tag"] = tag
                 print(json.dumps(row), flush=True)
                 rows.append(row)
                 if write:
@@ -358,8 +381,12 @@ def main(argv=None) -> int:
                     help="comma-separated substrings of 'point/code' (e.g. "
                     "'flat/hgp_40000,spacetime')")
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--candidates", default=None,
+                    help="comma-separated candidate names to time (e.g. 'K2,K6'; default all)")
+    ap.add_argument("--tag", default=None, help="a label added to every row")
     ap.add_argument("--write", default=None, metavar="PATH", help="append the rows here")
     args = ap.parse_args(argv)
+    names = args.candidates.split(",") if args.candidates else None
     if not torch.cuda.is_available():
         raise SystemExit("bench_select measures a CUDA device; none is present")
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -372,10 +399,10 @@ def main(argv=None) -> int:
     try:
         dem4 = pool.apply_async(_dem, (4,)) if pool else None
         rows = run_cases(spacetime_cases() + flat_cases(), args.repeats, dev, info, args.only,
-                         args.write)
+                         args.write, names, args.tag)
         if dem4 is not None:
             rows += run_cases([dem4_case(dem4.get())], args.repeats, dev, info, None,
-                              args.write)
+                              args.write, names, args.tag)
     finally:
         if pool is not None:
             pool.terminate()

@@ -7,8 +7,8 @@ Builds the flagship pipeline (HGP-225, 4 rounds, pheno noise with 2/3·p
 priors, min-sum α=0.625, 48 iterations, OSD-CS order 7) in ``--mode``
 (``bposd``, default, at p = 3.48e-3; ``bposd_single_shot`` and
 ``bposd_hybrid`` at p = 0.002, the point their LER artifact holds) on the
-card (``--route streamed``: K2 and K6 on their streamed route, the kernels
-before the shared-memory design, for a before/after trace in one run),
+card (``--route streamed``: K2 and K6 on their streamed route, the
+device-memory grids, for a trace of both routes in one run),
 times ``--repeats`` untraced batches, then traces one more ``run_bposd``
 with :func:`..utils.observability.profiler_trace` (``torch.profiler``, CPU
 and CUDA activities; the Chrome trace moved to ``--trace``) and reads it:
@@ -56,15 +56,19 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 MODES = ("bposd", "bposd_single_shot", "bposd_hybrid")
 _P_DEFAULT = {"bposd": 0.0034822022531844966, "bposd_single_shot": 0.002,
               "bposd_hybrid": 0.002}
-# the ported kernels' grids by function name (a K2 or K6 route each)
+# the ported kernels' grids by function name (a K2 or K6 route each; the
+# streamed routes of K2 and K6 run two grids an iteration and a parity grid)
 _FAMILIES = {"bsr_bp_check_kernel": "K1", "bsr_bp_var_kernel": "K1",
              "bsr_bp_parity_kernel": "K1", "bsr_bp_coop_kernel": "K1 coop",
              "bsr_int8_check_kernel": "K5", "bsr_int8_var_kernel": "K5",
              "bsr_int8_parity_kernel": "K5", "stbp_resident_kernel": "K2 resident",
-             "stbp_streamed_kernel": "K2 streamed", "stbsr_check_kernel": "K3",
+             "stbsr_check_kernel": "K3",
              "stbsr_var_kernel": "K3", "stbsr_parity_kernel": "K3",
              "stbsr_check_wide_kernel": "K3", "bsr_bp_check_wide_kernel": "K1",
-             "bp_resident_kernel": "K6 resident", "bp_streamed_kernel": "K6 streamed"}
+             "bp_resident_kernel": "K6 resident",
+             **{f"{pre}_streamed_{grid}_kernel": f"{k} streamed"
+                for pre, k in (("stbp", "K2"), ("bp", "K6"))
+                for grid in ("check", "check_wide", "var", "parity")}}
 
 
 def _function(name: str) -> str:
@@ -127,7 +131,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--p", type=float, default=None,
                     help="physical error rate (default: 3.48e-3 for bposd, 0.002 for the modes)")
     ap.add_argument("--route", choices=("auto", "streamed"), default="auto",
-                    help="K2's and K6's route (streamed: the 32-shot-block kernels)")
+                    help="K2's and K6's route (streamed: the device-memory grids)")
     ap.add_argument("--shots", type=int, default=16384)
     ap.add_argument("--repeats", type=int, default=5, help="untraced batches timed first")
     ap.add_argument("--seed", type=int, default=0)

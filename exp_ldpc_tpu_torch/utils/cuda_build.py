@@ -21,8 +21,8 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 __all__ = ["CudaKernel", "RowShotPlan", "row_shot_plan", "BSRPlan", "bsr_widths", "bsr_plan",
            "BSR_SHOT_ALIGN", "MAX_SLOTS", "WIDE_VECS", "BSR_ROUTES", "COOP_BLOCKS_PER_SM",
-           "aligned", "ResidentPlan", "resident_plan", "streamed_plan", "resident_max_threads",
-           "device_limits"]
+           "aligned", "ResidentPlan", "resident_plan", "StreamedPlan", "streamed_plan",
+           "STREAMED_SHOT_ALIGN", "pad_shots", "resident_max_threads", "device_limits"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "exp_ldpc_tpu_torch"
@@ -160,21 +160,16 @@ def bsr_plan(checks: int, variables: int, check_degree: int, var_degree: int, sh
 
 
 class ResidentPlan(NamedTuple):
-    """Launch of a whole-decode flat or spacetime BP kernel (K2, K6).
-
-    ``wide``: checks of more than ``MAX_SLOTS`` slots, on either route, take
-    the two-pass check phase (route "wide"; the wrappers set it from the
-    degree, the kernels' entry points refuse a mismatch).
-
-    ``route`` "resident": a block owns ``group`` consecutive shots and keeps
-    all their messages and syndromes in dynamic shared memory for every
+    """Launch of a whole-decode flat or spacetime BP kernel (K2, K6) on the
+    route "resident": a block owns ``group`` consecutive shots and keeps all
+    their messages and syndromes in dynamic shared memory for every
     iteration; each shared-memory row holds ``stride`` (>= group) shot
     slots; ``smem_bytes`` is the block's dynamic shared memory, the tables
-    included when ``tables_smem``.  ``route`` "streamed": one shot's state
-    does not fit in shared memory, so the messages live in device memory and
-    a block of ``STREAMED_THREADS`` threads owns ``STREAMED_SHOTS`` shots
-    (the 32-shot-block kernel); its dynamic shared memory holds the tables
-    alone, where they fit."""
+    included when ``tables_smem``.
+
+    ``wide``: checks of more than ``MAX_SLOTS`` slots take the two-pass
+    check phase (route "wide"; the wrappers set it from the degree, the
+    kernels' entry points refuse a mismatch)."""
 
     route: str
     group: int
@@ -187,13 +182,80 @@ class ResidentPlan(NamedTuple):
 
     @property
     def label(self) -> str:
-        """The route as ``KERNEL.routes`` counts it: "resident", "streamed",
-        "resident_wide" or "streamed_wide"."""
+        """The route as ``KERNEL.routes`` counts it: "resident" or
+        "resident_wide"."""
         return self.route + ("_wide" if self.wide else "")
 
 
-STREAMED_SHOTS, STREAMED_THREADS = 32, 256   # csrc/spacetime_bp.cuh: LANES, LANES * WORKERS
-_STREAMED_STATIC = 4 * STREAMED_SHOTS        # the streamed kernels' static `bad[LANES]` flags
+STREAMED_SHOT_ALIGN = 4   # csrc/streamed_bp.cuh: the streamed route pads its shots to this multiple
+
+
+class StreamedPlan(NamedTuple):
+    """Launch of one K2 or K6 decode on the route "streamed" (one shot's
+    state does not fit in shared memory): the messages live in device
+    memory, ``shots`` columns wide (the caller's ``live`` shots padded with
+    all-zero syndromes to a multiple of ``STREAMED_SHOT_ALIGN``, so every row
+    starts on a 16-byte boundary), and each phase of an iteration is one grid
+    over (row, shot vector) items (``csrc/streamed_bp.cuh``): ``checks``
+    (every check, every round block for K2; its ``route`` "wide" past
+    ``MAX_SLOTS`` slots), ``variables`` (K2: the measurement variables, then
+    the data variables) and, once after the last iteration, ``parity``.
+    The tables are read through the read-only cache."""
+
+    shots: int
+    live: int
+    checks: RowShotPlan
+    variables: RowShotPlan
+    parity: RowShotPlan
+    wide: bool = False
+    route: str = "streamed"
+
+    @property
+    def label(self) -> str:
+        """The route as ``KERNEL.routes`` counts it: "streamed" or
+        "streamed_wide"."""
+        return self.route + ("_wide" if self.wide else "")
+
+    @property
+    def launch_args(self) -> Tuple[int, int, int, int]:
+        """The plan as the C entry points take it: the check grid's lane
+        width and the blocks of the check, variable and parity grids (those
+        two at 4 shots a lane)."""
+        return self.checks.vec, self.checks.blocks, self.variables.blocks, self.parity.blocks
+
+
+def streamed_plan(check_rows: int, var_rows: int, shots: int, width: int,
+                  sm_count: int) -> StreamedPlan:
+    """Plan of a streamed decode of ``shots`` shots over ``check_rows``
+    checks (of ``width`` slots, K2's measurement slots included) and
+    ``var_rows`` variables.  The check grid keeps a check's slots of every
+    owned shot in registers: 4 shots a lane (16-byte f32 accesses) up to 16
+    slots, 1 up to ``MAX_SLOTS`` (2 spilled registers and ran 23-31% slower
+    on an H100 at the cyclic code's 24 and 26 slots); route "wide" holds a
+    few running values per shot whatever the degree: 4.  The variable and
+    parity grids take 4."""
+    if shots < 1 or sm_count < 1:
+        raise ValueError(f"shots ({shots}) and sm_count ({sm_count}) must be positive")
+    padded = -(-shots // STREAMED_SHOT_ALIGN) * STREAMED_SHOT_ALIGN
+    wide = width > MAX_SLOTS
+    va = (4,) if wide or width <= 16 else (1,)
+    return StreamedPlan(padded, shots,
+                        row_shot_plan(check_rows, padded, va, sm_count)._replace(
+                            route="wide" if wide else "default"),
+                        row_shot_plan(var_rows, padded, (4,), sm_count),
+                        row_shot_plan(check_rows, padded, (4,), sm_count), wide)
+
+
+def pad_shots(x, shots: int):
+    """``x`` (rows, S) as a contiguous (rows, ``shots``) tensor whose columns
+    past S are zero (``x`` itself where it already is one, 16-byte aligned)."""
+    import torch
+
+    if x.shape[1] == shots and x.is_contiguous() and aligned(x):
+        return x
+    out = torch.zeros((x.shape[0], shots), dtype=x.dtype, device=x.device)
+    out[:, :x.shape[1]] = x
+    return out
 
 
 def resident_max_threads(width: int) -> int:
@@ -201,14 +263,6 @@ def resident_max_threads(width: int) -> int:
     (``csrc/resident_bp.cuh::ResidentThreads``): 1,024 for check widths up
     to 16 slots (64 registers a thread), 512 above (128)."""
     return 1024 if width <= 16 else 512
-
-
-def streamed_plan(shots: int, table_bytes: int, smem_optin: int) -> ResidentPlan:
-    """The streamed route's launch: ``STREAMED_SHOTS`` shots per block, the
-    tables in dynamic shared memory where they fit there."""
-    tables = table_bytes + _STREAMED_STATIC <= smem_optin
-    return ResidentPlan("streamed", 0, 0, -(-shots // STREAMED_SHOTS), STREAMED_THREADS, tables,
-                        table_bytes if tables else 0)
 
 
 def resident_fit(per_shot_bytes: int, table_bytes: int, budget: int, fixed_bytes: int = 0,
@@ -226,14 +280,14 @@ def resident_fit(per_shot_bytes: int, table_bytes: int, budget: int, fixed_bytes
 def resident_plan(per_shot_bytes: int, table_bytes: int, shots: int, smem_optin: int,
                   sm_count: int, *, fixed_bytes: int = 0, width: int = 16,
                   blocks_per_sm: int = 1, threads: Optional[int] = None,
-                  max_group: Optional[int] = None, pad: int = 0) -> ResidentPlan:
-    """Route and launch of a whole-decode kernel from its shapes.
+                  max_group: Optional[int] = None, pad: int = 0) -> Optional[ResidentPlan]:
+    """Launch of a whole-decode kernel on the resident route, from its shapes.
 
     A block's dynamic shared memory is ``stride * per_shot_bytes +
     fixed_bytes`` plus ``table_bytes`` when the tables sit there too
     (``stride = group + pad``).  If one shot does not fit in
-    ``smem_optin`` (the card's opt-in limit per block), the route is
-    "streamed".  Else, where the batch fits one wave of one block per SM,
+    ``smem_optin`` (the card's opt-in limit per block), there is none (None:
+    the caller takes the streamed route, :func:`streamed_plan`).  Else, where the batch fits one wave of one block per SM,
     ``group`` is ``ceil(shots / sm_count)``, so a few hundred shots still
     spread over every SM, with the widest thread count of the check
     ``width`` (:func:`resident_max_threads`).  A larger batch runs
@@ -255,7 +309,7 @@ def resident_plan(per_shot_bytes: int, table_bytes: int, shots: int, smem_optin:
         return resident_fit(per_shot_bytes, table_bytes, budget, fixed_bytes, pad)
 
     if need(1 + pad, False) > smem_optin:
-        return streamed_plan(shots, table_bytes, smem_optin)
+        return None
     cap = resident_max_threads(width)
     tables, most = fit(smem_optin)
     per_sm = 1

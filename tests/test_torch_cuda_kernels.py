@@ -71,6 +71,34 @@ def setup():
     return tables, prior, synd
 
 
+def _syndromes(M, S, p, seed):
+    """(rows, S) syndromes of i.i.d. errors at rate p on the card."""
+    M = M.tocsr().astype(np.int64)
+    err = (np.random.default_rng(seed).random((S, M.shape[1])) < p).astype(np.int64)
+    return torch.as_tensor(((M @ err.T) % 2).astype(np.uint8)).cuda()
+
+
+@pytest.fixture(scope="module")
+def ragged():
+    """685 syndromes (the host redecode's ragged size, past the fixtures'
+    300) of HGP-225 over 4 rounds, of its (H|I) and of the wide matrix over 2
+    rounds and alone, for the streamed route's ragged cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    H = biregular_hgp(12, 3, 4, seed=0).checks.z
+    W = wide_matrix(60, 300, 33, 40, seed=21)
+    return {"st": _syndromes(SpacetimeCode(H, ROUNDS).spacetime_check_matrix, 685, 3e-3, 30),
+            "flat": _syndromes(SpacetimeCodeSingleShot(H).spacetime_check_matrix, 685, 5e-3, 31),
+            "wide_st": _syndromes(SpacetimeCode(W, 2).spacetime_check_matrix, 685, 3e-3, 32),
+            "wide_flat": _syndromes(W, 685, 3e-3, 33)}
+
+
+def _first(synd, S, ragged, key):
+    """The first S shots of the fixture's syndromes, or of ``ragged[key]``
+    where the fixture holds fewer."""
+    return (synd if S <= synd.shape[1] else ragged[key])[:, :S].contiguous()
+
+
 def _assert_same(kern, plain):
     hk, pk, ck, ik = kern
     hp, pp, cp, ip = plain
@@ -88,23 +116,21 @@ def _counted(kernel, route, fn):
     return out
 
 
-@pytest.mark.parametrize("route", ["auto", "streamed", "streamed_ldg"])
-@pytest.mark.parametrize("S", [1, 77, 256, 299, 300])
+@pytest.mark.parametrize("route", ["auto", "streamed"])
+@pytest.mark.parametrize("S", [1, 77, 256, 299, 300, 685])
 @pytest.mark.parametrize("method,msf", [("ms", 0.625), ("ms", 0.0), ("ps", 0.0)])
-def test_k2_matches_plain(setup, method, msf, S, route):
+def test_k2_matches_plain(setup, ragged, method, msf, S, route):
     """HGP-225 takes the resident route (S = 1 and 77: one shot per block,
     fewer blocks than SMs; 299: 100 blocks of 3 shots, the last of 2); the
-    streamed route, forced, with its tables in shared memory and through
-    the read-only cache."""
+    streamed route, forced, pads 1, 77, 299 and 685 shots to a multiple of 4
+    and drops the padded columns."""
     tables, prior, synd = setup
-    synd = synd[:, :S].contiguous()
+    synd = _first(synd, S, ragged, "st")
     plan = None
-    if route != "auto":
+    if route == "streamed":
         plan = k2_launch_plan(tables, ROUNDS, S, synd.device, route="streamed")
-        assert plan.tables_smem and plan.smem_bytes == k2_resident_bytes(tables, ROUNDS)[2]
-        if route == "streamed_ldg":
-            plan = plan._replace(tables_smem=False, smem_bytes=0)
-    kern = _counted(K2, "resident" if route == "auto" else "streamed",
+        assert plan.live == S and plan.shots % 4 == 0 and plan.shots - S < 4
+    kern = _counted(K2, route if route == "streamed" else "resident",
                     lambda: stbp_fixed(tables, ROUNDS, prior, synd, method, 24, msf, plan=plan))
     plain = stbp_core(tables, ROUNDS, prior, synd, method, 24, msf, early_stop=False)
     _assert_same(kern, plain)
@@ -170,19 +196,21 @@ def test_k2_gross_code_12_rounds(method, msf):
     _assert_same(kern, stbp_core(tables, 12, prior, synd, method, 24, msf, early_stop=False))
 
 
-def test_k2_over_budget_takes_the_streamed_route():
+@pytest.mark.parametrize("S", [1, 40, 77])
+def test_k2_over_budget_takes_the_streamed_route(S):
     """``biregular_hgp(80, 3, 4)`` (n = 10,000) over 8 rounds: 1.56 MB a shot,
-    over the opt-in shared memory; tables through the read-only cache."""
+    over the opt-in shared memory: the streamed route, at ragged shot
+    counts."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     H = biregular_hgp(80, 3, 4, seed=7).checks.z
     tables = tanner_tables(TannerELL.from_check_matrix(H), "cuda")
     Hst = SpacetimeCode(H, 8).spacetime_check_matrix.tocsr().astype(np.int64)
-    err = (np.random.default_rng(7).random((40, Hst.shape[1])) < 1e-3).astype(np.int64)
+    err = (np.random.default_rng(7).random((S, Hst.shape[1])) < 1e-3).astype(np.int64)
     synd = torch.as_tensor(((Hst @ err.T) % 2).astype(np.uint8)).cuda()
     prior = torch.as_tensor(priors_to_llr(np.full(Hst.shape[1], 1e-3))).cuda()
-    plan = k2_launch_plan(tables, 8, 40, synd.device)
-    assert plan.route == "streamed" and not plan.tables_smem
+    plan = k2_launch_plan(tables, 8, S, synd.device)
+    assert plan.route == "streamed" and plan.live == S and plan.shots % 4 == 0
     kern = _counted(K2, "streamed", lambda: stbp_fixed(tables, 8, prior, synd, "ms", 4, 0.625))
     _assert_same(kern, stbp_core(tables, 8, prior, synd, "ms", 4, 0.625, early_stop=False))
 
@@ -289,12 +317,13 @@ def flat():
 
 
 @pytest.mark.parametrize("route", ["auto", "streamed"])
-@pytest.mark.parametrize("S", [1, 77, 299, 300])
+@pytest.mark.parametrize("S", [1, 77, 299, 300, 685])
 @pytest.mark.parametrize("method,msf", [("ms", 0.625), ("ms", 0.0), ("ps", 0.0)])
-def test_k6_matches_plain(flat, method, msf, S, route):
-    """(H|I) takes the resident route; the streamed route forced."""
+def test_k6_matches_plain(flat, ragged, method, msf, S, route):
+    """(H|I) takes the resident route; the streamed route forced (1, 77, 299
+    and 685 shots padded to a multiple of 4)."""
     layout, prior, synd = flat
-    synd = synd[:, :S].contiguous()
+    synd = _first(synd, S, ragged, "flat")
     plan = None if route == "auto" else k6_launch_plan(layout.tables, S, synd.device,
                                                        route="streamed")
     kern = _counted(K6, "resident" if route == "auto" else "streamed",
@@ -316,16 +345,18 @@ def test_k6_resident_plan_variants(flat, tune):
     _assert_same(kern, plain)
 
 
-def test_k6_over_budget_takes_the_streamed_route():
-    """The n = 40,000 HGP: 557 KB a shot, over the opt-in shared memory."""
+@pytest.mark.parametrize("S", [1, 40, 77])
+def test_k6_over_budget_takes_the_streamed_route(S):
+    """The n = 40,000 HGP: 557 KB a shot, over the opt-in shared memory: the
+    streamed route, at ragged shot counts."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     H = biregular_hgp(160, 3, 4, seed=0).checks.z.tocsr().astype(np.int64)
     tables = tanner_tables(TannerELL.from_check_matrix(H), "cuda")
-    err = (np.random.default_rng(8).random((40, H.shape[1])) < 2e-3).astype(np.int64)
+    err = (np.random.default_rng(8).random((S, H.shape[1])) < 2e-3).astype(np.int64)
     synd = torch.as_tensor(((H @ err.T) % 2).astype(np.uint8)).cuda()
     prior = torch.as_tensor(priors_to_llr(np.full(H.shape[1], 2e-3))).cuda()
-    assert k6_launch_plan(tables, 40, synd.device).route == "streamed"
+    assert k6_launch_plan(tables, S, synd.device).route == "streamed"
     kern = _counted(K6, "streamed", lambda: bp_fixed(tables, prior, synd, "ms", 4, 0.625))
     _assert_same(kern, bp_core(tables, prior, synd, "ms", 4, 0.625, early_stop=False))
 
@@ -694,14 +725,14 @@ def wide_case():
 
 
 @pytest.mark.parametrize("route", ["auto", "streamed"])
-@pytest.mark.parametrize("S", [1, 77, 300])
+@pytest.mark.parametrize("S", [1, 77, 300, 685])
 @pytest.mark.parametrize("method,msf", [("ms", 0.625), ("ms", 0.0), ("ps", 0.0)])
-def test_k2_wide_checks(wide_case, method, msf, S, route):
+def test_k2_wide_checks(wide_case, ragged, method, msf, S, route):
     """K2 at 42-slot spacetime checks: route "wide" on the resident and the
     streamed route."""
     tables, _H, out = wide_case
     synd, prior = out["st"]
-    synd = synd[:, :S].contiguous()
+    synd = _first(synd, S, ragged, "wide_st")
     plan = k2_launch_plan(tables, 2, S, synd.device, route=route)
     assert plan.wide and plan.route == ("resident" if route == "auto" else "streamed")
     kern = _counted(K2, plan.label,
@@ -710,13 +741,13 @@ def test_k2_wide_checks(wide_case, method, msf, S, route):
 
 
 @pytest.mark.parametrize("route", ["auto", "streamed"])
-@pytest.mark.parametrize("S", [1, 77, 300])
+@pytest.mark.parametrize("S", [1, 77, 300, 685])
 @pytest.mark.parametrize("method,msf", [("ms", 0.625), ("ms", 0.0), ("ps", 0.0)])
-def test_k6_wide_checks(wide_case, method, msf, S, route):
+def test_k6_wide_checks(wide_case, ragged, method, msf, S, route):
     """K6 at 33- to 40-slot checks: route "wide" on both routes."""
     tables, _H, out = wide_case
     synd, prior = out["flat"]
-    synd = synd[:, :S].contiguous()
+    synd = _first(synd, S, ragged, "wide_flat")
     plan = k6_launch_plan(tables, S, synd.device, route=route)
     assert plan.wide and plan.route == ("resident" if route == "auto" else "streamed")
     kern = _counted(K6, plan.label,

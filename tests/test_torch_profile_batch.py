@@ -47,7 +47,7 @@ def test_summarize_sums_the_ported_kernels_by_route():
         _ev("kernel", "void stbp_resident_kernel<9, true>(unsigned char const*, float)", 0, 40),
         _ev("kernel", "void bp_resident_kernel<8, true>(unsigned char const*, float)", 50, 5),
         _ev("kernel", "void bp_resident_kernel<7, true>(unsigned char const*, float)", 60, 3),
-        _ev("kernel", "void bp_streamed_kernel<8>(unsigned char const*)", 70, 9),
+        _ev("kernel", "void bp_streamed_var_kernel<4>(FlatArgs, bool, bool)", 70, 9),
         _ev("kernel", "void bsr_bp_check_kernel<8, true, 4, 1>(BsrArgs, int, float)", 80, 2),
         _ev("kernel", "void bsr_bp_parity_kernel<16>(BsrArgs, int)", 83, 1),
         _ev("kernel", "void stbsr_var_kernel<4>(StArgs, bool)", 90, 4),

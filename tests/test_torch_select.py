@@ -5,7 +5,8 @@ device it chooses among the same contracts by the H100's measurements
 (``artifacts/select_h100.jsonl``): a call that asks for the early exit
 gets K1 (flat) or K3 (spacetime) with the exit armed; a fixed-iteration
 call gets K6 where at least 8 of its shots fit one block's shared memory,
-else K1, and K2 where one of its shots fits, else K3.  The JAX package's VMEM fit rules are kept,
+or 1-2 shots of checks of 17 slots or more (where K6 streams), else K1, and
+K2 where one of its shots fits, else K3.  The JAX package's VMEM fit rules are kept,
 with their arithmetic equal to JAX's, but the choice no longer asks them.  The
 choice is asked about a ``torch.device("cuda")`` object, which needs no
 card.  K1's plain version is held to the JAX kernel (interpret mode) at a
@@ -25,7 +26,7 @@ from exp_ldpc_tpu_torch.circuits.noise import circuit_noise
 from exp_ldpc_tpu_torch.circuits.storage_sim import build_storage_simulation
 from exp_ldpc_tpu_torch.codes.bivariate_bicycle import gross_code
 from exp_ldpc_tpu_torch.codes.hgp import biregular_hgp
-from exp_ldpc_tpu_torch.decoders import select
+from exp_ldpc_tpu_torch.decoders import bp_cuda, select
 from exp_ldpc_tpu_torch.decoders.bp import BPDecoder, priors_to_llr
 from exp_ldpc_tpu_torch.decoders.bp_bsr import BSRBPDecoder, BSRLayout, bsr_bp_plain
 from exp_ldpc_tpu_torch.decoders.bp_bsr_spacetime import SpacetimeBSRDecoder
@@ -68,7 +69,10 @@ def test_fit_rule_equals_jax(name):
     assert select.fits_stbsr(layout, 4) == jax_fits_stbsr(jt, 4)
     k6, k2 = BLOCK_SHOTS[name]
     assert (select.k6_shots(t), select.k2_shots(t, 4)) == (k6, k2)
-    flat, st = ("K6" if k6 >= select.K6_MIN_SHOTS else "K1"), ("K2" if k2 else "K3")
+    streams = 1 <= k6 <= bp_cuda.STREAMED_MAX_FIT and \
+        t.max_check_degree >= bp_cuda.STREAMED_MIN_WIDTH
+    flat = "K6" if k6 >= select.K6_MIN_SHOTS or streams else "K1"
+    st = "K2" if k2 else "K3"
     assert select.flat_choice(t, CUDA, early_stop=False) == flat
     assert select.spacetime_choice(t, 4, CUDA, early_stop=False) == st
     assert select.flat_choice(t, CUDA) == "K1" and select.spacetime_choice(t, 4, CUDA) == "K3"
@@ -281,3 +285,30 @@ def test_rule_reads_the_cards_shared_memory(monkeypatch):
     assert select.flat_choice(h, CUDA, early_stop=False) == "K1"
     assert select.spacetime_choice(h, 4, CUDA, early_stop=False) == "K3"
     assert select.flat_choice(h, CPU, early_stop=False) == "K6"   # the CPU choice is JAX's
+
+
+def test_fixed_call_takes_k6_where_it_streams_ahead_of_k1():
+    """A fixed call gets K6 on its streamed route where 1 or 2 shots of
+    checks of 17 slots or more would fit a block (the rows behind the rule:
+    the cyclic lifted product n = 4,862, 24 slots, 1 shot; a 53-slot
+    matrix with 2 shots, as the 1-round circuit-noise detector model), and
+    K1 where the checks are narrower (HGP n = 10,000, 7 slots, 1 shot), where
+    no shot fits (n = 40,000) or where 3 to 7 fit; an early-stop call gets K1
+    everywhere."""
+    from scipy import sparse
+
+    from exp_ldpc_tpu_torch.experiments import bench_large_codes as fam
+
+    rng = np.random.default_rng(5)
+    idx = np.concatenate([rng.choice(1600, 53, replace=False) for _ in range(470)])
+    dem_like = sparse.csr_matrix((np.ones(len(idx), np.int64), idx,
+                                  np.arange(0, len(idx) + 1, 53)), (470, 1600))
+    cases = (("cyclic", fam._cyclic_H(), 1, "K6"), ("two shots", dem_like, 2, "K6"),
+             ("hgp n=10000", CODES["hgp n=10000"](), 1, "K1"),
+             ("hgp n=40000", CODES["hgp n=40000"](), 0, "K1"),
+             ("hgp n=2025", fam._hgp_H(36, 42), 5, "K1"))
+    for name, H, fit, want in cases:
+        t = TannerELL.from_check_matrix(H)
+        assert select.k6_shots(t) == fit, name
+        assert select.flat_choice(t, CUDA, early_stop=False) == want, name
+        assert select.flat_choice(t, CUDA) == "K1", name
