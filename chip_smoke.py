@@ -276,12 +276,27 @@ Phases, in order; any failure raises and exits nonzero:
      (2,048 shots, p = 1e-4, min-sum 48 iterations, OSD-0: K2 streamed in
      the spacetime stage, K6 in the final round), its routes and shots/s,
      and the ``bposd_single_shot`` device step at HGP n = 15,625 (two
-     batches of 2,048 x 48: every (H|I) round on K6 streamed).
+     batches of 2,048 x 48: every (H|I) round on K6 streamed);
+ 39. the probes that split where the BP kernels' time goes.  K7
+     (``csrc/dot_chain.cu``, the dot chain of ``scripts/bench_mxu_dtypes.py``)
+     against its plain version at chains of 512 and 4,096 for bf16, f32 and
+     int8 (int8 equal, bf16 and f32 within ``dot_chain_tolerance``, the
+     reordered-sum bound); K1 with each ablation (``no_check``, ``no_route``)
+     against its plain version with the same ablation, bit for bit, at the
+     cyclic code (1,024 x 32) and the detector model's 53-slot checks
+     (route "wide"); then the slice's path, each run counted from 0: the
+     rows of ``bench_mxu_dtypes`` (the script's chains, the rate beside the
+     tensor-core or CUDA-core peak and cuBLAS's), of ``bench_bsr_ablation``
+     (full, no_check, no_route on the cyclic code; full - no_check and
+     full - no_route logged as the split) and of
+     ``bench_precision_microbench``; K7's times at 16,384 dots beside its
+     plain version's and one cuBLAS call on the chain's tiles laid side by
+     side (``library_ms``).  ``--quick`` runs the parity part only.
 
 Each run of the main path (phases 6, 7, the two runs of phase 11, phases
 15, 16 and 20, each run of phase 23, the four runs of phase 24's second
 part, the two runs of phase 25, the three runs of phase 28 and the runs of
-phases 29-36, the two of phase 38) is driven with every launch count
+phases 29-36, the two of phase 38, the two of phase 39) is driven with every launch count
 set to 0 just before it and read just after (phase 16 reads the counts of
 its two ranks); a kernel of that run that was not launched fails the
 script.  A count is one call of
@@ -289,7 +304,7 @@ a kernel's C entry point: for K1, K3 and K5 one whole decode (up to three
 grids per iteration, all enqueued by the one call: a single-shot batch is 5
 K1 calls, a hybrid batch 1), for K2 and K6 one decode (resident: one grid;
 streamed: two grids an iteration and a parity grid), for K4
-one iteration of one shard (two grids).  The line before the
+one iteration of one shard (two grids), for K7 one chain (two grids).  The line before the
 last is the kernel summary JSON (``launches`` summed over those runs,
 ``launches_by_run`` split by run, ``routes`` split by route: K2 and K6
 "resident" / "streamed" / "resident_wide" / "streamed_wide", K1 "grids" /
@@ -363,15 +378,17 @@ from exp_ldpc_tpu_torch.decoders.bp import bp_core, priors_to_llr  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.bp_int8 import (int8_bp_core, int8_bp_oracle,  # noqa: E402
                                                  quantize_priors)
 from exp_ldpc_tpu_torch.decoders.spacetime_bp import stbp_core  # noqa: E402
-from exp_ldpc_tpu_torch.experiments import (bench_bsr_shard, bench_large_codes,  # noqa: E402
+from exp_ldpc_tpu_torch.experiments import (bench_bsr_ablation, bench_bsr_shard,  # noqa: E402
+                                            bench_large_codes, bench_precision_microbench,
                                             shard_capacity)
+from exp_ldpc_tpu_torch.experiments import bench_mxu_dtypes as k7  # noqa: E402
 from exp_ldpc_tpu_torch.native import get_gf2_lib  # noqa: E402
 from exp_ldpc_tpu_torch.experiments.p_sweep import p_sweep  # noqa: E402
 from exp_ldpc_tpu_torch.parallel.mesh import make_mesh, run_world  # noqa: E402
 from exp_ldpc_tpu_torch.parallel.pipeline import StorageDecodePipeline  # noqa: E402
 from exp_ldpc_tpu_torch.sampler.device import DeviceSampler  # noqa: E402
 from exp_ldpc_tpu_torch.utils.bounds import (OPS_FLOAT, OPS_INT8, bound,  # noqa: E402
-                                             streamed_bound)
+                                             dot_chain_bound, streamed_bound)
 from exp_ldpc_tpu_torch.utils.bounds import flat_io as _flat_io  # noqa: E402
 from exp_ldpc_tpu_torch.utils.bounds import st_io as _st_io  # noqa: E402
 
@@ -477,7 +494,7 @@ def phase_card() -> str:
 
 
 KERNELS = {"K1": k1.KERNEL, "K2": k2.KERNEL, "K3": k3.KERNEL, "K4": k4.KERNEL,
-           "K5": k1.KERNEL_INT8, "K6": k6.KERNEL}
+           "K5": k1.KERNEL_INT8, "K6": k6.KERNEL, "K7": k7.KERNEL}
 
 
 def phase_build() -> None:
@@ -2848,6 +2865,10 @@ def phase_quickstart() -> dict:
     return launches
 
 
+# syndrome batches on which phase 37's gate times the choice and its rival in turns
+SELECTION_BATCHES = 2
+
+
 def selection_regimes(dem1: "PriorSetup", dem4):
     """(label, request, case) of phase 37: one shape per selection point and
     regime of the rule (``experiments/bench_select.py``'s cases, cut), the
@@ -2890,12 +2911,42 @@ def selection_regimes(dem1: "PriorSetup", dem4):
     ]
 
 
+def _selection_gate(case, S: int, pool, auto, mine: dict, rival: dict, best: dict,
+                    dev: torch.device) -> None:
+    """Phase 37's gate: the choice and its fastest rival by the medians, in
+    turns on the same batches; the choice's least time within 10% of the
+    lesser of the two.  Adds both least and median times to their rows."""
+    from exp_ldpc_tpu_torch.experiments import bench_select as bs
+
+    (rival_c,) = [c for c in pool if (c.name, c.request) == (rival["candidate"],
+                                                              rival["request"])]
+    turns = bs.measure_turns(case, S, [auto, rival_c], SELECTION_BATCHES, dev)
+    t_mine, t_rival = min(turns[auto]), min(turns[rival_c])
+    log(f"  {case.code}: in turns (ms): "
+        f"{auto.name}/{auto.request} {[round(x, 3) for x in turns[auto]]}, "
+        f"{rival_c.name}/{rival_c.request} {[round(x, 3) for x in turns[rival_c]]}")
+    check(t_mine <= 1.10 * min(t_mine, t_rival),
+          f"{case.code}: the selection's {auto.name}/{auto.request} ({t_mine:.3f} ms, least in "
+          f"turns; median of 3 {mine['ms']:.3f}) within 10% of the fastest allowed "
+          f"({rival_c.name}/{rival_c.request} {t_rival:.3f} ms; {best['candidate']}/"
+          f"{best['request']} fastest by the medians)")
+    for r, c in ((mine, auto), (rival, rival_c)):
+        r.update(ms_turns_least=min(turns[c]), ms_turns_median=float(np.median(turns[c])))
+
+
 def phase_selection(dev: torch.device, smi: str, dem1: "PriorSetup", dem4_result) -> list:
     """The decoder selection against every candidate it chooses among, at one
     shape per selection point and regime: each candidate timed on the same
     syndromes (``bench_select.measure``: CUDA events, median of 3 distinct
     batches); the automatic choice must be within 10% of the fastest
-    candidate of the caller's request.  A fixed-iteration call allows the
+    candidate of the caller's request.  The gate times the choice and its
+    fastest rival by those medians again, in turns on the same batches
+    (``bench_select.measure_turns``, a b b a on each of
+    :data:`SELECTION_BATCHES`), and compares each one's least time: an
+    event-timed decode includes whatever holds the host back while it
+    enqueues, and a shared host only adds to it (K1's armed exit at a
+    converging batch is ~150 launches of near-empty grids, so its time
+    there is the host's enqueue time).  A fixed-iteration call allows the
     fixed-iteration decoders (K6, K2, K1 and K3 unarmed, the plain roll
     decoder); an early-stop call the decoders with an exit (K1's and K3's
     armed exits, the plain cores' per-shot freezing, the roll decoder's).
@@ -2927,13 +2978,123 @@ def phase_selection(dev: torch.device, smi: str, dem1: "PriorSetup", dem4_result
                         + (f"{r['ms']:.3f} ms [{r['route']}; conv {r['converged']:.3f}, iters "
                            f"{r['iters_mean']:.1f}]" if r["ms"] is not None
                            else "not run (" + r["skipped"] + ")") for r in measured))
-        check(mine["ms"] <= 1.10 * best["ms"],
-              f"{case.code}: the selection's {auto.name}/{auto.request} ({mine['ms']:.3f} ms) "
-              f"within 10% of the fastest allowed, {best['candidate']}/{best['request']} "
-              f"({best['ms']:.3f} ms)")
+        rivals = [r for r in allowed if r is not mine]
+        if rivals:
+            _selection_gate(case, S, pool, auto, mine, min(rivals, key=lambda r: r["ms"]),
+                            best, dev)
         rows += [dict(r, regime=label, auto=r is mine, allowed=r in allowed) for r in measured]
     log(f"  card: {smi}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 39: the probes that split where the BP kernels' time goes, K7 (the
+# dot chain of bench_mxu_dtypes) and K1's profiling hook (bench_bsr_ablation)
+# ---------------------------------------------------------------------------
+
+K7_CHAINS = (512, 4096)
+ABLATIONS = tuple(a for a in k1.ABLATIONS if a)   # "no_check", "no_route"
+
+
+def _k7_case(dtype: str, chain: int, rng, dev: torch.device) -> float:
+    """K7 against its plain version at one chain; returns max |K7 - plain|."""
+    a, b = k7.operands(rng, dtype, dev)
+    before = k7.KERNEL.launches
+    kern = k7.dot_chain(a, b, chain, dtype)
+    plain = k7.dot_chain_plain(a, b, chain, dtype)
+    torch.cuda.synchronize()
+    check(k7.KERNEL.launches == before + 1, f"K7 {dtype} chain {chain}: one call")
+    diff = (kern - plain).abs()
+    if dtype == "int8":
+        check(torch.equal(kern, plain), f"K7 int8 chain {chain}: equal to plain")
+    else:
+        parts = k7.dot_chain_parts(chain, k7.S, torch.cuda.get_device_properties(dev)
+                                   .multi_processor_count)
+        tol = k7.dot_chain_tolerance(a, b, chain, dtype, parts)
+        check(bool((diff <= tol).all()),
+              f"K7 {dtype} chain {chain} ({parts} parts): |K7 - plain| <= the reordered-sum "
+              f"bound (max {float(diff.max()):.3e}, at most {float((diff / tol).max()):.4f} "
+              f"of the bound)")
+    return float(diff.max())
+
+
+def _ablation_case(fs: "FlatSetup", prior, synd, method: str, msf: float, early_stop: bool,
+                   iters: int, ablate: str) -> float:
+    """K1 with ``ablate`` against its plain version, every output bit for bit."""
+    route = "wide" if fs.layout.tables.max_check_degree > 32 else "grids"
+    before = dict(k1.KERNEL.routes)
+    kern = k1.bsr_bp_decode(fs.layout, prior, synd, method, iters, msf, early_stop, 128, ablate)
+    plain = k1.bsr_bp_plain(fs.layout, prior, synd, method, iters, msf, early_stop, 128, ablate)
+    torch.cuda.synchronize()
+    check(_routes_since(k1.KERNEL, before) == {route: 1},
+          f"{fs.name} {ablate}: one K1 call on route {route!r} (never coop)")
+    tag = (f"K1 {ablate} {fs.name} S={synd.shape[1]} {method} alpha={msf} "
+           f"early_stop={early_stop}")
+    check(all(torch.equal(x, y) for x, y in zip(kern, plain)),
+          f"{tag}: hard, posterior, conv, iters bit for bit (conv rate "
+          f"{float(kern[2].float().mean()):.4f})")
+    return float((kern[1] - plain[1]).abs().max())
+
+
+def phase_probes(cyclic: "FlatSetup", dem: "PriorSetup", dev: torch.device, quick: bool):
+    """Returns (K7's worst error by type, K1's worst error by ablation, the
+    runs' launch counts, K7's times)."""
+    log("== phase 39: K7 (the dot chain) and K1's ablations against their plain versions; "
+        "bench_mxu_dtypes, bench_bsr_ablation, bench_precision_microbench")
+    rng = np.random.default_rng(39)
+    err_k7 = {dtype: max(_k7_case(dtype, chain, rng, dev) for chain in K7_CHAINS)
+              for dtype in k7.DTYPES}
+    err_abl = {}
+    synd_c = cyclic.syndromes(FAM_SHOTS, FAM_P, seed=39)
+    synd_d = dem.draw(1024, seed=39)
+    for ablate in ABLATIONS:
+        worst = 0.0
+        for method, msf, es in (("ms", ALPHA, False), ("ms", 0.0, True), ("ps", 0.0, False)):
+            worst = max(worst, _ablation_case(cyclic, cyclic.prior(FAM_P), synd_c, method, msf,
+                                              es, FAM_ITERS, ablate))
+        for method, msf, es in (("ms", ALPHA, False), ("ps", 0.0, True)):
+            worst = max(worst, _ablation_case(dem, dem.prior_llr(), synd_d, method, msf, es,
+                                              24, ablate))
+        err_abl[ablate] = worst
+    if quick:
+        return err_k7, err_abl, {}, {}
+    runs, t = {}, {}
+    reset_counts()
+    mxu = k7.main([])
+    runs["bench_mxu_dtypes"] = launch_counts()
+    check(runs["bench_mxu_dtypes"]["K7"] > 0,
+          f"bench_mxu_dtypes launched K7 ({runs['bench_mxu_dtypes']['K7']} chains)")
+    reset_counts()
+    abl = bench_bsr_ablation.main([])
+    runs["bench_bsr_ablation"] = launch_counts()
+    check(runs["bench_bsr_ablation"]["K1"] > 0,
+          f"bench_bsr_ablation launched K1 ({runs['bench_bsr_ablation']['K1']} decodes)")
+    ms = {r["ablate"]: r["ms_per_decode"] for r in abl}
+    log(f"  K1 split at the cyclic code, 1,024 x 32 (ms a decode): full {ms['full']:.4f}, "
+        f"no_check {ms['no_check']:.4f}, no_route {ms['no_route']:.4f}; check phase "
+        f"(full - no_check) {ms['full'] - ms['no_check']:.4f} "
+        f"({(ms['full'] - ms['no_check']) / ms['full']:.1%}), routing beyond the copy "
+        f"(full - no_route) {ms['full'] - ms['no_route']:.4f} "
+        f"({(ms['full'] - ms['no_route']) / ms['full']:.1%})")
+    bench_precision_microbench.main([])
+    # K7 at 16,384 dots: the rows' best kernel time, the plain version and one
+    # cuBLAS call on the chain's dot pairs laid side by side
+    for r in mxu:
+        dtype, chain = r["dtype"], r["chain_lo"]
+        a, b = k7.operands(rng, dtype, dev)
+        t[f"K7_{dtype}"] = r["t_lo_s"] * 1e3
+        t[f"K7_{dtype}_plain"] = _timed(lambda: k7.dot_chain_plain(a, b, chain, dtype))[1]
+        fn, out = k7.library_chain(a, b, chain, dtype)
+        fn()
+        t[f"K7_{dtype}_library"] = _timed(fn)[1]
+        t[f"K7_{dtype}_library_out"] = out
+        t[f"K7_{dtype}_tflops"] = r["tflops"]
+        t[f"K7_{dtype}_share"] = r["bound_share"]
+        log(f"  K7 {dtype}: {r['tflops']:.1f} TFLOP/s a dot by the slope ({r['bound_share']:.1%}"
+            f" of {r['peak_tflops']} peak), cuBLAS {r['library_tflops']:.1f} on one period; at "
+            f"{chain} dots {t[f'K7_{dtype}']:.4f} ms, plain {t[f'K7_{dtype}_plain']:.2f}, "
+            f"cuBLAS {t[f'K7_{dtype}_library']:.4f} ({out} out)")
+    return err_k7, err_abl, runs, t
 
 
 # ---------------------------------------------------------------------------
@@ -3142,6 +3303,9 @@ def main() -> int:
          "replaces": "exp_ldpc_tpu/decoders/bp_bsr.py:799"},
         {"name": "K6 bp_fixed", "route": "cuda", "source": src + "bpflat.cu",
          "replaces": "exp_ldpc_tpu/decoders/bp_pallas.py:123"},
+        {"name": "K7 dot_chain_run (one count = one chain: 2 grids; ms at 16,384 dots, bf16)",
+         "route": "cuda", "source": src + "dot_chain.cu",
+         "replaces": "scripts/bench_mxu_dtypes.py:51"},
     ]
     if not args.quick:
         # The main path, run by run, each counted from 0: the bposd p_sweep
@@ -3202,6 +3366,8 @@ def main() -> int:
         by_run["bench_stbsr_ler"], t_ler, err_ler = phase(phase_stbsr_ler, dev)
         by_run["quickstart"] = phase(phase_quickstart)
         sel_rows = phase(phase_selection, dev, smi, dem, dem4_result)
+        err_k7, err_abl, probe_runs, t_probe = phase(phase_probes, fams[1], dem, dev, False)
+        by_run.update(probe_runs)
         launches = {name: sum(c[name] for c in by_run.values()) for name in KERNELS}
         for name, n in launches.items():
             check(n > 0, f"{name} launched on the main path ({n} launches)")
@@ -3211,8 +3377,21 @@ def main() -> int:
         t.update(dem_times)
         t.update(t_tt)
         t.update(t_ler)
+        t.update(t_probe)
         bounds = kernel_bounds(su, flats, big, fams, cap, k3b_shapes["HGP"], _gross(dev), dem, t,
                                cyclic_H)
+        # K7 at 16,384 dots, S = 128, by type (bf16 the entry's main shape); its
+        # library call: one cuBLAS product over the chain's dot pairs laid side by side
+        bounds["K7"] = {**dot_chain_bound("bf16", k7.CHAIN_LO, k7.S),
+                        "library_ms": t["K7_bf16_library"]}
+        for dtype in k7.DTYPES:
+            b = dot_chain_bound(dtype, k7.CHAIN_LO, k7.S)
+            bounds["K7"].update({f"bound_ms_{dtype}": b["bound_ms"],
+                                 f"bound_by_{dtype}": b["bound_by"],
+                                 f"library_ms_{dtype}": t[f"K7_{dtype}_library"],
+                                 f"library_out_{dtype}": t[f"K7_{dtype}_library_out"],
+                                 f"tflops_{dtype}": t[f"K7_{dtype}_tflops"],
+                                 f"bound_share_{dtype}": t[f"K7_{dtype}_share"]})
         b_dm = streamed_dm_bounds(su, flats, dense)
         timing = {"K1": ("K1_S16384", "bench", "S16384_es", f"S{S_REDECODE}_es", "fam_cyclic",
                          "fam_qclp", "dem_dc53"),
@@ -3222,7 +3401,8 @@ def main() -> int:
                   "K3b": ("K3b_HGP", "cyclic"),
                   "K4": ("K4_capacity_D8", "bench_D1", "bench_D2", "bench_D4"),
                   "K5": ("K5_cyclic", "qclp", "dem_dc53"),
-                  "K6": ("K6_S16384", "bench", f"S{S_REDECODE}")}
+                  "K6": ("K6_S16384", "bench", f"S{S_REDECODE}"),
+                  "K7": ("K7_bf16", "f32", "int8")}
         for kern in kernels:
             key = kern["name"].split()[0]
             if key == "K3b":
@@ -3290,6 +3470,9 @@ def main() -> int:
                 kern["k1_ms"] = t["K1_shard_capacity"]
                 kern["k1_ms_bench"] = t["K1_shard_bench"]
                 kern["max_abs_err_n40000"] = err_k4_big
+    if args.quick:
+        err_k7, err_abl, *_ = phase(phase_probes, fams[1], dem, dev, True)
+    err["K7"] = max(err_k7.values())
     if args.quick:  # K3b's regime is not checked with --quick
         kernels = [k for k in kernels if not k["name"].startswith("K3b")]
         for kern in kernels:
@@ -3306,6 +3489,12 @@ def main() -> int:
             kern["max_abs_err_dem4"] = err_dem4
         if key in err_wide:
             kern["max_abs_err_wide"] = err_wide[key]
+        if key == "K1":
+            for ablate, e in err_abl.items():
+                kern[f"max_abs_err_ablate_{ablate}"] = e
+        if key == "K7":
+            for dtype, e in err_k7.items():
+                kern[f"max_abs_err_{dtype}"] = e
     bg.shutdown()
     if not args.quick:
         log("host path (run_simulation through p_sweep, device sampler) shots/s: "

@@ -57,6 +57,16 @@
 // registers do not grow with Dc (bsr_checks_wide).  Each check, variable and
 // parity is computed by one thread in the plain version's order, so results
 // are bit-identical to it.
+//
+// The profiling hook `ablate` of the TPU kernel (bp_bsr.py:231-236, driven by
+// experiments/bench_bsr_ablation.py) takes one cost centre out to split the
+// kernel's time: BSR_NO_CHECK skips grid A (grid B then reads the v2c
+// messages as c2v; in iteration 0 they are the priors, which grid A would
+// have read); BSR_NO_ROUTE replaces grid B by a copy grid (bsr_copy: the
+// posterior is the prior, every message, padded slots included, negated),
+// after which phase C finds parity 0.  As the TPU kernel turns its dead-plane
+// skipping off under an ablation (bp_bsr.py:263), grid A then stores c2v in
+// every slot.  Production callers pass BSR_FULL.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,6 +76,8 @@
 #include "bsr_phases.cuh"
 
 namespace cg = cooperative_groups;
+
+enum { BSR_FULL = 0, BSR_NO_CHECK = 1, BSR_NO_ROUTE = 2 };  // BsrArgs::ablate
 
 __device__ __forceinline__ float bf16_bits(uint16_t u) { return __uint_as_float((uint32_t)u << 16); }
 
@@ -103,15 +115,17 @@ __device__ __forceinline__ void bsr_checks(const BsrArgs& a, int it, float alpha
 #pragma unroll
     for (int v = 0; v < VEC; ++v) check_update<MAXP>(x[v], Dc, sy.u8[v] ? -1.0f : 1.0f, METHOD, alpha);
     const int ns = __ldg(&a.nslot[c]);
+    const bool raw = a.ablate == BSR_NO_ROUTE;   // c2v in every slot, for the copy grid
 #pragma unroll
     for (int i = 0; i < MAXP; ++i) {
       if (i < Dc) {
         const int var = __ldg(&a.chk_vars[e0 + i]);
         // a live slot takes c2v; a padded one below nslot BIG - c2v; the
         // others keep +BIG, stored once in iteration 0
-        if (var >= 0 || i < ns || it == 0) {
+        if (var >= 0 || i < ns || it == 0 || raw) {
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) t[v] = var >= 0 ? x[v][i] : (i < ns ? BIG - bf(x[v][i]) : BIG);
+          for (int v = 0; v < VEC; ++v)
+            t[v] = var >= 0 || raw ? x[v][i] : (i < ns ? BIG - bf(x[v][i]) : BIG);
           st_bf16<VEC>(msg + (e0 + i) * SS + s0, t);
         }
       }
@@ -156,16 +170,17 @@ __device__ __forceinline__ void bsr_checks_wide(const BsrArgs& a, int it, float 
       for (int v = 0; v < VEC; ++v) w[v].fold(i, t[v], METHOD);
     }
     const int ns = __ldg(&a.nslot[c]);
+    const bool raw = a.ablate == BSR_NO_ROUTE;
     for (int i = 0; i < Dc; ++i) {
       const int var = __ldg(&a.chk_vars[e0 + i]);
       // as phase A: a live slot takes c2v, a padded one below nslot BIG - c2v,
       // the others keep +BIG, stored once in iteration 0
-      if (var < 0 && i >= ns && it > 0) continue;
+      if (var < 0 && i >= ns && it > 0 && !raw) continue;
       bsr_incoming<VEC>(a, it, e0 + i, var, s0, t);
 #pragma unroll
       for (int v = 0; v < VEC; ++v) {
         const float out = w[v].out(i, t[v], METHOD, alpha);
-        t[v] = var >= 0 ? out : (i < ns ? BIG - bf(out) : BIG);
+        t[v] = var >= 0 || raw ? out : (i < ns ? BIG - bf(out) : BIG);
       }
       st_bf16<VEC>(msg + (e0 + i) * a.S + s0, t);
     }
@@ -195,6 +210,9 @@ __device__ __forceinline__ void bsr_vars(const BsrArgs& a, int it, bool out) {
     const int* edges = a.vm + (size_t)u * Dv;
     float total[VEC], pb[VEC], t[VEC];
     const float pr = __ldg(&prior[u]);
+    // BSR_NO_CHECK: no grid A stored iteration 0's messages; they are bf16(prior)
+    const bool init = a.ablate == BSR_NO_CHECK && it == 0;
+    const uint16_t pr_bits = __bfloat16_as_ushort(__float2bfloat16_rn(pr));
 #pragma unroll
     for (int v = 0; v < VEC; ++v) total[v] = pr;
     if (DVR > 0) {
@@ -204,7 +222,12 @@ __device__ __forceinline__ void bsr_vars(const BsrArgs& a, int it, bool out) {
         if (j < Dv) {
           const int k = __ldg(&edges[j]);
           if (k >= 0) {
-            m[j] = ld_raw<2 * VEC>(msg + (size_t)k * SS + s0);
+            if (init) {
+#pragma unroll
+              for (int v = 0; v < VEC; ++v) m[j].u16[v] = pr_bits;
+            } else {
+              m[j] = ld_raw<2 * VEC>(msg + (size_t)k * SS + s0);
+            }
 #pragma unroll
             for (int v = 0; v < VEC; ++v) total[v] += bf16_bits(m[j].u16[v]);
           }
@@ -229,7 +252,7 @@ __device__ __forceinline__ void bsr_vars(const BsrArgs& a, int it, bool out) {
         if (k >= 0) {
           ld_bf16<VEC>(msg + (size_t)k * SS + s0, t);
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) total[v] += t[v];
+          for (int v = 0; v < VEC; ++v) total[v] += init ? bf(pr) : t[v];
         }
       }
 #pragma unroll
@@ -240,7 +263,7 @@ __device__ __forceinline__ void bsr_vars(const BsrArgs& a, int it, bool out) {
           __nv_bfloat16* p = msg + (size_t)k * SS + s0;
           ld_bf16<VEC>(p, t);
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) t[v] = pb[v] - t[v];
+          for (int v = 0; v < VEC; ++v) t[v] = pb[v] - (init ? bf(pr) : t[v]);
           st_bf16<VEC>(p, t);
         }
       }
@@ -250,6 +273,46 @@ __device__ __forceinline__ void bsr_vars(const BsrArgs& a, int it, bool out) {
       for (int v = 0; v < VEC; ++v) hd.u8[v] = pb[v] <= 0.0f;
       st_raw<VEC>(a.hard + (size_t)u * SS + s0, hd);
       st_f32<VEC>((float*)a.post + (size_t)u * SS + s0, total);
+    }
+  }
+}
+
+// ---- BSR_NO_ROUTE's copy grid in place of phase B (the TPU kernel's
+// copy-through stand-in, bp_bsr.py:413-423): rows 0..V-1 are the variables
+// (posterior = prior and hard bytes 0 where they are read, so phase C finds
+// parity 0 as the stand-in's zeroed accumulator), rows V..V+C-1 the checks
+// (every slot's message negated, padded slots included).
+template <int VEC>
+__device__ __forceinline__ void bsr_copy(const BsrArgs& a, int it, bool out) {
+  const size_t SS = (size_t)a.S;
+  __nv_bfloat16* msg = (__nv_bfloat16*)a.msg;
+  RowItems items(a.V + a.C, a.S, VEC);
+  int r, s0;
+  while (items.next(r, s0, VEC)) {
+    if (bsr_stopped(a, it, s0 / a.sb)) continue;
+    float t[VEC];
+    if (r < a.V) {
+      if (!out) continue;
+      Pack<VEC> hd;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) hd.u8[v] = 1;
+      if (r == 0) st_raw<VEC>(a.conv + s0, hd);   // as phase B: conv starts at 1
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) hd.u8[v] = 0;
+      st_raw<VEC>(a.hard + (size_t)r * SS + s0, hd);
+      const float pr = __ldg(&((const float*)a.prior)[r]);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) t[v] = pr;
+      st_f32<VEC>((float*)a.post + (size_t)r * SS + s0, t);
+    } else {
+      const size_t e0 = (size_t)(r - a.V) * a.Dc;
+      for (int i = 0; i < a.Dc; ++i) {
+        __nv_bfloat16* p = msg + (e0 + i) * SS + s0;
+        ld_bf16<VEC>(p, t);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) t[v] = -t[v];
+        st_bf16<VEC>(p, t);
+      }
     }
   }
 }
@@ -273,6 +336,13 @@ template <int VEC, int DVR>
 __global__ void __launch_bounds__(ROW_THREADS) bsr_bp_var_kernel(const BsrArgs a, int it, bool out) {
   if (a.flags && a.flags[BSR_DONE]) return;
   bsr_vars<VEC, DVR>(a, it, out);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(ROW_THREADS) bsr_bp_copy_kernel(const BsrArgs a, int it,
+                                                                  bool out) {
+  if (a.flags && a.flags[BSR_DONE]) return;
+  bsr_copy<VEC>(a, it, out);
 }
 
 template <int VEC>
@@ -345,6 +415,17 @@ static bool vars(const BsrArgs& a, int it, bool out, int vec, int blocks, cudaSt
   return false;
 }
 
+// BSR_NO_ROUTE's copy grid, at phase B's lane width and grid.
+static bool copy(const BsrArgs& a, int it, bool out, int vec, int blocks, cudaStream_t st) {
+  switch (vec) {
+    case 1: bsr_bp_copy_kernel<1><<<blocks, ROW_THREADS, 0, st>>>(a, it, out); return true;
+    case 2: bsr_bp_copy_kernel<2><<<blocks, ROW_THREADS, 0, st>>>(a, it, out); return true;
+    case 4: bsr_bp_copy_kernel<4><<<blocks, ROW_THREADS, 0, st>>>(a, it, out); return true;
+    case 8: bsr_bp_copy_kernel<8><<<blocks, ROW_THREADS, 0, st>>>(a, it, out); return true;
+    default: return false;
+  }
+}
+
 static bool parity(const BsrArgs& a, int it, int vec, int blocks, cudaStream_t st) {
   switch (vec) {
     case 1: bsr_bp_parity_kernel<1><<<blocks, ROW_THREADS, 0, st>>>(a, it); return true;
@@ -409,17 +490,19 @@ static int launch_coop(const BsrArgs& a, float alpha, int adaptive, int n_iter, 
 // a 16-byte boundary).  route: the plan's, BSR_GRIDS, BSR_COOP (one launch
 // of the largest of the three grids, refused where the instance or the
 // grid does not exist) or BSR_WIDE (required exactly where Dc exceeds
-// MAX_SLOTS).
+// MAX_SLOTS).  ablate: BSR_FULL, or the profiling hook's BSR_NO_CHECK /
+// BSR_NO_ROUTE (never on route BSR_COOP).
 extern "C" int bsr_bp_run(const void* chk_vars, const void* vm, const void* nslot,
                           const void* synd, const void* prior, void* msg, void* post, void* conv,
                           void* hard, void* gbad, void* flags, int C, int V, int Dc, int Dv,
                           int S, int S_live, int sb, int G, int method, float alpha, int adaptive,
                           int n_iter, int vec_a, int blocks_a, int vec_b, int blocks_b,
-                          int vec_c, int blocks_c, int route, void* stream) {
+                          int vec_c, int blocks_c, int route, int ablate, void* stream) {
   const BsrArgs a = {(const int*)chk_vars, (const int*)vm, (const int*)nslot,
                      (const uint8_t*)synd, prior, msg, post, (uint8_t*)conv, (uint8_t*)hard,
-                     (int*)gbad, (int*)flags, C, V, Dc, Dv, S, S_live, sb, G};
-  if (!bsr_plan_ok(a, vec_a, vec_b, vec_c, route) || (gbad == nullptr) != (flags == nullptr))
+                     (int*)gbad, (int*)flags, C, V, Dc, Dv, S, S_live, sb, G, ablate};
+  if (!bsr_plan_ok(a, vec_a, vec_b, vec_c, route) || (gbad == nullptr) != (flags == nullptr) ||
+      ablate < BSR_FULL || ablate > BSR_NO_ROUTE || (ablate != BSR_FULL && route == BSR_COOP))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (route == BSR_COOP) {
@@ -435,8 +518,10 @@ extern "C" int bsr_bp_run(const void* chk_vars, const void* vm, const void* nslo
   for (int it = 0; it < n_iter; ++it) {
     const float al = adaptive ? (float)(1.0 - ldexp(1.0, -(it + 1))) : alpha;
     const bool out = early || it == n_iter - 1;
-    if (!checks(a, it, vec_a, method, al, blocks_a, route == BSR_WIDE, st) ||
-        !vars(a, it, out, vec_b, blocks_b, st) ||
+    if ((ablate != BSR_NO_CHECK &&
+         !checks(a, it, vec_a, method, al, blocks_a, route == BSR_WIDE, st)) ||
+        !(ablate == BSR_NO_ROUTE ? copy(a, it, out, vec_b, blocks_b, st)
+                                 : vars(a, it, out, vec_b, blocks_b, st)) ||
         (out && !parity(a, it, vec_c, blocks_c, st)))
       return (int)cudaErrorInvalidValue;
     const cudaError_t err = cudaGetLastError();

@@ -367,7 +367,7 @@ extern "C" int bsr_bp_int8_run(const void* chk_vars, const void* vm, const void*
                                int route, void* stream) {
   const BsrArgs a = {(const int*)chk_vars, (const int*)vm, nullptr, (const uint8_t*)synd,
                      prior_q, msg, post, (uint8_t*)conv, (uint8_t*)hard, (int*)gbad, (int*)flags,
-                     C, V, Dc, Dv, S, S_live, sb, G};
+                     C, V, Dc, Dv, S, S_live, sb, G, 0};
   if (!bsr_plan_ok(a, vec_a, vec_b, vec_c, route) || route == BSR_COOP ||
       (gbad == nullptr) != (flags == nullptr))
     return (int)cudaErrorInvalidValue;

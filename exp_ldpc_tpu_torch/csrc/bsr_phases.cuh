@@ -38,6 +38,7 @@ struct BsrArgs {
   int S;                 // shots of every array (a multiple of every phase's VEC)
   int S_live;            // the caller's shots; the padded ones never count towards the exit
   int sb, G;             // shots per exit block (a multiple of every VEC), blocks of S
+  int ablate;            // K1's profiling hook (bsr_bp.cu: BSR_FULL, BSR_NO_CHECK, BSR_NO_ROUTE); K5: 0
 };
 
 // Shot block g stopped before iteration it: its last iteration left no live

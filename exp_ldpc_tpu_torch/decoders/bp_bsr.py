@@ -41,6 +41,17 @@ thread's registers do not grow with the degree.
 ``KERNEL.launches`` / ``KERNEL_INT8.launches`` count decodes, ``routes``
 split them by route.
 
+K1 keeps the TPU kernel's profiling hook ``ablate`` (``bp_bsr.py:231-236``,
+driven by ``experiments/bench_bsr_ablation.py``): ``"no_check"`` skips the
+check update (the variable update reads the v2c messages as c2v);
+``"no_route"`` replaces the variable update and the parity by a copy (the
+posterior is the prior, every message is negated, the parity is 0, so a
+shot converges exactly where its syndrome is zero).  As in JAX, an
+ablation turns the min-sum dead-plane rule off (every padded slot is
+rewritten, as for sum-product) and never takes the cooperative route.
+Production callers leave it empty; K5 has none (nor has the JAX
+``_kernel_int8``).
+
 Numerics follow the TPU kernel (``bp_bsr.py:226-543``):
 
   * the initial v2c message is bf16(prior[var]); padded slots hold
@@ -88,12 +99,13 @@ from .bp_int8 import (alpha_num_of, int8_step, int8_syndrome_ok, int8_v2c0,
 from .tanner import TannerELL
 
 __all__ = ["BSRLayout", "auto_shot_block", "bsr_bp_decode", "bsr_bp_plain",
-           "bsr_bp_decode_int8", "bsr_bp_int8_plain", "BSRBPDecoder", "KERNEL", "KERNEL_INT8"]
+           "bsr_bp_decode_int8", "bsr_bp_int8_plain", "BSRBPDecoder", "KERNEL", "KERNEL_INT8",
+           "ABLATIONS"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # csrc/bsr_bp.cu::bsr_bp_run: 11 arrays; C, V, Dc, Dv, S, S_live, sb, G, method; alpha;
-# adaptive, n_iter, (vec, blocks) of the three phases, route; the stream.
-KERNEL = CudaKernel("bsr_bp.cu", "bsr_bp_run", [_P] * 11 + [_I] * 9 + [_F] + [_I] * 9 + [_P])
+# adaptive, n_iter, (vec, blocks) of the three phases, route, ablate; the stream.
+KERNEL = CudaKernel("bsr_bp.cu", "bsr_bp_run", [_P] * 11 + [_I] * 9 + [_F] + [_I] * 10 + [_P])
 # csrc/bsr_bp_int8.cu::bsr_bp_int8_run: 10 arrays; C, V, Dc, Dv, S, S_live, sb, G,
 # alpha_num, n_iter, (vec, blocks) of the three phases, route; the stream.
 KERNEL_INT8 = CudaKernel("bsr_bp_int8.cu", "bsr_bp_int8_run", [_P] * 10 + [_I] * 17 + [_P])
@@ -104,6 +116,14 @@ _BF16 = torch.bfloat16
 # host redecode's sizes); False keeps every decode on one grid per phase
 # (for comparisons of the two routes).
 COOPERATIVE = True
+# K1's profiling hook: the ablation's name -> csrc/bsr_bp.cu's BSR_FULL, BSR_NO_CHECK, BSR_NO_ROUTE
+ABLATIONS = {"": 0, "no_check": 1, "no_route": 2}
+
+
+def _check_ablate(ablate: str) -> str:
+    if ablate not in ABLATIONS:
+        raise ValueError(f"unknown ablate {ablate!r}: expected one of {sorted(ABLATIONS)}")
+    return ablate
 
 
 def _round_up(x: int, m: int) -> int:
@@ -195,12 +215,18 @@ def _parity_ok(post: torch.Tensor, synd: torch.Tensor, t: TannerTables) -> torch
 
 
 def _bsr_iter_plain(t: TannerTables, msg, synd_sign, prior, method: str, alpha: float,
-                    rewrite_pad):
+                    rewrite_pad, ablate: str = ""):
     """One flooding iteration on every shot: msg (C, Dc, S) bf16 v2c ->
-    (new msg (C, Dc, S) bf16, posterior (V, S) f32)."""
+    (new msg (C, Dc, S) bf16, posterior (V, S) f32); ``ablate`` as
+    :func:`bsr_bp_decode`'s."""
     C, Dc, S = msg.shape
     Dv = t.max_var_degree
-    c2v = check_update_cm(msg.float(), synd_sign, method, alpha).to(_BF16).float()
+    if ablate == "no_check":
+        c2v = msg.float()
+    else:
+        c2v = check_update_cm(msg.float(), synd_sign, method, alpha).to(_BF16).float()
+    if ablate == "no_route":   # the TPU kernel's copy-through stand-in (bp_bsr.py:413-423)
+        return (-c2v).to(_BF16), prior[:, None].expand(t.num_vars, S)
     zero_row = torch.zeros((1, S), device=msg.device)
     g = torch.cat([c2v.reshape(C * Dc, S), zero_row])[t.vm_from_cm]      # (V, Dv, S)
     total = prior[:, None] + g[:, 0]
@@ -243,11 +269,12 @@ def _iterate_shot_blocks(step, parity_ok, msg, post, max_iter: int, early_stop: 
 
 def bsr_bp_plain(layout: BSRLayout, prior_llr: torch.Tensor, syndromes: torch.Tensor,
                  method: str, max_iter: int, ms_scaling_factor: float,
-                 early_stop: bool = True, shot_block: int = 128):
+                 early_stop: bool = True, shot_block: int = 128, ablate: str = ""):
     """Plain version of K1 on the tensors' device; same arguments and
     outputs as :func:`bsr_bp_decode`.  All shots iterate together; a shot
     block whose shots have all converged stops updating."""
     method = normalize_method(method)
+    ablate = _check_ablate(ablate)
     t = layout.tables
     C, V, Dc = t.num_checks, t.num_vars, t.max_check_degree
     S = syndromes.shape[1]
@@ -256,20 +283,31 @@ def bsr_bp_plain(layout: BSRLayout, prior_llr: torch.Tensor, syndromes: torch.Te
     synd = syndromes.to(torch.uint8)
     synd_sign = 1.0 - 2.0 * synd.to(torch.float32)
     slot = torch.arange(Dc, device=dev)
-    rewrite_pad = ~t.chk_mask & (slot[None, :] < layout.slot_limits(method)[:, None])
+    rewrite_pad = ~t.chk_mask & (slot[None, :] < _slot_limits(layout, method, ablate)[:, None])
     edge_prior = torch.where(t.chk_mask, prior[t.chk_vars], BIG).to(_BF16)
     msg = edge_prior[:, :, None].expand(C, Dc, S).contiguous()
+    if ablate == "no_route":   # the stand-in zeroes the parity: only a zero syndrome passes
+        zero_synd = (synd == 0).all(dim=0)
+        parity_ok = lambda p: zero_synd   # noqa: E731
+    else:
+        parity_ok = lambda p: _parity_ok(p, synd, t)   # noqa: E731
     post, conv, iters = _iterate_shot_blocks(
         lambda it, m: _bsr_iter_plain(t, m, synd_sign, prior, method,
-                                      alpha_at(it, ms_scaling_factor), rewrite_pad),
-        lambda p: _parity_ok(p, synd, t), msg, prior[:, None].expand(V, S).clone(), max_iter,
-        early_stop, shot_block)
+                                      alpha_at(it, ms_scaling_factor), rewrite_pad, ablate),
+        parity_ok, msg, prior[:, None].expand(V, S).clone(), max_iter, early_stop, shot_block)
     return (post <= 0).to(torch.uint8), post, conv, iters
+
+
+def _slot_limits(layout: BSRLayout, method: str, ablate: str) -> torch.Tensor:
+    """The padded-slot rewrite table of a decode: the JAX kernel turns its
+    min-sum dead-plane skipping off under an ablation (``bp_bsr.py:263``),
+    so every padded slot is rewritten there, as for sum-product."""
+    return layout.slot_limits("ps" if ablate else method)
 
 
 def bsr_bp_decode(layout: BSRLayout, prior_llr: torch.Tensor, syndromes: torch.Tensor,
                   method: str, max_iter: int, ms_scaling_factor: float,
-                  early_stop: bool = True, shot_block: int = 128):
+                  early_stop: bool = True, shot_block: int = 128, ablate: str = ""):
     """syndromes (C, S) 0/1 -> (hard (V, S) uint8, posterior (V, S) f32,
     converged (S,) bool, iters (S,) int32), the JAX ``bsr_bp_decode``
     contract with its early exit per block of ``shot_block`` shots.
@@ -279,25 +317,31 @@ def bsr_bp_decode(layout: BSRLayout, prior_llr: torch.Tensor, syndromes: torch.T
     with ``early_stop`` a shot block skips every iteration after the first
     that left none of its shots unconverged, and once every block has
     stopped the remaining grids return at once, all without a host
-    synchronisation."""
+    synchronisation.
+
+    ``ablate`` is the TPU kernel's profiling hook (module docstring):
+    ``""`` (every production caller), ``"no_check"`` or ``"no_route"``;
+    another value raises."""
     method = normalize_method(method)
+    ablate = _check_ablate(ablate)
     dev = syndromes.device
     if dev.type == "cpu":
         return bsr_bp_plain(layout, prior_llr, syndromes, method, max_iter,
-                            ms_scaling_factor, early_stop, shot_block)
+                            ms_scaling_factor, early_stop, shot_block, ablate)
     prior, S = _check_call("bsr_bp_decode", layout, prior_llr, syndromes, max_iter,
                            torch.float32, "prior_llr")
     if S == 0:  # a grid of no blocks is not a launch
         return _no_shots(layout.num_vars, torch.float32, dev)
     st = _CardDecode(layout, syndromes, max_iter, early_stop, shot_block, int8=False,
-                     coop=COOPERATIVE and method == "ms")
+                     coop=COOPERATIVE and method == "ms", ablate=ablate)
     t, plan = layout.tables, st.plan
     msf = float(ms_scaling_factor)
     KERNEL.launch(
-        t.chk_vars_k.data_ptr(), t.vm_k.data_ptr(), layout.slot_limits(method).data_ptr(),
-        *st.pointers(prior), *st.shape_args(), 0 if method == "ps" else 1, msf,
-        int(msf == 0.0), int(max_iter), *st.grid_args(), BSR_ROUTES[plan.route],
-        torch.cuda.current_stream(dev).cuda_stream, route=plan.route)
+        t.chk_vars_k.data_ptr(), t.vm_k.data_ptr(),
+        _slot_limits(layout, method, ablate).data_ptr(), *st.pointers(prior), *st.shape_args(),
+        0 if method == "ps" else 1, msf, int(msf == 0.0), int(max_iter), *st.grid_args(),
+        BSR_ROUTES[plan.route], ABLATIONS[ablate], torch.cuda.current_stream(dev).cuda_stream,
+        route=plan.route)
     return st.outputs()
 
 
@@ -331,7 +375,8 @@ class _CardDecode:
     (max_iter, groups) ``gbad`` table."""
 
     def __init__(self, layout: BSRLayout, syndromes: torch.Tensor, max_iter: int,
-                 early_stop: bool, shot_block: int, int8: bool, coop: bool = False):
+                 early_stop: bool, shot_block: int, int8: bool, coop: bool = False,
+                 ablate: str = ""):
         t = layout.tables
         dev = syndromes.device
         C, V = t.num_checks, t.num_vars
@@ -339,7 +384,7 @@ class _CardDecode:
         sb, _G = _blocks(shot_block, S)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         self.plan = plan = bsr_plan(C, V, t.max_check_degree, t.max_var_degree, S, sb, sms, int8,
-                                    coop)
+                                    coop, ablate)
         Sp = plan.shots
         synd = syndromes.to(torch.uint8)
         if Sp != S or not synd.is_contiguous() or not aligned(synd):

@@ -324,6 +324,28 @@ def measure(case: Case, S: int, cand: Candidate, repeats: int, dev: torch.device
     return row
 
 
+def measure_turns(case: Case, S: int, cands: Sequence[Candidate], batches: int,
+                  dev: torch.device) -> Dict[Candidate, List[float]]:
+    """Every candidate's ms per decode at ``S`` shots, timed in turns on the
+    same ``batches`` syndrome batches (the seeds of :func:`measure`): after
+    one warm-up call each, each batch is decoded in the order a b .. b a, so
+    every candidate sees each stretch of the host's load.  Returns every
+    sample, per candidate."""
+    M = decoded_matrix(case)
+    synds = [draw_syndromes(M, case.priors, S, 1000 + i, dev) for i in range(batches)]
+    decs = [decoder(case, c, dev) for c in cands]
+    for dec in decs:
+        dec.decode_tensors(synds[0])
+    times: Dict[Candidate, List[float]] = {c: [] for c in cands}
+    order = list(range(len(cands)))
+    for s in synds:
+        for i in order + order[::-1]:
+            times[cands[i]].append(_event_ms(lambda: decs[i].decode_tensors(s))[1])
+    del decs
+    torch.cuda.empty_cache()
+    return times
+
+
 def card(dev: torch.device) -> dict:
     """The card's name, power limit (``nvidia-smi``) and opt-in shared
     memory per block and SM count (as the launch plans read them; the

@@ -9,14 +9,26 @@ own).  Each input is read once and each output written once ("on chip");
 where one shot's state does not fit on chip (the streamed routes of K2 and
 K6) the messages must also go to device memory and back every iteration
 (:func:`streamed_bound`).
+
+The matrix-unit probe's dot chain (K7, :func:`dot_chain_bound`) runs on the
+tensor cores where its type has them: NVIDIA's dense peaks for the H100 SXM,
+989.4 TFLOP/s for bf16 products summed in f32 and 1,978.9 TOP/s for int8
+products summed in int32; f32 stays on the CUDA cores' 67 TFLOP/s.  Every
+rate here is the card's published peak at its 700 W limit, not a
+measurement.
 """
 from __future__ import annotations
 
-__all__ = ["HBM_BYTES_PER_S", "OPS_PER_S", "OPS_FLOAT", "OPS_INT8", "bound", "table_bytes",
-           "flat_io", "st_io", "streamed_bound"]
+__all__ = ["HBM_BYTES_PER_S", "OPS_PER_S", "TENSOR_OPS_PER_S", "OPS_FLOAT", "OPS_INT8",
+           "ABLATE_OPS", "bound", "table_bytes", "flat_io", "st_io",
+           "streamed_bound", "dot_chain_bound", "DOT_ELEMENT_BYTES"]
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 OPS_PER_S = 67e12           # float32 / int32 outside the tensor cores
+# the peak of a product by operand type: the tensor cores' dense rates for
+# bf16 (f32 sums) and int8 (int32 sums); f32 products run on the CUDA cores
+TENSOR_OPS_PER_S = {"bf16": 989.4e12, "int8": 1978.9e12, "f32": OPS_PER_S}
+DOT_ELEMENT_BYTES = {"bf16": 2, "int8": 1, "f32": 4}
 # Arithmetic per edge, shot and iteration, counted from the plain versions:
 # compares, selects, minima, adds and multiplies only.  A type conversion
 # (the bf16 kernels round a message three times) is not counted, so one count
@@ -29,13 +41,18 @@ OPS_PER_S = 67e12           # float32 / int32 outside the tensor cores
 # shift, sign parity, negate-select (9); add, clip, subtract, clip (4);
 # parity (1): 14.
 OPS_FLOAT, OPS_INT8 = 11, 14
+# K1's profiling hook (experiments/bench_bsr_ablation.py): the operations an
+# ablation leaves of OPS_FLOAT, whose check side is 8: "no_check" the
+# variable side and the parity (3), "no_route" the check side and the
+# copy's negation (9)
+ABLATE_OPS = {"": OPS_FLOAT, "no_check": 3, "no_route": 9}
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, ops_per_s: float = OPS_PER_S) -> dict:
     """``bound_ms`` (the larger of bytes over :data:`HBM_BYTES_PER_S` and
-    operations over :data:`OPS_PER_S`), what sets it (``bound_by``: "bytes"
-    or "operations") and both counts."""
-    tb, to = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / OPS_PER_S
+    operations over ``ops_per_s``, :data:`OPS_PER_S` by default), what sets
+    it (``bound_by``: "bytes" or "operations") and both counts."""
+    tb, to = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / ops_per_s
     return {"bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
             "bound_bytes": int(nbytes), "bound_ops": int(ops)}
 
@@ -67,3 +84,14 @@ def streamed_bound(io: int, rows: int, tab, nnz: int, shots: int, iters: int) ->
     write of each f32 message."""
     per_iter = rows * shots + table_bytes(tab) + 2 * 4 * nnz * shots
     return bound(io + iters * per_iter, OPS_FLOAT * nnz * shots * iters)
+
+
+def dot_chain_bound(dtype: str, chain: int, S: int = 128) -> dict:
+    """The bound of one dot chain (K7, ``experiments/bench_mxu_dtypes.py``):
+    ``chain`` dots of 2 * 128 * 128 * S operations at the peak of ``dtype``
+    ("bf16", "int8" or "f32", :data:`TENSOR_OPS_PER_S`); a (1024, 128) and b
+    (8192, S) read once, the (128, S) f32 output written once.  Bound by
+    operations at every type and chain the probe runs."""
+    elt = DOT_ELEMENT_BYTES[dtype]
+    nbytes = elt * (1024 * 128 + 8192 * S) + 4 * 128 * S
+    return bound(nbytes, 2.0 * 128 * 128 * S * chain, TENSOR_OPS_PER_S[dtype])

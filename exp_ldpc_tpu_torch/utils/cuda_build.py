@@ -129,7 +129,7 @@ BSR_ROUTES = {"grids": 0, "coop": 1, "wide": 2}   # csrc/bsr_phases.cuh: BSR_GRI
 
 def bsr_plan(checks: int, variables: int, check_degree: int, var_degree: int, shots: int,
              shot_block: int, sm_count: int, int8: bool = False,
-             coop: bool = False) -> BSRPlan:
+             coop: bool = False, ablate: str = "") -> BSRPlan:
     """Plan of a K1 or K5 decode of ``shots`` shots with exit blocks of
     ``shot_block`` (already resolved, ``bp_bsr._blocks``).  Each phase takes
     the widest of :func:`bsr_widths` that divides the shot block (the padded
@@ -138,8 +138,10 @@ def bsr_plan(checks: int, variables: int, check_degree: int, var_degree: int, sh
     cooperative route: min-sum) the route is "coop" where the kernel has the
     instance (checks of 7 or 8 slots, variables of up to 8 edges, lane
     widths 4 / 8 / 16) and every phase's grid fits ``COOP_BLOCKS_PER_SM``
-    blocks per SM at once, so all of them are resident together.  Checks of
-    more than ``MAX_SLOTS`` slots take route "wide"."""
+    blocks per SM at once, so all of them are resident together.  Under
+    K1's profiling hook (``ablate`` not empty) the route is never "coop":
+    the JAX package forces its unrolled kernel there.  Checks of more than
+    ``MAX_SLOTS`` slots take route "wide"."""
     if shots < 1 or shot_block < 1:
         raise ValueError(f"shots ({shots}) and shot_block ({shot_block}) must be positive")
     padded = -(-shots // BSR_SHOT_ALIGN) * BSR_SHOT_ALIGN
@@ -153,7 +155,8 @@ def bsr_plan(checks: int, variables: int, check_degree: int, var_degree: int, sh
                plan.parity.blocks) <= COOP_BLOCKS_PER_SM * sm_count
     if check_degree > MAX_SLOTS:
         plan = plan._replace(route="wide")
-    elif (coop and not int8 and check_degree in (7, 8) and var_degree <= 8 and fits
+    elif (coop and not int8 and not ablate and check_degree in (7, 8) and var_degree <= 8
+            and fits
             and (plan.checks.vec, plan.variables.vec, plan.parity.vec) == (4, 8, 16)):
         plan = plan._replace(route="coop")
     return plan

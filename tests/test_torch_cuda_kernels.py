@@ -1,4 +1,4 @@
-"""Kernels K1 to K6 against their plain PyTorch versions on a CUDA card.
+"""Kernels K1 to K7 against their plain PyTorch versions on a CUDA card.
 
 Marked ``gpu``: skipped where no CUDA device is present (the CPU suite);
 on a machine with a card run ``python -m pytest --noconftest -m gpu
@@ -29,7 +29,12 @@ accumulated, and decodes at D = 1 and 3 agree to the same bounds as the
 other kernels'.  Checks wider than the register instances (more than 32
 slots) take route "wide" in K2 (both routes), K3, K4 and K6: a random check
 matrix made from a seed (row weights 33 to 40, so some checks have padded
-slots) holds each to its plain version at the same bounds.
+slots) holds each to its plain version at the same bounds.  K1's profiling
+hook (``ablate``: no check update, or a copy in place of the routing) is held
+to the plain version with the same ablation, bit for bit, on both routes
+that take it.  K7, the dot chain of the matrix-unit probe, is held to its
+plain version: int8 equal, bf16 and f32 within the reordered-sum bound
+``dot_chain_tolerance``.
 """
 import numpy as np
 import pytest
@@ -514,6 +519,58 @@ def test_k5_wide_checks(dem_wide, early_stop, S):
     kern = _counted(K5, "wide", lambda: bsr_bp_decode_int8(layout, prior_q, synd, 24, 160,
                                                            early_stop, 128))
     _assert_equal(kern, plain, 128, early_stop)
+
+
+@pytest.mark.parametrize("ablate", ["no_check", "no_route"])
+@pytest.mark.parametrize("case,S", [("flat", 77), ("flat", 685), ("cyclic", 300),
+                                    ("wide", 300)])
+@pytest.mark.parametrize("method,msf,early_stop", [("ms", 0.625, False), ("ms", 0.0, True),
+                                                   ("ps", 0.0, False), ("ps", 0.0, True)])
+def test_k1_ablations(request, ablate, case, S, method, msf, early_stop):
+    """K1's profiling hook: without grid A (``no_check``) or with the copy
+    grid in place of grid B (``no_route``), on route "grids" (min-sum at 77
+    and 685 shots would take "coop" in full: an ablation never does) and
+    "wide"; every output equal to the plain version's with the same
+    ablation, bit for bit, one call per decode."""
+    fixture = {"flat": "flat_mixed", "cyclic": "cyclic", "wide": "dem_wide"}[case]
+    layout, prior, synd = request.getfixturevalue(fixture)
+    synd = synd[:, :S].contiguous()
+    plain = bsr_bp_plain(layout, prior, synd, method, 12, msf, early_stop, 128, ablate)
+    route = "wide" if case == "wide" else "grids"
+    kern = _counted(K1, route, lambda: bsr_bp_decode(layout, prior, synd, method, 12, msf,
+                                                     early_stop, 128, ablate))
+    _assert_equal(kern, plain, 128, early_stop)
+    if ablate == "no_route":
+        assert torch.equal(kern[2], (synd == 0).all(dim=0))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("chain,S", [(0, 128), (8, 128), (512, 128), (4096, 128), (1000, 256)])
+def test_k7_matches_plain(dtype, chain, S):
+    """K7 (the dot chain, experiments/bench_mxu_dtypes.py) against its plain
+    version: int8 equal, bf16 and f32 within ``dot_chain_tolerance`` (the
+    parts the kernel split each accumulator's chain into counted); b of
+    int8 given in either layout."""
+    from exp_ldpc_tpu_torch.experiments import bench_mxu_dtypes as k7
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    a, b = k7.operands(np.random.default_rng(chain + S), dtype, torch.device("cuda"), S)
+    plain = k7.dot_chain_plain(a, b, chain, dtype)
+    before = k7.KERNEL.launches
+    kern = k7.dot_chain(a, b, chain, dtype)
+    torch.cuda.synchronize()
+    assert k7.KERNEL.launches == before + 1
+    assert kern.dtype == torch.float32 and kern.shape == (128, S)
+    if dtype == "int8":
+        assert torch.equal(kern, plain)
+        assert torch.equal(k7.dot_chain(a, k7.b_tiles_nk(b), chain, dtype), plain)
+    else:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        parts = k7.dot_chain_parts(chain, S, sms)
+        tol = k7.dot_chain_tolerance(a, b, chain, dtype, parts)
+        assert bool(((kern - plain).abs() <= tol).all())
+    assert torch.equal(k7.dot_chain(a, b, chain, dtype), kern)   # the same bits every run
 
 
 @pytest.mark.parametrize("coop", [True, False])

@@ -270,6 +270,33 @@ def test_bench_select_auto_candidate_is_the_built_decoder():
             assert cand in bs.candidates(case)
 
 
+def test_bench_select_times_candidates_in_turns(monkeypatch):
+    """``bench_select.measure_turns`` (phase 37's gate) decodes each batch
+    with every candidate in the order a b b a, the same batches for both,
+    after one warm-up call each, and returns every timed sample."""
+    from exp_ldpc_tpu_torch.experiments import bench_select as bs
+
+    case = bs.flat_case("hgp225", _hgp225(), 1e-3, shots=(16,))
+    a, b = bs.FLAT[0], bs.FLAT[2]
+    calls = []
+
+    class Dec:
+        def __init__(self, cand):
+            self.cand = cand
+
+        def decode_tensors(self, s):
+            calls.append((self.cand.name, int(s.sum())))
+
+    monkeypatch.setattr(bs, "decoder", lambda case, cand, dev: Dec(cand))
+    monkeypatch.setattr(bs, "_event_ms", lambda fn: (fn(), float(len(calls))))
+    times = bs.measure_turns(case, 16, [a, b], 2, CPU)
+    assert [n for n, _ in calls] == ["K1", "bp_core"] + ["K1", "bp_core", "bp_core", "K1"] * 2
+    batches = [s for _, s in calls[2:]]
+    assert batches[:4] == [batches[0]] * 4 and batches[4:] == [batches[4]] * 4
+    assert calls[0][1] == calls[1][1] == batches[0]
+    assert times == {a: [3.0, 6.0, 7.0, 10.0], b: [4.0, 5.0, 8.0, 9.0]}
+
+
 def test_rule_reads_the_cards_shared_memory(monkeypatch):
     """Without a card behind the device the rule fits shots into the H100's
     232,448 bytes a block; the card's own value moves the fixed-call choice:
