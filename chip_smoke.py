@@ -279,19 +279,27 @@ Phases, in order; any failure raises and exits nonzero:
      batches of 2,048 x 48: every (H|I) round on K6 streamed);
  39. the probes that split where the BP kernels' time goes.  K7
      (``csrc/dot_chain.cu``, the dot chain of ``scripts/bench_mxu_dtypes.py``)
-     against its plain version at chains of 512 and 4,096 for bf16, f32 and
-     int8 (int8 equal, bf16 and f32 within ``dot_chain_tolerance``, the
-     reordered-sum bound); K1 with each ablation (``no_check``, ``no_route``)
-     against its plain version with the same ablation, bit for bit, at the
-     cyclic code (1,024 x 32) and the detector model's 53-slot checks
-     (route "wide"); then the slice's path, each run counted from 0: the
+     against its plain version at chains of 0, 8, 16, 512, 4,096, 4,104 and
+     the timed 16,384 and 131,072 (S = 128) and 1,000 (S = 256) for bf16,
+     f32 and int8 (int8 equal, bf16
+     and f32 within ``dot_chain_tolerance``, the reordered-sum bound; one
+     count a call, the same bits on a second call); K1 with each ablation
+     (``no_check``, ``no_route``) against its plain version with the same
+     ablation, bit for bit, at the cyclic code (1,024 x 32) and the
+     detector model's 53-slot checks (route "wide"); then the slice's path,
+     each run counted from 0: the
      rows of ``bench_mxu_dtypes`` (the script's chains, the rate beside the
      tensor-core or CUDA-core peak and cuBLAS's), of ``bench_bsr_ablation``
      (full, no_check, no_route on the cyclic code; full - no_check and
      full - no_route logged as the split) and of
      ``bench_precision_microbench``; K7's times at 16,384 dots beside its
      plain version's and one cuBLAS call on the chain's tiles laid side by
-     side (``library_ms``).  ``--quick`` runs the parity part only.
+     side (``library_ms``, device times alike), each type's slope at most
+     105% of its published peak and of its peak at the card's largest SM
+     clock (``clock_share``), its
+     fixed cost a call, and the L2 read rate it needs beside a copy of b.
+     ``--quick``
+     runs the parity part only.
 
 Each run of the main path (phases 6, 7, the two runs of phase 11, phases
 15, 16 and 20, each run of phase 23, the four runs of phase 24's second
@@ -2992,30 +3000,43 @@ def phase_selection(dev: torch.device, smi: str, dem1: "PriorSetup", dem4_result
 # dot chain of bench_mxu_dtypes) and K1's profiling hook (bench_bsr_ablation)
 # ---------------------------------------------------------------------------
 
-K7_CHAINS = (512, 4096)
+# (chain, S): 16 dots are fewer than the card's blocks (a block a dot), 4,104 / 8
+# is not a multiple of 64, 1,000 runs two column tiles; 16,384 and 131,072 are the
+# chains bench_mxu_dtypes times
+K7_CASES = ((0, 128), (8, 128), (16, 128), (512, 128), (4096, 128), (4104, 128), (1000, 256),
+            (k7.CHAIN_LO, k7.S), (k7.CHAIN_HI, k7.S))
+# a slope past the peak would mean dots left out: held against the published
+# peak (bound_share) and against the peak at the card's own clock (clock_share)
+K7_MAX_SHARE = 1.05
 ABLATIONS = tuple(a for a in k1.ABLATIONS if a)   # "no_check", "no_route"
 
 
-def _k7_case(dtype: str, chain: int, rng, dev: torch.device) -> float:
-    """K7 against its plain version at one chain; returns max |K7 - plain|."""
-    a, b = k7.operands(rng, dtype, dev)
+def _k7_case(dtype: str, chain: int, S: int, rng, dev: torch.device) -> tuple:
+    """K7 against its plain version at one chain, one call a count and the
+    same bits on a second call; returns (max |K7 - plain|, the plain
+    version's time in ms)."""
+    a, b = k7.operands(rng, dtype, dev, S)
     before = k7.KERNEL.launches
     kern = k7.dot_chain(a, b, chain, dtype)
-    plain = k7.dot_chain_plain(a, b, chain, dtype)
     torch.cuda.synchronize()
-    check(k7.KERNEL.launches == before + 1, f"K7 {dtype} chain {chain}: one call")
+    check(k7.KERNEL.launches == before + 1, f"K7 {dtype} chain {chain} S={S}: one call, one count")
+    plain, plain_ms = _timed(lambda: k7.dot_chain_plain(a, b, chain, dtype))
+    check(torch.equal(k7.dot_chain(a, b, chain, dtype), kern),
+          f"K7 {dtype} chain {chain} S={S}: the same bits on a second call")
     diff = (kern - plain).abs()
+    plan = k7.dot_chain_plan(chain, S, torch.cuda.get_device_properties(dev)
+                             .multi_processor_count)
     if dtype == "int8":
-        check(torch.equal(kern, plain), f"K7 int8 chain {chain}: equal to plain")
+        check(torch.equal(kern, plain), f"K7 int8 chain {chain} S={S} {tuple(plan)}: equal to "
+              "plain")
     else:
-        parts = k7.dot_chain_parts(chain, k7.S, torch.cuda.get_device_properties(dev)
-                                   .multi_processor_count)
-        tol = k7.dot_chain_tolerance(a, b, chain, dtype, parts)
+        tol = k7.dot_chain_tolerance(a, b, chain, dtype, plan.parts)
         check(bool((diff <= tol).all()),
-              f"K7 {dtype} chain {chain} ({parts} parts): |K7 - plain| <= the reordered-sum "
-              f"bound (max {float(diff.max()):.3e}, at most {float((diff / tol).max()):.4f} "
-              f"of the bound)")
-    return float(diff.max())
+              f"K7 {dtype} chain {chain} S={S} (steps, blocks, column tiles {tuple(plan)}, "
+              f"{plan.parts} parts): |K7 - plain| <= the reordered-sum bound (max "
+              f"{float(diff.max()):.3e}, at most "
+              f"{float(torch.where(tol > 0, diff / tol, diff).max()):.4f} of the bound)")
+    return float(diff.max()), plain_ms
 
 
 def _ablation_case(fs: "FlatSetup", prior, synd, method: str, msf: float, early_stop: bool,
@@ -3036,13 +3057,56 @@ def _ablation_case(fs: "FlatSetup", prior, synd, method: str, msf: float, early_
     return float((kern[1] - plain[1]).abs().max())
 
 
+def _k7_rows(mxu: list, k7_cases: dict) -> dict:
+    """K7 at 16,384 dots by type from ``bench_mxu_dtypes``' rows: the best
+    kernel time, the plain version (timed where :func:`_k7_case` held it to
+    K7 at that chain) and one cuBLAS call on the chain's dot pairs laid side
+    by side; each slope at most :data:`K7_MAX_SHARE` of the published peak
+    and of the peak at the card's own clock."""
+    t = {}
+    for r in mxu:
+        dtype, chain = r["dtype"], r["chain_lo"]
+        check(0 < r["bound_share"] <= K7_MAX_SHARE,
+              f"K7 {dtype}: the slope runs at {r['bound_share']:.1%} of the published peak "
+              f"{r['peak_tflops']} (at most {K7_MAX_SHARE:.0%})")
+        check(0 < r["clock_share"] <= K7_MAX_SHARE,
+              f"K7 {dtype}: the slope runs at {r['clock_share']:.1%} of the peak at the card's "
+              f"{r['sm_clock_max_mhz']:.0f} MHz x {r['sm_count']} SMs "
+              f"({r['clock_peak_tflops']:.1f}; at most {K7_MAX_SHARE:.0%})")
+        log(f"  K7 {dtype}: fixed cost a call {r['fixed_ms']:.4f} ms (t_lo - slope x {chain}); "
+            f"L2 reads the kernel needs ({r['l2_bytes_per_dot']:.0f} bytes a dot) "
+            f"{r['l2_tbps_needed']:.3f} TB/s at the slope, "
+            f"{r['l2_tbps_needed_at_peak']:.3f} at the peak; a torch copy of b (in L2) reads "
+            f"{r['l2_copy_tbps']:.3f} TB/s")
+        for key in ("fixed_ms", "host_ms", "l2_tbps_needed", "l2_tbps_needed_at_peak",
+                    "l2_copy_tbps", "sm_clock_max_mhz", "clock_share"):
+            t[f"K7_{dtype}_{key}"] = r[key]
+        t[f"K7_{dtype}"] = r["t_lo_s"] * 1e3
+        t[f"K7_{dtype}_plain"] = k7_cases[(dtype, chain, k7.S)][1]
+        t[f"K7_{dtype}_library"] = r["library_ms_lo"]   # device times, timed alike
+        t[f"K7_{dtype}_library_out"] = r["library_out_dtype"]
+        t[f"K7_{dtype}_tflops"] = r["tflops"]
+        t[f"K7_{dtype}_share"] = r["bound_share"]
+        log(f"  K7 {dtype}: {r['tflops']:.1f} TFLOP/s a dot by the slope ({r['bound_share']:.1%}"
+            f" of the published {r['peak_tflops']}, {r['clock_share']:.1%} of "
+            f"{r['clock_peak_tflops']:.1f} at {r['sm_clock_max_mhz']:.0f} MHz), cuBLAS "
+            f"{r['library_tflops']:.1f} on one period; at {chain} dots "
+            f"{t[f'K7_{dtype}']:.4f} ms on the card (host enqueue {r['host_ms']:.4f} ms), "
+            f"plain {t[f'K7_{dtype}_plain']:.2f}, cuBLAS {t[f'K7_{dtype}_library']:.4f} "
+            f"({r['library_out_dtype']} out): K7 / cuBLAS "
+            f"{t[f'K7_{dtype}'] / t[f'K7_{dtype}_library']:.3f}")
+    return t
+
+
 def phase_probes(cyclic: "FlatSetup", dem: "PriorSetup", dev: torch.device, quick: bool):
     """Returns (K7's worst error by type, K1's worst error by ablation, the
     runs' launch counts, K7's times)."""
     log("== phase 39: K7 (the dot chain) and K1's ablations against their plain versions; "
         "bench_mxu_dtypes, bench_bsr_ablation, bench_precision_microbench")
     rng = np.random.default_rng(39)
-    err_k7 = {dtype: max(_k7_case(dtype, chain, rng, dev) for chain in K7_CHAINS)
+    k7_cases = {(dtype, chain, S): _k7_case(dtype, chain, S, rng, dev)
+                for dtype in k7.DTYPES for chain, S in K7_CASES}
+    err_k7 = {dtype: max(e for (d, _, _), (e, _) in k7_cases.items() if d == dtype)
               for dtype in k7.DTYPES}
     err_abl = {}
     synd_c = cyclic.syndromes(FAM_SHOTS, FAM_P, seed=39)
@@ -3077,23 +3141,7 @@ def phase_probes(cyclic: "FlatSetup", dem: "PriorSetup", dev: torch.device, quic
         f"(full - no_route) {ms['full'] - ms['no_route']:.4f} "
         f"({(ms['full'] - ms['no_route']) / ms['full']:.1%})")
     bench_precision_microbench.main([])
-    # K7 at 16,384 dots: the rows' best kernel time, the plain version and one
-    # cuBLAS call on the chain's dot pairs laid side by side
-    for r in mxu:
-        dtype, chain = r["dtype"], r["chain_lo"]
-        a, b = k7.operands(rng, dtype, dev)
-        t[f"K7_{dtype}"] = r["t_lo_s"] * 1e3
-        t[f"K7_{dtype}_plain"] = _timed(lambda: k7.dot_chain_plain(a, b, chain, dtype))[1]
-        fn, out = k7.library_chain(a, b, chain, dtype)
-        fn()
-        t[f"K7_{dtype}_library"] = _timed(fn)[1]
-        t[f"K7_{dtype}_library_out"] = out
-        t[f"K7_{dtype}_tflops"] = r["tflops"]
-        t[f"K7_{dtype}_share"] = r["bound_share"]
-        log(f"  K7 {dtype}: {r['tflops']:.1f} TFLOP/s a dot by the slope ({r['bound_share']:.1%}"
-            f" of {r['peak_tflops']} peak), cuBLAS {r['library_tflops']:.1f} on one period; at "
-            f"{chain} dots {t[f'K7_{dtype}']:.4f} ms, plain {t[f'K7_{dtype}_plain']:.2f}, "
-            f"cuBLAS {t[f'K7_{dtype}_library']:.4f} ({out} out)")
+    t.update(_k7_rows(mxu, k7_cases))
     return err_k7, err_abl, runs, t
 
 
@@ -3392,6 +3440,9 @@ def main() -> int:
                                  f"library_out_{dtype}": t[f"K7_{dtype}_library_out"],
                                  f"tflops_{dtype}": t[f"K7_{dtype}_tflops"],
                                  f"bound_share_{dtype}": t[f"K7_{dtype}_share"]})
+            bounds["K7"].update({f"{key}_{dtype}": t[f"K7_{dtype}_{key}"] for key in (
+                "fixed_ms", "host_ms", "l2_tbps_needed", "l2_tbps_needed_at_peak",
+                "l2_copy_tbps", "sm_clock_max_mhz", "clock_share")})
         b_dm = streamed_dm_bounds(su, flats, dense)
         timing = {"K1": ("K1_S16384", "bench", "S16384_es", f"S{S_REDECODE}_es", "fam_cyclic",
                          "fam_qclp", "dem_dc53"),

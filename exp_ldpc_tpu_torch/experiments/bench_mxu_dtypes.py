@@ -6,10 +6,10 @@ Counterpart of ``scripts/bench_mxu_dtypes.py``, which times a Pallas kernel
 on one TPU chip doing a long chain of 128 x 128 @ 128 x S dots (S = 128) with
 bf16, f32 and int8 operands, to learn whether the matrix unit's int8 path
 pays before the BSR routing is rewritten.  Here the same chain is kernel K7
-(``csrc/dot_chain.cu``: mma.sync on the tensor cores for bf16 and int8, FFMA
-on the CUDA cores for f32), and the rows say what rate the card reaches at
-that tile, beside its peak (``utils/bounds.py``) and beside cuBLAS on the
-same work.
+(``csrc/dot_chain.cu``: ``wgmma`` fed by TMA on the tensor cores for bf16
+and int8, FFMA on the CUDA cores for f32), and the rows say what rate the
+card reaches at that tile, beside its peak (``utils/bounds.py``) and beside
+cuBLAS on the same work.
 
 The function (``dot_chain_plain``): a (1024, 128), b (8192, S); step i of
 chain/8 adds, for each of 8 accumulators j, the dot a_j @ b_k with
@@ -18,37 +18,47 @@ k = (i + 8 j) mod 64, cast to f32; the output (128, S) f32 is the sum of the
 (a, b) tile pairs feeding 8 rotating accumulators.
 
 Methodology (the script's): new operands for every timed call, each time
-the best of 5 (CUDA events on the card), and the time per dot is the slope
-between chains of 16,384 and 131,072 dots, which removes the fixed cost of
-a call.  Each row adds the bound per dot (operations over the type's peak)
-and its share, cuBLAS's rate on one chain period (``library_tflops``: a
-chain of 512 visits every (j, k) tile pair once, so one (128 x 65,536) @
-(65,536 x S) product over the tiles laid side by side does its work; f32
-with TF32 off, int8 by ``torch._int_mm``, bf16 with f32 output where this
-PyTorch's ``mm`` offers ``out_dtype``), the card's name and power limit.
-int8 rows time the kernel on b laid out per tile transposed (``b_tiles_nk``,
-outside the timed window: the kernel's operand layout).  ``--device cpu``
-runs the plain version (tests only: not a device rate).
+the best of 5, and the time per dot is the slope between chains of 16,384
+and 131,072 dots, which removes the fixed cost of a call (``fixed_ms``:
+t_lo - slope x chain_lo).  On the card a time is the device's (CUDA events
+around work the host has already enqueued, :func:`device_s`), so that the
+host's launch jitter does not enter the slope; the host's time to enqueue
+one call is ``host_ms``.  Each row adds the bound per dot (operations over
+the type's published peak) and its share, the slope's share of the peak at
+the card's largest SM clock (``clock_share``: the published bf16 and int8
+peaks are at a lower clock than f32's), cuBLAS's rate on one chain period
+(``library_tflops``: a chain of 512 visits every (j, k) tile pair once, so
+one (128 x 65,536) @ (65,536 x S) product over the tiles laid side by side
+does its work; f32 with TF32 off, int8 by ``torch._int_mm`` on a
+column-major B, bf16 with f32 output where this PyTorch's ``mm`` offers
+``out_dtype``), the L2 read rate the kernel needs at its measured slope and
+at the peak (a b tile a dot) beside a ``torch`` copy of b (which stays in
+L2), and the card's name and power limit.  int8 rows time the kernel on b
+laid out per tile transposed (``b_tiles_nk``) and cuBLAS on its column-major
+B, both laid out outside the timed window.  ``--device cpu`` runs the plain
+version (tests only: not a device rate).
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import subprocess
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..utils.bounds import TENSOR_OPS_PER_S, dot_chain_bound
+from ..utils.bounds import TENSOR_OPS_PER_S, clock_peak, dot_chain_bound
 from ..utils.cuda_build import CudaKernel, aligned
 from ..utils.device import resolve_device
 
-__all__ = ["CHAIN_LO", "CHAIN_HI", "S", "DTYPES", "KERNEL", "b_tiles_nk", "dot_chain_parts",
-           "dot_chain", "dot_chain_plain", "dot_chain_tolerance", "library_chain", "card_label",
-           "timed_s", "operands", "run_case", "rows", "main"]
+__all__ = ["CHAIN_LO", "CHAIN_HI", "S", "DTYPES", "KERNEL", "DotChainPlan", "b_tiles_nk",
+           "dot_chain_plan", "dot_chain_walk", "dot_chain_planned", "dot_chain",
+           "dot_chain_plain", "dot_chain_tolerance", "library_chain", "card_label",
+           "sm_clock_max_mhz", "timed_s", "device_s", "operands", "run_case", "rows", "main"]
 
 CHAIN_LO = 16384
 CHAIN_HI = 131072
@@ -59,7 +69,7 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32, "int8": torch.int8}
 _CODES = {"bf16": 0, "f32": 1, "int8": 2}   # csrc/dot_chain.cu: DT_BF16, DT_F32, DT_INT8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# csrc/dot_chain.cu::dot_chain_run: a, b, part, out; S, chain, parts, dtype; the stream
+# csrc/dot_chain.cu::dot_chain_run: a, b, part, out; S, chain, blocks, dtype; the stream
 KERNEL = CudaKernel("dot_chain.cu", "dot_chain_run", [_P] * 4 + [_I] * 4 + [_P])
 
 
@@ -69,12 +79,84 @@ def b_tiles_nk(b: torch.Tensor) -> torch.Tensor:
     return b.reshape(_NTILES, _TILE, b.shape[1]).transpose(1, 2).contiguous()
 
 
-def dot_chain_parts(chain: int, S: int, sm_count: int) -> int:
-    """Parts each accumulator's chain/8 steps are split into: one block per
-    SM over the 8 accumulators and S / 128 column tiles, at least one step a
-    part."""
+class DotChainPlan(NamedTuple):
+    """K7's grid: ``blocks`` blocks a column tile over ``col_tiles`` column
+    tiles.  The chain's 8 * ``steps`` dots, accumulator-major (dot q is
+    step q mod steps of accumulator q // steps), are split evenly: block b
+    takes [D b / blocks, D (b + 1) / blocks), D = 8 steps, one partial per
+    accumulator its range meets (``csrc/dot_chain.cu``, the note)."""
+
+    steps: int
+    blocks: int
+    col_tiles: int
+
+    def ranges(self) -> list:
+        d = _NACC * self.steps
+        return [(d * b // self.blocks, d * (b + 1) // self.blocks) for b in range(self.blocks)]
+
+    @property
+    def parts(self) -> int:
+        """The most partials one accumulator is split into (the term of
+        :func:`dot_chain_tolerance`)."""
+        per = [0] * _NACC
+        for b in range(self.blocks):
+            for j, _, _ in dot_chain_walk(self, b):
+                per[j] += 1
+        return max(1, max(per))
+
+
+def dot_chain_plan(chain: int, S: int, sm_count: int) -> DotChainPlan:
+    """One block per SM, the SMs shared by the S / 128 column tiles, at
+    least 8 blocks a column tile (so a block's range is at most chain/8 dots
+    and meets at most two accumulators) and no more blocks than dots."""
     steps = chain // _NACC
-    return max(1, min(steps, sm_count // (_NACC * (S // _TILE))))
+    tiles = S // _TILE
+    blocks = max(1, min(_NACC * steps, max(_NACC, sm_count // tiles)))
+    if blocks > 1024:   # csrc/dot_chain.cu: MAX_BLOCKS
+        raise ValueError(f"{blocks} blocks a column tile: K7 takes at most 1,024")
+    return DotChainPlan(steps, blocks, tiles)
+
+
+def dot_chain_walk(plan: DotChainPlan, b: int) -> list:
+    """Block b's partials, in order, as (accumulator j, first step, dots):
+    it sums steps first .. first + dots - 1 of accumulator j from zero (the
+    kernel's ``Range``)."""
+    q0, q1 = plan.ranges()[b]
+    walk = []
+    while q0 < q1:
+        j, i = divmod(q0, plan.steps)
+        n = min(q1, (j + 1) * plan.steps) - q0
+        walk.append((j, i, n))
+        q0 += n
+    return walk
+
+
+def dot_chain_planned(a: torch.Tensor, b: torch.Tensor, chain: int, dtype: str,
+                      plan: DotChainPlan) -> torch.Tensor:
+    """K7's order of additions on the tensors' device in f32: each partial
+    sums its dots from zero in step order, then the partials are added in
+    the kernel's fixed order (each accumulator's partials in block order,
+    then the accumulators).  Only the dots themselves differ from the
+    kernel (here ``torch.matmul``)."""
+    Sb = _check(a, b, dtype)
+    a8 = a.float().reshape(_NACC, _TILE, _TILE)
+    b64 = b.float().reshape(_NTILES, _TILE, Sb)
+    out = torch.zeros((_TILE, Sb), dtype=torch.float32, device=a.device)
+    for t in range(plan.col_tiles):
+        cols = slice(_TILE * t, _TILE * (t + 1))
+        acc = [None] * _NACC
+        for blk in range(plan.blocks):
+            for j, first, n in dot_chain_walk(plan, blk):
+                part = torch.zeros((_TILE, _TILE), dtype=torch.float32, device=a.device)
+                for i in range(first, first + n):
+                    part = part + a8[j] @ b64[(i + _NACC * j) % _NTILES][:, cols]
+                acc[j] = part if acc[j] is None else acc[j] + part
+        if plan.steps:
+            tot = acc[0]
+            for j in range(1, _NACC):
+                tot = tot + acc[j]
+            out[:, cols] = tot
+    return out
 
 
 def _check(a: torch.Tensor, b: torch.Tensor, dtype: str) -> int:
@@ -121,14 +203,23 @@ def dot_chain_tolerance(a: torch.Tensor, b: torch.Tensor, chain: int, dtype: str
     return depth * 2.0 ** -22 * dot_chain_plain(a.abs(), b.abs(), chain, dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_card_plan = functools.lru_cache(maxsize=256)(dot_chain_plan)
+
+
 def dot_chain(a: torch.Tensor, b: torch.Tensor, chain: int, dtype: str) -> torch.Tensor:
     """The chain of ``chain`` dots: a (1024, 128), b (8192, S) of ``dtype``
     ("bf16", "f32" or "int8"; for int8 b may also come in K7's layout,
     :func:`b_tiles_nk`'s (64, S, 128)) -> (128, S) f32.
 
     CPU tensors run :func:`dot_chain_plain`.  On a CUDA device one call of
-    K7 (a grid over accumulators x parts, then the fixed-order sum of the
-    parts) computes it; S must be a multiple of 128."""
+    K7 (the chain's dots split evenly over one block an SM,
+    :func:`dot_chain_plan`, then the fixed-order sum of the partials)
+    computes it; S must be a multiple of 128."""
     if a.device.type == "cpu":
         return dot_chain_plain(a, b, chain, dtype)
     Sb = _check(a, b, dtype)
@@ -145,12 +236,12 @@ def dot_chain(a: torch.Tensor, b: torch.Tensor, chain: int, dtype: str) -> torch
     a, b = a.contiguous(), b.contiguous()
     if not aligned(a, b):
         raise ValueError("dot_chain: operands must start on a 16-byte boundary")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    parts = dot_chain_parts(chain, Sb, sms)
-    part = torch.empty((_NACC * parts, _TILE, Sb), dtype=torch.float32, device=dev)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    plan = _card_plan(chain, Sb, _sm_count(index))
+    part = torch.empty((2 * plan.blocks, _TILE, Sb), dtype=torch.float32, device=dev)
     out = torch.empty((_TILE, Sb), dtype=torch.float32, device=dev)
     KERNEL.launch(a.data_ptr(), b.data_ptr(), part.data_ptr(), out.data_ptr(), Sb, int(chain),
-                  parts, _CODES[dtype], torch.cuda.current_stream(dev).cuda_stream)
+                  plan.blocks, _CODES[dtype], torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
@@ -170,11 +261,14 @@ def library_chain(a: torch.Tensor, b: torch.Tensor, chain: int, dtype: str):
     """(the one PyTorch call that does the chain's work on its operands laid
     side by side, its output type): f32 ``mm`` with TF32 off, bf16 ``mm``
     with f32 output where this PyTorch offers ``out_dtype`` (else bf16),
-    int8 ``torch._int_mm`` (int32).  A yardstick only: the port never calls
-    it."""
+    int8 ``torch._int_mm`` (int32) on B laid out column-major here, outside
+    the call (the layout cuBLASLt's int8 product serves best, as K7 gets its
+    own b layout outside the timed window).  A yardstick only: the port never
+    calls it."""
     A, B = _wide(a, b, chain)
     if dtype == "int8":
-        return (lambda: torch._int_mm(A, B)), "int32"
+        Bc = B.t().contiguous().t()
+        return (lambda: torch._int_mm(A, Bc)), "int32"
     if dtype == "bf16" and A.is_cuda and "out_dtype" in (torch.mm.__doc__ or ""):
         return (lambda: torch.mm(A, B, out_dtype=torch.float32)), "float32"
     return (lambda: torch.mm(A, B)), str(A.dtype).replace("torch.", "")
@@ -191,6 +285,47 @@ def card_label(dev: torch.device) -> str:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def sm_clock_max_mhz(dev: torch.device) -> Optional[float]:
+    """The card's highest SM clock (``nvidia-smi``'s ``clocks.max.sm``, MHz),
+    the clock of :func:`utils.bounds.clock_peak`; None on the CPU."""
+    if dev.type != "cuda":
+        return None
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    out = subprocess.run(["nvidia-smi", "-i", str(index), "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0])
+
+
+# ~2.1 ms of device-side wait at 1,980 MHz: several times the host's enqueue
+# of one call of K7 or of cuBLAS (``host_ms``: 0.07-0.27 ms on a shared host)
+_HIDE_CYCLES = 1 << 22
+
+
+def device_s(fn, dev: torch.device, tries: int = 3) -> float:
+    """Seconds the card spends on ``fn()``: CUDA events around work the host
+    has already enqueued (a device-side wait ahead of the first event covers
+    the host's launch time, which ``run_case`` reports on its own).  A sample
+    in which the card reached the first event before the host had enqueued
+    the last is taken again; after ``tries`` such samples this raises.  The
+    host clock on the CPU."""
+    if dev.type != "cuda":
+        return timed_s(fn, dev)
+    for _ in range(tries):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(dev)
+        torch.cuda._sleep(_HIDE_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        late = start.query()   # the wait ran out while the host still enqueued
+        torch.cuda.synchronize(dev)
+        if not late:
+            return start.elapsed_time(end) / 1e3
+    raise RuntimeError(f"device_s: the host's enqueue outlasted a wait of {_HIDE_CYCLES} cycles "
+                       f"{tries} times")
 
 
 def timed_s(fn, dev: torch.device) -> float:
@@ -220,12 +355,33 @@ def operands(rng: np.random.Generator, dtype: str, dev: torch.device, Sb: int = 
     return a.to(DTYPES[dtype]).to(dev), b.to(DTYPES[dtype]).to(dev)
 
 
+_TILE_BYTES = {"bf16": _TILE * _TILE * 2, "f32": _TILE * _TILE * 4, "int8": _TILE * _TILE}
+
+
+def _copy_s(b: torch.Tensor, dev: torch.device, runs: int) -> float:
+    """Seconds a ``torch`` copy takes to read b once out of L2: one
+    contiguous copy of R copies of b stacked (16 MB, so that the copy and not
+    its launch is timed; source and destination, 32 MB, stay in the 50 MB
+    L2), the best of ``runs`` device times (:func:`device_s`)."""
+    r = max(1, (16 << 20) // (b.numel() * b.element_size()))
+    src = b.repeat(r, *([1] * (b.dim() - 1)))
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    return min(device_s(lambda: dst.copy_(src), dev) for _ in range(runs)) / r
+
+
 def run_case(name: str, dev: torch.device, rng: np.random.Generator, card: str,
-             chain_lo: int = CHAIN_LO, chain_hi: int = CHAIN_HI, runs: int = 5) -> dict:
-    """One row: the kernel's best time of ``runs`` calls at each chain, each
-    on new operands (b laid out for the kernel outside the timed window),
-    the slope per dot, its bound and share, and cuBLAS's rate on one chain
-    period."""
+             chain_lo: int = CHAIN_LO, chain_hi: int = CHAIN_HI, runs: int = 5,
+             mhz: Optional[float] = None) -> dict:
+    """One row: the kernel's best device time of ``runs`` calls at each chain
+    (:func:`device_s`), each on new operands (b laid out for the kernel
+    outside the timed window), the slope per dot, its bound and share at the
+    published peak, its share of the peak at the card's clock ``mhz`` (the
+    largest SM clock, :func:`sm_clock_max_mhz`; None on the CPU), the fixed
+    cost of a call on the card and the host's time to enqueue one, cuBLAS's
+    rate on one chain period and its time on the chain_lo work
+    (``library_ms_lo``, timed the same way), and the L2 read rate the kernel
+    needs beside a copy's."""
     def kernel_operands():
         a, b = operands(rng, name, dev)
         return a, (b_tiles_nk(b) if name == "int8" and dev.type == "cuda" else b)
@@ -237,10 +393,22 @@ def run_case(name: str, dev: torch.device, rng: np.random.Generator, card: str,
         ts = []
         for _ in range(runs):
             a, b = kernel_operands()
-            ts.append(timed_s(lambda: dot_chain(a, b, chain, name), dev))
+            ts.append(device_s(lambda: dot_chain(a, b, chain, name), dev))
         return min(ts)
 
+    def host_s() -> float:   # enqueueing one call, the card idle
+        hs = []
+        for _ in range(runs):
+            a, b = kernel_operands()
+            _sync(dev)
+            t0 = time.perf_counter()
+            dot_chain(a, b, chain_lo, name)
+            hs.append(time.perf_counter() - t0)
+        _sync(dev)
+        return min(hs)
+
     t_lo, t_hi = best(chain_lo), best(chain_hi)
+    host = host_s()
     per_dot = (t_hi - t_lo) / (chain_hi - chain_lo)
     flops = 2 * 128 * 128 * S
     period = _NACC * _NTILES
@@ -248,15 +416,26 @@ def run_case(name: str, dev: torch.device, rng: np.random.Generator, card: str,
     for _ in range(runs):
         fn, lib_out = library_chain(*operands(rng, name, dev), period, name)
         fn()   # warm (cuBLAS picks its algorithm at the first call of a shape)
-        lib_ts.append(timed_s(fn, dev))
+        lib_ts.append(device_s(fn, dev))
     lib_per_dot = min(lib_ts) / period
+    fn, _ = library_chain(*operands(rng, name, dev), chain_lo, name)
+    fn()
+    lib_lo = min(device_s(fn, dev) for _ in range(runs))
+    del fn
     bound_ns = dot_chain_bound(name, 1, S)["bound_ops"] / TENSOR_OPS_PER_S[name] * 1e9
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if mhz else None
+    peak_clock = clock_peak(name, sms, mhz) if mhz else None
+    l2_bytes = _TILE_BYTES[name]   # read from L2 a dot: one b tile
+    b_copy = operands(rng, name, dev)[1]
+    copy_s = _copy_s(b_copy, dev, runs)
     row = {
         "dtype": name, "s": S,
         "tflops": flops / per_dot / 1e12,
         "ns_per_dot": per_dot * 1e9,
         "chain_lo": chain_lo, "chain_hi": chain_hi,
         "t_hi_s": t_hi, "t_lo_s": t_lo,
+        "fixed_ms": (t_lo - per_dot * chain_lo) * 1e3,
+        "host_ms": host * 1e3,
         "peak_tflops": TENSOR_OPS_PER_S[name] / 1e12,
         "bound_ns_per_dot": bound_ns,
         "bound_by": dot_chain_bound(name, chain_hi, S)["bound_by"],
@@ -264,8 +443,18 @@ def run_case(name: str, dev: torch.device, rng: np.random.Generator, card: str,
         "library_tflops": flops / lib_per_dot / 1e12,
         "library_ns_per_dot": lib_per_dot * 1e9,
         "library_out_dtype": lib_out,
+        "library_ms_lo": lib_lo * 1e3,
+        "library_b_layout": "column-major (B.t().contiguous().t()), laid out outside the timed "
+        "window" if name == "int8" else "row-major",
         "int8_b_layout": "per-tile transposed (64, S, 128), laid out outside the timed window"
         if name == "int8" else None,
+        "l2_bytes_per_dot": l2_bytes,
+        "l2_tbps_needed": l2_bytes / per_dot / 1e12,
+        "l2_tbps_needed_at_peak": l2_bytes / bound_ns * 1e-3,
+        "l2_copy_tbps": b_copy.numel() * b_copy.element_size() / copy_s / 1e12,
+        "sm_count": sms, "sm_clock_max_mhz": mhz,
+        "clock_peak_tflops": peak_clock / 1e12 if mhz else None,
+        "clock_share": flops / per_dot / peak_clock if mhz else None,
         "device": dev.type, "card": card,
     }
     return row
@@ -275,11 +464,11 @@ def rows(dev: torch.device, chain_lo: int = CHAIN_LO, chain_hi: int = CHAIN_HI,
          runs: int = 5) -> list:
     """The script's three rows (bf16, f32, int8), each printed as a JSON line;
     the CPU tests pass short chains."""
-    card = card_label(dev)
+    card, mhz = card_label(dev), sm_clock_max_mhz(dev)
     rng = np.random.default_rng(0)
     out = []
     for name in DTYPES:
-        row = run_case(name, dev, rng, card, chain_lo, chain_hi, runs)
+        row = run_case(name, dev, rng, card, chain_lo, chain_hi, runs, mhz)
         print(json.dumps(row), flush=True)
         out.append(row)
     return out

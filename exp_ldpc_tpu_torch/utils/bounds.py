@@ -16,12 +16,22 @@ tensor cores where its type has them: NVIDIA's dense peaks for the H100 SXM,
 products summed in int32; f32 stays on the CUDA cores' 67 TFLOP/s.  Every
 rate here is the card's published peak at its 700 W limit, not a
 measurement.
+
+The published peaks are not on one clock: bf16 and int8 are 4,096 and 8,192
+operations a clock and SM x 132 SMs at 1,830 MHz, f32 is 256 x 132 at
+1,980 MHz, and a card that holds 1,980 MHz under the tensor cores' load runs
+past the first two.  :func:`clock_peak` puts every type on the card's own
+clock (``nvidia-smi``'s ``clocks.max.sm``) and SM count: the rate no kernel
+can pass, which the dot chain's share and its check of left-out work use.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 __all__ = ["HBM_BYTES_PER_S", "OPS_PER_S", "TENSOR_OPS_PER_S", "OPS_FLOAT", "OPS_INT8",
            "ABLATE_OPS", "bound", "table_bytes", "flat_io", "st_io",
-           "streamed_bound", "dot_chain_bound", "DOT_ELEMENT_BYTES"]
+           "streamed_bound", "dot_chain_bound", "DOT_ELEMENT_BYTES", "OPS_PER_CLOCK_SM",
+           "clock_peak"]
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 OPS_PER_S = 67e12           # float32 / int32 outside the tensor cores
@@ -29,6 +39,9 @@ OPS_PER_S = 67e12           # float32 / int32 outside the tensor cores
 # bf16 (f32 sums) and int8 (int32 sums); f32 products run on the CUDA cores
 TENSOR_OPS_PER_S = {"bf16": 989.4e12, "int8": 1978.9e12, "f32": OPS_PER_S}
 DOT_ELEMENT_BYTES = {"bf16": 2, "int8": 1, "f32": 4}
+# dense operations a clock and SM: the tensor cores' bf16 (f32 sums) and int8
+# (int32 sums), and f32 on the CUDA cores (128 lanes of FMA)
+OPS_PER_CLOCK_SM = {"bf16": 4096, "int8": 8192, "f32": 256}
 # Arithmetic per edge, shot and iteration, counted from the plain versions:
 # compares, selects, minima, adds and multiplies only.  A type conversion
 # (the bf16 kernels round a message three times) is not counted, so one count
@@ -86,12 +99,20 @@ def streamed_bound(io: int, rows: int, tab, nnz: int, shots: int, iters: int) ->
     return bound(io + iters * per_iter, OPS_FLOAT * nnz * shots * iters)
 
 
-def dot_chain_bound(dtype: str, chain: int, S: int = 128) -> dict:
+def clock_peak(dtype: str, sms: int, mhz: float) -> float:
+    """Operations a second of ``dtype`` on ``sms`` SMs at ``mhz``
+    (:data:`OPS_PER_CLOCK_SM`)."""
+    return OPS_PER_CLOCK_SM[dtype] * sms * mhz * 1e6
+
+
+def dot_chain_bound(dtype: str, chain: int, S: int = 128,
+                    ops_per_s: Optional[float] = None) -> dict:
     """The bound of one dot chain (K7, ``experiments/bench_mxu_dtypes.py``):
-    ``chain`` dots of 2 * 128 * 128 * S operations at the peak of ``dtype``
-    ("bf16", "int8" or "f32", :data:`TENSOR_OPS_PER_S`); a (1024, 128) and b
-    (8192, S) read once, the (128, S) f32 output written once.  Bound by
-    operations at every type and chain the probe runs."""
+    ``chain`` dots of 2 * 128 * 128 * S operations at ``ops_per_s`` (by
+    default the published peak of ``dtype``, "bf16", "int8" or "f32",
+    :data:`TENSOR_OPS_PER_S`); a (1024, 128) and b (8192, S) read once, the
+    (128, S) f32 output written once.  Bound by operations at every type and
+    chain the probe runs."""
     elt = DOT_ELEMENT_BYTES[dtype]
     nbytes = elt * (1024 * 128 + 8192 * S) + 4 * 128 * S
-    return bound(nbytes, 2.0 * 128 * 128 * S * chain, TENSOR_OPS_PER_S[dtype])
+    return bound(nbytes, 2.0 * 128 * 128 * S * chain, ops_per_s or TENSOR_OPS_PER_S[dtype])

@@ -545,12 +545,15 @@ def test_k1_ablations(request, ablate, case, S, method, msf, early_stop):
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "f32", "int8"])
-@pytest.mark.parametrize("chain,S", [(0, 128), (8, 128), (512, 128), (4096, 128), (1000, 256)])
+@pytest.mark.parametrize("chain,S", [(0, 128), (8, 128), (16, 128), (512, 128), (4096, 128),
+                                     (4104, 128), (1000, 256), (16384, 128)])
 def test_k7_matches_plain(dtype, chain, S):
     """K7 (the dot chain, experiments/bench_mxu_dtypes.py) against its plain
     version: int8 equal, bf16 and f32 within ``dot_chain_tolerance`` (the
     parts the kernel split each accumulator's chain into counted); b of
-    int8 given in either layout."""
+    int8 given in either layout.  16 dots are fewer than the blocks of
+    the card (a block a dot), 4,104 / 8 is not a multiple of 64, and
+    16,384 is the chain the probe times."""
     from exp_ldpc_tpu_torch.experiments import bench_mxu_dtypes as k7
 
     if not torch.cuda.is_available():
@@ -567,7 +570,7 @@ def test_k7_matches_plain(dtype, chain, S):
         assert torch.equal(k7.dot_chain(a, k7.b_tiles_nk(b), chain, dtype), plain)
     else:
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        parts = k7.dot_chain_parts(chain, S, sms)
+        parts = k7.dot_chain_plan(chain, S, sms).parts
         tol = k7.dot_chain_tolerance(a, b, chain, dtype, parts)
         assert bool(((kern - plain).abs() <= tol).all())
     assert torch.equal(k7.dot_chain(a, b, chain, dtype), kern)   # the same bits every run

@@ -21,12 +21,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from exp_ldpc_tpu_torch.experiments import bench_mxu_dtypes as k7
 from exp_ldpc_tpu_torch.experiments import bench_bsr_ablation, bench_precision_microbench
-from exp_ldpc_tpu_torch.utils.bounds import TENSOR_OPS_PER_S, dot_chain_bound
+from exp_ldpc_tpu_torch.utils.bounds import TENSOR_OPS_PER_S, clock_peak, dot_chain_bound
 
 SCRIPT = Path(__file__).resolve().parent.parent / "scripts" / "bench_mxu_dtypes.py"
 S = 128
@@ -123,18 +124,85 @@ def test_plain_matches_the_pallas_kernel(dtype, chain):
 
 def test_int8_kernel_layout_and_plan():
     """b_tiles_nk transposes each 128-row tile of b: element (k, n, r) is
-    b[128 k + r, n].  The plan gives one block per SM over the 8
-    accumulators and S / 128 column tiles, and at least a step a part."""
+    b[128 k + r, n].  The plan gives one block per SM over the S / 128
+    column tiles, at least 8 blocks a column tile and at most one a dot,
+    and splits the dots evenly: every accumulator's partials counted."""
     b = torch.randint(-4, 5, (8192, 256), dtype=torch.int8)
     t = k7.b_tiles_nk(b)
     assert t.shape == (64, 256, 128) and t.is_contiguous()
     for k, n, r in ((0, 0, 0), (5, 200, 17), (63, 255, 127)):
         assert t[k, n, r] == b[128 * k + r, n]
-    assert k7.dot_chain_parts(16384, 128, 132) == 16
-    assert k7.dot_chain_parts(16384, 256, 132) == 8
-    assert k7.dot_chain_parts(64, 128, 132) == 8      # 8 steps: 8 parts of one
-    assert k7.dot_chain_parts(0, 128, 132) == 1
-    assert k7.dot_chain_parts(512, 1024, 8) == 1
+    assert k7.dot_chain_plan(16384, 128, 132).blocks == 132
+    assert k7.dot_chain_plan(16384, 256, 132).blocks == 66
+    assert k7.dot_chain_plan(64, 128, 132).blocks == 64      # 64 dots: one a block
+    assert k7.dot_chain_plan(0, 128, 132).blocks == 1
+    assert k7.dot_chain_plan(512, 1024, 8).blocks == 8        # at least 8 a column tile
+    assert k7.dot_chain_plan(16384, 128, 132) == (2048, 132, 1)
+    assert k7.dot_chain_plan(16384, 128, 132).parts == 17     # 2,048 steps over 15.5 blocks
+    assert k7.dot_chain_plan(64, 128, 132).parts == 8
+    assert k7.dot_chain_plan(0, 128, 132).parts == 1
+    assert k7.dot_chain_walk(k7.dot_chain_plan(16384, 128, 132), 16) == [(0, 1985, 63),
+                                                                        (1, 0, 62)]
+    with pytest.raises(ValueError, match="1,024"):
+        k7.dot_chain_plan(1 << 20, 128, 2048)
+
+
+@settings(max_examples=80, deadline=None)
+@given(chain=st.integers(0, 4104), S=st.sampled_from([128, 256]),
+       sms=st.sampled_from([8, 114, 132]))
+def test_plan_covers_every_dot_once(chain, S, sms):
+    """Every (accumulator, step) of the chain is computed by exactly one
+    block, blocks take consecutive dots in order, a block meets at most two
+    accumulators, and ``parts`` counts the most partials of one
+    accumulator."""
+    plan = k7.dot_chain_plan(chain, S, sms)
+    assert plan.col_tiles == S // 128 and plan.blocks >= 1
+    assert plan.blocks <= max(8, sms // plan.col_tiles, 1)
+    seen, per = [], [0] * 8
+    for blk in range(plan.blocks):
+        walk = k7.dot_chain_walk(plan, blk)
+        assert len(walk) <= 2
+        for j, first, n in walk:
+            assert n > 0
+            seen += [(j, i) for i in range(first, first + n)]
+            per[j] += 1
+    assert seen == [(j, i) for j in range(8) for i in range(chain // 8)]
+    assert plan.parts == max(1, max(per))
+
+
+@pytest.mark.parametrize("dtype,chain,S", [("bf16", 16, 128), ("f32", 520, 128),
+                                           ("bf16", 4104, 128), ("f32", 1000, 256),
+                                           ("int8", 4104, 128)])
+def test_plan_order_within_tolerance(dtype, chain, S):
+    """The chain summed in the kernel's order (each block's walk, then the
+    partials in the fixed order) stays within ``dot_chain_tolerance`` of
+    the plain version (int8: equal)."""
+    a_np, b_np = _operands(dtype, seed=chain + S)
+    if S != 128:
+        b_np = np.concatenate([b_np, b_np[:, ::-1]], axis=1)
+    ta, tb = torch.as_tensor(a_np).to(k7.DTYPES[dtype]), torch.as_tensor(b_np).to(k7.DTYPES[dtype])
+    plan = k7.dot_chain_plan(chain, S, 132)
+    got = k7.dot_chain_planned(ta, tb, chain, dtype, plan)
+    plain = k7.dot_chain_plain(ta, tb, chain, dtype)
+    if dtype == "int8":
+        assert torch.equal(got, plain)
+    else:
+        tol = k7.dot_chain_tolerance(ta, tb, chain, dtype, plan.parts)
+        assert bool(((got - plain).abs() <= tol).all())
+        assert not torch.equal(got, torch.zeros_like(got))
+
+
+def test_library_int8_column_major():
+    """The int8 yardstick gets B column-major, laid out before the call,
+    and computes the same product."""
+    a_np, b_np = _operands("int8", seed=3)
+    ta, tb = torch.as_tensor(a_np), torch.as_tensor(b_np)
+    fn, out = k7.library_chain(ta, tb, 16, "int8")
+    A, B = k7._wide(ta, tb, 16)
+    assert out == "int32"
+    assert torch.equal(fn(), A.int() @ B.int())
+    held = [c.cell_contents for c in fn.__closure__ if isinstance(c.cell_contents, torch.Tensor)]
+    assert [t.stride() for t in held if t.shape == B.shape] == [(1, B.shape[0])]
 
 
 def test_dot_chain_bounds():
@@ -147,6 +215,19 @@ def test_dot_chain_bounds():
             assert b["bound_by"] == "operations"
             assert b["bound_ops"] == 2 * 128 * 128 * S * chain
             assert b["bound_ms"] == pytest.approx(1e3 * b["bound_ops"] / peak)
+
+
+def test_clock_peak():
+    """The published peaks are the operations a clock and SM on 132 SMs:
+    bf16 and int8 at 1,830 MHz, f32 at 1,980 MHz; at 1,980 MHz the tensor
+    cores' peaks are 8.2% higher, and the chain's bound takes that rate."""
+    for dtype, mhz in (("bf16", 1830), ("int8", 1830), ("f32", 1980)):
+        assert clock_peak(dtype, 132, mhz) == pytest.approx(TENSOR_OPS_PER_S[dtype], rel=2e-3)
+    assert clock_peak("bf16", 132, 1980) == pytest.approx(1070.5e12, rel=1e-4)
+    assert clock_peak("int8", 132, 1980) == pytest.approx(2141.0e12, rel=1e-4)
+    fast = dot_chain_bound("bf16", k7.CHAIN_LO, S, clock_peak("bf16", 132, 1980))
+    assert fast["bound_ms"] == pytest.approx(
+        dot_chain_bound("bf16", k7.CHAIN_LO, S)["bound_ms"] * 1830 / 1980, rel=2e-3)
 
 
 def test_refusals():
@@ -176,6 +257,7 @@ def test_mxu_rows_on_cpu(capsys):
         assert (r["device"], r["card"], r["s"], r["chain_lo"], r["chain_hi"]) == (
             "cpu", "cpu", 128, 16, 32)
         assert r["library_tflops"] > 0
+        assert r["sm_clock_max_mhz"] is r["clock_share"] is None   # the card's clock only
     assert rows[2]["library_out_dtype"] == "int32"
     assert len(capsys.readouterr().out.strip().splitlines()) == 3
 
