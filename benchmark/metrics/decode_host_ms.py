@@ -1,0 +1,6 @@
+"""Host wall time per batch inside the program's device-decode span, ``ldpc.decode``."""
+
+
+def read(ctx):
+    s = ctx.get("program", {}).get("spans", {}).get("decode")
+    return None if not s or not ctx["batches"] else 1e3 * s["host_s"] / ctx["batches"]

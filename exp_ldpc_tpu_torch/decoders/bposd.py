@@ -14,6 +14,7 @@ import numpy as np
 from scipy import sparse
 
 from ..utils.device import DeviceLike
+from ..utils.observability import count, span
 from .osd import osd_decode_batch
 
 __all__ = ["BPOSDDecoder"]
@@ -48,10 +49,12 @@ class BPOSDDecoder:
     def decode_batch(self, syndromes: np.ndarray) -> np.ndarray:
         """(S, C) syndromes -> (S, V) error estimates (BP, OSD on BP failures)."""
         syndromes = np.asarray(syndromes, dtype=np.uint8)
-        hard, post, conv, _iters = self.bp.decode_batch(syndromes)
+        with span("redecode.bp"):
+            hard, post, conv, _iters = self.bp.decode_batch(syndromes)
         hard = hard.copy()
         if not conv.all():
             failed = np.nonzero(~conv)[0]
+            count("osd_solves", failed.size)
             hard[failed] = osd_decode_batch(
                 self.H, syndromes[failed], post[failed],
                 osd_method=self.osd_method, osd_order=self.osd_order)

@@ -25,6 +25,7 @@ from scipy import sparse
 from ..circuits.storage_sim import build_storage_simulation
 from ..codes.io import read_quantum_code
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.observability import span
 from .bposd import BPOSDDecoder
 from .dem import detector_error_model
 from .flip import SmallSetFlipDecoder
@@ -99,9 +100,10 @@ class BPOSDCorrect:
 
     def readout_correction_batch(self, history: np.ndarray, readout: np.ndarray) -> np.ndarray:
         """history (S, rounds, r), readout (S, n) -> final-round correction (S, n)."""
-        syndromes = spacetime_syndromes(self._spacetime_code, history, readout)
-        correction = self._bpd.decode_batch(syndromes)
-        return self._spacetime_code.final_correction(correction)
+        with span("redecode"):
+            syndromes = spacetime_syndromes(self._spacetime_code, history, readout)
+            correction = self._bpd.decode_batch(syndromes)
+            return self._spacetime_code.final_correction(correction)
 
 
 class BPOSDCorrectSingleShot:
@@ -128,9 +130,10 @@ class BPOSDCorrectSingleShot:
 
     def readout_correction_batch(self, history: np.ndarray, readout: np.ndarray) -> np.ndarray:
         """history (S, rounds, r), readout (S, n) -> final-round correction (S, n)."""
-        return _single_shot_correction(history, readout, self._HdT, self._spacetime_code,
-                                       self._bpd_single_shot.decode_batch,
-                                       self._bpd_final_round.decode_batch)
+        with span("redecode"):
+            return _single_shot_correction(history, readout, self._HdT, self._spacetime_code,
+                                           self._bpd_single_shot.decode_batch,
+                                           self._bpd_final_round.decode_batch)
 
 
 class BPOSDHybridCorrect:
@@ -157,11 +160,14 @@ class BPOSDHybridCorrect:
 
     def readout_correction_batch(self, history: np.ndarray, readout: np.ndarray) -> np.ndarray:
         """history (S, rounds, r), readout (S, n) -> final-round correction (S, n)."""
-        syndromes = spacetime_syndromes(self._spacetime_code, history, readout)
-        correction = self._bpd.decode_batch(syndromes)[0]
-        bp_corr = self._spacetime_code.final_correction(correction).astype(np.int64)
-        final = self._bpd_final_round.decode_batch(mod2_matmul((bp_corr + readout) % 2, self._HdT))
-        return (final + bp_corr) % 2
+        with span("redecode"):
+            syndromes = spacetime_syndromes(self._spacetime_code, history, readout)
+            with span("redecode.bp"):
+                correction = self._bpd.decode_batch(syndromes)[0]
+            bp_corr = self._spacetime_code.final_correction(correction).astype(np.int64)
+            final = self._bpd_final_round.decode_batch(
+                mod2_matmul((bp_corr + readout) % 2, self._HdT))
+            return (final + bp_corr) % 2
 
 
 class SlidingWindowCorrect:

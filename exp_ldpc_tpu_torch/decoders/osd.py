@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 from scipy import sparse
 
-from ..utils import gf2
+from ..utils import gf2, observability
 
 __all__ = ["osd_decode", "osd_decode_batch"]
 
@@ -144,13 +144,13 @@ def _osd_batch_native(H, syndromes, posterior_llrs, osd_method, osd_order,
     S = synd.shape[0]
     assert synd.shape == (S, r) and llrs.shape == (S, n)
     out = np.zeros((S, n), dtype=np.uint8)
-    rc = lib.osd_batch(
-        Hd.ctypes.data_as(ctypes.c_void_p), r, n,
-        synd.ctypes.data_as(ctypes.c_void_p),
-        llrs.ctypes.data_as(ctypes.c_void_p), S,
-        _METHOD_ID[osd_method], osd_order, int(nthreads),
-        out.ctypes.data_as(ctypes.c_void_p),
-    )
+    with observability.span("redecode.osd"):
+        rc = lib.osd_batch(
+            Hd.ctypes.data_as(ctypes.c_void_p), r, n,
+            synd.ctypes.data_as(ctypes.c_void_p), llrs.ctypes.data_as(ctypes.c_void_p), S,
+            _METHOD_ID[osd_method], osd_order, int(nthreads),
+            out.ctypes.data_as(ctypes.c_void_p),
+        )
     if rc != 0:
         return None
     return out
@@ -169,13 +169,13 @@ def osd_decode_batch(H, syndromes, posterior_llrs, osd_method="osd0", osd_order=
     if osd_method not in _METHOD_ID:
         raise ValueError(f"unknown osd method {osd_method!r}")
     if backend == "auto":
-        out = _osd_batch_native(H, syndromes, posterior_llrs, osd_method,
-                                osd_order, nthreads)
+        out = _osd_batch_native(H, syndromes, posterior_llrs, osd_method, osd_order, nthreads)
         if out is not None:
             return out
     elif backend != "numpy":
         raise ValueError(f"unknown backend {backend!r}")
     out = np.zeros((syndromes.shape[0], H.shape[1]), dtype=np.uint8)
-    for i in range(syndromes.shape[0]):
-        out[i] = osd_decode(H, syndromes[i], posterior_llrs[i], osd_method, osd_order)
+    with observability.span("redecode.osd"):
+        for i in range(syndromes.shape[0]):
+            out[i] = osd_decode(H, syndromes[i], posterior_llrs[i], osd_method, osd_order)
     return out

@@ -38,7 +38,7 @@ import torch.distributed as dist
 from ..decoders.drivers import add_bposd_args, load_code, run_simulation, unpack_bposd_args
 from ..parallel.mesh import DATA_AXIS, Mesh, free_port, init_distributed, make_mesh
 from ..utils.device import DeviceLike, resolve_device
-from ..utils.observability import get_logger
+from ..utils.observability import get_logger, span
 
 __all__ = ["p_sweep", "p_sweep_main", "parse_sweep_spec", "write_csv", "batch_seed",
            "cli_main"]
@@ -96,37 +96,38 @@ class _PipelineSweeper:
     def run_point(self, p_ph: float, samples: int, seed: Optional[int], point: int):
         from ..parallel.pipeline import StorageDecodePipeline
 
-        noise = self.noise_model(**self.noise_model_args(p_ph))
-        data_p = self.data_prior(p_ph, self._x_steps, self._z_steps)
-        meas_p = self.meas_prior(p_ph, self._x_steps, self._z_steps)
-        if self.pipe is None:
-            opts = self.options
-            self.pipe = StorageDecodePipeline(
-                code=self.code, rounds=self.rounds, noise_model=noise,
-                data_prior=data_p, meas_prior=meas_p,
-                shots_per_device=self.shots_per_device,
-                max_iter=int(opts.get("max_iter", 40)),
-                bp_method=opts.get("bp_method", "ps"),
-                ms_scaling_factor=float(opts.get("ms_scaling_factor", 0.0)),
-                osd_fallback_cap=self.shots_per_device, osd_options=opts,
-                use_x_logicals=self.use_x_logicals, mode=self.mode,
-                # two-tier decode (mode "bposd" only, as in JAX): a short stage-1
-                # budget, then a fixed-size redecode of the unconverged shots
-                tier1_iters=(int(opts.get("tier1_iters", 0) or 0)
-                             if self.mode == "bposd" else 0),
-                mesh=self.mesh, device=self.device)
-        else:
-            self.pipe.rebind_noise(noise, data_p, meas_p)
-        n_data, rank = (1, 0) if self.mesh is None else (self.mesh.shape[DATA_AXIS],
-                                                        self.mesh.data_index)
-        n_batches = max(1, -(-samples // (self.shots_per_device * n_data)))
-        failures = total = osd = 0
-        for j in range(n_batches):
-            gen = torch.Generator(device=self.pipe.device)
-            gen.manual_seed(batch_seed(seed, point, j, rank))
-            f, s, o = self.pipe.run_bposd(gen)
-            failures, total, osd = failures + f, total + s, osd + o
-        return failures, total, osd
+        with span("point"):
+            noise = self.noise_model(**self.noise_model_args(p_ph))
+            data_p = self.data_prior(p_ph, self._x_steps, self._z_steps)
+            meas_p = self.meas_prior(p_ph, self._x_steps, self._z_steps)
+            if self.pipe is None:
+                opts = self.options
+                self.pipe = StorageDecodePipeline(
+                    code=self.code, rounds=self.rounds, noise_model=noise,
+                    data_prior=data_p, meas_prior=meas_p,
+                    shots_per_device=self.shots_per_device,
+                    max_iter=int(opts.get("max_iter", 40)),
+                    bp_method=opts.get("bp_method", "ps"),
+                    ms_scaling_factor=float(opts.get("ms_scaling_factor", 0.0)),
+                    osd_fallback_cap=self.shots_per_device, osd_options=opts,
+                    use_x_logicals=self.use_x_logicals, mode=self.mode,
+                    # two-tier decode (mode "bposd" only, as in JAX): a short stage-1
+                    # budget, then a fixed-size redecode of the unconverged shots
+                    tier1_iters=(int(opts.get("tier1_iters", 0) or 0)
+                                 if self.mode == "bposd" else 0),
+                    mesh=self.mesh, device=self.device)
+            else:
+                self.pipe.rebind_noise(noise, data_p, meas_p)
+            n_data, rank = (1, 0) if self.mesh is None else (self.mesh.shape[DATA_AXIS],
+                                                            self.mesh.data_index)
+            n_batches = max(1, -(-samples // (self.shots_per_device * n_data)))
+            failures = total = osd = 0
+            for j in range(n_batches):
+                gen = torch.Generator(device=self.pipe.device)
+                gen.manual_seed(batch_seed(seed, point, j, rank))
+                f, s, o = self.pipe.run_bposd(gen)
+                failures, total, osd = failures + f, total + s, osd + o
+            return failures, total, osd
 
 
 def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_prior,

@@ -11,7 +11,9 @@ card (``--route streamed``: K2 and K6 on their streamed route, the
 device-memory grids, for a trace of both routes in one run),
 times ``--repeats`` untraced batches, then traces one more ``run_bposd``
 with :func:`..utils.observability.profiler_trace` (``torch.profiler``, CPU
-and CUDA activities; the Chrome trace moved to ``--trace``) and reads it:
+and CUDA activities; the Chrome trace moved to ``--trace``) inside
+:func:`..utils.observability.tracing`, so the trace names the program's
+``ldpc.`` spans around the device operations, and reads it:
 
   * ``span_ms``: host wall time of the traced batch, synchronised;
   * ``busy_ms``: the union of kernel, memcpy and memset intervals on the
@@ -50,7 +52,7 @@ from ..codes.hgp import biregular_hgp
 from ..decoders import bp_bsr, bp_cuda, spacetime_bp_cuda
 from ..parallel.pipeline import StorageDecodePipeline
 from ..utils.cuda_build import BUILD_DIR
-from ..utils.observability import profiler_trace
+from ..utils.observability import profiler_trace, tracing
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 MODES = ("bposd", "bposd_single_shot", "bposd_hybrid")
@@ -180,7 +182,7 @@ def main(argv=None) -> dict:
             walls.append(time.perf_counter() - t0)
         for mod in kernels + (bp_bsr,):
             mod.KERNEL.reset_counts()
-        with profiler_trace(str(args.trace.parent)):
+        with profiler_trace(str(args.trace.parent)), tracing():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             failures, shots, osd = pipe.run_bposd(gens[-1])

@@ -38,6 +38,11 @@ generator it is given, decodes them, redecodes its own shipped shots on
 its host, and the counts are summed over the data group, so every rank
 returns the totals.
 
+Each step runs inside a span of :mod:`..utils.observability` (``ldpc.batch``
+around ``ldpc.sample``, ``ldpc.decode`` with its ``decode.syndromes``,
+``decode.bp`` and ``decode.fold``, and ``ldpc.ship``, the copy to the host,
+counted in ``ship_bytes``), which costs a flag read while tracing is off.
+
 ``msg_dtype`` ("float32" or "bfloat16") is the message type of the plain
 spacetime core (:func:`..decoders.spacetime_bp.stbp_core`), which runs
 with ``early_stop`` and, for K2, on the CPU.  As in the JAX package, whose
@@ -68,6 +73,7 @@ from ..decoders.spacetime_bp import MSG_DTYPES, stbp_core
 from ..decoders.spacetime_bp_cuda import stbp_fixed
 from ..sampler.device import build_record_sampler
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.observability import count, span
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, all_reduce_sum
 
 __all__ = ["StorageDecodePipeline"]
@@ -226,13 +232,14 @@ class StorageDecodePipeline:
         n_iter = self.max_iter if max_iter is None else int(max_iter)
         args = (self._tables, self.rounds, self._prior, synd, self._method, n_iter,
                 float(self.ms_scaling_factor))
-        if self.kernel == "stbsr":
-            h, _p, c, _i = stbsr_decode(*args, early_stop=False)
-        elif self.kernel == "stbp" and synd.device.type == "cuda":
-            h, _p, c, _i = stbp_fixed(*args)
-        else:   # the plain core: K2's plain version on the CPU, or per-shot freezing
-            h, _p, c, _i = stbp_core(*args, early_stop=self.kernel == "core",
-                                     msg_dtype=self.msg_dtype)
+        with span("decode.bp"):
+            if self.kernel == "stbsr":
+                h, _p, c, _i = stbsr_decode(*args, early_stop=False)
+            elif self.kernel == "stbp" and synd.device.type == "cuda":
+                h, _p, c, _i = stbp_fixed(*args)
+            else:   # the plain core: K2's plain version on the CPU, or per-shot freezing
+                h, _p, c, _i = stbp_core(*args, early_stop=self.kernel == "core",
+                                         msg_dtype=self.msg_dtype)
         return h, c
 
     def decode_two_tier(self, synd: torch.Tensor):
@@ -253,10 +260,11 @@ class StorageDecodePipeline:
     def decode_flat(self, tables, prior: torch.Tensor, synd: torch.Tensor):
         """A flat BP stage: (C, S) syndromes -> (hard (V, S) uint8, conv (S,) bool)."""
         args = (tables, prior, synd, self._method, self.max_iter, float(self.ms_scaling_factor))
-        if self.flat_kernel == "bpflat":
-            h, _p, c, _i = bp_fixed(*args)
-        else:
-            h, _p, c, _i = bp_core(*args, early_stop=True)
+        with span("decode.bp"):
+            if self.flat_kernel == "bpflat":
+                h, _p, c, _i = bp_fixed(*args)
+            else:
+                h, _p, c, _i = bp_core(*args, early_stop=True)
         return h, c
 
     def _split_record(self, record: torch.Tensor):
@@ -273,58 +281,68 @@ class StorageDecodePipeline:
         """The differenced spacetime syndromes ((rounds+1)·r, S) uint8 of the
         rounds' syndromes and the final one from the readout."""
         S = history.shape[0]
-        final = torch.remainder(readout @ self._Hz.T, 2.0)                  # (S, r)
-        synd = torch.cat([history, final[:, None, :]], dim=1)
-        synd = torch.cat([synd[:, :1], torch.remainder(synd[:, 1:] + synd[:, :-1], 2.0)], dim=1)
-        return synd.reshape(S, -1).T.to(torch.uint8).contiguous()
+        with span("decode.syndromes"):
+            final = torch.remainder(readout @ self._Hz.T, 2.0)                  # (S, r)
+            synd = torch.cat([history, final[:, None, :]], dim=1)
+            synd = torch.cat([synd[:, :1], torch.remainder(synd[:, 1:] + synd[:, :-1], 2.0)],
+                             dim=1)
+            return synd.reshape(S, -1).T.to(torch.uint8).contiguous()
+
+    def _final_syndromes(self, readout: torch.Tensor, correction: torch.Tensor):
+        """(C, S) uint8 syndromes of the final round under ``correction``."""
+        with span("decode.syndromes"):
+            synd = torch.remainder(torch.remainder(readout + correction, 2.0) @ self._Hz.T, 2.0)
+            return synd.T.to(torch.uint8).contiguous()
 
     def _decode_records(self, record: torch.Tensor):
         """(S, M) record -> (failures, shots, unconverged) and, with the OSD
         fallback, the compacted (history, readout, ship) of up to cap shots."""
-        S = record.shape[0]
-        rounds, n = self.rounds, self.num_data
-        history, readout = self._split_record(record)
-        HzT = self._Hz.T
-        if self.mode == "bposd_single_shot":
-            # per round: (H|I) BP of the round's syndrome plus the syndrome
-            # of the accumulated correction; then BP of the final round
-            acc = torch.zeros((S, n), device=record.device)
-            bad = torch.zeros((S,), dtype=torch.bool, device=record.device)
-            for t in range(rounds):
-                s_t = torch.remainder(torch.remainder(acc @ HzT, 2.0) + history[:, t], 2.0)
-                hard_t, conv_t = self.decode_flat(self._tables_ss, self._prior_ss,
-                                                  s_t.T.to(torch.uint8).contiguous())
-                acc = torch.remainder(acc + hard_t[:n].T.to(torch.float32), 2.0)
-                bad = bad | ~conv_t
-            synd_f = torch.remainder(torch.remainder(readout + acc, 2.0) @ HzT, 2.0)
-            hard_f, conv_f = self.decode_flat(self._tables, self._prior_final,
-                                              synd_f.T.to(torch.uint8).contiguous())
-            ship = bad | ~conv_f
-            correction = torch.remainder(hard_f.T.to(torch.float32) + acc, 2.0)
-        else:
-            synd = self.spacetime_syndromes(history, readout)
-            hard, conv = (self.decode_two_tier(synd) if self.tier1_iters > 0
-                          else self.decode_spacetime(synd))
-            # mod-2 sum of the per-round data blocks
-            data_blocks = hard[: (rounds + 1) * n].reshape(rounds + 1, n, S).to(torch.int32)
-            correction = (data_blocks.sum(dim=0) % 2).T.to(torch.float32)   # (S, n)
-            ship = ~conv
-            if self.mode == "bposd_hybrid":
-                # final-round BP on top of the spacetime BP; only its
-                # unconverged shots go to the host
-                synd_f = torch.remainder(torch.remainder(readout + correction, 2.0) @ HzT, 2.0)
+        with span("decode"):
+            S = record.shape[0]
+            rounds, n = self.rounds, self.num_data
+            history, readout = self._split_record(record)
+            HzT = self._Hz.T
+            if self.mode == "bposd_single_shot":
+                # per round: (H|I) BP of the round's syndrome plus the syndrome
+                # of the accumulated correction; then BP of the final round
+                acc = torch.zeros((S, n), device=record.device)
+                bad = torch.zeros((S,), dtype=torch.bool, device=record.device)
+                for t in range(rounds):
+                    with span("decode.syndromes"):
+                        s_t = torch.remainder(torch.remainder(acc @ HzT, 2.0) + history[:, t],
+                                              2.0).T.to(torch.uint8).contiguous()
+                    hard_t, conv_t = self.decode_flat(self._tables_ss, self._prior_ss, s_t)
+                    acc = torch.remainder(acc + hard_t[:n].T.to(torch.float32), 2.0)
+                    bad = bad | ~conv_t
                 hard_f, conv_f = self.decode_flat(self._tables, self._prior_final,
-                                                  synd_f.T.to(torch.uint8).contiguous())
-                correction = torch.remainder(hard_f.T.to(torch.float32) + correction, 2.0)
-                ship = ~conv_f
-        corrected = torch.remainder(readout + correction, 2.0)
-        failed = (torch.remainder(corrected @ self._Lz.T, 2.0) > 0.5).any(dim=1)
-        unconv = int(ship.sum())
-        if self.osd_fallback_cap <= 0:
-            return int(failed.sum()), S, unconv
-        f_conv = int((failed & ~ship).sum())
-        order = torch.argsort((~ship).to(torch.int32), stable=True)[: self.osd_fallback_cap]
-        return f_conv, S, unconv, history[order], readout[order], ship[order]
+                                                  self._final_syndromes(readout, acc))
+                ship = bad | ~conv_f
+                correction = torch.remainder(hard_f.T.to(torch.float32) + acc, 2.0)
+            else:
+                synd = self.spacetime_syndromes(history, readout)
+                hard, conv = (self.decode_two_tier(synd) if self.tier1_iters > 0
+                              else self.decode_spacetime(synd))
+                # mod-2 sum of the per-round data blocks
+                data_blocks = hard[: (rounds + 1) * n].reshape(rounds + 1, n, S).to(torch.int32)
+                correction = (data_blocks.sum(dim=0) % 2).T.to(torch.float32)   # (S, n)
+                ship = ~conv
+                if self.mode == "bposd_hybrid":
+                    # final-round BP on top of the spacetime BP; only its
+                    # unconverged shots go to the host
+                    hard_f, conv_f = self.decode_flat(self._tables, self._prior_final,
+                                                      self._final_syndromes(readout, correction))
+                    correction = torch.remainder(hard_f.T.to(torch.float32) + correction, 2.0)
+                    ship = ~conv_f
+            with span("decode.fold"):
+                corrected = torch.remainder(readout + correction, 2.0)
+                failed = (torch.remainder(corrected @ self._Lz.T, 2.0) > 0.5).any(dim=1)
+                unconv = int(ship.sum())
+                if self.osd_fallback_cap <= 0:
+                    return int(failed.sum()), S, unconv
+                f_conv = int((failed & ~ship).sum())
+                order = torch.argsort((~ship).to(torch.int32),
+                                      stable=True)[: self.osd_fallback_cap]
+                return f_conv, S, unconv, history[order], readout[order], ship[order]
 
     def _data_sum(self, *counts: int):
         """The counts summed over the mesh's data group (unchanged without a mesh)."""
@@ -339,7 +357,9 @@ class StorageDecodePipeline:
         is :meth:`run_bposd`."""
         if self.osd_fallback_cap > 0:
             return self.run_bposd(generator)
-        return self._data_sum(*self._decode_records(self._sample(generator, self._noise_args)))
+        with span("batch"):
+            return self._data_sum(*self._decode_records(self._sample(generator,
+                                                                     self._noise_args)))
 
     def run_bposd(self, generator: torch.Generator):
         """Device BP + host BP+OSD redecode of the BP failures:
@@ -347,8 +367,9 @@ class StorageDecodePipeline:
         summed over the mesh's data axis."""
         if self._osd is None:
             raise ValueError("construct the pipeline with osd_fallback_cap > 0")
-        record = self._sample(generator, self._noise_args)
-        return self._finish_bposd(*self._decode_records(record))
+        with span("batch"):
+            record = self._sample(generator, self._noise_args)
+            return self._finish_bposd(*self._decode_records(record))
 
     def _finish_bposd(self, f_conv, shots, unconv, hist, readout, valid):
         # the cap holds for the data axis as a whole, as in JAX; every rank
@@ -358,11 +379,18 @@ class StorageDecodePipeline:
         if total_unconv > self.osd_fallback_cap * n_data:
             raise RuntimeError(f"{total_unconv} BP-unconverged shots exceed osd_fallback_cap="
                                f"{self.osd_fallback_cap} per device; raise the cap")
-        valid = valid.cpu().numpy()
+        with span("ship"):
+            valid = valid.cpu().numpy()
+            shipped = bool(valid.any())
+            nbytes = valid.nbytes
+            if shipped:
+                hist, readout = hist.cpu().numpy(), readout.cpu().numpy()
+                nbytes += hist.nbytes + readout.nbytes
+            count("ship_bytes", nbytes)
         f_osd = 0
-        if valid.any():
-            hist = hist.cpu().numpy()[valid].astype(np.int64)
-            readout = readout.cpu().numpy()[valid].astype(np.int64)
+        if shipped:
+            hist = hist[valid].astype(np.int64)
+            readout = readout[valid].astype(np.int64)
             corr = self._osd.readout_correction_batch(hist, readout)
             corrected = (readout + np.asarray(corr, dtype=np.int64)) % 2
             flips = (corrected @ self._Lz_np.T) % 2
@@ -372,17 +400,19 @@ class StorageDecodePipeline:
     def rebind_noise(self, noise_model, data_prior: float, meas_prior: float):
         """New noise probabilities and priors for the same circuit structure;
         the op tables, Tanner tables and kernels are kept."""
-        sim = build_storage_simulation(
-            self.rounds, noise_model, self.code, use_x_logicals=self.use_x_logicals)
-        parsed = parse_circuit(sim.circuit)
-        if parsed.structure_signature() != self.parsed.structure_signature():
-            raise ValueError("rebind_noise: circuit structure changed; build a new pipeline")
-        self._noise_args = noise_args(parsed, self.device)
-        self._set_priors(data_prior, meas_prior)
-        self.noise_model = noise_model
-        self.storage_sim = sim
-        if self._osd is not None:
-            self._osd = self._build_osd_corrector()
+        with span("rebind"):
+            sim = build_storage_simulation(
+                self.rounds, noise_model, self.code, use_x_logicals=self.use_x_logicals)
+            parsed = parse_circuit(sim.circuit)
+            if parsed.structure_signature() != self.parsed.structure_signature():
+                raise ValueError("rebind_noise: circuit structure changed; build a new pipeline")
+            self._noise_args = noise_args(parsed, self.device)
+            self._set_priors(data_prior, meas_prior)
+            self.noise_model = noise_model
+            self.storage_sim = sim
+            if self._osd is not None:
+                with span("rebind.osd_build"):
+                    self._osd = self._build_osd_corrector()
         return self
 
     def run_host_sampled(self, seed: int, shots: Optional[int] = None):

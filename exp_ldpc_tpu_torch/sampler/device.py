@@ -25,6 +25,7 @@ import torch
 from ..circuits.ir import parse_circuit
 from ..convert import DeviceOp, circuit_ops, noise_args
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.observability import span
 
 __all__ = ["build_record_sampler", "DeviceSampler"]
 
@@ -148,16 +149,17 @@ def build_record_sampler(circuit, shots: int, device: DeviceLike = "cuda"
             chain = _apply(op, args, fx, fz, record, base, chain, gen)
 
     def sample(gen: torch.Generator, args: torch.Tensor) -> torch.Tensor:
-        fx = torch.zeros((Q, S), dtype=torch.uint8, device=dev)
-        fz = torch.zeros((Q, S), dtype=torch.uint8, device=dev)
-        record = torch.zeros((M, S), dtype=torch.uint8, device=dev)
-        run_block(pro, args, fx, fz, record, 0, gen)
-        for it in range(c.repeat_count if c.body else 0):
-            base = c.prologue_measurements + it * c.body_measurements
-            run_block(body, args, fx, fz, record, base, gen)
-        epi_base = c.prologue_measurements + c.repeat_count * c.body_measurements
-        run_block(epi, args, fx, fz, record, epi_base, gen)
-        return record.T
+        with span("sample"):
+            fx = torch.zeros((Q, S), dtype=torch.uint8, device=dev)
+            fz = torch.zeros((Q, S), dtype=torch.uint8, device=dev)
+            record = torch.zeros((M, S), dtype=torch.uint8, device=dev)
+            run_block(pro, args, fx, fz, record, 0, gen)
+            for it in range(c.repeat_count if c.body else 0):
+                base = c.prologue_measurements + it * c.body_measurements
+                run_block(body, args, fx, fz, record, base, gen)
+            epi_base = c.prologue_measurements + c.repeat_count * c.body_measurements
+            run_block(epi, args, fx, fz, record, epi_base, gen)
+            return record.T
 
     return sample
 

@@ -1,36 +1,53 @@
-"""Logging, throughput metrics, and profiler tracing.
-
-Counterpart of ``exp_ldpc_tpu/utils/observability.py``, with the same names
-and behaviour:
+"""Logging, the program's spans and counters, and profiler tracing.
 
   * :func:`get_logger`: loggers under the ``exp_ldpc_tpu_torch`` namespace;
     the level comes from the ``EXP_LDPC_TPU_TORCH_LOG`` environment variable
     (default WARNING, so library use is silent);
-  * :class:`Metrics`: named monotonic counters with derived rates (shots
-    decoded/s, BP iterations/s, ...), cheap enough to leave on;
+  * :func:`tracing`, :func:`span`, :func:`count`, :func:`counters`: the
+    program's own spans and counters, off unless a :func:`tracing` block is
+    open.  Off, :func:`span` returns one shared do-nothing context and
+    :func:`count` returns at once: a flag read each, no allocation, nothing
+    on the card.  On, ``span(name)`` is ``torch.profiler.record_function
+    ("ldpc." + name)``, so the spans land in the profiler's Chrome trace
+    beside the device operations, on the same clock, each inside the
+    innermost ``ldpc.`` span open on its thread; :func:`count` adds integers
+    the program already holds on the host (shapes, ``nbytes``), never a
+    value that would need a device sync or a copy;
   * :func:`profiler_trace`: a context manager around ``torch.profiler`` that
     writes a Chrome trace of everything inside it (device activity too when
-    a CUDA card is present);
-  * :func:`timed`: a walltime context manager that logs (and optionally
-    accumulates into a :class:`Metrics`); given a CUDA device it
-    synchronises it before reading the clock on both sides, so the time is
-    the device's work and not its enqueueing.
+    a CUDA card is present).
+
+The spans, from the sweep down (``ldpc.`` prefix; parent first):
+``point`` (a sweep point), ``rebind`` and ``rebind.osd_build`` (the noise
+rebound between points), ``batch``, ``sample``, ``decode`` with
+``decode.syndromes``, ``decode.bp`` (each BP stage) and ``decode.fold``,
+``ship`` (the copy of the compacted batch to the host), ``redecode`` (the
+host BP+OSD driver) with ``redecode.bp`` and ``redecode.osd``.  The
+counters: ``ship_bytes`` (bytes ``ship`` copies) and ``osd_solves`` (shots
+handed to OSD after the redecode's BP).
 """
 from __future__ import annotations
 
 import contextlib
 import logging
 import os
-import time
-from dataclasses import dataclass, field
+import threading
 from pathlib import Path
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator
 
-__all__ = ["get_logger", "Metrics", "profiler_trace", "timed"]
+from torch.profiler import record_function
+
+__all__ = ["get_logger", "tracing", "span", "count", "counters", "profiler_trace"]
 
 _ROOT = "exp_ldpc_tpu_torch"
 _ENV = "EXP_LDPC_TPU_TORCH_LOG"
 _configured = False
+
+PREFIX = "ldpc."
+_OFF = contextlib.nullcontext()
+_on = False
+_counts: Dict[str, int] = {}
+_lock = threading.Lock()
 
 
 def get_logger(name: str = "") -> logging.Logger:
@@ -54,39 +71,42 @@ def get_logger(name: str = "") -> logging.Logger:
     return root if not name else logging.getLogger(f"{_ROOT}.{name}")
 
 
-@dataclass
-class Metrics:
-    """Named monotonic counters with wall-clock rates.
+@contextlib.contextmanager
+def tracing() -> Iterator[None]:
+    """Turn the program's spans and counters on for the enclosed block; the
+    counters start from zero.  The block's spans reach a trace only where
+    a ``torch.profiler`` session is open around them."""
+    global _on
+    with _lock:
+        _counts.clear()
+    was, _on = _on, True
+    try:
+        yield
+    finally:
+        _on = was
 
-    >>> m = Metrics()
-    >>> m.add("shots", 4096); m.add("bp_iters", 4096 * 32)
-    >>> m.report()  # {'shots': ..., 'shots_per_s': ..., ...}
-    """
 
-    counters: Dict[str, float] = field(default_factory=dict)
-    _t0: float = field(default_factory=time.perf_counter)
+def span(name: str):
+    """A context around one piece of the program's work: the profiler range
+    ``ldpc.<name>`` while tracing is on, the shared do-nothing context
+    while it is off."""
+    if not _on:
+        return _OFF
+    return record_function(PREFIX + name)
 
-    def add(self, name: str, value: float = 1.0) -> None:
-        self.counters[name] = self.counters.get(name, 0.0) + float(value)
 
-    def elapsed(self) -> float:
-        return time.perf_counter() - self._t0
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on."""
+    if not _on:
+        return
+    with _lock:
+        _counts[name] = _counts.get(name, 0) + int(n)
 
-    def reset(self) -> None:
-        self.counters.clear()
-        self._t0 = time.perf_counter()
 
-    def report(self) -> Dict[str, float]:
-        dt = max(self.elapsed(), 1e-12)
-        out: Dict[str, float] = {"elapsed_s": dt}
-        for k, v in self.counters.items():
-            out[k] = v
-            out[f"{k}_per_s"] = v / dt
-        return out
-
-    def log(self, logger: Optional[logging.Logger] = None, level=logging.INFO) -> None:
-        (logger or get_logger("metrics")).log(
-            level, " ".join(f"{k}={v:.6g}" for k, v in sorted(self.report().items())))
+def counters() -> Dict[str, int]:
+    """A snapshot of the counters, by name."""
+    with _lock:
+        return dict(_counts)
 
 
 @contextlib.contextmanager
@@ -123,29 +143,3 @@ def profiler_trace(log_dir: str) -> Iterator[object]:
             prof.export_chrome_trace(str(out / "trace.json"))
         except Exception as e:  # pragma: no cover
             log.warning("stopping the profiler failed: %s", e)
-
-
-@contextlib.contextmanager
-def timed(name: str, *, metrics: Optional[Metrics] = None,
-          logger: Optional[logging.Logger] = None, level=logging.DEBUG,
-          device=None) -> Iterator[None]:
-    """Log the walltime of the enclosed block (and count it into metrics).
-    With a CUDA ``device`` the device is synchronised before each clock
-    reading."""
-    import torch
-
-    def sync():
-        if device is not None and torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
-
-    sync()
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        sync()
-        dt = time.perf_counter() - t0
-        if metrics is not None:
-            metrics.add(f"{name}_s", dt)
-            metrics.add(f"{name}_calls", 1)
-        (logger or get_logger("timing")).log(level, "%s took %.4fs", name, dt)
