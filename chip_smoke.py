@@ -299,7 +299,19 @@ Phases, in order; any failure raises and exits nonzero:
      clock (``clock_share``), its
      fixed cost a call, and the L2 read rate it needs beside a copy of b.
      ``--quick``
-     runs the parity part only.
+     runs the parity part only;
+ 40. K8 (``csrc/osd.cu``, the redecode's OSD on the card) against its plain
+     version, the C++ ``osd_batch`` on all the host's threads, bit for bit
+     (a shot may differ only where the two winners' costs tie within 1e-12
+     relative; their count is logged and reported as ``max_abs_err``) at
+     the ``bposd`` shape (HGP-225 x 4, 540 x 1,557: 700 shots the
+     redecode's spacetime BP left unconverged at p = 3.48e-3) and at
+     single-shot's (H|I) 108 x 333 and H 108 x 225 (700 shots each, flat BP
+     posteriors); both timed (K8 by CUDA events with its order's sort, the
+     C++ by the host clock, median of 5), and K8's bound
+     (``utils/bounds.py::osd_bound``: the XOR words of the eliminations of
+     a sample of the shots, by a numpy replay, and the candidates' reads,
+     through shared memory).
 
 Each run of the main path (phases 6, 7, the two runs of phase 11, phases
 15, 16 and 20, each run of phase 23, the four runs of phase 24's second
@@ -312,7 +324,8 @@ a kernel's C entry point: for K1, K3 and K5 one whole decode (up to three
 grids per iteration, all enqueued by the one call: a single-shot batch is 5
 K1 calls, a hybrid batch 1), for K2 and K6 one decode (resident: one grid;
 streamed: two grids an iteration and a parity grid), for K4
-one iteration of one shard (two grids), for K7 one chain (two grids).  The line before the
+one iteration of one shard (two grids), for K7 one chain (two grids), for
+K8 one OSD call (one grid, a block a shot).  The line before the
 last is the kernel summary JSON (``launches`` summed over those runs,
 ``launches_by_run`` split by run, ``routes`` split by route: K2 and K6
 "resident" / "streamed" / "resident_wide" / "streamed_wide", K1 "grids" /
@@ -341,6 +354,7 @@ import csv
 import json
 import logging
 import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -357,6 +371,7 @@ if not all((ROOT / d).is_dir() for d in ("exp_ldpc_tpu_torch", "artifacts")):
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from scipy import sparse  # noqa: E402
 
 from exp_ldpc_tpu_torch.circuits.noise import (circuit_noise, depolarizing_noise,  # noqa: E402
                                                trivial_noise)
@@ -382,6 +397,8 @@ from exp_ldpc_tpu_torch.decoders import bp_bsr_shard as k4  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import bp_bsr_spacetime as k3  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import bp_cuda as k6  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import spacetime_bp_cuda as k2  # noqa: E402
+from exp_ldpc_tpu_torch.decoders import osd_cuda as k8  # noqa: E402
+from exp_ldpc_tpu_torch.decoders.osd import osd_decode_batch  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.bp import bp_core, priors_to_llr  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.bp_int8 import (int8_bp_core, int8_bp_oracle,  # noqa: E402
                                                  quantize_priors)
@@ -396,7 +413,7 @@ from exp_ldpc_tpu_torch.parallel.mesh import make_mesh, run_world  # noqa: E402
 from exp_ldpc_tpu_torch.parallel.pipeline import StorageDecodePipeline  # noqa: E402
 from exp_ldpc_tpu_torch.sampler.device import DeviceSampler  # noqa: E402
 from exp_ldpc_tpu_torch.utils.bounds import (OPS_FLOAT, OPS_INT8, bound,  # noqa: E402
-                                             dot_chain_bound, streamed_bound)
+                                             dot_chain_bound, osd_bound, streamed_bound)
 from exp_ldpc_tpu_torch.utils.bounds import flat_io as _flat_io  # noqa: E402
 from exp_ldpc_tpu_torch.utils.bounds import st_io as _st_io  # noqa: E402
 
@@ -502,7 +519,7 @@ def phase_card() -> str:
 
 
 KERNELS = {"K1": k1.KERNEL, "K2": k2.KERNEL, "K3": k3.KERNEL, "K4": k4.KERNEL,
-           "K5": k1.KERNEL_INT8, "K6": k6.KERNEL, "K7": k7.KERNEL}
+           "K5": k1.KERNEL_INT8, "K6": k6.KERNEL, "K7": k7.KERNEL, "K8": k8.KERNEL}
 
 
 def phase_build() -> None:
@@ -3146,6 +3163,134 @@ def phase_probes(cyclic: "FlatSetup", dem: "PriorSetup", dev: torch.device, quic
 
 
 # ---------------------------------------------------------------------------
+# K8, the redecode's OSD on the card (phase 40)
+# ---------------------------------------------------------------------------
+
+
+K8_SHOTS = 700   # ~ the shots a bposd batch hands to OSD at P_HI (ledger: osd_solves 700)
+K8_OPTIONS = ("osd_cs", 7)
+
+
+def k8_cases(su: Setup, dev: torch.device, shots: int) -> list:
+    """(label, H, syndromes, LLRs) at the three shapes the pipeline modes
+    hand to OSD: HGP-225 x 4 with the unconverged shots of the redecode's
+    own spacetime BP (min-sum 0.625, 48 iterations, exit armed) at P_HI;
+    single-shot's (H|I) and H with flat BP posteriors at 8 iterations, so
+    that most shots stay unconverged."""
+    H = su.code.checks.z
+    st = SpacetimeCode(H, ROUNDS)
+    prior = np.full(st.spacetime_check_matrix.shape[1], 2 / 3 * P_HI)
+    bp = select.make_spacetime_bp_decoder(H, ROUNDS, device=dev, max_iter=MAX_ITER,
+                                          bp_method="ms", ms_scaling_factor=ALPHA,
+                                          channel_probs=prior)
+    synds, posts, seed = [], [], 400
+    while sum(x.shape[0] for x in synds) < shots:
+        synd = su.syndromes(16384, P_HI, seed).T.contiguous().cpu().numpy()
+        _h, post, conv, _i = bp.decode_batch(synd)
+        synds.append(synd[~conv])
+        posts.append(post[~conv])
+        seed += 1
+    cases = [("bposd", su.H, np.concatenate(synds)[:shots], np.concatenate(posts)[:shots])]
+    for label, M in (("HI", SpacetimeCodeSingleShot(H).spacetime_check_matrix.tocsr()),
+                     ("H", H.tocsr())):
+        fs = Checks(M, dev, label)
+        synd = fs.syndromes(shots, 0.03, seed=410).T.contiguous().cpu().numpy()
+        flat = select.make_bp_decoder(M, error_rate=0.02, max_iter=8, bp_method="ms",
+                                      ms_scaling_factor=ALPHA, device=dev)
+        cases.append((label, M, synd, flat.decode_batch(synd)[1]))
+    return cases
+
+
+def _osd_costs(llr: np.ndarray) -> np.ndarray:
+    with np.errstate(over="ignore", invalid="ignore"):
+        q = np.clip(1.0 / (1.0 + np.exp(np.clip(llr, -30, 30))), 1e-12, 1 - 1e-12)
+        return np.maximum(np.log((1 - q) / q), 1e-9)
+
+
+def k8_work(H, llr: np.ndarray, synd: np.ndarray, order: int) -> tuple:
+    """(XOR words, candidate words) of K8's OSD-CS on these shots: a numpy
+    replay of the elimination (the rows XORed at each pivot, each from the
+    pivot's 32-bit word to the row's end) and the candidates' reads (a word
+    of every pivot row for each set non-pivot bit)."""
+    Hd = sparse.csr_matrix(H).toarray().astype(np.uint8) % 2
+    r, n = Hd.shape
+    words = (n + 1 + 31) // 32
+    xor = cand = 0
+    for x, s in zip(llr, synd):
+        perm = np.argsort(x, kind="stable")
+        M = np.concatenate([Hd[:, perm], (s[:, None] & 1)], axis=1).astype(bool)
+        pr = 0
+        for col in range(n):
+            if pr == r:
+                break
+            rows = np.nonzero(M[:, col])[0]
+            below = rows[rows >= pr]
+            if below.size == 0:
+                continue
+            src = below[0]
+            M[[pr, src]] = M[[src, pr]]
+            others = rows[rows != src]   # after the swap: every other row holding col
+            M[others, col:] ^= M[pr, col:]
+            xor += others.size * (words - col // 32)
+            pr += 1
+        k = n - pr
+        w = min(order, k)
+        cand += pr * (k + w * (w - 1))
+    return xor, cand
+
+
+def phase_k8(su: Setup, dev: torch.device, quick: bool) -> tuple:
+    """K8 against ``osd_batch`` at the pipeline modes' three OSD shapes; the
+    times and K8's bound unless ``quick``."""
+    method, order = K8_OPTIONS
+    shots = 200 if quick else K8_SHOTS
+    log(f"== phase 40: K8 (the redecode's OSD on the card) against the C++ osd_batch, "
+        f"{method} order {order}, {shots} shots a shape")
+    t, bounds, ties = {}, {}, 0
+    for label, H, synd, llr in k8_cases(su, dev, shots):
+        r, n = H.shape
+        check(k8.card_takes(H.shape, method, order, dev), f"K8 takes {label} ({r} x {n})")
+        llr = np.ascontiguousarray(llr, dtype=np.float64)
+        mat = k8.card_matrix(H, dev)
+        synd_d, llr_d = torch.as_tensor(synd).to(dev), torch.as_tensor(llr).to(dev)
+        before = k8.KERNEL.launches
+        got, _ms = _timed(lambda: k8.osd_solve(mat, synd_d, llr_d, method, order))
+        got = got.cpu().numpy()
+        want = osd_decode_batch(H, synd, llr, method, order)
+        check(k8.KERNEL.launches == before + 1, f"K8 {label}: one launch")
+        diff = np.nonzero((got != want).any(axis=1))[0]
+        Hd = sparse.csr_matrix(H).toarray().astype(np.int64) % 2
+        for i in diff:
+            c = _osd_costs(llr[i])
+            a, b = float(c[want[i] == 1].sum()), float(c[got[i] == 1].sum())
+            check(abs(a - b) <= 1e-12 * max(abs(a), abs(b))
+                  and np.array_equal(Hd @ got[i] % 2, Hd @ want[i] % 2),
+                  f"K8 {label} shot {i} differs only by a tie ({a!r} vs {b!r})")
+        log(f"K8 {label} ({r} x {n}, {shots} shots): equal to osd_batch on "
+            f"{shots - diff.size}, {diff.size} tied shots differ")
+        ties += int(diff.size)
+        if quick:
+            continue
+        tag = "K8" if label == "bposd" else f"K8_{label}"
+        t[tag] = _median_ms(lambda _: k8.osd_solve(mat, synd_d, llr_d, method, order),
+                            range(5))
+        host = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            osd_decode_batch(H, synd, llr, method, order)
+            host.append(1e3 * (time.perf_counter() - t0))
+        t[f"{tag}_plain"] = float(np.median(host))
+        sample = np.arange(0, shots, max(1, shots // 20))
+        xor, cand = k8_work(H, llr[sample], synd[sample], order)
+        scale = shots / sample.size
+        bounds[label] = osd_bound(xor * scale, cand * scale, shots, r, n)
+        log(f"K8 {label}: {t[tag]:.3f} ms (C++ on {os.cpu_count()} threads "
+            f"{t[f'{tag}_plain']:.1f} ms), bound {bounds[label]['bound_ms']:.4f} ms "
+            f"({bounds[label]['bound_by']}; {xor / sample.size:.0f} XOR words a shot)")
+    return ties, t, bounds
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for each kernel's `ms` shape
 # (exp_ldpc_tpu_torch/utils/bounds.py: bytes over 3.35 TB/s, operations over
 # 67 TFLOP/s)
@@ -3327,6 +3472,7 @@ def main() -> int:
     err, parity_routes = {}, {}
     err["K2"], parity_routes["K2"] = phase(phase_k2, su, sizes, dev)
     err["K3"] = phase(phase_k3, su, sizes, (97,) if args.quick else (97, S_REDECODE))
+    err["K8"], t_k8, b_k8 = phase(phase_k8, su, dev, args.quick)
     phase(phase_sampler, su, dev, n_dev, n_host, host)
     src = "exp_ldpc_tpu_torch/csrc/"
     kernels = [
@@ -3354,6 +3500,10 @@ def main() -> int:
         {"name": "K7 dot_chain_run (one count = one chain: 2 grids; ms at 16,384 dots, bf16)",
          "route": "cuda", "source": src + "dot_chain.cu",
          "replaces": "scripts/bench_mxu_dtypes.py:51"},
+        {"name": "K8 osd_solve (one count = one OSD call: a block a shot; ms at the bposd "
+                 f"shape, {K8_SHOTS} shots; plain_ms the C++ osd_batch on the host's threads)",
+         "route": "cuda", "source": src + "osd.cu",
+         "replaces": "none (the JAX package's host OSD, native/gf2_kernels.cpp::osd_batch)"},
     ]
     if not args.quick:
         # The main path, run by run, each counted from 0: the bposd p_sweep
@@ -3426,6 +3576,7 @@ def main() -> int:
         t.update(t_tt)
         t.update(t_ler)
         t.update(t_probe)
+        t.update(t_k8)
         bounds = kernel_bounds(su, flats, big, fams, cap, k3b_shapes["HGP"], _gross(dev), dem, t,
                                cyclic_H)
         # K7 at 16,384 dots, S = 128, by type (bf16 the entry's main shape); its
@@ -3443,6 +3594,10 @@ def main() -> int:
             bounds["K7"].update({f"{key}_{dtype}": t[f"K7_{dtype}_{key}"] for key in (
                 "fixed_ms", "host_ms", "l2_tbps_needed", "l2_tbps_needed_at_peak",
                 "l2_copy_tbps", "sm_clock_max_mhz", "clock_share")})
+        bounds["K8"] = {**b_k8["bposd"], "library_ms": None}
+        for label in ("HI", "H"):
+            bounds["K8"].update({f"bound_ms_{label}": b_k8[label]["bound_ms"],
+                                 f"bound_by_{label}": b_k8[label]["bound_by"]})
         b_dm = streamed_dm_bounds(su, flats, dense)
         timing = {"K1": ("K1_S16384", "bench", "S16384_es", f"S{S_REDECODE}_es", "fam_cyclic",
                          "fam_qclp", "dem_dc53"),
@@ -3453,7 +3608,8 @@ def main() -> int:
                   "K4": ("K4_capacity_D8", "bench_D1", "bench_D2", "bench_D4"),
                   "K5": ("K5_cyclic", "qclp", "dem_dc53"),
                   "K6": ("K6_S16384", "bench", f"S{S_REDECODE}"),
-                  "K7": ("K7_bf16", "f32", "int8")}
+                  "K7": ("K7_bf16", "f32", "int8"),
+                  "K8": ("K8", "HI", "H")}
         for kern in kernels:
             key = kern["name"].split()[0]
             if key == "K3b":

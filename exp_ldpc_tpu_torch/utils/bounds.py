@@ -23,6 +23,12 @@ operations a clock and SM x 132 SMs at 1,830 MHz, f32 is 256 x 132 at
 past the first two.  :func:`clock_peak` puts every type on the card's own
 clock (``nvidia-smi``'s ``clocks.max.sm``) and SM count: the rate no kernel
 can pass, which the dot chain's share and its check of left-out work use.
+
+The OSD step of BP+OSD (K8, :func:`osd_bound`) keeps each shot's matrix in
+shared memory: its bound is the words its elimination and its candidate
+scoring must move through the card's shared memory (128 bytes a clock and
+SM, 132 SMs at 1,980 MHz), or its device-memory traffic where that is
+larger.
 """
 from __future__ import annotations
 
@@ -31,9 +37,10 @@ from typing import Optional
 __all__ = ["HBM_BYTES_PER_S", "OPS_PER_S", "TENSOR_OPS_PER_S", "OPS_FLOAT", "OPS_INT8",
            "ABLATE_OPS", "bound", "table_bytes", "flat_io", "st_io",
            "streamed_bound", "dot_chain_bound", "DOT_ELEMENT_BYTES", "OPS_PER_CLOCK_SM",
-           "clock_peak"]
+           "clock_peak", "SMEM_BYTES_PER_S", "osd_bound"]
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+SMEM_BYTES_PER_S = 132 * 128 * 1.98e9   # H100 SXM shared memory, all SMs
 OPS_PER_S = 67e12           # float32 / int32 outside the tensor cores
 # the peak of a product by operand type: the tensor cores' dense rates for
 # bf16 (f32 sums) and int8 (int32 sums); f32 products run on the CUDA cores
@@ -116,3 +123,19 @@ def dot_chain_bound(dtype: str, chain: int, S: int = 128,
     elt = DOT_ELEMENT_BYTES[dtype]
     nbytes = elt * (1024 * 128 + 8192 * S) + 4 * 128 * S
     return bound(nbytes, 2.0 * 128 * 128 * S * chain, ops_per_s or TENSOR_OPS_PER_S[dtype])
+
+
+def osd_bound(xor_words: float, cand_words: float, shots: int, rows: int, cols: int) -> dict:
+    """K8's bound for ``shots`` OSD solves of an (rows, cols) matrix: in
+    shared memory, each XOR of a row word by the pivot's word reads and
+    writes the row's word (the pivot's word is a broadcast, not counted),
+    and each candidate reads a word of every pivot row a set non-pivot bit
+    touches (``xor_words`` and ``cand_words`` summed over the shots); in
+    device memory, a shot's ordered columns (int32), LLRs (float64) and
+    syndrome (u8) in, its answer (u8) out.  ``bound_by`` is "shared memory"
+    or "bytes"."""
+    smem = 8.0 * xor_words + 4.0 * cand_words
+    dm = shots * (13 * cols + rows + cols)
+    ts, tb = 1e3 * smem / SMEM_BYTES_PER_S, 1e3 * dm / HBM_BYTES_PER_S
+    return {"bound_ms": max(ts, tb), "bound_by": "shared memory" if ts >= tb else "bytes",
+            "bound_bytes": int(dm), "bound_smem_bytes": int(smem)}

@@ -23,8 +23,9 @@ rebound between points), ``batch``, ``sample``, ``decode`` with
 ``decode.syndromes``, ``decode.bp`` (each BP stage) and ``decode.fold``,
 ``ship`` (the copy of the compacted batch to the host), ``redecode`` (the
 host BP+OSD driver) with ``redecode.bp`` and ``redecode.osd``.  The
-counters: ``ship_bytes`` (bytes ``ship`` copies) and ``osd_solves`` (shots
-handed to OSD after the redecode's BP).
+counters: ``ship_bytes`` (bytes ``ship`` copies), ``osd_solves`` (shots
+handed to OSD after the redecode's BP) and ``osd_card_solves`` (those of
+them solved on the card, by kernel K8).
 """
 from __future__ import annotations
 
