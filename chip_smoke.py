@@ -307,8 +307,11 @@ Phases, in order; any failure raises and exits nonzero:
      the ``bposd`` shape (HGP-225 x 4, 540 x 1,557: 700 shots the
      redecode's spacetime BP left unconverged at p = 3.48e-3) and at
      single-shot's (H|I) 108 x 333 and H 108 x 225 (700 shots each, flat BP
-     posteriors); both timed (K8 by CUDA events with its order's sort, the
-     C++ by the host clock, median of 5), and K8's bound
+     posteriors), each on K8's block route, and at the gross code over 12
+     rounds, 936 x 2,736 on its device route (700 shots its redecode's
+     spacetime BP left unconverged at p = 0.005); both timed (K8 by CUDA
+     events with its order's sort, the C++ by the host clock, median of
+     5), and K8's bound
      (``utils/bounds.py::osd_bound``: the XOR words of the eliminations of
      a sample of the shots, by a numpy replay, and the candidates' reads,
      through shared memory).
@@ -3169,14 +3172,39 @@ def phase_probes(cyclic: "FlatSetup", dem: "PriorSetup", dev: torch.device, quic
 
 K8_SHOTS = 700   # ~ the shots a bposd batch hands to OSD at P_HI (ledger: osd_solves 700)
 K8_OPTIONS = ("osd_cs", 7)
+K8_GROSS_P = 0.005   # the gross144x12osd.bposd cell's p
+
+
+def k8_gross_case(dev: torch.device, shots: int) -> tuple:
+    """The gross code over 12 rounds (936 x 2,736, K8's device route): the
+    unconverged shots of the redecode's own spacetime BP (min-sum 0.625, 60
+    iterations, exit armed, priors 2/3 p) on i.i.d. spacetime errors at
+    K8_GROSS_P."""
+    H = gross_code().checks.z
+    st = SpacetimeCode(H, 12)
+    Hst = st.spacetime_check_matrix.tocsr()
+    prior = np.full(Hst.shape[1], 2 / 3 * K8_GROSS_P)
+    bp = select.make_spacetime_bp_decoder(H, 12, device=dev, max_iter=60, bp_method="ms",
+                                          ms_scaling_factor=ALPHA, channel_probs=prior)
+    HT = torch.as_tensor(Hst.toarray().T.astype(np.float32)).to(dev)
+    rng = np.random.default_rng(420)
+    synds, posts = [], []
+    while sum(x.shape[0] for x in synds) < shots:
+        err = torch.as_tensor(rng.random((16384, Hst.shape[1])) < K8_GROSS_P).to(dev).float()
+        synd = ((err @ HT) % 2).to(torch.uint8).cpu().numpy()
+        _h, post, conv, _i = bp.decode_batch(synd)
+        synds.append(synd[~conv])
+        posts.append(post[~conv])
+    return "gross", Hst, np.concatenate(synds)[:shots], np.concatenate(posts)[:shots]
 
 
 def k8_cases(su: Setup, dev: torch.device, shots: int) -> list:
-    """(label, H, syndromes, LLRs) at the three shapes the pipeline modes
-    hand to OSD: HGP-225 x 4 with the unconverged shots of the redecode's
-    own spacetime BP (min-sum 0.625, 48 iterations, exit armed) at P_HI;
-    single-shot's (H|I) and H with flat BP posteriors at 8 iterations, so
-    that most shots stay unconverged."""
+    """(label, H, syndromes, LLRs) at the three shapes the HGP pipeline
+    modes hand to OSD: HGP-225 x 4 with the unconverged shots of the
+    redecode's own spacetime BP (min-sum 0.625, 48 iterations, exit armed)
+    at P_HI; single-shot's (H|I) and H with flat BP posteriors at 8
+    iterations, so that most shots stay unconverged; and the gross code's
+    (:func:`k8_gross_case`)."""
     H = su.code.checks.z
     st = SpacetimeCode(H, ROUNDS)
     prior = np.full(st.spacetime_check_matrix.shape[1], 2 / 3 * P_HI)
@@ -3198,6 +3226,7 @@ def k8_cases(su: Setup, dev: torch.device, shots: int) -> list:
         flat = select.make_bp_decoder(M, error_rate=0.02, max_iter=8, bp_method="ms",
                                       ms_scaling_factor=ALPHA, device=dev)
         cases.append((label, M, synd, flat.decode_batch(synd)[1]))
+    cases.append(k8_gross_case(dev, shots))
     return cases
 
 
@@ -3240,8 +3269,9 @@ def k8_work(H, llr: np.ndarray, synd: np.ndarray, order: int) -> tuple:
 
 
 def phase_k8(su: Setup, dev: torch.device, quick: bool) -> tuple:
-    """K8 against ``osd_batch`` at the pipeline modes' three OSD shapes; the
-    times and K8's bound unless ``quick``."""
+    """K8 against ``osd_batch`` at the pipeline modes' four OSD shapes (the
+    gross code's on the device route); the times and K8's bound unless
+    ``quick``."""
     method, order = K8_OPTIONS
     shots = 200 if quick else K8_SHOTS
     log(f"== phase 40: K8 (the redecode's OSD on the card) against the C++ osd_batch, "
@@ -3249,15 +3279,18 @@ def phase_k8(su: Setup, dev: torch.device, quick: bool) -> tuple:
     t, bounds, ties = {}, {}, 0
     for label, H, synd, llr in k8_cases(su, dev, shots):
         r, n = H.shape
-        check(k8.card_takes(H.shape, method, order, dev), f"K8 takes {label} ({r} x {n})")
+        way = k8.card_route(H.shape, method, order, dev)
+        check(way == ("device" if label == "gross" else "block"),
+              f"K8 takes {label} ({r} x {n}) on route {way}")
+        kern = k8.DEVICE_KERNEL if way == "device" else k8.KERNEL
         llr = np.ascontiguousarray(llr, dtype=np.float64)
         mat = k8.card_matrix(H, dev)
         synd_d, llr_d = torch.as_tensor(synd).to(dev), torch.as_tensor(llr).to(dev)
-        before = k8.KERNEL.launches
+        before = kern.launches
         got, _ms = _timed(lambda: k8.osd_solve(mat, synd_d, llr_d, method, order))
         got = got.cpu().numpy()
         want = osd_decode_batch(H, synd, llr, method, order)
-        check(k8.KERNEL.launches == before + 1, f"K8 {label}: one launch")
+        check(kern.launches == before + 1, f"K8 {label}: one launch")
         diff = np.nonzero((got != want).any(axis=1))[0]
         Hd = sparse.csr_matrix(H).toarray().astype(np.int64) % 2
         for i in diff:
@@ -3595,7 +3628,7 @@ def main() -> int:
                 "fixed_ms", "host_ms", "l2_tbps_needed", "l2_tbps_needed_at_peak",
                 "l2_copy_tbps", "sm_clock_max_mhz", "clock_share")})
         bounds["K8"] = {**b_k8["bposd"], "library_ms": None}
-        for label in ("HI", "H"):
+        for label in ("HI", "H", "gross"):
             bounds["K8"].update({f"bound_ms_{label}": b_k8[label]["bound_ms"],
                                  f"bound_by_{label}": b_k8[label]["bound_by"]})
         b_dm = streamed_dm_bounds(su, flats, dense)
@@ -3609,7 +3642,7 @@ def main() -> int:
                   "K5": ("K5_cyclic", "qclp", "dem_dc53"),
                   "K6": ("K6_S16384", "bench", f"S{S_REDECODE}"),
                   "K7": ("K7_bf16", "f32", "int8"),
-                  "K8": ("K8", "HI", "H")}
+                  "K8": ("K8", "HI", "H", "gross")}
         for kern in kernels:
             key = kern["name"].split()[0]
             if key == "K3b":

@@ -1,4 +1,6 @@
-// K8: the OSD step of BP+OSD, one block per shot.
+// K8: the OSD step of BP+OSD, one block per shot, on two routes: "block"
+// (below), the shot's matrix in the block's shared memory, and "device"
+// (past one block's shared memory: the section at the end of this file).
 //
 // Replaces no TPU kernel: the JAX package runs this step on the host, in the
 // threaded C++ of native/gf2_kernels.cpp::osd_batch (osd_one_shot), which is
@@ -70,13 +72,15 @@ constexpr int MAX_ORDER = 62;               // osd_batch's own limit
 // partials (32 doubles, 32 ints), the pivot search's warp minima (2 x 32, one
 // set a column in turn), the matrix (r rows of Wp words), the pivot columns'
 // mask, each logical row's physical row and syndrome bit (uint16), the
-// non-pivot columns in order (uint16).
+// non-pivot columns in order (uint16).  The device route keeps the matrix
+// in device memory: its layout has no `mat` bytes (with_mat false;
+// decoders/osd_cuda.py::device_smem_bytes).
 struct Layout {
   int words, stride, mask_words;
   int pcost, red_c, red_i, keys, mat, mask, rowinfo, nonpiv, total;
 };
 
-__host__ __device__ inline Layout layout(int r, int n) {
+__host__ __device__ inline Layout layout(int r, int n, bool with_mat = true) {
   Layout L;
   L.words = (n + 1 + 31) >> 5;
   L.stride = L.words | 1;
@@ -86,7 +90,7 @@ __host__ __device__ inline Layout layout(int r, int n) {
   L.red_i = L.red_c + 8 * 32;
   L.keys = L.red_i + 4 * 32;
   L.mat = L.keys + 4 * 64;
-  L.mask = L.mat + 4 * r * L.stride;
+  L.mask = L.mat + (with_mat ? 4 * r * L.stride : 0);
   L.rowinfo = L.mask + 4 * L.mask_words;
   L.nonpiv = L.rowinfo + 2 * r;
   L.total = L.nonpiv + 2 * n;
@@ -125,33 +129,14 @@ __device__ __forceinline__ void cs_candidate(int c, int k, int w, int& a, int& b
   b = i + 1 + q;
 }
 
-__global__ void __launch_bounds__(1024, 1)
-osd_kernel(const int* __restrict__ colptr, const int* __restrict__ rowidx,
-           const int* __restrict__ order, const double* __restrict__ llr,
-           const uint8_t* __restrict__ synd, int r, int n, int method, int osd_order,
-           uint8_t* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay = layout(r, n);
-  double* pcost = (double*)(smem + lay.pcost);
-  double* red_c = (double*)(smem + lay.red_c);
-  int* red_i = (int*)(smem + lay.red_i);
-  unsigned* keys = (unsigned*)(smem + lay.keys);
-  unsigned* mat = (unsigned*)(smem + lay.mat);
-  unsigned* mask = (unsigned*)(smem + lay.mask);
-  uint16_t* rowinfo = (uint16_t*)(smem + lay.rowinfo);
-  uint16_t* nonpiv = (uint16_t*)(smem + lay.nonpiv);
-  const int W = lay.words, Wp = lay.stride;
-
-  const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = T >> 5;
-  const size_t s = blockIdx.x;
-  const int* ord = order + s * n;
-  const double* x = llr + s * n;
-  uint8_t* o = out + s * n;
-
-  // [H[:, order] | s], bit j of a row in word j / 32
+// [H[:, order] | s] packed into mat (r rows of Wp words, bit j of a row in
+// word j / 32) from H's columns, and the pivot mask cleared, by the block.
+__device__ __forceinline__ void osd_build(unsigned* mat, unsigned* mask, int mask_words,
+                                          const int* colptr, const int* rowidx, const int* ord,
+                                          const uint8_t* syn, int r, int n, int Wp) {
+  const int T = blockDim.x, tid = threadIdx.x;
   for (int i = tid; i < r * Wp; i += T) mat[i] = 0u;
-  for (int i = tid; i < lay.mask_words; i += T) mask[i] = 0u;
+  for (int i = tid; i < mask_words; i += T) mask[i] = 0u;
   __syncthreads();
   for (int j = tid; j < n; j += T) {
     const int c = ord[j];
@@ -159,40 +144,26 @@ osd_kernel(const int* __restrict__ colptr, const int* __restrict__ rowidx,
     for (int e = colptr[c]; e < colptr[c + 1]; ++e) atomicOr(&mat[rowidx[e] * Wp + (j >> 5)], bit);
   }
   for (int p = tid; p < r; p += T)
-    if (synd[s * r + p] & 1) atomicOr(&mat[p * Wp + (n >> 5)], 1u << (n & 31));
+    if (syn[p] & 1) atomicOr(&mat[p * Wp + (n >> 5)], 1u << (n & 31));
   __syncthreads();
+}
 
-  // Elimination: this thread's row p, at logical position L.
-  const int p = tid;
-  const bool live = p < r;
-  unsigned* myrow = mat + (live ? p : 0) * Wp;
-  int L = live ? p : MAX_ROWS, mycol = -1, pr = 0, buf = 0;
-  for (int col = 0; col < n && pr < r; ++col) {
-    const int wc = col >> 5;
-    const bool has = live && ((myrow[wc] >> (col & 31)) & 1u);
-    unsigned key = (has && L >= pr) ? ((unsigned)L << ROW_BITS | (unsigned)p) : NONE;
-    key = __reduce_min_sync(FULL, key);
-    if (lane == 0) keys[buf * 32 + warp] = key;
-    __syncthreads();
-    key = __reduce_min_sync(FULL, lane < nwarps ? keys[buf * 32 + lane] : NONE);
-    buf ^= 1;
-    if (key == NONE) continue;  // no row at or past pr holds the column
-    const int src = (int)(key >> ROW_BITS), P = (int)(key & (MAX_ROWS - 1));
-    if (p == P) {
-      L = pr;
-      mycol = col;
-    } else if (L == pr) {
-      L = src;
-    }
-    if (has && p != P) {
-      const unsigned* prow = mat + P * Wp;
-      for (int k = wc; k < W; ++k) myrow[k] ^= prow[k];
-    }
-    ++pr;
-    __syncthreads();
-  }
-  const int rank = pr;
-
+// After the elimination, K8's contract on both routes: the pivot rows'
+// infos, costs and column mask; the non-pivot columns in order; the
+// candidates' costs, a thread each in turn, and the winner, written to o in
+// the original columns.  `mat` holds the rows (the block's shared memory on
+// the block route, its slot of device memory on the device route); this
+// thread's row is `myrow`, row p at logical position L, pivot of column
+// mycol; keys[0] and keys[1] take the two flags.
+__device__ __forceinline__ void osd_finish(const unsigned* mat, const unsigned* myrow, int Wp,
+                                           int n, int mask_words, int rank, bool live, int L,
+                                           int p, int mycol, const int* ord, const double* x,
+                                           int method, int osd_order, double* pcost,
+                                           double* red_c, int* red_i, unsigned* keys,
+                                           unsigned* mask, uint16_t* rowinfo, uint16_t* nonpiv,
+                                           uint8_t* o) {
+  const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = T >> 5;
   // the pivot rows: physical row and syndrome bit, cost, column mask
   if (live && L < rank) {
     rowinfo[L] = (uint16_t)(p | (bit_at(myrow, n) << 15));
@@ -203,10 +174,10 @@ osd_kernel(const int* __restrict__ colptr, const int* __restrict__ rowidx,
   // the non-pivot columns in order (warp 0: a scan of the mask's popcounts)
   if (warp == 0) {
     int base = 0;
-    for (int w0 = 0; w0 < lay.mask_words; w0 += 32) {
+    for (int w0 = 0; w0 < mask_words; w0 += 32) {
       const int wi = w0 + lane;
       unsigned m = 0u;
-      if (wi < lay.mask_words) {
+      if (wi < mask_words) {
         m = ~mask[wi];
         const int valid = n - 32 * wi;
         if (valid < 32) m &= (1u << valid) - 1u;
@@ -324,6 +295,68 @@ osd_kernel(const int* __restrict__ colptr, const int* __restrict__ rowidx,
 
 }  // namespace
 
+// Outside the anonymous namespace, so that a device trace names it.
+__global__ void __launch_bounds__(1024, 1)
+osd_kernel(const int* __restrict__ colptr, const int* __restrict__ rowidx,
+           const int* __restrict__ order, const double* __restrict__ llr,
+           const uint8_t* __restrict__ synd, int r, int n, int method, int osd_order,
+           uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay = layout(r, n);
+  double* pcost = (double*)(smem + lay.pcost);
+  double* red_c = (double*)(smem + lay.red_c);
+  int* red_i = (int*)(smem + lay.red_i);
+  unsigned* keys = (unsigned*)(smem + lay.keys);
+  unsigned* mat = (unsigned*)(smem + lay.mat);
+  unsigned* mask = (unsigned*)(smem + lay.mask);
+  uint16_t* rowinfo = (uint16_t*)(smem + lay.rowinfo);
+  uint16_t* nonpiv = (uint16_t*)(smem + lay.nonpiv);
+  const int W = lay.words, Wp = lay.stride;
+
+  const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = T >> 5;
+  const size_t s = blockIdx.x;
+  const int* ord = order + s * n;
+  const double* x = llr + s * n;
+  uint8_t* o = out + s * n;
+
+  osd_build(mat, mask, lay.mask_words, colptr, rowidx, ord, synd + s * r, r, n, Wp);
+
+  // Elimination: this thread's row p, at logical position L.
+  const int p = tid;
+  const bool live = p < r;
+  unsigned* myrow = mat + (live ? p : 0) * Wp;
+  int L = live ? p : MAX_ROWS, mycol = -1, pr = 0, buf = 0;
+  for (int col = 0; col < n && pr < r; ++col) {
+    const int wc = col >> 5;
+    const bool has = live && ((myrow[wc] >> (col & 31)) & 1u);
+    unsigned key = (has && L >= pr) ? ((unsigned)L << ROW_BITS | (unsigned)p) : NONE;
+    key = __reduce_min_sync(FULL, key);
+    if (lane == 0) keys[buf * 32 + warp] = key;
+    __syncthreads();
+    key = __reduce_min_sync(FULL, lane < nwarps ? keys[buf * 32 + lane] : NONE);
+    buf ^= 1;
+    if (key == NONE) continue;  // no row at or past pr holds the column
+    const int src = (int)(key >> ROW_BITS), P = (int)(key & (MAX_ROWS - 1));
+    if (p == P) {
+      L = pr;
+      mycol = col;
+    } else if (L == pr) {
+      L = src;
+    }
+    if (has && p != P) {
+      const unsigned* prow = mat + P * Wp;
+      for (int k = wc; k < W; ++k) myrow[k] ^= prow[k];
+    }
+    ++pr;
+    __syncthreads();
+  }
+  const int rank = pr;
+
+  osd_finish(mat, myrow, Wp, n, lay.mask_words, rank, live, L, p, mycol, ord, x, method,
+             osd_order, pcost, red_c, red_i, keys, mask, rowinfo, nonpiv, o);
+}
+
 // S shots: colptr (n+1) and rowidx (nnz) int32, H's columns (entries mod 2);
 // order (S, n) int32, each row a permutation of 0..n-1; llr (S, n) float64 in
 // the original columns; synd (S, r) uint8 (bit 0 read); out (S, n) uint8.
@@ -346,4 +379,150 @@ extern "C" int osd_solve(const void* colptr, const void* rowidx, const void* ord
                          (const int*)colptr, (const int*)rowidx, (const int*)order,
                          (const double*)llr, (const uint8_t*)synd, r, n, method, osd_order,
                          (uint8_t*)out);
+}
+
+// ---------------------------------------------------------------------------
+// The device route: K8 past one block's shared memory.
+//
+// Where a shot's packed [H[:, order] | s] does not fit one block's opt-in
+// shared memory (936 x 2,737 bits at the gross code over 12 rounds: 325,728 B
+// in 87-word rows, against the H100's 232,448 B), the matrix lives in device
+// memory: each block owns a slot of r x Wp words of a scratch buffer and
+// takes shots blockIdx.x, + gridDim.x, ... in turn, so that the slots in
+// use, one a block in flight (one block an SM: 43 MB at the gross shape),
+// stay in the 50 MB L2.  The algorithm, every rounding and the candidates'
+// order of additions are K8's; the per-row state (costs, pivot infos, mask,
+// non-pivot list) stays in shared memory.  Since each word of the matrix is
+// now an L2 access, the elimination's XOR is a warp's work: a warp XORs the
+// pivot row into each of its rows that hold the column, its lanes on 32
+// consecutive words, the pivot row's words read once for the warp's rows,
+// so that a column's XOR costs about one L2 round trip; each thread keeps
+// its row's word of the current column in a register.
+//
+// Tried first, and measured 2x slower (PERF.md): a thread-block cluster of
+// two CTAs a shot, the rows split over the CTAs' distributed shared memory.
+// Its cluster barrier a column cost as much as this route's block barrier
+// and L2 round trip, with half as many shots in flight (two SMs a shot).
+// What bounds it: a block barrier a column and an L2 round trip a pivot
+// column, 2,736 and 930 a shot at the gross shape; and the candidates' reads
+// of the pivot rows, through L2.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// The warp's rows in `todo` (bit j: lane j's row, at rows + j Wp) ^= prow
+// from word wc on: the lanes take words wc + lane, + 32, ..., 128 words of
+// the pivot row in flight, read once for all the warp's rows.  Returns
+// prow[wc] to every lane.
+__device__ __forceinline__ unsigned warp_xor(unsigned* rows, unsigned todo, const unsigned* prow,
+                                             int wc, int W, int Wp, int lane) {
+  unsigned first = 0u;
+  for (int k0 = wc; k0 < W; k0 += 4 * 32) {
+    unsigned v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = k0 + 32 * u + lane;
+      v[u] = k < W ? prow[k] : 0u;
+    }
+    if (k0 == wc) first = __shfl_sync(FULL, v[0], 0);
+    for (unsigned m = todo; m; m &= m - 1u) {
+      unsigned* row = rows + (__ffs(m) - 1) * Wp;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int k = k0 + 32 * u + lane;
+        if (k < W) row[k] ^= v[u];
+      }
+    }
+  }
+  __syncwarp();
+  return first;
+}
+
+}  // namespace
+
+__global__ void __launch_bounds__(1024, 1)
+osd_device_kernel(const int* __restrict__ colptr, const int* __restrict__ rowidx,
+                  const int* __restrict__ order, const double* __restrict__ llr,
+                  const uint8_t* __restrict__ synd, int S, int r, int n, int method,
+                  int osd_order, unsigned* __restrict__ scratch, uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay = layout(r, n, false);
+  double* pcost = (double*)(smem + lay.pcost);
+  double* red_c = (double*)(smem + lay.red_c);
+  int* red_i = (int*)(smem + lay.red_i);
+  unsigned* keys = (unsigned*)(smem + lay.keys);
+  unsigned* mask = (unsigned*)(smem + lay.mask);
+  uint16_t* rowinfo = (uint16_t*)(smem + lay.rowinfo);
+  uint16_t* nonpiv = (uint16_t*)(smem + lay.nonpiv);
+  const int W = lay.words, Wp = lay.stride;
+  const int T = blockDim.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = T >> 5;
+  unsigned* mat = scratch + (size_t)blockIdx.x * r * Wp;  // this block's slot
+
+  for (size_t s = blockIdx.x; s < (size_t)S; s += gridDim.x) {
+    const int* ord = order + s * n;
+    const double* x = llr + s * n;
+    uint8_t* o = out + s * n;
+
+    osd_build(mat, mask, lay.mask_words, colptr, rowidx, ord, synd + s * r, r, n, Wp);
+
+    // Elimination, as K8's: this thread's row p at logical position L; its
+    // word of the column in `cur`.
+    const int p = tid;
+    const bool live = p < r;
+    unsigned* myrow = mat + (live ? p : 0) * Wp;
+    int L = live ? p : MAX_ROWS, mycol = -1, pr = 0, buf = 0;
+    unsigned cur = 0u;
+    for (int col = 0; col < n && pr < r; ++col) {
+      const int wc = col >> 5;
+      if ((col & 31) == 0) cur = myrow[wc];
+      const bool has = live && ((cur >> (col & 31)) & 1u);
+      unsigned key = (has && L >= pr) ? ((unsigned)L << ROW_BITS | (unsigned)p) : NONE;
+      key = __reduce_min_sync(FULL, key);
+      if (lane == 0) keys[buf * 32 + warp] = key;
+      __syncthreads();
+      key = __reduce_min_sync(FULL, lane < nwarps ? keys[buf * 32 + lane] : NONE);
+      buf ^= 1;
+      if (key == NONE) continue;  // no row at or past pr holds the column
+      const int src = (int)(key >> ROW_BITS), P = (int)(key & (MAX_ROWS - 1));
+      if (p == P) {
+        L = pr;
+        mycol = col;
+      } else if (L == pr) {
+        L = src;
+      }
+      // each warp XORs the pivot row into its rows that hold the column
+      const unsigned todo = __ballot_sync(FULL, has && p != P);
+      if (todo) {
+        const unsigned pw = warp_xor(mat + warp * 32 * Wp, todo, mat + P * Wp, wc, W, Wp, lane);
+        if (has && p != P) cur ^= pw;
+      }
+      ++pr;
+    }
+    const int rank = pr;
+
+    osd_finish(mat, myrow, Wp, n, lay.mask_words, rank, live, L, p, mycol, ord, x, method,
+               osd_order, pcost, red_c, red_i, keys, mask, rowinfo, nonpiv, o);
+    __syncthreads();  // the next shot reuses the slot and the shared memory
+  }
+}
+
+// osd_solve's arguments and contract, on the device route: `blocks` blocks
+// of `threads` threads and `smem_bytes` of shared memory, each with the
+// matrix in its slot of scratch (blocks x r x stride words), taking the
+// shots in turn (decoders/osd_cuda.py::device_plan); a mismatch is refused.
+extern "C" int osd_device_solve(const void* colptr, const void* rowidx, const void* order,
+                                const void* llr, const void* synd, int S, int r, int n,
+                                int method, int osd_order, int blocks, int threads,
+                                int smem_bytes, void* scratch, void* out, void* stream) {
+  if (S < 1 || r < 1 || r > MAX_ROWS || n < 1 || n > MAX_COLS || method < 0 || method > 2 ||
+      osd_order < 0 || osd_order > MAX_ORDER || (method == 1 && osd_order > OSD_E_MAX_ORDER) ||
+      blocks < 1 || blocks > S || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (threads != 32 * ((r + 31) / 32) || smem_bytes != layout(r, n, false).total)
+    return (int)cudaErrorInvalidValue;
+  return launch_resident(osd_device_kernel, blocks, threads, smem_bytes, (cudaStream_t)stream,
+                         (const int*)colptr, (const int*)rowidx, (const int*)order,
+                         (const double*)llr, (const uint8_t*)synd, S, r, n, method, osd_order,
+                         (unsigned*)scratch, (uint8_t*)out);
 }

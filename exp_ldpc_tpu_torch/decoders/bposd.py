@@ -4,10 +4,12 @@ Counterpart of ``exp_ldpc_tpu/decoders/bposd.py``: BP runs on the BP
 stage's device; the shots whose BP estimate does not reproduce the syndrome
 get OSD post-processing on their BP soft output.  Where the BP stage runs
 on a CUDA card and :func:`.osd_cuda.takes` the shape, method and order,
-that OSD is kernel K8 on the card (:func:`.osd_cuda.osd_solve`: the
-posteriors and syndromes stay there, the corrections come back in one
-copy); everything else runs on the host, through the JAX package's
-JAX-free ``osd_decode_batch`` (threaded C++ kernel, K8's plain version).
+that OSD is kernel K8 on the card (:func:`.osd_cuda.osd_solve`, a block a
+shot, the matrix in shared memory or, past a block's shared memory, in
+device memory: the posteriors and syndromes stay there, the corrections
+come back in one copy); everything else runs on the host, through the JAX
+package's JAX-free ``osd_decode_batch`` (threaded C++ kernel, K8's plain
+version).
 """
 from __future__ import annotations
 
@@ -36,6 +38,8 @@ class BPOSDDecoder:
     # H's columns on the card where K8 serves this decoder, False where it
     # does not; None until the first decode decides
     _card: object = field(default=None, init=False, repr=False, compare=False)
+    # K8's route where it serves ("block" or "device")
+    _route: Optional[str] = field(default=None, init=False, repr=False, compare=False)
 
     @classmethod
     def from_check_matrix(cls, H, *, error_rate: Optional[float] = None,
@@ -58,13 +62,13 @@ class BPOSDDecoder:
 
     def _card_matrix(self):
         """H's columns on the BP stage's card where K8 takes this decoder's
-        OSD (:func:`.osd_cuda.card_takes`), else None."""
+        OSD (:func:`.osd_cuda.card_route`), else None."""
         if self._card is None:
             dev = getattr(self.bp, "device", None)
-            self._card = (isinstance(self.bp, DecoderBase) and dev is not None
-                          and osd_cuda.card_takes(self.H.shape, self.osd_method,
-                                                  self.osd_order, dev)
-                          and osd_cuda.card_matrix(self.H, dev))
+            self._route = (osd_cuda.card_route(self.H.shape, self.osd_method, self.osd_order,
+                                               dev)
+                           if isinstance(self.bp, DecoderBase) and dev is not None else None)
+            self._card = self._route is not None and osd_cuda.card_matrix(self.H, dev)
         return self._card or None
 
     def decode_batch(self, syndromes: np.ndarray) -> np.ndarray:
@@ -96,6 +100,8 @@ class BPOSDDecoder:
             count("osd_solves", failed.numel())
             with span("redecode.osd"):
                 count("osd_card_solves", failed.numel())
+                if self._route == "device":
+                    count("osd_device_solves", failed.numel())
                 out = osd_cuda.osd_solve(mat, synd.T[failed].contiguous(),
                                          post.T[failed].to(torch.float64).contiguous(),
                                          self.osd_method, self.osd_order)

@@ -24,8 +24,10 @@ rebound between points), ``batch``, ``sample``, ``decode`` with
 ``ship`` (the copy of the compacted batch to the host), ``redecode`` (the
 host BP+OSD driver) with ``redecode.bp`` and ``redecode.osd``.  The
 counters: ``ship_bytes`` (bytes ``ship`` copies), ``osd_solves`` (shots
-handed to OSD after the redecode's BP) and ``osd_card_solves`` (those of
-them solved on the card, by kernel K8).
+handed to OSD after the redecode's BP), ``osd_card_solves`` (those of
+them solved on the card, by kernel K8 on either route) and
+``osd_device_solves`` (those of them on K8's device route, the matrix past
+one block's shared memory).
 """
 from __future__ import annotations
 

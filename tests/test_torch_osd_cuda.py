@@ -1,12 +1,15 @@
 """Kernel K8 (``csrc/osd.cu``, the OSD step of BP+OSD on the card) against
 its plain version, the threaded C++ ``osd_batch``.
 
-On the CPU: the route rule (:func:`osd_cuda.takes`) as a pure function of
-device, shape, shared-memory budget, method and order; the reliability
-order's keys against numpy's stable argsort (-0.0 equal to +0.0, NaN last,
-ties by index); a BP+OSD decoder whose BP runs on the CPU keeps the C++
-path and counts no ``osd_card_solves``; the wrapper refuses a tensor of
-the wrong device, dtype, shape or layout.
+On the CPU: the route rule (:func:`osd_cuda.route`, :func:`osd_cuda.takes`)
+as a pure function of device, shape, shared-memory budget, method and
+order (the block route for every shape it took before; the device route
+past a block's shared memory, up to 1,024 rows; else the C++), the device
+route's shared memory and slots; the reliability order's keys against
+numpy's stable argsort (-0.0 equal to +0.0, NaN last, ties by index); a
+BP+OSD decoder whose BP runs on the CPU keeps the C++ path and counts no
+``osd_card_solves``; the wrapper refuses a tensor of the wrong device,
+dtype, shape or layout.
 
 Marked ``gpu`` (skipped where no CUDA device is present; on a machine with a
 card ``python -m pytest --noconftest -m gpu tests/test_torch_osd_cuda.py``):
@@ -15,11 +18,15 @@ redecode's own spacetime BP posteriors at the ``bposd`` cell's p (at least
 2,000 unconverged shots), on the single-shot shapes (H|I) 108 x 333 and H
 108 x 225 with their flat BP posteriors, on a random rank-deficient H, on
 LLRs holding +-0.0, equal values, NaN, +-inf and |x| > 30, for osd0, osd_e
-and osd_cs at orders 0, 1 and 7, and at S = 0, 1 and past one wave.  The
+and osd_cs at orders 0, 1 and 7, and at S = 0, 1 and past one wave; its
+device route likewise at the gross code over 12 rounds (936 x 2,736, at
+least 2,000 of its redecode's unconverged shots at the gross cell's p), on
+a rank-deficient 960 x 2,600 and at the detector model's 864 x 4,014.  The
 one difference allowed is a shot whose two winners' costs tie within 1e-12
 relative (CUDA's and glibc's exp / log may round apart there); such shots
 are counted and printed, and none is expected.  In all three BP+OSD
-pipeline modes on the card, every OSD solve is K8's.
+pipeline modes on the card every OSD solve is K8's, and in the gross
+code's ``bposd`` every solve is on the device route.
 """
 import numpy as np
 import pytest
@@ -59,29 +66,71 @@ def _special_llrs(rng, S, n):
 # --------------------------------------------------------------------------- CPU
 
 
+GROSS = (936, 2736)  # the gross code's spacetime matrix over 12 rounds
+H100_SMS = 132
+
+
 @pytest.mark.parametrize("case, want", [
-    (("cuda", 540, 1557, "osd_cs", 7, H100_SMEM), True),      # bposd, HGP-225 x 4
-    (("cuda", 108, 333, "osd_cs", 7, H100_SMEM), True),       # single-shot, each round
-    (("cuda", 108, 225, "osd_cs", 7, H100_SMEM), True),       # single-shot's last, hybrid
-    (("cuda", 432, 1332, "osd_cs", 7, H100_SMEM), True),      # sliding window
-    (("cuda", 864, 4014, "osd0", 0, H100_SMEM), False),       # detector model: past the budget
-    (("cpu", 540, 1557, "osd_cs", 7, H100_SMEM), False),      # a CPU BP stage
-    (("cuda", 1024, 64, "osd0", 0, H100_SMEM), True),
-    (("cuda", 1025, 64, "osd0", 0, H100_SMEM), False),        # past a thread a row
-    (("cuda", 0, 64, "osd0", 0, H100_SMEM), False),
-    (("cuda", 8, 0, "osd0", 0, H100_SMEM), False),
-    (("cuda", 8, 65536, "osd0", 0, 10**9), False),            # past uint16 columns
-    (("cuda", 540, 1557, "osd_cs", 7, 115189), False),        # one byte short
-    (("cuda", 540, 1557, "osd_cs", 7, 115190), True),
-    (("cuda", 108, 225, "osd_e", 10, H100_SMEM), True),
-    (("cuda", 108, 225, "osd_e", 11, H100_SMEM), False),      # 2^11 patterns: C++
-    (("cuda", 108, 225, "osd_cs", 62, H100_SMEM), True),
-    (("cuda", 108, 225, "osd_cs", 63, H100_SMEM), False),     # osd_batch refuses it too
-    (("cuda", 108, 225, "osd0", -1, H100_SMEM), False),
-    (("cuda", 108, 225, "osd_bogus", 7, H100_SMEM), False),
+    # every shape the block route took before keeps it
+    (("cuda", 540, 1557, "osd_cs", 7, H100_SMEM), "block"),   # bposd, HGP-225 x 4
+    (("cuda", 108, 333, "osd_cs", 7, H100_SMEM), "block"),    # single-shot, each round
+    (("cuda", 108, 225, "osd_cs", 7, H100_SMEM), "block"),    # single-shot's last, hybrid
+    (("cuda", 432, 1332, "osd_cs", 7, H100_SMEM), "block"),   # sliding window
+    (("cuda", 1024, 64, "osd0", 0, H100_SMEM), "block"),
+    (("cuda", 540, 1557, "osd_cs", 7, 115190), "block"),
+    (("cuda", 108, 225, "osd_e", 10, H100_SMEM), "block"),
+    (("cuda", 108, 225, "osd_cs", 62, H100_SMEM), "block"),
+    # past one block's shared memory: the matrix in device memory
+    (("cuda", *GROSS, "osd_cs", 7, H100_SMEM), "device"),     # the gross code x 12
+    (("cuda", *GROSS, "osd0", 0, H100_SMEM), "device"),
+    (("cuda", *GROSS, "osd_e", 7, H100_SMEM), "device"),
+    (("cuda", 864, 4014, "osd0", 0, H100_SMEM), "device"),    # the 4-round detector model
+    (("cuda", 1024, 65535, "osd_cs", 7, H100_SMEM), "device"),   # the widest K8 takes
+    (("cuda", 540, 1557, "osd_cs", 7, 115189), "device"),     # one byte short
+    # the C++
+    (("cpu", 540, 1557, "osd_cs", 7, H100_SMEM), None),       # a CPU BP stage
+    (("cpu", *GROSS, "osd_cs", 7, H100_SMEM), None),
+    (("cuda", 1025, 64, "osd0", 0, H100_SMEM), None),         # past a thread a row
+    (("cuda", 1025, 2736, "osd_cs", 7, H100_SMEM), None),
+    (("cuda", 0, 64, "osd0", 0, H100_SMEM), None),
+    (("cuda", 8, 0, "osd0", 0, H100_SMEM), None),
+    (("cuda", 8, 65536, "osd0", 0, 10**9), None),             # past uint16 columns
+    (("cuda", 540, 1557, "osd_cs", 7, 9349), None),           # short of the per-row state
+    (("cuda", 108, 225, "osd_e", 11, H100_SMEM), None),       # 2^11 patterns: C++
+    (("cuda", *GROSS, "osd_e", 11, H100_SMEM), None),
+    (("cuda", 108, 225, "osd_cs", 63, H100_SMEM), None),      # osd_batch refuses it too
+    (("cuda", 108, 225, "osd0", -1, H100_SMEM), None),
+    (("cuda", 108, 225, "osd_bogus", 7, H100_SMEM), None),
 ])
 def test_route_rule(case, want):
-    assert osd_cuda.takes(*case) is want
+    assert osd_cuda.route(*case) == want
+    assert osd_cuda.takes(*case) is (want is not None)
+
+
+@pytest.mark.parametrize("shape", [GROSS, (864, 4014), (1024, 65535), (540, 1557)])
+def test_device_route_layout(shape):
+    """The device route's shared memory is the block route's without the
+    matrix (a double cost and a uint16 info a row, the column mask, the
+    uint16 non-pivot list, 640 bytes of scratch), which fits an H100's
+    block at every shape K8 takes; its slots hold the matrix in odd-word
+    rows, one a block, one block an SM."""
+    r, n = shape
+    stride = ((n + 1 + 31) // 32) | 1
+    need = osd_cuda.device_smem_bytes(r, n)
+    assert need == osd_cuda.smem_bytes(r, n) - 4 * r * stride
+    assert need == 8 * r + 640 + 4 * ((n + 31) // 32) + 2 * r + 2 * n <= H100_SMEM
+    plan = osd_cuda.device_plan(290, r, n, H100_SMS)
+    assert plan == (132, osd_cuda.threads(r), need, r * stride)
+    assert osd_cuda.device_plan(7, r, n, H100_SMS).blocks == 7
+    assert osd_cuda.device_plan(0, r, n, H100_SMS).blocks == 1
+
+
+def test_device_route_slots_fit_l2_at_the_gross_shape():
+    """A slot a block, one block an SM: 132 slots of the gross shape's
+    936 rows of 87 words, 43 MB, inside the H100's 50 MB L2."""
+    plan = osd_cuda.device_plan(290, *GROSS, H100_SMS)
+    assert plan.slot_words == 936 * 87
+    assert 4 * plan.blocks * plan.slot_words == 42_996_096 < 50 * 2**20
 
 
 def test_two_blocks_share_an_sm_at_the_bposd_shape():
@@ -339,4 +388,173 @@ def test_k8_serves_every_pipeline_mode(dev, mode):
         got = counters()
     assert osd > 0 and got["osd_solves"] > 0
     assert got.get("osd_card_solves") == got["osd_solves"]
+    assert "osd_device_solves" not in got       # HGP-225's shapes keep the block route
     assert osd_cuda.KERNEL.launches > before
+
+
+# --------------------------------------------------------------------------- card: the device route
+
+GROSS_P = 0.005   # the gross144x12osd.bposd cell's p
+
+
+def _gross():
+    from exp_ldpc_tpu_torch.codes.bivariate_bicycle import gross_code
+
+    return gross_code().checks.z
+
+
+@pytest.fixture(scope="module")
+def gross_unconverged(dev):
+    """The gross code over 12 rounds (936 x 2,736): the redecode's own BP
+    (the spacetime decoder the selection picks, min-sum 0.625, 60
+    iterations, exit armed, priors 2/3 p) on i.i.d. spacetime errors at the
+    gross cell's p: its unconverged shots, at least 2,000."""
+    from exp_ldpc_tpu_torch.decoders.drivers import spacetime_prior
+    from exp_ldpc_tpu_torch.decoders.select import make_spacetime_bp_decoder
+
+    H = _gross()
+    st = SpacetimeCode(H, 12)
+    Hst = st.spacetime_check_matrix.tocsr()
+    bp = make_spacetime_bp_decoder(H, 12, device=dev, max_iter=60, bp_method="ms",
+                                   ms_scaling_factor=0.625,
+                                   channel_probs=spacetime_prior(st, 2 / 3 * GROSS_P,
+                                                                 2 / 3 * GROSS_P))
+    HT = torch.as_tensor(Hst.toarray().T.astype(np.float32)).to(dev)
+    rng = np.random.default_rng(21)
+    synds, posts = [], []
+    while sum(s.shape[0] for s in synds) < 2000:
+        err = torch.as_tensor(rng.random((16384, Hst.shape[1])) < GROSS_P).to(dev).float()
+        synd = ((err @ HT) % 2).to(torch.uint8).cpu().numpy()
+        _hard, post, conv, _ = bp.decode_batch(synd)
+        synds.append(synd[~conv])
+        posts.append(post[~conv])
+    return Hst, np.concatenate(synds), np.concatenate(posts)
+
+
+def _device_compare(H, synd, llr, method, order, dev, label):
+    assert osd_cuda.card_route(H.shape, method, order, dev) == "device", label
+    before = osd_cuda.DEVICE_KERNEL.launches
+    n = compare(H, synd, llr, method, order, dev, label)
+    assert osd_cuda.DEVICE_KERNEL.launches == before + (1 if synd.shape[0] else 0)
+    return n
+
+
+@pytest.mark.gpu
+def test_k8_device_gross_real_posteriors(dev, gross_unconverged):
+    Hst, synd, post = gross_unconverged
+    assert Hst.shape == GROSS and synd.shape[0] >= 2000
+    _device_compare(Hst, synd, post, "osd_cs", 7, dev, "gross x 12")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method, order", METHOD_ORDERS)
+def test_k8_device_gross_methods(dev, gross_unconverged, method, order):
+    Hst, synd, post = gross_unconverged
+    _device_compare(Hst, synd[:300], post[:300], method, order, dev, "gross x 12")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method, order", METHOD_ORDERS)
+def test_k8_device_rank_deficient(dev, method, order):
+    """960 x 2,600, rank at most 640: past one block's shared memory."""
+    rng = np.random.default_rng(17)
+    H = (rng.random((960, 2600)) < 0.003).astype(np.uint8)
+    H[640:] = H[:320] ^ H[320:640]
+    synd = rng.integers(0, 2, (400, 960)).astype(np.uint8)
+    err = (rng.random((400, 2600)) < 0.01).astype(np.int64)
+    synd[::2] = (err[::2] @ H.T.astype(np.int64)) % 2
+    llr = rng.normal(1.0, 3.0, (400, 2600))
+    _device_compare(H, synd, llr, method, order, dev, "rank-deficient 960 x 2600")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method, order", METHOD_ORDERS)
+def test_k8_device_special_llrs(dev, method, order):
+    H = SpacetimeCode(_gross(), 12).spacetime_check_matrix.tocsr()
+    rng = np.random.default_rng(19)
+    synd = rng.integers(0, 2, (300, H.shape[0])).astype(np.uint8)
+    _device_compare(H, synd, _special_llrs(rng, 300, H.shape[1]), method, order, dev,
+                     "gross x 12, special LLRs")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [0, 1, 1500])
+def test_k8_device_shot_counts(dev, gross_unconverged, S):
+    Hst, synd, post = gross_unconverged
+    if S == 0:
+        out = osd_cuda.osd_solve(osd_cuda.card_matrix(Hst, dev),
+                                 torch.zeros((0, 936), dtype=torch.uint8, device=dev),
+                                 torch.zeros((0, 2736), dtype=torch.float64, device=dev),
+                                 "osd_cs", 7)
+        assert out.shape == (0, 2736)
+        return
+    idx = np.arange(S) % synd.shape[0]
+    _device_compare(Hst, synd[idx], post[idx], "osd_cs", 7, dev, f"gross x 12, S = {S}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method, order", [("osd0", 0), ("osd_cs", 7)])
+def test_k8_device_detector_model_shape(dev, method, order):
+    """The 4-round detector model's shape, 864 x 4,014 (a random matrix of
+    its size): its slots (58 MB) pass the L2."""
+    rng = np.random.default_rng(23)
+    H = (rng.random((864, 4014)) < 4 / 864).astype(np.uint8)
+    H[800:] = H[:64] ^ H[64:128]
+    err = (rng.random((300, 4014)) < 0.01).astype(np.int64)
+    synd = (err @ H.T.astype(np.int64)) % 2
+    _device_compare(H, synd, rng.normal(2.0, 3.0, (300, 4014)), method, order, dev,
+                    "864 x 4014")
+
+
+@pytest.mark.gpu
+def test_k8_device_serves_the_gross_pipeline(dev, monkeypatch):
+    """The gross code's bposd pipeline over 12 rounds at the gross cell's
+    traffic (p = 0.005, 20,000 shots a batch): every OSD solve is on K8's
+    device route, and each of at least 2,000 of them equals ``osd_batch``."""
+    from exp_ldpc_tpu_torch.circuits.noise import depolarizing_noise
+    from exp_ldpc_tpu_torch.codes.bivariate_bicycle import gross_code
+    from exp_ldpc_tpu_torch.parallel.pipeline import StorageDecodePipeline
+
+    p = GROSS_P
+    pipe = StorageDecodePipeline(
+        code=gross_code(compute_logicals=True), rounds=12, noise_model=depolarizing_noise(p, p),
+        data_prior=2 / 3 * p, meas_prior=2 / 3 * p, shots_per_device=20000, max_iter=60,
+        bp_method="ms", ms_scaling_factor=0.625, osd_fallback_cap=20000,
+        osd_options=dict(osd_method="osd_cs", osd_order=7), mode="bposd", device=dev)
+    calls, mats = [], []
+    solve = osd_cuda.osd_solve
+
+    def recorded(mat, synd, llr, method, order):
+        out = solve(mat, synd, llr, method, order)
+        calls.append((synd.cpu().numpy(), llr.cpu().numpy(), out.cpu().numpy()))
+        mats.append(mat)
+        return out
+
+    monkeypatch.setattr(osd_cuda, "osd_solve", recorded)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    before = osd_cuda.DEVICE_KERNEL.launches
+    with tracing():
+        while sum(c[0].shape[0] for c in calls) < 2000:
+            _f, _shots, osd = pipe.run_bposd(gen)
+            assert osd > 0
+        got = counters()
+    solves = sum(c[0].shape[0] for c in calls)
+    assert got["osd_solves"] == got.get("osd_card_solves") == got.get("osd_device_solves") == solves
+    assert osd_cuda.DEVICE_KERNEL.launches == before + len(calls)
+    mat = mats[0]
+    assert all(m is mat for m in mats) and (mat.rows, mat.cols) == GROSS
+    Hst = sparse.csc_matrix((np.ones(mat.rowidx.numel(), dtype=np.uint8), mat.rowidx.cpu().numpy(),
+                             mat.colptr.cpu().numpy()), shape=GROSS).tocsr()
+    Hd = Hst.toarray().astype(np.int64)
+    differ = 0
+    for synd, llr, out in calls:
+        want = osd_decode_batch(Hst, synd, llr, "osd_cs", 7)
+        for i in np.nonzero((out != want).any(axis=1))[0]:
+            c = _costs(llr[i])
+            a, b = float(c[want[i] == 1].sum()), float(c[out[i] == 1].sum())
+            assert abs(a - b) <= 1e-12 * max(abs(a), abs(b)), (i, a, b)
+            assert np.array_equal(Hd @ out[i] % 2, Hd @ want[i] % 2)
+            differ += 1
+    print(f"K8 gross pipeline, {solves} solves in {len(calls)} calls: {differ} tied shots differ "
+          "(expected 0)")
