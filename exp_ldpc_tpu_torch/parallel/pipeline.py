@@ -27,8 +27,9 @@ on one device.  One call of :meth:`StorageDecodePipeline.run_bposd`:
      ``max_iter``; overflow shots keep their stage-1 result and count as
      unconverged;
   3. counts logical failures of the shots it keeps and ships the others
-     (compacted to the front, stable order) to the host, where the mode's
-     BP+OSD driver (:mod:`..decoders.drivers`) redecodes them: any shot
+     (compacted to the front, stable order; their rows alone, a byte a
+     cell, in one copy) to the host, where the mode's BP+OSD driver
+     (:mod:`..decoders.drivers`) redecodes them: any shot
      with an unconverged stage in ``bposd`` and ``bposd_single_shot``, the
      shots whose final-round BP did not converge in ``bposd_hybrid``.
 
@@ -40,8 +41,9 @@ returns the totals.
 
 Each step runs inside a span of :mod:`..utils.observability` (``ldpc.batch``
 around ``ldpc.sample``, ``ldpc.decode`` with its ``decode.syndromes``,
-``decode.bp`` and ``decode.fold``, and ``ldpc.ship``, the copy to the host,
-counted in ``ship_bytes``), which costs a flag read while tracing is off.
+``decode.bp`` and ``decode.fold``, and ``ldpc.ship``, the copy of the
+shipped rows to the host, counted in ``ship_bytes``), which costs a flag
+read while tracing is off.
 
 ``msg_dtype`` ("float32" or "bfloat16") is the message type of the plain
 spacetime core (:func:`..decoders.spacetime_bp.stbp_core`), which runs
@@ -371,7 +373,11 @@ class StorageDecodePipeline:
             record = self._sample(generator, self._noise_args)
             return self._finish_bposd(*self._decode_records(record))
 
-    def _finish_bposd(self, f_conv, shots, unconv, hist, readout, valid):
+    def _finish_bposd(self, f_conv, shots, unconv, hist, readout, _valid):
+        """The host redecode of a batch's shipped shots, the first
+        ``min(unconv, cap)`` rows of ``_decode_records``' compacted
+        (history, readout), and the batch's counts; ``_valid``, the
+        compacted ship mask, is implied by them."""
         # the cap holds for the data axis as a whole, as in JAX; every rank
         # sees the same total and raises together
         n_data = 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
@@ -379,23 +385,24 @@ class StorageDecodePipeline:
         if total_unconv > self.osd_fallback_cap * n_data:
             raise RuntimeError(f"{total_unconv} BP-unconverged shots exceed osd_fallback_cap="
                                f"{self.osd_fallback_cap} per device; raise the cap")
+        # the stable order of _decode_records puts the shipped shots first
+        k = min(unconv, hist.shape[0])
+        if k == 0:
+            count("ship_bytes", 0)
+            return self._data_sum(f_conv, shots, 0)
         with span("ship"):
-            valid = valid.cpu().numpy()
-            shipped = bool(valid.any())
-            nbytes = valid.nbytes
-            if shipped:
-                hist, readout = hist.cpu().numpy(), readout.cpu().numpy()
-                nbytes += hist.nbytes + readout.nbytes
-            count("ship_bytes", nbytes)
-        f_osd = 0
-        if shipped:
-            hist = hist[valid].astype(np.int64)
-            readout = readout[valid].astype(np.int64)
-            corr = self._osd.readout_correction_batch(hist, readout)
-            corrected = (readout + np.asarray(corr, dtype=np.int64)) % 2
-            flips = (corrected @ self._Lz_np.T) % 2
-            f_osd = int(np.any(flips != 0, axis=1).sum())
-        return self._data_sum(f_conv + f_osd, shots, int(valid.sum()))
+            # the shipped rows alone, their 0/1 cells a byte each, in one copy
+            block = torch.cat([hist[:k].reshape(k, -1), readout[:k]],
+                              dim=1).to(torch.uint8).cpu().numpy()
+            count("ship_bytes", block.nbytes)
+        m = block.shape[1] - readout.shape[1]
+        hist = block[:, :m].astype(np.int64).reshape(k, *hist.shape[1:])
+        readout = block[:, m:].astype(np.int64)
+        corr = self._osd.readout_correction_batch(hist, readout)
+        corrected = (readout + np.asarray(corr, dtype=np.int64)) % 2
+        flips = (corrected @ self._Lz_np.T) % 2
+        f_osd = int(np.any(flips != 0, axis=1).sum())
+        return self._data_sum(f_conv + f_osd, shots, k)
 
     def rebind_noise(self, noise_model, data_prior: float, meas_prior: float):
         """New noise probabilities and priors for the same circuit structure;

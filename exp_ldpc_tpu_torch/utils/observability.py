@@ -21,7 +21,7 @@ The spans, from the sweep down (``ldpc.`` prefix; parent first):
 ``point`` (a sweep point), ``rebind`` and ``rebind.osd_build`` (the noise
 rebound between points), ``batch``, ``sample``, ``decode`` with
 ``decode.syndromes``, ``decode.bp`` (each BP stage) and ``decode.fold``,
-``ship`` (the copy of the compacted batch to the host), ``redecode`` (the
+``ship`` (the copy of the shipped rows to the host), ``redecode`` (the
 host BP+OSD driver) with ``redecode.bp`` and ``redecode.osd``.  The
 counters: ``ship_bytes`` (bytes ``ship`` copies), ``osd_solves`` (shots
 handed to OSD after the redecode's BP), ``osd_card_solves`` (those of

@@ -195,8 +195,8 @@ def _count_unconverged(pipe, monkeypatch):
 
 def test_batch_shows_every_span_and_counter(pipe, tmp_path, monkeypatch):
     """One traced ``run_bposd``: every span of a batch's layers, each under
-    ``ldpc.batch``; ``ship_bytes`` is the copied mask, history and readout,
-    from their shapes; ``osd_solves`` is the redecode's unconverged BP shots."""
+    ``ldpc.batch``; ``ship_bytes`` is the shipped rows' history and readout,
+    a byte a cell; ``osd_solves`` is the redecode's unconverged BP shots."""
     unconverged = _count_unconverged(pipe, monkeypatch)
     with profiler_trace(str(tmp_path)), tracing():
         _f, shots, osd = pipe.run_bposd(_gen(11))
@@ -209,7 +209,7 @@ def test_batch_shows_every_span_and_counter(pipe, tmp_path, monkeypatch):
     assert all(_inside(s, redecode) for s in spans if s[0].startswith("redecode."))
     assert osd > 0 and shots == SHOTS
     r, n = pipe.z_count, pipe.num_data
-    assert got["ship_bytes"] == SHOTS * 1 + SHOTS * ROUNDS * r * 4 + SHOTS * n * 4
+    assert got["ship_bytes"] == osd * (ROUNDS * r + n)
     assert got["osd_solves"] == sum(unconverged) > 0
     stages = {"bposd": 1, "bposd_single_shot": ROUNDS + 1, "bposd_hybrid": 2}[pipe.mode]
     assert sum(s[0] == "decode.bp" for s in spans) == stages
