@@ -388,7 +388,7 @@ from exp_ldpc_tpu_torch.codes.lifted import lifted_product_code_cyclic  # noqa: 
 from exp_ldpc_tpu_torch.decoders.dem import detector_error_model  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.spacetime import (DetectorSpacetimeCode, SpacetimeCode,  # noqa: E402
                                                    SpacetimeCodeSingleShot)
-from exp_ldpc_tpu_torch.decoders import select  # noqa: E402
+from exp_ldpc_tpu_torch.decoders import memory, select  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.select import (flat_choice,  # noqa: E402
                                                 spacetime_choice)
 from exp_ldpc_tpu_torch.decoders.sliding_window import window_check_matrix  # noqa: E402
@@ -2378,7 +2378,7 @@ def phase_two_tier(su: Setup, dev: torch.device) -> tuple:
     for seed in range(6):
         gen = torch.Generator(device=dev)
         gen.manual_seed(200 + seed)
-        synds.append(pipe.spacetime_syndromes(*pipe._split_record(
+        synds.append(memory.spacetime_syndromes(pipe._Hz, *pipe._split_record(
             pipe._sample(gen, pipe._noise_args))))
     t = {"two_tier_fixed_step": _median_ms(pipe.decode_spacetime, synds[:5]),
          "two_tier_step": _median_ms(pipe.decode_two_tier, synds[:5])}

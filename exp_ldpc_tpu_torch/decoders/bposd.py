@@ -6,10 +6,11 @@ get OSD post-processing on their BP soft output.  Where the BP stage runs
 on a CUDA card and :func:`.osd_cuda.takes` the shape, method and order,
 that OSD is kernel K8 on the card (:func:`.osd_cuda.osd_solve`, a block a
 shot, the matrix in shared memory or, past a block's shared memory, in
-device memory: the posteriors and syndromes stay there, the corrections
-come back in one copy); everything else runs on the host, through the JAX
+device memory); everything else runs on the host, through the JAX
 package's JAX-free ``osd_decode_batch`` (threaded C++ kernel, K8's plain
-version).
+version).  :meth:`BPOSDDecoder.decode_tensors` takes and returns tensors on
+the BP stage's device; :meth:`BPOSDDecoder.decode_batch` is its numpy
+wrapper.
 """
 from __future__ import annotations
 
@@ -31,12 +32,12 @@ __all__ = ["BPOSDDecoder"]
 
 @dataclass
 class BPOSDDecoder:
-    bp: object   # BPDecoder | BSRBPDecoder | SpacetimeBPDecoder | SpacetimeBSRDecoder
+    bp: DecoderBase   # BPDecoder | BSRBPDecoder | SpacetimeBPDecoder | SpacetimeBSRDecoder
     H: sparse.csr_matrix
     osd_method: str = "osd_cs"
     osd_order: int = 7
     # H's columns on the card where K8 serves this decoder, False where it
-    # does not; None until the first decode decides
+    # does not; None until the first OSD decides
     _card: object = field(default=None, init=False, repr=False, compare=False)
     # K8's route where it serves ("block" or "device")
     _route: Optional[str] = field(default=None, init=False, repr=False, compare=False)
@@ -64,46 +65,36 @@ class BPOSDDecoder:
         """H's columns on the BP stage's card where K8 takes this decoder's
         OSD (:func:`.osd_cuda.card_route`), else None."""
         if self._card is None:
-            dev = getattr(self.bp, "device", None)
-            self._route = (osd_cuda.card_route(self.H.shape, self.osd_method, self.osd_order,
-                                               dev)
-                           if isinstance(self.bp, DecoderBase) and dev is not None else None)
+            dev = self.bp.device
+            self._route = osd_cuda.card_route(self.H.shape, self.osd_method, self.osd_order, dev)
             self._card = self._route is not None and osd_cuda.card_matrix(self.H, dev)
         return self._card or None
 
-    def decode_batch(self, syndromes: np.ndarray) -> np.ndarray:
-        """(S, C) syndromes -> (S, V) error estimates (BP, OSD on BP failures)."""
-        syndromes = np.asarray(syndromes, dtype=np.uint8)
-        mat = self._card_matrix()
-        if mat is not None:
-            return self._decode_on_card(syndromes, mat)
+    def decode_tensors(self, syndromes: torch.Tensor):
+        """(C, S) uint8 syndromes on the BP stage's device -> (hard (V, S),
+        conv (S,) bool) there: BP's hard decisions, OSD's answer in place of
+        each shot BP left unconverged (conv false)."""
         with span("redecode.bp"):
-            hard, post, conv, _iters = self.bp.decode_batch(syndromes)
-        hard = hard.copy()
-        if not conv.all():
-            failed = np.nonzero(~conv)[0]
-            count("osd_solves", failed.size)
-            hard[failed] = osd_decode_batch(
-                self.H, syndromes[failed], post[failed],
-                osd_method=self.osd_method, osd_order=self.osd_order)
-        return hard
-
-    def _decode_on_card(self, syndromes: np.ndarray, mat) -> np.ndarray:
-        """:meth:`decode_batch` with the BP failures' OSD on K8: the BP
-        stage's posteriors and syndromes stay on the card."""
-        with span("redecode.bp"):
-            synd = torch.as_tensor(np.ascontiguousarray(syndromes.T)).to(mat.colptr.device)
-            hard, post, conv, _iters = self.bp.decode_tensors(synd)
+            hard, post, conv, _iters = self.bp.decode_tensors(syndromes)
             failed = torch.nonzero(~conv).flatten()
-            hard = hard.T.contiguous().cpu().numpy()
-        if failed.numel():
-            count("osd_solves", failed.numel())
+        if not failed.numel():
+            return hard, conv
+        count("osd_solves", failed.numel())
+        synd, llr = syndromes.T[failed].contiguous(), post.T[failed]
+        mat = self._card_matrix()
+        if mat is None:   # the C++ path, on the host
+            out = torch.as_tensor(osd_decode_batch(
+                self.H, synd.cpu().numpy(), llr.cpu().numpy(), osd_method=self.osd_method,
+                osd_order=self.osd_order))
+        else:
             with span("redecode.osd"):
-                count("osd_card_solves", failed.numel())
                 if self._route == "device":
                     count("osd_device_solves", failed.numel())
-                out = osd_cuda.osd_solve(mat, synd.T[failed].contiguous(),
-                                         post.T[failed].to(torch.float64).contiguous(),
+                out = osd_cuda.osd_solve(mat, synd, llr.to(torch.float64).contiguous(),
                                          self.osd_method, self.osd_order)
-                hard[failed.cpu().numpy()] = out.cpu().numpy()
-        return hard
+        return hard.index_copy(1, failed, out.T.to(hard.device, hard.dtype)), conv
+
+    def decode_batch(self, syndromes: np.ndarray) -> np.ndarray:
+        """(S, C) syndromes -> (S, V) error estimates (BP, OSD on BP failures)."""
+        s = torch.as_tensor(np.ascontiguousarray(np.asarray(syndromes, dtype=np.uint8).T))
+        return self.decode_tensors(s.to(self.bp.device))[0].T.cpu().numpy()

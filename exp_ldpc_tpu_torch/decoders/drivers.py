@@ -11,7 +11,10 @@ overlapping-window BP+OSD), :func:`run_simulation` (build the storage
 circuit, sample, decode every shot, count logical failures) and the CLI
 helpers.  Every decoder runs on ``device`` (the card unless the caller asks
 for the CPU, where each kernel is replaced by its plain version); OSD runs
-on the host.  Priors follow the reference: data columns get
+on the card where kernel K8 takes the shape, else on the host.  The three
+BP+OSD modes and ``ssf_single_shot`` run the algebra of
+:mod:`.memory` on tensors on ``device``: they take numpy or tensors and
+return numpy.  Priors follow the reference: data columns get
 ``data_prior``, measurement-error columns ``meas_prior``.
 """
 from __future__ import annotations
@@ -26,6 +29,7 @@ from ..circuits.storage_sim import build_storage_simulation
 from ..codes.io import read_quantum_code
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.observability import span
+from . import memory
 from .bposd import BPOSDDecoder
 from .dem import detector_error_model
 from .flip import SmallSetFlipDecoder
@@ -62,51 +66,48 @@ def _check_options(driver: str, bp_osd_options: Dict, extra: Iterable[str] = ())
         raise ValueError(f"{driver}: unsupported options {sorted(unknown)}")
 
 
-def _single_shot_correction(history: np.ndarray, readout: np.ndarray, HdT: np.ndarray,
-                            single_shot: SpacetimeCodeSingleShot, decode_round, decode_final):
-    """The single-shot round loop (JAX ``drivers.py:106-120``): each round's
-    syndrome relative to the accumulated correction, decoded on (H|I) by
-    ``decode_round``, adds its data part to the correction; the final round
-    is decoded on H by ``decode_final``.  history (S, rounds, r), readout
-    (S, n) -> final-round correction (S, n)."""
-    acc = np.zeros_like(readout, dtype=np.int64)
-    for t in range(history.shape[1]):
-        syndrome = (mod2_matmul(acc, HdT) + history[:, t]) % 2
-        acc = (acc + single_shot.final_correction(decode_round(syndrome))) % 2
-    final = decode_final(mod2_matmul((acc + readout) % 2, HdT))
-    return (final + acc) % 2
+class _MemoryCorrect:
+    """A memory mode's driver: the mode's algebra (:mod:`.memory`) over the
+    driver's ``_stages`` on ``device``, where ``_H`` holds the sector's checks."""
+
+    def __init__(self, code, basis: str, device: DeviceLike, options: Dict, mode: str,
+                 extra=()):
+        _check_options(type(self).__name__, options, extra)
+        self._dev = resolve_device(device)
+        self._checks = code.checks.x if basis == "x" else code.checks.z
+        self._H = torch.as_tensor(self._checks.toarray(), dtype=torch.float32, device=self._dev)
+        self._mode = memory.MODES[mode]
+
+    def readout_correction_batch(self, history, readout) -> np.ndarray:
+        """history (S, rounds, r), readout (S, n), numpy or tensors -> the
+        final-round correction (S, n) int64, copied to the host once."""
+        with span("redecode"):
+            as_t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=self._dev)  # noqa: E731
+            correction, _ok = self._mode(self._H, as_t(history), as_t(readout), *self._stages)
+            return correction.to(torch.int64).cpu().numpy()
 
 
-class BPOSDCorrect:
+class BPOSDCorrect(_MemoryCorrect):
     """BP+OSD on the full spacetime matrix: BP on ``device`` (kernel chosen
-    by :func:`.select.make_spacetime_bp_decoder`), OSD on the host."""
+    by :func:`.select.make_spacetime_bp_decoder`), OSD on K8 where it takes
+    the shape, else on the host."""
 
     def __init__(self, code, rounds: int, bp_osd_options: Dict,
                  priors: Tuple[float, float], basis: str = "z", device: DeviceLike = "cuda"):
-        _check_options("BPOSDCorrect", bp_osd_options)
+        super().__init__(code, basis, device, bp_osd_options, "bposd")
         data_prior, meas_prior = priors
-        self._checks = code.checks.x if basis == "x" else code.checks.z
         self._spacetime_code = SpacetimeCode(self._checks, rounds)
         bp = make_spacetime_bp_decoder(
-            self._checks, rounds, device=resolve_device(device),
+            self._checks, rounds, device=self._dev,
             channel_probs=spacetime_prior(self._spacetime_code, data_prior, meas_prior),
             **{k: v for k, v in bp_osd_options.items() if k in _BP_KEYS},
         )
-        self._bpd = BPOSDDecoder(
-            bp=bp, H=self._spacetime_code.spacetime_check_matrix.tocsr(),
-            osd_method=bp_osd_options.get("osd_method", "osd_cs"),
-            osd_order=bp_osd_options.get("osd_order", 7),
-        )
-
-    def readout_correction_batch(self, history: np.ndarray, readout: np.ndarray) -> np.ndarray:
-        """history (S, rounds, r), readout (S, n) -> final-round correction (S, n)."""
-        with span("redecode"):
-            syndromes = spacetime_syndromes(self._spacetime_code, history, readout)
-            correction = self._bpd.decode_batch(syndromes)
-            return self._spacetime_code.final_correction(correction)
+        self._bpd = BPOSDDecoder(bp, self._spacetime_code.spacetime_check_matrix.tocsr(),
+                                 **{k: v for k, v in bp_osd_options.items() if k in _OSD_KEYS})
+        self._stages = (self._bpd.decode_tensors,)
 
 
-class BPOSDCorrectSingleShot:
+class BPOSDCorrectSingleShot(_MemoryCorrect):
     """Per-round (H|I) BP+OSD with an accumulated correction, then BP+OSD of
     the final round on H (JAX ``drivers.py:83-120``).  The flat BP of both
     decoders is chosen by :func:`.select.make_bp_decoder`: on a CUDA device
@@ -114,29 +115,21 @@ class BPOSDCorrectSingleShot:
 
     def __init__(self, code, rounds: int, bp_osd_options: Dict,
                  priors: Tuple[float, float], basis: str = "z", device: DeviceLike = "cuda"):
-        _check_options("BPOSDCorrectSingleShot", bp_osd_options)
-        dev = resolve_device(device)
+        super().__init__(code, basis, device, bp_osd_options, "bposd_single_shot")
         data_prior, meas_prior = priors
-        self._checks = code.checks.x if basis == "x" else code.checks.z
-        self._HdT = self._checks.T.toarray()
         self._spacetime_code = SpacetimeCodeSingleShot(self._checks)
         self._bpd_single_shot = BPOSDDecoder.from_check_matrix(
             self._spacetime_code.spacetime_check_matrix,
             channel_probs=spacetime_prior(self._spacetime_code, data_prior, meas_prior),
-            **qc_kwargs_single_shot(code, sector=basis), **bp_osd_options, device=dev)
+            **qc_kwargs_single_shot(code, sector=basis), **bp_osd_options, device=self._dev)
         self._bpd_final_round = BPOSDDecoder.from_check_matrix(
             self._checks, error_rate=data_prior, **qc_kwargs_for_code(code, sector=basis),
-            **bp_osd_options, device=dev)
-
-    def readout_correction_batch(self, history: np.ndarray, readout: np.ndarray) -> np.ndarray:
-        """history (S, rounds, r), readout (S, n) -> final-round correction (S, n)."""
-        with span("redecode"):
-            return _single_shot_correction(history, readout, self._HdT, self._spacetime_code,
-                                           self._bpd_single_shot.decode_batch,
-                                           self._bpd_final_round.decode_batch)
+            **bp_osd_options, device=self._dev)
+        self._stages = (self._bpd_single_shot.decode_tensors,
+                        self._bpd_final_round.decode_tensors)
 
 
-class BPOSDHybridCorrect:
+class BPOSDHybridCorrect(_MemoryCorrect):
     """Plain spacetime BP (kernel chosen by
     :func:`.select.make_spacetime_bp_decoder`), then BP+OSD of the final
     round on H (JAX ``drivers.py:124-158``; flat BP chosen by
@@ -144,30 +137,22 @@ class BPOSDHybridCorrect:
 
     def __init__(self, code, rounds: int, bp_osd_options: Dict,
                  priors: Tuple[float, float], basis: str = "z", device: DeviceLike = "cuda"):
-        _check_options("BPOSDHybridCorrect", bp_osd_options)
-        dev = resolve_device(device)
+        super().__init__(code, basis, device, bp_osd_options, "bposd_hybrid")
         data_prior, meas_prior = priors
-        self._checks = code.checks.x if basis == "x" else code.checks.z
-        self._HdT = self._checks.T.toarray()
         self._spacetime_code = SpacetimeCode(self._checks, rounds)
         self._bpd = make_spacetime_bp_decoder(
-            self._checks, rounds, device=dev,
+            self._checks, rounds, device=self._dev,
             channel_probs=spacetime_prior(self._spacetime_code, data_prior, meas_prior),
             **{k: v for k, v in bp_osd_options.items() if k in _BP_KEYS})
         self._bpd_final_round = BPOSDDecoder.from_check_matrix(
             self._checks, error_rate=data_prior, **qc_kwargs_for_code(code, sector=basis),
-            **bp_osd_options, device=dev)
+            **bp_osd_options, device=self._dev)
+        self._stages = (self._spacetime_bp, self._bpd_final_round.decode_tensors)
 
-    def readout_correction_batch(self, history: np.ndarray, readout: np.ndarray) -> np.ndarray:
-        """history (S, rounds, r), readout (S, n) -> final-round correction (S, n)."""
-        with span("redecode"):
-            syndromes = spacetime_syndromes(self._spacetime_code, history, readout)
-            with span("redecode.bp"):
-                correction = self._bpd.decode_batch(syndromes)[0]
-            bp_corr = self._spacetime_code.final_correction(correction).astype(np.int64)
-            final = self._bpd_final_round.decode_batch(
-                mod2_matmul((bp_corr + readout) % 2, self._HdT))
-            return (final + bp_corr) % 2
+    def _spacetime_bp(self, syndromes: torch.Tensor):
+        with span("redecode.bp"):
+            hard, _post, conv, _iters = self._bpd.decode_tensors(syndromes)
+        return hard, conv
 
 
 class SlidingWindowCorrect:
@@ -192,7 +177,7 @@ class SlidingWindowCorrect:
         return self._dec.decode_batch(history, readout)
 
 
-class SSFCorrect:
+class SSFCorrect(_MemoryCorrect):
     """Single-shot small-set-flip (JAX ``drivers.py:184-235``): per-round
     (H|I) SSF with an accumulated correction, then a clean final-round SSF,
     in the round-loop structure of :class:`BPOSDCorrectSingleShot`.  The
@@ -203,10 +188,8 @@ class SSFCorrect:
 
     def __init__(self, code, rounds: int, bp_osd_options: Dict,
                  priors: Tuple[float, float], basis: str = "z", device: DeviceLike = "cuda"):
-        _check_options("SSFCorrect", bp_osd_options, ("ssf_max_iter",))
-        dev = resolve_device(device)
-        self._checks = code.checks.x if basis == "x" else code.checks.z
-        self._HdT = self._checks.T.toarray()
+        super().__init__(code, basis, device, bp_osd_options, "bposd_single_shot",
+                         ("ssf_max_iter",))
         self._spacetime_code = SpacetimeCodeSingleShot(self._checks)
         max_iter = int(bp_osd_options.get("ssf_max_iter", 0) or 0)
         r, n = self._checks.shape
@@ -218,15 +201,11 @@ class SSFCorrect:
         generators = sparse.vstack([gen_data, gen_meas]).tocsr()
         self._dec_ss = SmallSetFlipDecoder.from_css(
             self._spacetime_code.spacetime_check_matrix, generators, max_iter=max_iter,
-            device=dev)
+            device=self._dev)
         self._dec_final = SmallSetFlipDecoder.from_css(self._checks, gx, max_iter=max_iter,
-                                                       device=dev)
-
-    def readout_correction_batch(self, history: np.ndarray, readout: np.ndarray) -> np.ndarray:
-        """history (S, rounds, r), readout (S, n) -> final-round correction (S, n)."""
-        return _single_shot_correction(history, readout, self._HdT, self._spacetime_code,
-                                       lambda s: self._dec_ss.decode_batch(s)[0],
-                                       lambda s: self._dec_final.decode_batch(s)[0])
+                                                       device=self._dev)
+        self._stages = (lambda s: self._dec_ss.decode_tensors(s)[:2],
+                        lambda s: self._dec_final.decode_tensors(s)[:2])
 
 
 def _relay_decoder(H, channel_probs, opts: Dict, default_alpha: float, device):

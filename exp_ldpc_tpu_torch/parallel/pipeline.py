@@ -4,15 +4,14 @@ Counterpart of ``exp_ldpc_tpu/parallel/pipeline.py::StorageDecodePipeline``
 on one device.  One call of :meth:`StorageDecodePipeline.run_bposd`:
 
   1. samples Pauli frames on the device (:mod:`..sampler.device`);
-  2. decodes by ``mode``:
+  2. decodes by ``mode``, the algebra around the stages being
+     :mod:`..decoders.memory`'s, which the BP+OSD drivers share:
 
-     * ``"bposd"``: differenced spacetime syndromes, then fixed-iteration
-       spacetime BP, the kernel :func:`..decoders.select.spacetime_choice`
-       names on a CUDA device: K2 (f32) where one shot of it fits shared
-       memory, else K3 (streamed, bf16);
-     * ``"bposd_single_shot"``: per round, flat BP on (H|I) of the round's
-       syndrome plus the accumulated correction, then flat BP of the final
-       round on H;
+     * ``"bposd"``: fixed-iteration spacetime BP, the kernel
+       :func:`..decoders.select.spacetime_choice` names on a CUDA device:
+       K2 (f32) where one shot of it fits shared memory, else K3
+       (streamed, bf16);
+     * ``"bposd_single_shot"``: flat BP on (H|I) each round, then on H;
      * ``"bposd_hybrid"``: spacetime BP (kernel K2 at every size: the
        streamed K3 contract serves mode ``"bposd"`` only, as in JAX), then
        flat BP of the final round on H;
@@ -27,11 +26,12 @@ on one device.  One call of :meth:`StorageDecodePipeline.run_bposd`:
      ``max_iter``; overflow shots keep their stage-1 result and count as
      unconverged;
   3. counts logical failures of the shots it keeps and ships the others
-     (compacted to the front, stable order; their rows alone, a byte a
-     cell, in one copy) to the host, where the mode's BP+OSD driver
-     (:mod:`..decoders.drivers`) redecodes them: any shot
-     with an unconverged stage in ``bposd`` and ``bposd_single_shot``, the
-     shots whose final-round BP did not converge in ``bposd_hybrid``.
+     (compacted to the front, stable order) to the mode's BP+OSD driver
+     (:mod:`..decoders.drivers`), which redecodes their rows where they
+     lie; only their readout is copied to the host, a byte a cell, to fold
+     the redecode's corrections.  Shipped: any shot with an unconverged
+     stage in ``bposd`` and ``bposd_single_shot``, the shots whose
+     final-round BP did not converge in ``bposd_hybrid``.
 
 With a ``mesh`` (:mod:`.mesh`, model axis 1) each rank is one device of
 the data axis: it samples its own ``shots_per_device`` shots with the
@@ -40,10 +40,10 @@ its host, and the counts are summed over the data group, so every rank
 returns the totals.
 
 Each step runs inside a span of :mod:`..utils.observability` (``ldpc.batch``
-around ``ldpc.sample``, ``ldpc.decode`` with its ``decode.syndromes``,
-``decode.bp`` and ``decode.fold``, and ``ldpc.ship``, the copy of the
-shipped rows to the host, counted in ``ship_bytes``), which costs a flag
-read while tracing is off.
+around ``ldpc.sample``, ``ldpc.decode`` with its ``decode.bp`` and
+``decode.fold``, and ``ldpc.ship``, the copy of the shipped readout to the
+host, counted in ``ship_bytes``), which costs a flag read while tracing is
+off.
 
 ``msg_dtype`` ("float32" or "bfloat16") is the message type of the plain
 spacetime core (:func:`..decoders.spacetime_bp.stbp_core`), which runs
@@ -68,8 +68,8 @@ from ..convert import noise_args, prior_llr_st, tanner_tables
 from ..decoders.bp import bp_core, normalize_method, priors_to_llr
 from ..decoders.bp_bsr_spacetime import stbsr_decode
 from ..decoders.bp_cuda import bp_fixed
-from ..decoders.drivers import (BPOSDCorrect, BPOSDCorrectSingleShot, BPOSDHybridCorrect,
-                                spacetime_prior)
+from ..decoders import memory
+from ..decoders.drivers import DECODER_MODES, spacetime_prior
 from ..decoders.select import spacetime_choice
 from ..decoders.spacetime_bp import MSG_DTYPES, stbp_core
 from ..decoders.spacetime_bp_cuda import stbp_fixed
@@ -79,7 +79,6 @@ from ..utils.observability import count, span
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh, all_reduce_sum
 
 __all__ = ["StorageDecodePipeline"]
-
 
 
 @dataclass(eq=False)
@@ -223,10 +222,9 @@ class StorageDecodePipeline:
         opts.setdefault("max_iter", self.max_iter)
         opts.setdefault("bp_method", self.bp_method)
         opts.setdefault("ms_scaling_factor", self.ms_scaling_factor)
-        cls = {"bposd": BPOSDCorrect, "bposd_single_shot": BPOSDCorrectSingleShot,
-               "bposd_hybrid": BPOSDHybridCorrect}[self.mode]
-        return cls(self.code, self.rounds, opts, (self.data_prior, self.meas_prior),
-                   basis="x" if self.use_x_logicals else "z", device=self.device)
+        return DECODER_MODES[self.mode](
+            self.code, self.rounds, opts, (self.data_prior, self.meas_prior),
+            basis="x" if self.use_x_logicals else "z", device=self.device)
 
     def decode_spacetime(self, synd: torch.Tensor, max_iter: Optional[int] = None):
         """(B·r, S) syndromes -> (hard (Vst, S) uint8, conv (S,) bool), at
@@ -279,72 +277,28 @@ class StorageDecodePipeline:
         return (rec[:, : mpr * rounds].reshape(S, rounds, mpr)[:, :, blk: blk + r],
                 rec[:, mpr * rounds: mpr * rounds + n])
 
-    def spacetime_syndromes(self, history: torch.Tensor, readout: torch.Tensor):
-        """The differenced spacetime syndromes ((rounds+1)·r, S) uint8 of the
-        rounds' syndromes and the final one from the readout."""
-        S = history.shape[0]
-        with span("decode.syndromes"):
-            final = torch.remainder(readout @ self._Hz.T, 2.0)                  # (S, r)
-            synd = torch.cat([history, final[:, None, :]], dim=1)
-            synd = torch.cat([synd[:, :1], torch.remainder(synd[:, 1:] + synd[:, :-1], 2.0)],
-                             dim=1)
-            return synd.reshape(S, -1).T.to(torch.uint8).contiguous()
-
-    def _final_syndromes(self, readout: torch.Tensor, correction: torch.Tensor):
-        """(C, S) uint8 syndromes of the final round under ``correction``."""
-        with span("decode.syndromes"):
-            synd = torch.remainder(torch.remainder(readout + correction, 2.0) @ self._Hz.T, 2.0)
-            return synd.T.to(torch.uint8).contiguous()
-
     def _decode_records(self, record: torch.Tensor):
         """(S, M) record -> (failures, shots, unconverged) and, with the OSD
         fallback, the compacted (history, readout, ship) of up to cap shots."""
         with span("decode"):
-            S = record.shape[0]
-            rounds, n = self.rounds, self.num_data
             history, readout = self._split_record(record)
-            HzT = self._Hz.T
+            final = lambda s: self.decode_flat(self._tables, self._prior_final, s)  # noqa: E731
             if self.mode == "bposd_single_shot":
-                # per round: (H|I) BP of the round's syndrome plus the syndrome
-                # of the accumulated correction; then BP of the final round
-                acc = torch.zeros((S, n), device=record.device)
-                bad = torch.zeros((S,), dtype=torch.bool, device=record.device)
-                for t in range(rounds):
-                    with span("decode.syndromes"):
-                        s_t = torch.remainder(torch.remainder(acc @ HzT, 2.0) + history[:, t],
-                                              2.0).T.to(torch.uint8).contiguous()
-                    hard_t, conv_t = self.decode_flat(self._tables_ss, self._prior_ss, s_t)
-                    acc = torch.remainder(acc + hard_t[:n].T.to(torch.float32), 2.0)
-                    bad = bad | ~conv_t
-                hard_f, conv_f = self.decode_flat(self._tables, self._prior_final,
-                                                  self._final_syndromes(readout, acc))
-                ship = bad | ~conv_f
-                correction = torch.remainder(hard_f.T.to(torch.float32) + acc, 2.0)
+                stages = (lambda s: self.decode_flat(self._tables_ss, self._prior_ss, s), final)
             else:
-                synd = self.spacetime_syndromes(history, readout)
-                hard, conv = (self.decode_two_tier(synd) if self.tier1_iters > 0
-                              else self.decode_spacetime(synd))
-                # mod-2 sum of the per-round data blocks
-                data_blocks = hard[: (rounds + 1) * n].reshape(rounds + 1, n, S).to(torch.int32)
-                correction = (data_blocks.sum(dim=0) % 2).T.to(torch.float32)   # (S, n)
-                ship = ~conv
-                if self.mode == "bposd_hybrid":
-                    # final-round BP on top of the spacetime BP; only its
-                    # unconverged shots go to the host
-                    hard_f, conv_f = self.decode_flat(self._tables, self._prior_final,
-                                                      self._final_syndromes(readout, correction))
-                    correction = torch.remainder(hard_f.T.to(torch.float32) + correction, 2.0)
-                    ship = ~conv_f
+                st = ((lambda s: self.decode_two_tier(s)) if self.tier1_iters > 0
+                      else lambda s: self.decode_spacetime(s))
+                stages = (st, final) if self.mode == "bposd_hybrid" else (st,)
+            correction, ok = memory.MODES[self.mode](self._Hz, history, readout, *stages)
             with span("decode.fold"):
                 corrected = torch.remainder(readout + correction, 2.0)
                 failed = (torch.remainder(corrected @ self._Lz.T, 2.0) > 0.5).any(dim=1)
-                unconv = int(ship.sum())
+                S, unconv = record.shape[0], int((~ok).sum())
                 if self.osd_fallback_cap <= 0:
                     return int(failed.sum()), S, unconv
-                f_conv = int((failed & ~ship).sum())
-                order = torch.argsort((~ship).to(torch.int32),
-                                      stable=True)[: self.osd_fallback_cap]
-                return f_conv, S, unconv, history[order], readout[order], ship[order]
+                order = torch.argsort(ok.to(torch.int32), stable=True)[: self.osd_fallback_cap]
+                return (int((failed & ok).sum()), S, unconv, history[order], readout[order],
+                        ~ok[order])
 
     def _data_sum(self, *counts: int):
         """The counts summed over the mesh's data group (unchanged without a mesh)."""
@@ -376,8 +330,8 @@ class StorageDecodePipeline:
     def _finish_bposd(self, f_conv, shots, unconv, hist, readout, _valid):
         """The host redecode of a batch's shipped shots, the first
         ``min(unconv, cap)`` rows of ``_decode_records``' compacted
-        (history, readout), and the batch's counts; ``_valid``, the
-        compacted ship mask, is implied by them."""
+        (history, readout) as they lie on the device, and the batch's
+        counts; ``_valid``, the compacted ship mask, is implied by them."""
         # the cap holds for the data axis as a whole, as in JAX; every rank
         # sees the same total and raises together
         n_data = 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
@@ -391,16 +345,11 @@ class StorageDecodePipeline:
             count("ship_bytes", 0)
             return self._data_sum(f_conv, shots, 0)
         with span("ship"):
-            # the shipped rows alone, their 0/1 cells a byte each, in one copy
-            block = torch.cat([hist[:k].reshape(k, -1), readout[:k]],
-                              dim=1).to(torch.uint8).cpu().numpy()
-            count("ship_bytes", block.nbytes)
-        m = block.shape[1] - readout.shape[1]
-        hist = block[:, :m].astype(np.int64).reshape(k, *hist.shape[1:])
-        readout = block[:, m:].astype(np.int64)
-        corr = self._osd.readout_correction_batch(hist, readout)
-        corrected = (readout + np.asarray(corr, dtype=np.int64)) % 2
-        flips = (corrected @ self._Lz_np.T) % 2
+            # the shipped readout, a byte a cell, for the fold with _Lz_np
+            shipped = readout[:k].to(torch.uint8).cpu().numpy()
+            count("ship_bytes", shipped.nbytes)
+        corr = self._osd.readout_correction_batch(hist[:k], readout[:k])
+        flips = (((shipped + np.asarray(corr, dtype=np.int64)) % 2) @ self._Lz_np.T) % 2
         f_osd = int(np.any(flips != 0, axis=1).sum())
         return self._data_sum(f_conv + f_osd, shots, k)
 

@@ -20,14 +20,13 @@
 The spans, from the sweep down (``ldpc.`` prefix; parent first):
 ``point`` (a sweep point), ``rebind`` and ``rebind.osd_build`` (the noise
 rebound between points), ``batch``, ``sample``, ``decode`` with
-``decode.syndromes``, ``decode.bp`` (each BP stage) and ``decode.fold``,
-``ship`` (the copy of the shipped rows to the host), ``redecode`` (the
-host BP+OSD driver) with ``redecode.bp`` and ``redecode.osd``.  The
-counters: ``ship_bytes`` (bytes ``ship`` copies), ``osd_solves`` (shots
-handed to OSD after the redecode's BP), ``osd_card_solves`` (those of
-them solved on the card, by kernel K8 on either route) and
-``osd_device_solves`` (those of them on K8's device route, the matrix past
-one block's shared memory).
+``decode.bp`` (each BP stage) and ``decode.fold``, ``ship`` (the copy of
+the shipped readout to the host), ``redecode`` (a memory mode's driver,
+the host BP+OSD redecode in the pipeline) with ``redecode.bp`` and
+``redecode.osd``.  The counters: ``ship_bytes`` (bytes ``ship`` copies),
+``osd_solves`` (shots handed to OSD after the redecode's BP) and
+``osd_device_solves`` (those of them on kernel K8's device route, the
+matrix past one block's shared memory).
 """
 from __future__ import annotations
 

@@ -81,7 +81,7 @@ def test_bposd_pipeline_matches_the_reference_bit_for_bit():
     with tracing():
         out = entry.run_unit(0)
         got = counters()
-    assert out["osd_shots"] > 0 and got["osd_solves"] > 0 and "osd_card_solves" not in got
+    assert out["osd_shots"] > 0 and got["osd_solves"] > 0 and "osd_device_solves" not in got
     hx, hz, lz = harness.reference_matrices(cfg, ROOT)
     exp = Experiment(hx, hz, cfg["rounds"], traffic["p"], cfg, CPU, lz=lz)
     mode = harness.decode_mode(traffic)

@@ -28,8 +28,8 @@ from exp_ldpc_tpu_torch.utils.observability import (count, counters, get_logger,
                                                     span, tracing)
 
 MODES = ["bposd", "bposd_single_shot", "bposd_hybrid"]
-BATCH_SPANS = {"batch", "sample", "decode", "decode.syndromes", "decode.bp", "decode.fold",
-               "ship", "redecode", "redecode.bp", "redecode.osd"}
+BATCH_SPANS = {"batch", "sample", "decode", "decode.bp", "decode.fold", "ship", "redecode",
+               "redecode.bp", "redecode.osd"}
 P, ROUNDS, SHOTS = 8e-3, 2, 128
 
 
@@ -185,18 +185,18 @@ def _count_unconverged(pipe, monkeypatch):
     seen = []
     for dec in vars(pipe._osd).values():
         if isinstance(dec, BPOSDDecoder):
-            def decode(syndromes, _bp=dec.bp.decode_batch):
+            def decode(syndromes, _bp=dec.bp.decode_tensors):
                 out = _bp(syndromes)
                 seen.append(int((~out[2]).sum()))
                 return out
-            monkeypatch.setattr(dec.bp, "decode_batch", decode)
+            monkeypatch.setattr(dec.bp, "decode_tensors", decode)
     return seen
 
 
 def test_batch_shows_every_span_and_counter(pipe, tmp_path, monkeypatch):
     """One traced ``run_bposd``: every span of a batch's layers, each under
-    ``ldpc.batch``; ``ship_bytes`` is the shipped rows' history and readout,
-    a byte a cell; ``osd_solves`` is the redecode's unconverged BP shots."""
+    ``ldpc.batch``; ``ship_bytes`` is the shipped rows' readout, a byte a
+    cell; ``osd_solves`` is the redecode's unconverged BP shots."""
     unconverged = _count_unconverged(pipe, monkeypatch)
     with profiler_trace(str(tmp_path)), tracing():
         _f, shots, osd = pipe.run_bposd(_gen(11))
@@ -208,8 +208,7 @@ def test_batch_shows_every_span_and_counter(pipe, tmp_path, monkeypatch):
     redecode = next(s for s in spans if s[0] == "redecode")
     assert all(_inside(s, redecode) for s in spans if s[0].startswith("redecode."))
     assert osd > 0 and shots == SHOTS
-    r, n = pipe.z_count, pipe.num_data
-    assert got["ship_bytes"] == osd * (ROUNDS * r + n)
+    assert got["ship_bytes"] == osd * pipe.num_data
     assert got["osd_solves"] == sum(unconverged) > 0
     stages = {"bposd": 1, "bposd_single_shot": ROUNDS + 1, "bposd_hybrid": 2}[pipe.mode]
     assert sum(s[0] == "decode.bp" for s in spans) == stages

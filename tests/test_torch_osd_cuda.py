@@ -8,7 +8,7 @@ past a block's shared memory, up to 1,024 rows; else the C++), the device
 route's shared memory and slots; the reliability order's keys against
 numpy's stable argsort (-0.0 equal to +0.0, NaN last, ties by index); a
 BP+OSD decoder whose BP runs on the CPU keeps the C++ path and counts no
-``osd_card_solves``; the wrapper refuses a tensor of the wrong device,
+``osd_device_solves``; the wrapper refuses a tensor of the wrong device,
 dtype, shape or layout.
 
 Marked ``gpu`` (skipped where no CUDA device is present; on a machine with a
@@ -161,7 +161,7 @@ def test_order_keys_treat_signed_zero_as_equal_and_nan_as_last():
 
 def test_cpu_bp_stage_keeps_the_host_path():
     """A CPU BP stage: the C++ path, ``osd_solves`` counted and no
-    ``osd_card_solves``; the answer is ``osd_decode_batch``'s."""
+    ``osd_device_solves``; the answer is ``osd_decode_batch``'s."""
     H = _hgp225()
     dec = BPOSDDecoder.from_check_matrix(H, error_rate=0.02, max_iter=4, bp_method="ms",
                                          ms_scaling_factor=0.625, osd_method="osd_cs",
@@ -173,7 +173,7 @@ def test_cpu_bp_stage_keeps_the_host_path():
         out = dec.decode_batch(synd)
         got = counters()
     assert dec._card is False
-    assert got.get("osd_solves", 0) > 0 and "osd_card_solves" not in got
+    assert got.get("osd_solves", 0) > 0 and "osd_device_solves" not in got
     hard, post, conv, _ = dec.bp.decode_batch(synd)
     want = hard.copy()
     want[~conv] = osd_decode_batch(H, synd[~conv], post[~conv], "osd_cs", 3)
@@ -368,7 +368,7 @@ def test_k8_shot_counts(dev, hgp225x4_unconverged, S):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["bposd", "bposd_single_shot", "bposd_hybrid"])
-def test_k8_serves_every_pipeline_mode(dev, mode):
+def test_k8_serves_every_pipeline_mode(dev, mode, monkeypatch):
     """In each BP+OSD mode on the card, every OSD solve is K8's."""
     from exp_ldpc_tpu_torch.circuits.noise import depolarizing_noise
     from exp_ldpc_tpu_torch.parallel.pipeline import StorageDecodePipeline
@@ -380,6 +380,13 @@ def test_k8_serves_every_pipeline_mode(dev, mode):
         meas_prior=2 / 3 * p, shots_per_device=4096, max_iter=48, bp_method="ms",
         ms_scaling_factor=0.625, osd_fallback_cap=4096,
         osd_options=dict(osd_method="osd_cs", osd_order=7), mode=mode, device=dev)
+    solved, solve = [], osd_cuda.osd_solve
+
+    def recorded(mat, synd, llr, method, order):
+        solved.append(synd.shape[0])
+        return solve(mat, synd, llr, method, order)
+
+    monkeypatch.setattr(osd_cuda, "osd_solve", recorded)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     before = osd_cuda.KERNEL.launches
@@ -387,7 +394,7 @@ def test_k8_serves_every_pipeline_mode(dev, mode):
         _f, _shots, osd = pipe.run_bposd(gen)
         got = counters()
     assert osd > 0 and got["osd_solves"] > 0
-    assert got.get("osd_card_solves") == got["osd_solves"]
+    assert got["osd_solves"] == sum(solved)
     assert "osd_device_solves" not in got       # HGP-225's shapes keep the block route
     assert osd_cuda.KERNEL.launches > before
 
@@ -540,7 +547,7 @@ def test_k8_device_serves_the_gross_pipeline(dev, monkeypatch):
             assert osd > 0
         got = counters()
     solves = sum(c[0].shape[0] for c in calls)
-    assert got["osd_solves"] == got.get("osd_card_solves") == got.get("osd_device_solves") == solves
+    assert got["osd_solves"] == got.get("osd_device_solves") == solves
     assert osd_cuda.DEVICE_KERNEL.launches == before + len(calls)
     mat = mats[0]
     assert all(m is mat for m in mats) and (mat.rows, mat.cols) == GROSS

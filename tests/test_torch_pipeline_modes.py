@@ -1,6 +1,6 @@
 """Port: the pipeline modes ``bposd_single_shot`` and ``bposd_hybrid``
-(exp_ldpc_tpu_torch/parallel/pipeline.py), their host BP+OSD drivers and the
-CLI, against the JAX package.
+(exp_ldpc_tpu_torch/parallel/pipeline.py), their host BP+OSD drivers and
+``bposd``'s, and the CLI, against the JAX package.
 
 Tolerances: on identical FrameSampler records the f32 stages (K6's and
 K2's plain versions against the JAX XLA cores) give identical failure and
@@ -20,13 +20,16 @@ import torch
 
 from exp_ldpc_tpu.circuits.noise import depolarizing_noise
 from exp_ldpc_tpu.codes.hgp import biregular_hgp
+from exp_ldpc_tpu.decoders.drivers import BPOSDCorrect as JaxBPOSD
 from exp_ldpc_tpu.decoders.drivers import BPOSDCorrectSingleShot as JaxSingleShot
 from exp_ldpc_tpu.decoders.drivers import BPOSDHybridCorrect as JaxHybrid
 from exp_ldpc_tpu.parallel.pipeline import StorageDecodePipeline as JaxPipeline
 from exp_ldpc_tpu.sampler.reference import FrameSampler
 from exp_ldpc_tpu_torch.convert import pipeline_kwargs_from_jax
 from exp_ldpc_tpu_torch.decoders.bp import BPDecoder
-from exp_ldpc_tpu_torch.decoders.drivers import BPOSDCorrectSingleShot, BPOSDHybridCorrect
+from exp_ldpc_tpu_torch.decoders.drivers import (BPOSDCorrect, BPOSDCorrectSingleShot,
+                                                  BPOSDHybridCorrect)
+from exp_ldpc_tpu_torch.decoders.spacetime_bp import SpacetimeBPDecoder
 from exp_ldpc_tpu_torch.experiments.p_sweep import cli_main
 from exp_ldpc_tpu_torch.parallel.pipeline import StorageDecodePipeline
 
@@ -103,7 +106,7 @@ def test_run_bposd_matches_jax_pipeline(small_code, mode):
     assert abs(f_jax / n_jax - f_port / n_port) < 3 * sigma, (mode, f_jax, f_port)
 
 
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", ["bposd"] + MODES)
 def test_host_drivers_match_jax(hgp225, mode):
     """The mode's BP+OSD driver on identical histories: every correction
     clears the final syndrome; failures agree with the JAX driver's."""
@@ -115,7 +118,8 @@ def test_host_drivers_match_jax(hgp225, mode):
     mpr, n, x_count = 216, 225, code.checks.x.shape[0]
     history = record[:, : rounds * mpr].reshape(48, rounds, mpr)[:, :, x_count:]
     readout = record[:, rounds * mpr: rounds * mpr + n]
-    port_cls, jax_cls = {"bposd_single_shot": (BPOSDCorrectSingleShot, JaxSingleShot),
+    port_cls, jax_cls = {"bposd": (BPOSDCorrect, JaxBPOSD),
+                         "bposd_single_shot": (BPOSDCorrectSingleShot, JaxSingleShot),
                          "bposd_hybrid": (BPOSDHybridCorrect, JaxHybrid)}[mode]
     priors = (2 / 3 * p,) * 2
     corr = port_cls(code, rounds, opts, priors, device="cpu").readout_correction_batch(
@@ -128,9 +132,10 @@ def test_host_drivers_match_jax(hgp225, mode):
     fails = int(((readout + corr) % 2 @ Lz.T % 2).any(axis=1).sum())
     fails_j = int(((readout + corr_j) % 2 @ Lz.T % 2).any(axis=1).sum())
     assert abs(fails - fails_j) <= max(2, 0.1 * max(fails, fails_j)), (fails, fails_j)
-    # on the CPU the flat stages are the plain BPDecoder (K1 needs a card)
-    final = port_cls(code, rounds, opts, priors, device="cpu")._bpd_final_round.bp
-    assert type(final) is BPDecoder
+    # on the CPU the BP stages are the plain decoders (K1 and K3 need a card)
+    port = port_cls(code, rounds, opts, priors, device="cpu")
+    last = port._bpd if mode == "bposd" else port._bpd_final_round
+    assert type(last.bp) is (SpacetimeBPDecoder if mode == "bposd" else BPDecoder)
 
 
 def test_rebind_noise_and_refusals(small_code):

@@ -1,29 +1,34 @@
-"""The copy to the host of the BP+OSD pipeline
-(``StorageDecodePipeline._finish_bposd``): only the shipped rows of
-``_decode_records``' compacted batch, a byte a cell, in one copy.
+"""The hand-off of the BP+OSD pipeline's shipped shots to the host redecode
+(``StorageDecodePipeline._finish_bposd``), and the shared mode algebra of
+``decoders/memory.py`` that both the device step and the redecode run.
 
 On the CPU, in the three BP+OSD modes, with no shot shipped, with some
 shipped under the cap, and with as many shipped as the cap below the
-batch: the redecode (``readout_correction_batch``) receives the int64
-(history, readout) arrays of the whole-batch path (the compacted float32
-tensors copied whole, the rows of the ship mask kept on the host), equal
-in dtype, shape, layout, order and values, and ``_finish_bposd`` returns
-that path's (failures, shots, shipped).
+batch: the redecode (``readout_correction_batch``) receives exactly the
+shipped rows of ``_decode_records``' compacted (history, readout), in
+order, as float32 tensors on the pipeline's device, and ``_finish_bposd``
+returns the whole-batch path's (failures, shots, shipped).  On random 0/1
+input the shared algebra equals the host copies it replaced:
+``SpacetimeCode.syndrome_from_history_batch`` / ``final_correction``, the
+single-shot round loop in numpy, and the final-round stage of the hybrid.
 
 Marked ``gpu`` (skipped where no CUDA device is present; on a machine with a
 card ``python -m pytest --noconftest -m gpu tests/test_torch_ship.py``): the
-same record decoded on the card, finished on the card and, moved to the
-CPU, finished there, hands the redecode the same arrays, which are the
-whole-batch path's.
+redecode's corrections of one record's shipped rows, handed over as card
+tensors, equal those of the same corrector given the rows as int64 host
+arrays, and those of the numpy algebra over the corrector's own stages.
 """
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
+from scipy import sparse
 
 from exp_ldpc_tpu_torch.circuits.noise import depolarizing_noise
 from exp_ldpc_tpu_torch.codes.hgp import biregular_hgp
+from exp_ldpc_tpu_torch.decoders import memory
+from exp_ldpc_tpu_torch.decoders.spacetime import SpacetimeCode, SpacetimeCodeSingleShot
 from exp_ldpc_tpu_torch.parallel.pipeline import StorageDecodePipeline
 
 MODES = ["bposd", "bposd_single_shot", "bposd_hybrid"]
@@ -60,37 +65,27 @@ def _record(pipe, seed):
 
 
 def _spy(pipe):
-    """Record every (history, readout) the pipeline's redecode receives."""
+    """Record every (history, readout, correction) of the pipeline's redecode."""
     seen, orig = [], pipe._osd.readout_correction_batch
 
     def spy(hist, readout):
-        seen.append((hist, readout))
-        return orig(hist, readout)
+        out = orig(hist, readout)
+        seen.append((hist, readout, out))
+        return out
     pipe._osd.readout_correction_batch = spy
     return seen
 
 
-def _whole_batch_inputs(decoded):
-    """The redecode's inputs as the whole-batch copy gave them."""
-    hist, readout, valid = (t.cpu().numpy() for t in decoded[3:])
-    return hist[valid].astype(np.int64), readout[valid].astype(np.int64)
-
-
 def _whole_batch_counts(pipe, decoded, correct):
+    """(failures, shots, shipped) of the shipped rows copied whole to the host."""
     f_conv, shots = decoded[:2]
-    hist, readout = _whole_batch_inputs(decoded)
+    hist, readout, valid = (t.cpu().numpy() for t in decoded[3:])
+    hist, readout = hist[valid].astype(np.int64), readout[valid].astype(np.int64)
     if len(readout) == 0:
         return f_conv, shots, 0
     corrected = (readout + np.asarray(correct(hist, readout), dtype=np.int64)) % 2
     flips = (corrected @ pipe._Lz_np.T) % 2
     return f_conv + int(np.any(flips != 0, axis=1).sum()), shots, len(readout)
-
-
-def _assert_same_arrays(got, want):
-    for g, w in zip(got, want):
-        assert g.dtype == np.int64 and g.flags.c_contiguous
-        assert g.shape == w.shape
-        np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("case", ["none", "some", "cap"])
@@ -113,10 +108,75 @@ def test_redecode_gets_the_whole_batch_paths_inputs(hgp225, mode, case):
     assert pipe._finish_bposd(*decoded) == want
     if k == 0:
         assert seen == []
-    else:
-        (got,) = seen
-        _assert_same_arrays(got, _whole_batch_inputs(decoded))
-        assert got[0].shape == (k, ROUNDS, pipe.z_count) and got[1].shape == (k, pipe.num_data)
+        return
+    ((hist, readout, _corr),) = seen
+    valid = decoded[5]
+    for got, rows in ((hist, decoded[3][valid]), (readout, decoded[4][valid])):
+        assert torch.is_tensor(got) and got.device == pipe.device and got.dtype == torch.float32
+        assert torch.equal(got, rows)
+    assert hist.shape == (k, ROUNDS, pipe.z_count) and readout.shape == (k, pipe.num_data)
+
+
+# --------------------------------------------------------------------------- the shared algebra
+
+
+def _host_algebra(mode, H, hist, readout, stages):
+    """The mode's algebra as the host redecode ran it in numpy: int64 (S, .)
+    arrays, each stage (S, C) syndromes -> ((S, V) hard, (S,) conv)."""
+    Hd = H.toarray().astype(np.int64)
+    par = lambda x: (x @ Hd.T) % 2   # noqa: E731
+    if mode == "bposd_single_shot":
+        acc, ok = np.zeros_like(readout), np.ones(len(readout), dtype=bool)
+        for t in range(hist.shape[1]):
+            hard, conv = stages[0]((par(acc) + hist[:, t]) % 2)
+            acc, ok = (acc + SpacetimeCodeSingleShot(H).final_correction(hard)) % 2, ok & conv
+        hard, conv = stages[1](par((acc + readout) % 2))
+        return (acc + hard) % 2, ok & conv
+    st = SpacetimeCode(H, hist.shape[1])
+    hard, conv = stages[0](st.syndrome_from_history_batch(hist, readout))
+    corr = st.final_correction(hard)
+    if mode == "bposd":
+        return corr, conv
+    hard, conv = stages[1](par((corr + readout) % 2))
+    return (corr + hard) % 2, conv
+
+
+def _random_stage(rng, C, V):
+    """A fixed 0/1 map of syndromes to hard decisions, and a conv that
+    depends on the syndrome: the stage pair (tensor form, numpy form)."""
+    M = rng.integers(0, 2, size=(V, C))
+    Mt = torch.as_tensor(M, dtype=torch.float32)
+
+    def on_tensors(s):
+        assert s.dtype == torch.uint8 and s.shape[0] == C and s.is_contiguous()
+        return (torch.remainder(Mt @ s.to(torch.float32), 2.0).to(torch.uint8),
+                s.to(torch.int64).sum(dim=0) % 3 != 0)
+
+    def on_arrays(s):
+        return (s @ M.T) % 2, s.sum(axis=1) % 3 != 0
+    return on_tensors, on_arrays
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_memory_algebra_matches_the_host_copies(mode):
+    rng = np.random.default_rng(MODES.index(mode))
+    H = sparse.csr_matrix(biregular_hgp(6, 2, 3, seed=1).checks.z)
+    (r, n), rounds, S = H.shape, 3, 40
+    hist = rng.integers(0, 2, size=(S, rounds, r))
+    readout = rng.integers(0, 2, size=(S, n))
+    first = {"bposd": (r * (rounds + 1), n * (rounds + 1) + r * rounds),
+             "bposd_hybrid": (r * (rounds + 1), n * (rounds + 1) + r * rounds),
+             "bposd_single_shot": (r, n + r)}[mode]
+    stages = [_random_stage(rng, *first), _random_stage(rng, r, n)]
+    stages = stages[:1] if mode == "bposd" else stages
+    as_t = lambda x: torch.as_tensor(x, dtype=torch.float32)   # noqa: E731
+    corr, ok = memory.MODES[mode](as_t(H.toarray()), as_t(hist), as_t(readout),
+                                  *(s[0] for s in stages))
+    want_corr, want_ok = _host_algebra(mode, H, hist, readout, [s[1] for s in stages])
+    assert corr.dtype == torch.float32 and corr.shape == (S, n)
+    np.testing.assert_array_equal(corr.numpy(), want_corr)
+    np.testing.assert_array_equal(ok.numpy(), want_ok)
+    assert 0 < int(ok.sum()) < S
 
 
 # --------------------------------------------------------------------------- card
@@ -129,15 +189,33 @@ def cuda():
     return torch.device("cuda")
 
 
+def _numpy_stages(corrector, mode):
+    """The corrector's stages through their numpy entries (their conv is not read)."""
+    def stage(decode):
+        return lambda s: (decode(s), np.ones(len(s), dtype=bool))
+    if mode == "bposd":
+        return [stage(corrector._bpd.decode_batch)]
+    if mode == "bposd_single_shot":
+        return [stage(corrector._bpd_single_shot.decode_batch),
+                stage(corrector._bpd_final_round.decode_batch)]
+    return [stage(lambda s: corrector._bpd.decode_batch(s)[0]),
+            stage(corrector._bpd_final_round.decode_batch)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", MODES)
 def test_card_ship_equals_the_cpus(hgp225, cuda, mode):
-    card, host = _pipe(hgp225, mode, cuda), _pipe(hgp225, mode)
+    card = _pipe(hgp225, mode, cuda)
     decoded = card._decode_records(_record(card, 7))
     assert decoded[2] > 0
-    on_card, on_host = _spy(card), _spy(host)
+    seen = _spy(card)
     card._finish_bposd(*decoded)
-    host._finish_bposd(*(t.cpu() if torch.is_tensor(t) else t for t in decoded))
-    want = _whole_batch_inputs(decoded)
-    _assert_same_arrays(on_card[0], want)
-    _assert_same_arrays(on_host[0], want)
+    ((hist, readout, corr),) = seen
+    assert hist.device.type == readout.device.type == "cuda"
+    assert corr.dtype == np.int64 and corr.shape == readout.shape
+    hist_np, readout_np = (t.cpu().numpy().astype(np.int64) for t in (hist, readout))
+    corrector = card._osd
+    np.testing.assert_array_equal(corrector.readout_correction_batch(hist_np, readout_np), corr)
+    want, _ok = _host_algebra(mode, hgp225.checks.z, hist_np, readout_np,
+                              _numpy_stages(corrector, mode))
+    np.testing.assert_array_equal(want, corr)
