@@ -11,8 +11,9 @@ Phases, in order; any failure raises and exits nonzero:
      iteration, phase C in ``csrc/bsr_phases.cuh``), K2 (``csrc/stbp.cu``), K3
      (``csrc/stbsr.cu``: one grid per phase of an iteration, the phases in
      ``csrc/stbsr_phases.cuh``), K4 (``csrc/bsr_shard.cu``, phases in
-     ``csrc/bsr_shard_phases.cuh``), K5 (``csrc/bsr_bp_int8.cu``) and K6
-     (``csrc/bpflat.cu``) from source, one ``nvcc`` per source, all at once;
+     ``csrc/bsr_shard_phases.cuh``), K5 (``csrc/bsr_bp_int8.cu``), K6
+     (``csrc/bpflat.cu``), K7, K8 and K9 (``csrc/sampler.cu``) from source,
+     one ``nvcc`` per source, all at once;
   3. K2 against its plain PyTorch version on the card, at a ragged shot
      count (685, the host redecode's size), 4,096 and the main path's
      16,384 shots, below the SM count (77: one shot per block) and ragged
@@ -29,9 +30,17 @@ Phases, in order; any failure raises and exits nonzero:
      (p = 2e-4) where it fires before ``max_iter``; and single iterations
      of the kernels looped on the host at S = 97 and 685 as they are (one
      shot per thread: the scalar paths);
-  5. the device sampler: noiseless circuit -> zero detectors; detector rates
-     against the host oracle ``FrameSampler`` (whose ~10 s of host work runs
-     in a thread beside phases 2-4);
+  5. the device sampler, K9 (``csrc/sampler.cu``): noiseless circuit -> zero
+     detectors; detector rates against the host oracle ``FrameSampler``
+     (whose ~10 s of host work runs in a thread beside phases 2-4); K9
+     against the plain sampler at the cells' circuits (HGP-225 x 4 at
+     16,384 shots, the gross code x 12 at 20,000; CUDA events, median of
+     5), one launch a batch; at both circuits K9's record equal bit for bit
+     to the numpy replay of its op table and Philox streams
+     (``sampler/replay.py``), also on its device-memory route (the HGP
+     circuit shifted past a block's shared memory), and the gross
+     circuit's detector rates against ``FrameSampler`` (~60 s of host work
+     in another thread);
   6. the main path: ``p_sweep(..., pipeline=...)`` on HGP-225, 4 rounds,
      min-sum 48 iterations, OSD-CS 7, at two grid points of
      ``artifacts/ler_hgp225_bposd_v5e.jsonl`` and at p = 0.006 (anchor:
@@ -328,7 +337,8 @@ grids per iteration, all enqueued by the one call: a single-shot batch is 5
 K1 calls, a hybrid batch 1), for K2 and K6 one decode (resident: one grid;
 streamed: two grids an iteration and a parity grid), for K4
 one iteration of one shard (two grids), for K7 one chain (two grids), for
-K8 one OSD call (one grid, a block a shot).  The line before the
+K8 one OSD call (one grid, a block a shot), for K9 one batch sampled (one
+grid, a thread a shot; "shared" / "device" by the frames' route).  The line before the
 last is the kernel summary JSON (``launches`` summed over those runs,
 ``launches_by_run`` split by run, ``routes`` split by route: K2 and K6
 "resident" / "streamed" / "resident_wide" / "streamed_wide", K1 "grids" /
@@ -394,7 +404,8 @@ from exp_ldpc_tpu_torch.decoders.select import (flat_choice,  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.sliding_window import window_check_matrix  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.tanner import TannerELL  # noqa: E402
 from exp_ldpc_tpu_torch.sampler.reference import FrameSampler  # noqa: E402
-from exp_ldpc_tpu_torch.convert import tanner_tables  # noqa: E402
+from exp_ldpc_tpu_torch.circuits.ir import parse_circuit  # noqa: E402
+from exp_ldpc_tpu_torch.convert import noise_args, tanner_tables  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import bp_bsr as k1  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import bp_bsr_shard as k4  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import bp_bsr_spacetime as k3  # noqa: E402
@@ -414,9 +425,13 @@ from exp_ldpc_tpu_torch.native import get_gf2_lib  # noqa: E402
 from exp_ldpc_tpu_torch.experiments.p_sweep import p_sweep  # noqa: E402
 from exp_ldpc_tpu_torch.parallel.mesh import make_mesh, run_world  # noqa: E402
 from exp_ldpc_tpu_torch.parallel.pipeline import StorageDecodePipeline  # noqa: E402
+from exp_ldpc_tpu_torch.sampler import device as sampler  # noqa: E402
 from exp_ldpc_tpu_torch.sampler.device import DeviceSampler  # noqa: E402
+from exp_ldpc_tpu_torch.sampler.replay import replay, shift_qubits  # noqa: E402
+from exp_ldpc_tpu_torch.utils.cuda_build import device_limits  # noqa: E402
 from exp_ldpc_tpu_torch.utils.bounds import (OPS_FLOAT, OPS_INT8, bound,  # noqa: E402
-                                             dot_chain_bound, osd_bound, streamed_bound)
+                                             dot_chain_bound, osd_bound, sampler_bound,
+                                             streamed_bound)
 from exp_ldpc_tpu_torch.utils.bounds import flat_io as _flat_io  # noqa: E402
 from exp_ldpc_tpu_torch.utils.bounds import st_io as _st_io  # noqa: E402
 
@@ -522,7 +537,8 @@ def phase_card() -> str:
 
 
 KERNELS = {"K1": k1.KERNEL, "K2": k2.KERNEL, "K3": k3.KERNEL, "K4": k4.KERNEL,
-           "K5": k1.KERNEL_INT8, "K6": k6.KERNEL, "K7": k7.KERNEL, "K8": k8.KERNEL}
+           "K5": k1.KERNEL_INT8, "K6": k6.KERNEL, "K7": k7.KERNEL, "K8": k8.KERNEL,
+           "K9": sampler.KERNEL}
 
 
 def phase_build() -> None:
@@ -705,22 +721,127 @@ def host_rates(su: Setup, shots: int) -> np.ndarray:
     return FrameSampler(_noisy(su).circuit, seed=7).sample_detectors(shots).mean(axis=0)
 
 
-def phase_sampler(su: Setup, dev: torch.device, n_dev: int, n_host: int, host) -> None:
-    log("== phase 5: device sampler")
+# K9's circuits: the cells' (HGP-225 x 4 rounds at 16,384 shots, the gross
+# code x 12 at 20,000), at their traffic's p
+K9_CASES = (("hgp", 4, 16384, 0.0034822022531844966), ("gross", 12, 20000, 0.002924017738212867))
+K9_SHIFT_WORDS = 1000   # past one warp's frames in a block's shared memory
+K9_REPLAY_SEED = 2**62 + 24   # 63 bits, as the benchmark's seeds: both key words in use
+
+
+def k9_circuit(case, code) -> str:
+    _name, rounds, _shots, p = case
+    return build_storage_simulation(rounds, depolarizing_noise(p, p), code).circuit
+
+
+def gross_host_rates(shots: int) -> np.ndarray:
+    """``FrameSampler``'s detector rates at K9's gross circuit (~60 s of host
+    work at 16,384 shots, in a thread beside phases 2-4)."""
+    return FrameSampler(k9_circuit(K9_CASES[1], gross_code(True)),
+                        seed=11).sample_detectors(shots).mean(axis=0)
+
+
+def _rates_z(rate_dev: np.ndarray, n_dev: int, rate_host: np.ndarray, n_host: int) -> np.ndarray:
+    """|z| of a pooled two-proportion test per detector."""
+    pooled = (rate_dev * n_dev + rate_host * n_host) / (n_dev + n_host)
+    sigma = np.sqrt(pooled * (1 - pooled) * (1 / n_dev + 1 / n_host))
+    return np.abs(rate_dev - rate_host) / np.where(sigma > 0, sigma, 1.0)
+
+
+def phase_sampler(su: Setup, dev: torch.device, n_dev: int, n_host: int, host,
+                  gross_host) -> dict:
+    """Returns K9's times, plain times and bound inputs, and ``mismatch``:
+    the record bytes K9 differs in from its numpy replay (0) at both
+    circuits and on both frame routes."""
+    log("== phase 5: device sampler (K9)")
     quiet = build_storage_simulation(ROUNDS, trivial_noise(), su.code)
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     det = DeviceSampler(quiet.circuit, 4096, dev).sample_detectors(gen, append_observables=True)
     check(int(det.sum()) == 0, "noiseless circuit: all detectors and observables are 0")
     ds = DeviceSampler(_noisy(su).circuit, n_dev, dev)
+    sampler.KERNEL.reset_counts()
     rate_dev = ds.sample_detectors(gen).to(torch.float64).mean(dim=0).cpu().numpy()
     rate_host = host.result()
-    pooled = (rate_dev * n_dev + rate_host * n_host) / (n_dev + n_host)
-    sigma = np.sqrt(pooled * (1 - pooled) * (1 / n_dev + 1 / n_host))
-    z = np.abs(rate_dev - rate_host) / np.where(sigma > 0, sigma, 1.0)
+    z = _rates_z(rate_dev, n_dev, rate_host, n_host)
     log(f"  {rate_dev.size} detectors, mean rate device {rate_dev.mean():.5f} host "
         f"{rate_host.mean():.5f}, max |z| {z.max():.2f}")
     check(bool((z <= 5.0).all()), "every detector rate within 5 sigma of FrameSampler")
+    check(sampler.KERNEL.routes == {"shared": 1}, "one K9 launch on route 'shared' for the batch")
+    gross_rates = gross_host.result()   # its host thread off the timings below
+    out = {"mismatch": 0}
+    smem = device_limits(sampler.KERNEL, dev)[0]
+    codes = {"hgp": su.code, "gross": gross_code(True)}
+
+    def against_replay(fn, shots, want):
+        """(K9's record at K9_REPLAY_SEED, the bytes it differs in from ``want``)."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(K9_REPLAY_SEED)
+        got = fn(g, args).T.cpu().numpy()
+        return got, int((got != want).sum())
+
+    for case in K9_CASES:
+        name, _rounds, shots, _p = case
+        parsed = parse_circuit(k9_circuit(case, codes[name]))
+        args = noise_args(parsed, dev)
+        k9, plain = (build(parsed, shots, dev) for build in (sampler.build_record_sampler,
+                                                             sampler.plain_record_sampler))
+        gens = []
+        for i in range(6):
+            g = torch.Generator(device=dev)
+            g.manual_seed(300 + i)
+            gens.append(g)
+        sampler.KERNEL.reset_counts()
+        for fn in (k9, plain):
+            fn(gens[5], args)
+        out[f"{name}_ms"] = _median_ms(lambda g: k9(g, args), gens[:5])
+        out[f"{name}_plain_ms"] = _median_ms(lambda g: plain(g, args), gens[:5])
+        check(sampler.KERNEL.launches == 6, f"K9 launched once a batch at the {name} circuit "
+              f"(6 batches, {sampler.KERNEL.launches} launches)")
+        table = sampler.op_table(parsed)
+        out[f"{name}_bound"] = sampler_bound(sampler.fixed_calls(table), shots,
+                                             parsed.num_measurements)
+        out[f"{name}_shape"] = (f"{parsed.num_qubits} qubits, {parsed.num_measurements} "
+                                f"measurements x {shots} shots")
+        log(f"  {name}: K9 {out[f'{name}_ms']:.4f} ms, plain {out[f'{name}_plain_ms']:.4f} ms, "
+            f"bound {out[f'{name}_bound']['bound_ms']:.4f} ms "
+            f"({out[f'{name}_bound']['bound_by']}); {out[f'{name}_shape']}, plan "
+            f"{tuple(sampler.frame_plan(parsed.num_qubits, shots, smem))}")
+        # bit for bit against the numpy replay of its table and streams
+        t0 = time.perf_counter()
+        want, _ = replay(table, parsed.noise_args(), K9_REPLAY_SEED, 0, shots)
+        rec, bad = against_replay(k9, shots, want)
+        out["mismatch"] = max(out["mismatch"], bad)
+        log(f"  {name}: replay {time.perf_counter() - t0:.1f} s, {bad} of {want.size} record "
+            f"bytes differ")
+        check(bad == 0, f"K9 draws the replay's record bit for bit at the {name} circuit "
+              f"({shots} shots, seed {K9_REPLAY_SEED})")
+        if name == "gross":
+            dm = torch.as_tensor(parsed.detector_matrix().toarray().T.astype(np.float32),
+                                 device=dev)
+            rate = torch.remainder(torch.as_tensor(rec.T, device=dev).float() @ dm,
+                                   2.0).double().mean(dim=0).cpu().numpy()
+            z = _rates_z(rate, shots, gross_rates, n_host)
+            log(f"  gross: {rate.size} detectors, mean rate K9 {rate.mean():.5f} host "
+                f"{gross_rates.mean():.5f}, max |z| {z.max():.2f}")
+            check(bool((z <= 5.0).all()), "every detector rate of the gross circuit within "
+                  "5 sigma of FrameSampler")
+        if name == "hgp":
+            # the device-memory route at the same draws: the shifted circuit
+            # draws the replay's record too, and so the shared route's
+            wide = shift_qubits(parsed, K9_SHIFT_WORDS)
+            check(sampler.frame_plan(wide.num_qubits, shots, smem).route == "device",
+                  f"{wide.num_qubits} qubits take K9's device-memory route")
+            sampler.KERNEL.reset_counts()
+            wide_rec, bad = against_replay(sampler.build_record_sampler(wide, shots, dev),
+                                           shots, want)
+            check(sampler.KERNEL.routes == {"device": 1}, "the shifted circuit ran on route "
+                  "'device'")
+            out["mismatch"] = max(out["mismatch"], bad)
+            check(bad == 0, "K9's device-memory route draws the replay's record bit for bit "
+                  "(HGP-225 x 4 shifted past shared memory)")
+            out["route_mismatch"] = int((wide_rec != rec).sum())
+            check(out["route_mismatch"] == 0, "the two frame routes draw one record")
+    return out
 
 
 def artifact_point(p: float) -> dict:
@@ -2730,9 +2851,12 @@ def phase_validate_dem(code, dem_result) -> tuple:
         f"shots; launches {launches}")
     check(row["samples"] == DEM_SAMPLES and row["osd_overflow"] == 0,
           "every residue shot relay left reached OSD")
+    batches = -(-DEM_SAMPLES // DEM_BATCH)
     check(launches["K1"] > 0 and launches["K1"] == k1.KERNEL.routes.get("wide", 0)
-          and sum(launches.values()) == launches["K1"],
-          f"stage 1 ran K1 on route wide ({launches['K1']} calls; relay plain, OSD on the host)")
+          and launches["K9"] == batches
+          and sum(launches.values()) == launches["K1"] + launches["K9"],
+          f"stage 1 ran K1 on route wide ({launches['K1']} calls; relay plain, OSD on the host), "
+          f"the sampler K9 once a batch ({launches['K9']} of {batches})")
     _gate(row["failures"], row["samples"], "ler_hgp225_dem_circuit_v5e.jsonl", DEM_GATE_P,
           "validate_dem")
     return launches, times, worst
@@ -3485,7 +3609,7 @@ def main() -> int:
     su = Setup(dev)
     n_dev, n_host = (8192, 2048) if args.quick else (65536, 16384)
     # host work beside the build and the first parity phases
-    bg = ThreadPoolExecutor(5)
+    bg = ThreadPoolExecutor(6)
     dem4_result = None
     if not args.quick:
         # validate_dem's 4-round detector model (~150 s of host Python) in its
@@ -3494,6 +3618,7 @@ def main() -> int:
         atexit.register(dem_pool.terminate)
         dem4_result = dem_pool.apply_async(dem4, (DEM_GATE_P,))
     host = bg.submit(host_rates, su, n_host)
+    gross_host = bg.submit(gross_host_rates, n_host)
     dem_fut = bg.submit(dem_matrix, su.code)
     host_mats = None if args.quick else bg.submit(host_path_matrices, su.code)
     st_codes = None if args.quick else bg.submit(streamed_setups)
@@ -3506,7 +3631,8 @@ def main() -> int:
     err["K2"], parity_routes["K2"] = phase(phase_k2, su, sizes, dev)
     err["K3"] = phase(phase_k3, su, sizes, (97,) if args.quick else (97, S_REDECODE))
     err["K8"], t_k8, b_k8 = phase(phase_k8, su, dev, args.quick)
-    phase(phase_sampler, su, dev, n_dev, n_host, host)
+    k9_out = phase(phase_sampler, su, dev, n_dev, n_host, host, gross_host)
+    err["K9"] = k9_out["mismatch"]
     src = "exp_ldpc_tpu_torch/csrc/"
     kernels = [
         {"name": "K1 bsr_bp_run (one count = one decode: up to 3 grids per iteration)",
@@ -3537,6 +3663,13 @@ def main() -> int:
                  f"shape, {K8_SHOTS} shots; plain_ms the C++ osd_batch on the host's threads)",
          "route": "cuda", "source": src + "osd.cu",
          "replaces": "none (the JAX package's host OSD, native/gf2_kernels.cpp::osd_batch)"},
+        {"name": "K9 k9_sample (one count = one batch sampled: one grid, a thread a shot; ms at "
+                 "HGP-225 x 4, 16,384 shots; plain_ms the plain PyTorch sampler on the card; "
+                 "max_abs_err the record bytes K9 differs in from its numpy replay, the most "
+                 "over HGP-225 x 4 at 16,384 shots and gross x 12 at 20,000 on route 'shared' "
+                 "and the HGP circuit on route 'device')",
+         "route": "cuda", "source": src + "sampler.cu",
+         "replaces": "none (the JAX package's XLA sampler, exp_ldpc_tpu/sampler/device.py)"},
     ]
     if not args.quick:
         # The main path, run by run, each counted from 0: the bposd p_sweep
@@ -3628,6 +3761,12 @@ def main() -> int:
                 "fixed_ms", "host_ms", "l2_tbps_needed", "l2_tbps_needed_at_peak",
                 "l2_copy_tbps", "sm_clock_max_mhz", "clock_share")})
         bounds["K8"] = {**b_k8["bposd"], "library_ms": None}
+        bounds["K9"] = {**k9_out["hgp_bound"], "library_ms": None,
+                        "bound_ms_gross": k9_out["gross_bound"]["bound_ms"],
+                        "bound_by_gross": k9_out["gross_bound"]["bound_by"],
+                        "shape": k9_out["hgp_shape"], "shape_gross": k9_out["gross_shape"]}
+        t.update({"K9": k9_out["hgp_ms"], "K9_plain": k9_out["hgp_plain_ms"],
+                  "K9_gross": k9_out["gross_ms"], "K9_gross_plain": k9_out["gross_plain_ms"]})
         for label in ("HI", "H", "gross"):
             bounds["K8"].update({f"bound_ms_{label}": b_k8[label]["bound_ms"],
                                  f"bound_by_{label}": b_k8[label]["bound_by"]})
@@ -3642,7 +3781,8 @@ def main() -> int:
                   "K5": ("K5_cyclic", "qclp", "dem_dc53"),
                   "K6": ("K6_S16384", "bench", f"S{S_REDECODE}"),
                   "K7": ("K7_bf16", "f32", "int8"),
-                  "K8": ("K8", "HI", "H", "gross")}
+                  "K8": ("K8", "HI", "H", "gross"),
+                  "K9": ("K9", "gross")}
         for kern in kernels:
             key = kern["name"].split()[0]
             if key == "K3b":

@@ -29,6 +29,12 @@ shared memory: its bound is the words its elimination and its candidate
 scoring must move through the card's shared memory (128 bytes a clock and
 SM, 132 SMs at 1,980 MHz), or its device-memory traffic where that is
 larger.
+
+The Pauli-frame sampler (K9, :func:`sampler_bound`) writes the record once
+and draws its random words from Philox4x32-10: its bound is the record's
+bytes over the device-memory rate, or the Philox calls' integer operations
+over the card's int32 rate (64 INT32 lanes an SM and clock, 132 SMs at
+1,980 MHz), whichever is larger.
 """
 from __future__ import annotations
 
@@ -37,11 +43,17 @@ from typing import Optional
 __all__ = ["HBM_BYTES_PER_S", "OPS_PER_S", "TENSOR_OPS_PER_S", "OPS_FLOAT", "OPS_INT8",
            "ABLATE_OPS", "bound", "table_bytes", "flat_io", "st_io",
            "streamed_bound", "dot_chain_bound", "DOT_ELEMENT_BYTES", "OPS_PER_CLOCK_SM",
-           "clock_peak", "SMEM_BYTES_PER_S", "osd_bound"]
+           "clock_peak", "SMEM_BYTES_PER_S", "osd_bound", "INT32_OPS_PER_S", "PHILOX_OPS",
+           "sampler_bound"]
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 SMEM_BYTES_PER_S = 132 * 128 * 1.98e9   # H100 SXM shared memory, all SMs
 OPS_PER_S = 67e12           # float32 / int32 outside the tensor cores
+INT32_OPS_PER_S = 64 * 132 * 1.98e9   # H100 SXM: 64 INT32 lanes an SM and clock
+# One Philox4x32-10 call (4 words): 10 rounds of two 32 x 32 bit products, each a low
+# and a high half (4), and two three-input XORs (2 LOP3).  The key schedule is the same
+# for every call of a thread: the compiler hoists it (K9's SASS adds its constants once).
+PHILOX_OPS = 10 * (4 + 2)
 # the peak of a product by operand type: the tensor cores' dense rates for
 # bf16 (f32 sums) and int8 (int32 sums); f32 products run on the CUDA cores
 TENSOR_OPS_PER_S = {"bf16": 989.4e12, "int8": 1978.9e12, "f32": OPS_PER_S}
@@ -139,3 +151,13 @@ def osd_bound(xor_words: float, cand_words: float, shots: int, rows: int, cols: 
     ts, tb = 1e3 * smem / SMEM_BYTES_PER_S, 1e3 * dm / HBM_BYTES_PER_S
     return {"bound_ms": max(ts, tb), "bound_by": "shared memory" if ts >= tb else "bytes",
             "bound_bytes": int(dm), "bound_smem_bytes": int(smem)}
+
+
+def sampler_bound(calls: int, shots: int, measurements: int) -> dict:
+    """K9's bound for a batch of ``shots`` shots that make ``calls``
+    Philox4x32-10 calls each (``sampler/device.py::fixed_calls``: those every
+    shot makes) and write a record of ``measurements`` bytes each:
+    :data:`PHILOX_OPS` a call over :data:`INT32_OPS_PER_S`, or the record
+    over the device-memory rate.  The frames stay on chip, the op table and
+    noise vector are read once a block from the cache (not counted)."""
+    return bound(measurements * shots, PHILOX_OPS * calls * shots, INT32_OPS_PER_S)

@@ -24,9 +24,10 @@ rebound between points), ``batch``, ``sample``, ``decode`` with
 the shipped readout to the host), ``redecode`` (a memory mode's driver,
 the host BP+OSD redecode in the pipeline) with ``redecode.bp`` and
 ``redecode.osd``.  The counters: ``ship_bytes`` (bytes ``ship`` copies),
-``osd_solves`` (shots handed to OSD after the redecode's BP) and
+``osd_solves`` (shots handed to OSD after the redecode's BP),
 ``osd_device_solves`` (those of them on kernel K8's device route, the
-matrix past one block's shared memory).
+matrix past one block's shared memory) and ``sample_kernel`` (batches
+``sample`` drew with kernel K9, the sampler on a CUDA device).
 """
 from __future__ import annotations
 
