@@ -12,8 +12,8 @@ Phases, in order; any failure raises and exits nonzero:
      (``csrc/stbsr.cu``: one grid per phase of an iteration, the phases in
      ``csrc/stbsr_phases.cuh``), K4 (``csrc/bsr_shard.cu``, phases in
      ``csrc/bsr_shard_phases.cuh``), K5 (``csrc/bsr_bp_int8.cu``), K6
-     (``csrc/bpflat.cu``), K7, K8 and K9 (``csrc/sampler.cu``) from source,
-     one ``nvcc`` per source, all at once;
+     (``csrc/bpflat.cu``), K7, K8, K9 (``csrc/sampler.cu``) and K10
+     (``csrc/relay.cu``) from source, one ``nvcc`` per source, all at once;
   3. K2 against its plain PyTorch version on the card, at a ragged shot
      count (685, the host redecode's size), 4,096 and the main path's
      16,384 shots, below the SM count (77: one shot per block) and ragged
@@ -165,9 +165,9 @@ Phases, in order; any failure raises and exits nonzero:
      ``relay_bp`` and ``ssf_single_shot`` at p = 0.002:
      ``run_simulation_modes_jax_cpu.jsonl``, made by the JAX package on a
      CPU; ``sliding_window`` at p = 0.001: ``sliding_window_v5e.jsonl``),
-     failures, shots/s and K1/K2/K3 launches printed per mode (every
+     failures, shots/s and K1/K2/K3/K10 launches printed per mode (every
      BP+OSD asks the early exit: the selection's K3 for the spacetime
-     matrix, K1 for the flat ones); then
+     matrix, K1 for the flat ones; ``relay_bp`` runs K10); then
      ``bpd_detector`` under 1-round circuit noise (4,096 shots), whose fault
      checks of 53 slots send every K1 call down route "wide";
  24. route "wide" (checks of more than 32 slots) against the plain
@@ -323,7 +323,19 @@ Phases, in order; any failure raises and exits nonzero:
      5), and K8's bound
      (``utils/bounds.py::osd_bound``: the XOR words of the eliminations of
      a sample of the shots, by a numpy replay, and the candidates' reads,
-     through shared memory).
+     through shared memory);
+ 41. K10 (``csrc/relay.cu``, the relay BP ensemble on the card) against its
+     plain version ``relay_core`` on the card, every element of hard,
+     posterior, conv and the solving leg equal, one launch a decode: at the
+     relay cell's shape (the gross code x 12, 936 x 2,736, 20,000 shots
+     sampled and differenced by the ``relay_bp`` pipeline at p = 0.005),
+     HGP-225 x 4 (540 x 1,557, 16,384) and HGP-225's 1-round circuit-noise
+     detector model (216 x 1,518, 53-slot checks: route "wide", 4,096), each
+     on a sampled batch, on random syndromes (most shots run every leg) and
+     on an all-zero batch (every shot leaves at leg 0); each timed against
+     ``relay_core`` (CUDA events), with K10's bound
+     (``utils/bounds.py::relay_bound``), and the relay pipeline's shots/s.
+     ``--quick`` runs the parity part at 2,000 / 2,048 / 512 shots.
 
 Each run of the main path (phases 6, 7, the two runs of phase 11, phases
 15, 16 and 20, each run of phase 23, the four runs of phase 24's second
@@ -412,6 +424,8 @@ from exp_ldpc_tpu_torch.decoders import bp_bsr_spacetime as k3  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import bp_cuda as k6  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import spacetime_bp_cuda as k2  # noqa: E402
 from exp_ldpc_tpu_torch.decoders import osd_cuda as k8  # noqa: E402
+from exp_ldpc_tpu_torch.decoders import relay_cuda as k10  # noqa: E402
+from exp_ldpc_tpu_torch.decoders.relay_bp import RelayBPDecoder, relay_core  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.osd import osd_decode_batch  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.bp import bp_core, priors_to_llr  # noqa: E402
 from exp_ldpc_tpu_torch.decoders.bp_int8 import (int8_bp_core, int8_bp_oracle,  # noqa: E402
@@ -430,8 +444,8 @@ from exp_ldpc_tpu_torch.sampler.device import DeviceSampler  # noqa: E402
 from exp_ldpc_tpu_torch.sampler.replay import replay, shift_qubits  # noqa: E402
 from exp_ldpc_tpu_torch.utils.cuda_build import device_limits  # noqa: E402
 from exp_ldpc_tpu_torch.utils.bounds import (OPS_FLOAT, OPS_INT8, bound,  # noqa: E402
-                                             dot_chain_bound, osd_bound, sampler_bound,
-                                             streamed_bound)
+                                             dot_chain_bound, osd_bound, relay_bound,
+                                             sampler_bound, streamed_bound)
 from exp_ldpc_tpu_torch.utils.bounds import flat_io as _flat_io  # noqa: E402
 from exp_ldpc_tpu_torch.utils.bounds import st_io as _st_io  # noqa: E402
 
@@ -538,7 +552,7 @@ def phase_card() -> str:
 
 KERNELS = {"K1": k1.KERNEL, "K2": k2.KERNEL, "K3": k3.KERNEL, "K4": k4.KERNEL,
            "K5": k1.KERNEL_INT8, "K6": k6.KERNEL, "K7": k7.KERNEL, "K8": k8.KERNEL,
-           "K9": sampler.KERNEL}
+           "K9": sampler.KERNEL, "K10": k10.KERNEL}
 
 
 def phase_build() -> None:
@@ -1971,7 +1985,7 @@ def host_cases():
            (int(r["failures"]) / int(r["samples"]), int(r["samples"]), MODES_ARTIFACT.name),
            ("K1",) + (("K3",) if m == "bposd_hybrid" else ())) for m, r in modes.items()],
         *[(m, 0.002, ROUNDS, HOST_SHOTS, ANCHOR_OPTIONS, _runsim_anchor(m),
-           ("K1",) if m == "bpd_detector" else ())
+           {"bpd_detector": ("K1",), "relay_bp": ("K10",)}.get(m, ()))
           for m in ("bpd_detector", "relay_bp", "ssf_single_shot")],
         ("sliding_window", SW_P, SW_ROUNDS, SW_SHOTS,
          dict(OPTIONS, window_size=SW_WINDOW, window_commit=SW_COMMIT), _sliding_anchor(),
@@ -2008,7 +2022,7 @@ def phase_host_path(code, dev: torch.device):
         rates[mode] = rec["samples"] / rec["walltime"]
         log(f"  {mode} p={p:.6g} rounds={rounds}: failures {rec['failures']}, shots "
             f"{rec['samples']}, {rates[mode]:.0f} shots/s ({rec['walltime']:.2f} s), launches "
-            f"K1 {launches['K1']} K2 {launches['K2']} K3 {launches['K3']}")
+            f"K1 {launches['K1']} K2 {launches['K2']} K3 {launches['K3']} K10 {launches['K10']}")
         check(rec["samples"] == shots and 0 <= rec["failures"] <= shots,
               f"{mode}: one result per shot")
         check(_ler_gap(rec["failures"], rec["samples"], ler_ref, n_ref, f"{mode} p={p:.6g}"),
@@ -3589,6 +3603,122 @@ def streamed_dm_bounds(su: Setup, flats, dense) -> dict:
                                                   dss.tables, dss.H.nnz, 1024, WIDE_ITERS)}
 
 
+# ---------------------------------------------------------------------------
+# K10, the relay ensemble on the card (phase 41)
+# ---------------------------------------------------------------------------
+
+K10_P = 0.005   # the gross144x12relay.relay cell's p
+K10_LEGS, K10_ITERS = 8, 30
+
+
+def _k10_pipeline(code, rounds: int, shots: int, dev: torch.device):
+    """The pipeline of the relay cell (mode relay_bp, min-sum 0.625, 8 legs
+    of 30 iterations, gammas of seed 0) at K10_P."""
+    return StorageDecodePipeline(
+        code=code, rounds=rounds, noise_model=depolarizing_noise(K10_P, K10_P),
+        data_prior=2 / 3 * K10_P, meas_prior=2 / 3 * K10_P, shots_per_device=shots,
+        max_iter=K10_ITERS, bp_method="ms", ms_scaling_factor=ALPHA,
+        osd_options={"relay_legs": K10_LEGS, "relay_iters_per_leg": K10_ITERS, "relay_seed": 0},
+        mode="relay_bp", device=dev)
+
+
+def _k10_batch(pipe, seed: int) -> torch.Tensor:
+    """A batch's spacetime syndromes, sampled and differenced as the
+    pipeline's relay stage receives them."""
+    g = torch.Generator(device=pipe.device)
+    g.manual_seed(seed)
+    hist, readout = pipe._split_record(pipe._sample(g, pipe._noise_args))
+    return memory.spacetime_syndromes(pipe._Hz, hist, readout)
+
+
+def _k10_same(tag: str, dec, synd) -> tuple:
+    """K10 against ``relay_core`` on the card, every element of hard,
+    posterior, conv and the solving leg: (shots that differ, the solving
+    legs, K10's outputs, relay_core's)."""
+    args = (dec.tables, dec._prior, synd, dec._gammas_dev)
+    got = k10.relay_decode(*args, dec.num_legs, dec.iters_per_leg, float(dec.ms_scaling_factor))
+    want = relay_core(*args, dec.method, dec.num_legs, dec.iters_per_leg,
+                      float(dec.ms_scaling_factor))
+    differ = torch.zeros(synd.shape[1], dtype=torch.bool, device=synd.device)
+    for g, w in zip(got, want):
+        differ |= (g != w) if g.dim() == 1 else (g != w).any(dim=0)
+    n = int(differ.sum())
+    legs = torch.bincount(want[3].long(), minlength=dec.num_legs + 1).tolist()
+    log(f"  {tag}: {synd.shape[1]} shots, solving legs {legs} (the last: none), shots differing "
+        f"{n}")
+    check(n == 0, f"{tag}: K10 equals relay_core bit for bit (hard, posterior, conv, leg)")
+    return n, want[3], got, want
+
+
+def phase_k10(su: Setup, dem: "PriorSetup", dev: torch.device, quick: bool) -> tuple:
+    """K10 against relay_core at the relay cell's shape (the gross code x 12,
+    936 x 2,736, 20,000 shots), HGP-225 x 4 (540 x 1,557, 16,384) and HGP-225's
+    1-round circuit-noise detector model (216 x 1,518, 53-slot checks: route
+    "wide", 4,096), each on a sampled batch, a batch of random syndromes
+    (most shots run every leg) and an all-zero one; then (unless ``quick``)
+    K10's and relay_core's times (CUDA events, one run each after the parity
+    run) and K10's bound (``utils/bounds.py::relay_bound``).  Returns (the
+    most shots that differ, times, bounds by shape)."""
+    n_gross, n_hgp, n_dem = (2000, 2048, 512) if quick else (20000, 16384, 4096)
+    log(f"== phase 41: K10 (the relay ensemble) against relay_core, {K10_LEGS} legs x "
+        f"{K10_ITERS} iterations, min-sum {ALPHA}: gross x12 {n_gross} shots, HGP-225 x4 "
+        f"{n_hgp}, the 1-round detector model {n_dem}")
+    gross = _k10_pipeline(gross_code(True), 12, n_gross, dev)
+    hgp = _k10_pipeline(su.code, ROUNDS, n_hgp, dev)
+    dem_dec = RelayBPDecoder.from_check_matrix(
+        dem.H, channel_probs=dem.priors, device=dev, method="ms", ms_scaling_factor=ALPHA,
+        num_legs=K10_LEGS, iters_per_leg=K10_ITERS, seed=0)
+    cases = (("gross", gross._relay, _k10_batch(gross, 4101)),
+             ("hgp", hgp._relay, _k10_batch(hgp, 4102)),
+             ("dem", dem_dec, dem.draw(n_dem, 4103)))
+    worst, t, bounds_by = 0, {}, {}
+    for label, dec, synd in cases:
+        plan = k10.launch_plan(dec.tables, synd.shape[1], dev)
+        check(k10.takes(dec.tables, "ms", K10_LEGS, dev) and plan.wide == (label == "dem"),
+              f"K10 takes {label} ({dec.tables.num_checks} x {dec.tables.num_vars}) on route "
+              f"{plan.label}")
+        log(f"  {label}: plan G={plan.group} blocks={plan.blocks} threads={plan.threads} "
+            f"tables_smem={plan.tables_smem} smem={plan.smem_bytes} B, {plan.label}")
+        before = k10.KERNEL.launches
+        n, legs, got, want = _k10_same(f"K10 {label}", dec, synd)
+        check(k10.KERNEL.launches == before + 1, f"K10 {label}: one launch a decode")
+        check(int((legs > 0).sum()) > 0, f"K10 {label}: some shots need a leg after leg 0")
+        worst = max(worst, n)
+        C = dec.tables.num_checks
+        g = torch.Generator(device=dev)
+        g.manual_seed(4104)
+        rnd = (torch.rand((C, 300), generator=g, device=dev) < 0.5).to(torch.uint8)
+        n_rnd, legs_rnd, *_ = _k10_same(f"K10 {label}, random syndromes", dec, rnd)
+        check(float((legs_rnd == K10_LEGS).float().mean()) > 0.9,
+              f"K10 {label}: most random-syndrome shots run every leg unsolved")
+        n_zero, legs_zero, *_ = _k10_same(f"K10 {label}, all-zero syndromes", dec,
+                                          torch.zeros((C, 300), dtype=torch.uint8, device=dev))
+        check(bool((legs_zero == 0).all()), f"K10 {label}: an all-zero batch leaves at leg 0")
+        worst = max(worst, n_rnd, n_zero)
+        tab = dec.tables
+        nnz = int((tab.chk_vars_k >= 0).sum())
+        bounds_by[label] = {**relay_bound(tab, nnz, synd.shape[1], K10_ITERS, K10_LEGS),
+                            "shape": f"{tab.num_checks} x {tab.num_vars}, {nnz} edges, "
+                                     f"{synd.shape[1]} shots"}
+        if not quick:
+            key = "K10" if label == "gross" else f"K10_{label}"
+            args = (dec.tables, dec._prior, synd, dec._gammas_dev)
+            _time_pair(t, key, lambda: k10.relay_decode(*args, K10_LEGS, K10_ITERS, ALPHA),
+                       lambda: relay_core(*args, "ms", K10_LEGS, K10_ITERS, ALPHA))
+            b = bounds_by[label]["bound_ms"]
+            log(f"  K10 {label}: {t[key]:.3f} ms, plain {t[key + '_plain']:.3f} ms, bound "
+                f"{b:.4f} ms ({bounds_by[label]['bound_by']}), {100 * b / t[key]:.2f}% of it")
+    if not quick:   # the relay cell's batch end to end, untraced
+        gross.run(torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(10):
+            gross.run(torch.Generator(device=dev).manual_seed(100 + i))
+        log(f"  the relay pipeline, gross x12: {10 * n_gross / (time.perf_counter() - t0):.0f} "
+            "shots/s over 10 batches")
+    return worst, t, bounds_by
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3670,6 +3800,13 @@ def main() -> int:
                  "and the HGP circuit on route 'device')",
          "route": "cuda", "source": src + "sampler.cu",
          "replaces": "none (the JAX package's XLA sampler, exp_ldpc_tpu/sampler/device.py)"},
+        {"name": "K10 relay_decode (one count = one relay decode: one grid, a block's slots "
+                 "taking shots from a queue; ms at the gross code x 12, 20,000 shots; plain_ms "
+                 "relay_core on the card; max_abs_err the shots whose hard, posterior, conv or "
+                 "solving leg differ, the most over phase 41's batches)",
+         "route": "cuda", "source": src + "relay.cu",
+         "replaces": "none (the JAX package's relay ensemble on XLA, "
+                     "exp_ldpc_tpu/decoders/relay_bp.py)"},
     ]
     if not args.quick:
         # The main path, run by run, each counted from 0: the bposd p_sweep
@@ -3691,6 +3828,7 @@ def main() -> int:
     dem = PriorSetup(*dem_fut.result(), dev, "dem_dc53")
     err_dem, dem_times = {}, {}
     err_dem["K1"], err_dem["K5"], dem_times = phase(phase_dem_kernels, dem, not args.quick)
+    err["K10"], t_k10, b_k10 = phase(phase_k10, su, dem, dev, args.quick)
     if not args.quick:
         err_host_k1 = phase(phase_host_path_kernels,
                             [(PriorSetup(H, pr, dev, name), S, opts)
@@ -3743,6 +3881,7 @@ def main() -> int:
         t.update(t_ler)
         t.update(t_probe)
         t.update(t_k8)
+        t.update(t_k10)
         bounds = kernel_bounds(su, flats, big, fams, cap, k3b_shapes["HGP"], _gross(dev), dem, t,
                                cyclic_H)
         # K7 at 16,384 dots, S = 128, by type (bf16 the entry's main shape); its
@@ -3770,6 +3909,11 @@ def main() -> int:
         for label in ("HI", "H", "gross"):
             bounds["K8"].update({f"bound_ms_{label}": b_k8[label]["bound_ms"],
                                  f"bound_by_{label}": b_k8[label]["bound_by"]})
+        bounds["K10"] = {**b_k10["gross"], "library_ms": None}
+        for label in ("hgp", "dem"):
+            bounds["K10"].update({f"bound_ms_{label}": b_k10[label]["bound_ms"],
+                                  f"bound_by_{label}": b_k10[label]["bound_by"],
+                                  f"shape_{label}": b_k10[label]["shape"]})
         b_dm = streamed_dm_bounds(su, flats, dense)
         timing = {"K1": ("K1_S16384", "bench", "S16384_es", f"S{S_REDECODE}_es", "fam_cyclic",
                          "fam_qclp", "dem_dc53"),
@@ -3782,7 +3926,8 @@ def main() -> int:
                   "K6": ("K6_S16384", "bench", f"S{S_REDECODE}"),
                   "K7": ("K7_bf16", "f32", "int8"),
                   "K8": ("K8", "HI", "H", "gross"),
-                  "K9": ("K9", "gross")}
+                  "K9": ("K9", "gross"),
+                  "K10": ("K10", "hgp", "dem")}
         for kern in kernels:
             key = kern["name"].split()[0]
             if key == "K3b":

@@ -43,7 +43,7 @@ from .spacetime import DetectorSpacetimeCode, SpacetimeCode, SpacetimeCodeSingle
 __all__ = ["BPOSDCorrect", "BPOSDCorrectSingleShot", "BPOSDHybridCorrect", "BPDetectorCorrect",
            "RelayBPCorrect", "SSFCorrect", "SlidingWindowCorrect", "run_simulation",
            "DECODER_MODES", "add_bposd_args", "unpack_bposd_args", "load_code",
-           "spacetime_prior"]
+           "spacetime_prior", "relay_kwargs", "check_options"]
 
 
 def spacetime_prior(spacetime, data_prior: float, meas_prior: float) -> np.ndarray:
@@ -57,10 +57,11 @@ def spacetime_prior(spacetime, data_prior: float, meas_prior: float) -> np.ndarr
 
 _BP_KEYS = ("max_iter", "bp_method", "ms_scaling_factor")
 _OSD_KEYS = ("osd_method", "osd_order")
-_RELAY_KEYS = ("relay_legs", "relay_iters_per_leg", "relay_seed")
+RELAY_KEYS = ("relay_legs", "relay_iters_per_leg", "relay_seed")
 
 
-def _check_options(driver: str, bp_osd_options: Dict, extra: Iterable[str] = ()) -> None:
+def check_options(driver: str, bp_osd_options: Dict, extra: Iterable[str] = ()) -> None:
+    """Refuse options outside the BP and OSD keys and ``extra``."""
     unknown = set(bp_osd_options) - set(_BP_KEYS) - set(_OSD_KEYS) - set(extra)
     if unknown:
         raise ValueError(f"{driver}: unsupported options {sorted(unknown)}")
@@ -72,7 +73,7 @@ class _MemoryCorrect:
 
     def __init__(self, code, basis: str, device: DeviceLike, options: Dict, mode: str,
                  extra=()):
-        _check_options(type(self).__name__, options, extra)
+        check_options(type(self).__name__, options, extra)
         self._dev = resolve_device(device)
         self._checks = code.checks.x if basis == "x" else code.checks.z
         self._H = torch.as_tensor(self._checks.toarray(), dtype=torch.float32, device=self._dev)
@@ -162,7 +163,7 @@ class SlidingWindowCorrect:
 
     def __init__(self, code, rounds: int, bp_osd_options: Dict,
                  priors: Tuple[float, float], basis: str = "z", device: DeviceLike = "cuda"):
-        _check_options("SlidingWindowCorrect", bp_osd_options, ("window_size", "window_commit"))
+        check_options("SlidingWindowCorrect", bp_osd_options, ("window_size", "window_commit"))
         data_prior, meas_prior = priors
         opts = dict(bp_osd_options)
         window = int(opts.pop("window_size", 4))
@@ -208,17 +209,23 @@ class SSFCorrect(_MemoryCorrect):
                         lambda s: self._dec_final.decode_tensors(s)[:2])
 
 
+def relay_kwargs(opts: Dict, default_alpha: float) -> Dict:
+    """:class:`.relay_bp.RelayBPDecoder`'s settings from an option dict
+    (``relay_legs``, default 8; ``relay_iters_per_leg``, 30; ``relay_seed``,
+    0; ``bp_method``, "ms"; ``ms_scaling_factor``, ``default_alpha`` where it
+    is 0 or missing)."""
+    return {"method": opts.get("bp_method", "ms"),
+            "ms_scaling_factor": float(opts.get("ms_scaling_factor", default_alpha)
+                                       or default_alpha),
+            "num_legs": int(opts.get("relay_legs", 8)),
+            "iters_per_leg": int(opts.get("relay_iters_per_leg", 30)),
+            "seed": int(opts.get("relay_seed", 0))}
+
+
 def _relay_decoder(H, channel_probs, opts: Dict, default_alpha: float, device):
-    """The relay BP ensemble of ``opts`` (``relay_legs``, default 8;
-    ``relay_iters_per_leg``, 30; ``relay_seed``, 0; ``bp_method``, "ms";
-    ``ms_scaling_factor``, ``default_alpha`` where it is 0 or missing)."""
-    return RelayBPDecoder.from_check_matrix(
-        H, channel_probs=channel_probs, device=device,
-        method=opts.get("bp_method", "ms"),
-        ms_scaling_factor=float(opts.get("ms_scaling_factor", default_alpha) or default_alpha),
-        num_legs=int(opts.get("relay_legs", 8)),
-        iters_per_leg=int(opts.get("relay_iters_per_leg", 30)),
-        seed=int(opts.get("relay_seed", 0)))
+    """The relay BP ensemble of ``opts`` (:func:`relay_kwargs`)."""
+    return RelayBPDecoder.from_check_matrix(H, channel_probs=channel_probs, device=device,
+                                            **relay_kwargs(opts, default_alpha))
 
 
 class RelayBPCorrect:
@@ -229,7 +236,7 @@ class RelayBPCorrect:
 
     def __init__(self, code, rounds: int, bp_osd_options: Dict,
                  priors: Tuple[float, float], basis: str = "z", device: DeviceLike = "cuda"):
-        _check_options("RelayBPCorrect", bp_osd_options, _RELAY_KEYS)
+        check_options("RelayBPCorrect", bp_osd_options, RELAY_KEYS)
         data_prior, meas_prior = priors
         self._checks = code.checks.x if basis == "x" else code.checks.z
         self._spacetime_code = SpacetimeCode(self._checks, rounds)
@@ -254,7 +261,7 @@ class BPDetectorCorrect:
     the shots BP left unconverged, on the fault matrix."""
 
     def __init__(self, dem, bp_osd_options: Dict, device: DeviceLike = "cuda"):
-        _check_options("BPDetectorCorrect", bp_osd_options, _RELAY_KEYS + ("detector_osd",))
+        check_options("BPDetectorCorrect", bp_osd_options, RELAY_KEYS + ("detector_osd",))
         dev = resolve_device(device)
         self._dsc = DetectorSpacetimeCode(dem)
         opts = dict(bp_osd_options)

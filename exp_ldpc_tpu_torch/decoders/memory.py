@@ -1,8 +1,9 @@
-"""The memory experiment's BP+OSD modes on 0/1 tensors, written once.
+"""The memory experiment's decode modes on 0/1 tensors, written once.
 
-The pipeline's device step (fixed-iteration BP stages) and the host
-redecode drivers (:mod:`.drivers`: BP with the exit, then OSD) run this
-algebra, each with its own stages.  A stage maps (C, S) uint8 syndromes to
+The pipeline's device step (fixed-iteration BP stages, or the relay
+ensemble in mode ``relay_bp``) and the host redecode drivers
+(:mod:`.drivers`: BP with the exit, then OSD) run this algebra, each with
+its own stages.  A stage maps (C, S) uint8 syndromes to
 (hard (V, S) 0/1, conv (S,) bool).  history (S, rounds, r), readout (S, n)
 and the checks H (r, n) are float32 0/1 on one device; a parity product is
 a float32 matmul, exact for these small sums.  A mode returns (correction
@@ -48,7 +49,8 @@ def _final_round(H, readout, correction, decode):
 
 
 def spacetime(H, history, readout, decode):
-    """Mode ``bposd``: one stage on the spacetime syndromes, its data blocks folded."""
+    """Modes ``bposd`` and ``relay_bp``: one stage on the spacetime
+    syndromes, its data blocks folded."""
     hard, conv = decode(spacetime_syndromes(H, history, readout))
     return fold(hard, history.shape[1], H.shape[1]), conv
 
@@ -76,4 +78,5 @@ def single_shot(H, history, readout, decode_round, decode_final):
     return correction, ok & conv
 
 
-MODES = {"bposd": spacetime, "bposd_hybrid": hybrid, "bposd_single_shot": single_shot}
+MODES = {"bposd": spacetime, "bposd_hybrid": hybrid, "bposd_single_shot": single_shot,
+         "relay_bp": spacetime}

@@ -14,10 +14,14 @@ each shot keeps the first leg whose hard decision satisfies its syndrome,
 and a shot no leg solved reports the last leg's lambda.
 
 The JAX module computes outside Pallas (XLA dense or gather routing), so
-there is no TPU kernel to port: this is the check update of :mod:`.bp`
-(``check_update_cm``) and the Tanner gather tables, on the tables' device.
-The loop over legs stops once every shot has converged, with one host read
-per leg.
+there is no TPU kernel to port: :func:`relay_core` is the check update of
+:mod:`.bp` (``check_update_cm``) and the Tanner gather tables, on the
+tables' device; its loop over legs stops once every shot has converged,
+with one host read per leg.  On a CUDA device
+:meth:`RelayBPDecoder.decode_tensors` runs kernel K10
+(:mod:`.relay_cuda`, one launch a decode, each shot leaving at its solving
+leg, nothing read back) wherever its route rule takes the shape, and
+:func:`relay_core` elsewhere.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from scipy import sparse
 
 from ..convert import TannerTables, tanner_tables
 from ..utils.device import DeviceLike, resolve_device
+from . import relay_cuda
 from .bp import (BIG, DecoderBase, alpha_at, channel_priors, check_update_cm,
                  normalize_method, priors_to_llr, syndrome_ok)
 from .tanner import TannerELL
@@ -124,7 +129,13 @@ class RelayBPDecoder(DecoderBase):
         return cls(tanner_tables(tanner, resolve_device(device)), priors_to_llr(prior), **kw)
 
     def decode_tensors(self, syndromes: torch.Tensor):
-        """(C, S) device syndromes -> (hard, posterior, conv, solved leg) tensors."""
+        """(C, S) device syndromes -> (hard, posterior, conv, solved leg)
+        tensors: kernel K10 where :func:`.relay_cuda.takes` the decode, else
+        :func:`relay_core`."""
+        if relay_cuda.takes(self.tables, self.method, self.num_legs, syndromes.device):
+            return relay_cuda.relay_decode(self.tables, self._prior, syndromes,
+                                           self._gammas_dev, self.num_legs, self.iters_per_leg,
+                                           float(self.ms_scaling_factor))
         return relay_core(self.tables, self._prior, syndromes, self._gammas_dev, self.method,
                           self.num_legs, self.iters_per_leg, float(self.ms_scaling_factor))
 

@@ -10,8 +10,8 @@ Without ``pipeline`` (the CLI without ``--pipeline``) point i runs
 the seven decoder modes, sampling on the device or, with
 ``use_device_sampler=False`` (``--cpu_sampler``), with the host
 ``FrameSampler``.  With ``pipeline`` each point runs through
-:class:`..parallel.pipeline.StorageDecodePipeline` (the three BP+OSD modes,
-sampled on the device); batch j of point i draws on rank k from a
+:class:`..parallel.pipeline.StorageDecodePipeline` (the three BP+OSD modes
+and ``relay_bp``, sampled on the device); batch j of point i draws on rank k from a
 ``torch.Generator`` seeded by :func:`batch_seed` from (seed, i, j, k).  With
 ``mesh_devices`` N > 1 the sweep runs in N processes, one per device,
 joined by :func:`..parallel.mesh.init_distributed`: each rank calls
@@ -109,7 +109,9 @@ class _PipelineSweeper:
                     max_iter=int(opts.get("max_iter", 40)),
                     bp_method=opts.get("bp_method", "ps"),
                     ms_scaling_factor=float(opts.get("ms_scaling_factor", 0.0)),
-                    osd_fallback_cap=self.shots_per_device, osd_options=opts,
+                    # relay_bp decodes every shot on the device: no host stage
+                    osd_fallback_cap=0 if self.mode == "relay_bp" else self.shots_per_device,
+                    osd_options=opts,
                     use_x_logicals=self.use_x_logicals, mode=self.mode,
                     # two-tier decode (mode "bposd" only, as in JAX): a short stage-1
                     # budget, then a fixed-size redecode of the unconverged shots
@@ -125,7 +127,9 @@ class _PipelineSweeper:
             for j in range(n_batches):
                 gen = torch.Generator(device=self.pipe.device)
                 gen.manual_seed(batch_seed(seed, point, j, rank))
-                f, s, o = self.pipe.run_bposd(gen)
+                # the third count: shots OSD decoded, or shots the relay left unsolved
+                f, s, o = (self.pipe.run(gen) if self.mode == "relay_bp"
+                           else self.pipe.run_bposd(gen))
                 failures, total, osd = failures + f, total + s, osd + o
             return failures, total, osd
 
@@ -140,8 +144,8 @@ def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_p
     (``decoder_mode`` any of its seven modes) with seed ``seed + i`` and the
     given ``use_device_sampler``.  ``pipeline`` (dict of
     ``mesh_devices``/``shots_per_device``) runs the ``bposd``,
-    ``bposd_single_shot`` and ``bposd_hybrid`` modes through the device
-    pipeline, which samples on the device: with ``use_device_sampler=False``
+    ``bposd_single_shot``, ``bposd_hybrid`` and ``relay_bp`` modes through
+    the device pipeline, which samples on the device: with ``use_device_sampler=False``
     it raises (the host sampler runs on the host path only).  With
     ``mesh_devices`` N > 1, every rank of a joined world of N processes
     calls this function with the same arguments (``device`` "cuda" gives
@@ -155,10 +159,10 @@ def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_p
             raise ValueError("the pipeline samples on the device: drop --pipeline to sample "
                              "with the host oracle (--cpu_sampler, use_device_sampler=False)")
         mode = kwargs.get("decoder_mode", "bposd")
-        if mode not in ("bposd", "bposd_single_shot", "bposd_hybrid"):
+        if mode not in ("bposd", "bposd_single_shot", "bposd_hybrid", "relay_bp"):
             raise ValueError(
                 "the fused pipeline implements the bposd/bposd_single_shot/"
-                "bposd_hybrid modes; drop --pipeline for other decoder modes")
+                "bposd_hybrid/relay_bp modes; drop --pipeline for other decoder modes")
         n_dev = int(pipeline.get("mesh_devices", 1))
         mesh = make_mesh(n_dev, device=device) if n_dev > 1 else None
         writer = mesh is None or mesh.rank == 0
@@ -200,8 +204,10 @@ def p_sweep(samples, p_values, noise_model, noise_model_args, meas_prior, data_p
         if sweeper is None:
             _log.info("p=%g: %d/%d failures in %.1fs", p_ph, failures, total, runtime)
         elif writer:
-            _log.info("p=%g: %d/%d failures (%d OSD-decoded) in %.1fs", p_ph, failures, total,
-                      osd, runtime)
+            # the record's args are the point's five numbers, whatever the mode
+            msg = ("p=%g: %d/%d failures (%d unsolved) in %.1fs" if sweeper.mode == "relay_bp"
+                   else "p=%g: %d/%d failures (%d OSD-decoded) in %.1fs")
+            _log.info(msg, p_ph, failures, total, osd, runtime)
         data.append(point)
         if checkpoint is not None and writer:
             def _jsonable(v):
@@ -288,7 +294,7 @@ def p_sweep_main(noise_model_args, noise_model, meas_prior, data_prior, argv=Non
                         "with the same file resumes after the last completed point")
     parser.add_argument("--pipeline", action="store_true",
                         help="Run each sweep point through the on-device sample+decode "
-                        "pipeline (bposd, bposd_single_shot and bposd_hybrid modes)")
+                        "pipeline (bposd, bposd_single_shot, bposd_hybrid and relay_bp modes)")
     parser.add_argument("--mesh_devices", type=int, default=1,
                         help="Shard pipeline shots over this many devices")
     parser.add_argument("--shots_per_device", type=int, default=4096,

@@ -15,6 +15,15 @@ on one device.  One call of :meth:`StorageDecodePipeline.run_bposd`:
      * ``"bposd_hybrid"``: spacetime BP (kernel K2 at every size: the
        streamed K3 contract serves mode ``"bposd"`` only, as in JAX), then
        flat BP of the final round on H;
+     * ``"relay_bp"``: the relay BP ensemble (arXiv:2507.00254) on the
+       flat spacetime matrix, mode ``"bposd"``'s algebra around it
+       (:class:`..decoders.relay_bp.RelayBPDecoder`, kernel K10 on a CUDA
+       device where its route takes the shape): no OSD and no host stage;
+       a shot fails where its folded correction leaves a logical, solved
+       or not.  Its options (``relay_legs``, ``relay_iters_per_leg``,
+       ``relay_seed``, beside the BP keys) come in ``osd_options``, as
+       :class:`..decoders.drivers.RelayBPCorrect` takes them, with the
+       pipeline's ``bp_method`` and ``ms_scaling_factor`` (0 stands for 1);
 
      every flat stage without ``early_stop`` is kernel K6 on a CUDA device
      (its contract is that stage's); with ``early_stop`` the stages run the
@@ -25,7 +34,9 @@ on one device.  One call of :meth:`StorageDecodePipeline.run_bposd`:
      stable order "unconverged first" redecoded from scratch at
      ``max_iter``; overflow shots keep their stage-1 result and count as
      unconverged;
-  3. counts logical failures of the shots it keeps and ships the others
+  3. counts logical failures of the shots it keeps (in ``run``, without
+     an OSD cap, of every shot, with one read of the counts from the card)
+     and ships the others
      (compacted to the front, stable order) to the mode's BP+OSD driver
      (:mod:`..decoders.drivers`), which redecodes their rows where they
      lie; only their readout is copied to the host, a byte a cell, to fold
@@ -40,7 +51,9 @@ its host, and the counts are summed over the data group, so every rank
 returns the totals.
 
 Each step runs inside a span of :mod:`..utils.observability` (``ldpc.batch``
-around ``ldpc.sample``, ``ldpc.decode`` with its ``decode.bp`` and
+around ``ldpc.sample``, ``ldpc.decode`` with its ``decode.bp`` (or
+``decode.relay``, the relay stage, with the counters ``relay_legs`` and
+``relay_tail_shots`` read at the fold's read of the counts) and
 ``decode.fold``, and ``ldpc.ship``, the copy of the shipped readout to the
 host, counted in ``ship_bytes``), which costs a flag read while tracing is
 off.
@@ -69,7 +82,9 @@ from ..decoders.bp import bp_core, normalize_method, priors_to_llr
 from ..decoders.bp_bsr_spacetime import stbsr_decode
 from ..decoders.bp_cuda import bp_fixed
 from ..decoders import memory
-from ..decoders.drivers import DECODER_MODES, spacetime_prior
+from ..decoders.drivers import (DECODER_MODES, RELAY_KEYS, check_options, relay_kwargs,
+                                spacetime_prior)
+from ..decoders.relay_bp import RelayBPDecoder
 from ..decoders.select import spacetime_choice
 from ..decoders.spacetime_bp import MSG_DTYPES, stbp_core
 from ..decoders.spacetime_bp_cuda import stbp_fixed
@@ -88,10 +103,12 @@ class StorageDecodePipeline:
     ``bp_backend`` picks the spacetime stage: ``"auto"`` (in mode
     ``"bposd"`` on a CUDA device the selection's K2 or K3, else K2), ``"stbp"``
     (K2) or ``"stbsr"`` (K3, mode ``"bposd"`` only); mode
-    ``"bposd_single_shot"`` has no spacetime stage and takes ``"auto"``
-    only.  ``kernel`` names the spacetime stage's choice (None without
-    one), ``flat_kernel`` the flat stages' ("bpflat": K6, "core": plain
-    early-stop BP; None in mode ``"bposd"``).  On a CPU device each kernel
+    ``"bposd_single_shot"`` has no spacetime stage and mode ``"relay_bp"``
+    no spacetime-BP stage: both take ``"auto"`` only.  ``kernel`` names the
+    spacetime stage's choice (None without one, "relay" in mode
+    ``"relay_bp"``), ``flat_kernel`` the flat stages' ("bpflat": K6,
+    "core": plain early-stop BP; None in modes ``"bposd"`` and
+    ``"relay_bp"``).  On a CPU device each kernel
     is replaced by its plain version.  ``run`` and ``run_bposd`` take a
     ``torch.Generator`` on the pipeline's device.
     """
@@ -125,8 +142,16 @@ class StorageDecodePipeline:
                 raise ValueError("the pipeline shards shots over the data axis only; "
                                  f"got a model axis of {self.mesh.shape[MODEL_AXIS]}")
             self.device = self.mesh.device
-        if self.mode not in ("bposd", "bposd_single_shot", "bposd_hybrid"):
+        if self.mode not in ("bposd", "bposd_single_shot", "bposd_hybrid", "relay_bp"):
             raise ValueError(f"unknown pipeline mode {self.mode!r}")
+        if self.mode == "relay_bp":
+            check_options("StorageDecodePipeline(mode='relay_bp')", self.osd_options or {},
+                          RELAY_KEYS)
+            if self.osd_fallback_cap > 0:
+                raise ValueError("mode='relay_bp' has no host stage: osd_fallback_cap must be 0")
+            if self.early_stop:
+                raise ValueError("mode='relay_bp' exits per shot at each leg's end; "
+                                 "early_stop does not apply")
         if self.msg_dtype not in MSG_DTYPES:
             raise ValueError(f"msg_dtype must be one of {MSG_DTYPES}, got {self.msg_dtype!r}")
         if self.tier1_iters > 0:
@@ -155,6 +180,10 @@ class StorageDecodePipeline:
         self.tanner = TannerELL.from_check_matrix(checks_sector)
         self._tables = tanner_tables(self.tanner, self.device)
         self._tables_ss = None
+        self._relay_tables = self._relay = None
+        if self.mode == "relay_bp":
+            self._relay_tables = tanner_tables(
+                TannerELL.from_check_matrix(self.spacetime.spacetime_check_matrix), self.device)
         if self.mode == "bposd_single_shot":
             # per-round decode matrix (H|I): one measurement-error column per check
             H_ss = SpacetimeCodeSingleShot(checks_sector).spacetime_check_matrix
@@ -168,7 +197,7 @@ class StorageDecodePipeline:
         self._noise_args = noise_args(self.parsed, dev)
         self._sample = build_record_sampler(self.parsed, self.shots_per_device, dev)
         self.kernel = self._resolve_kernel()
-        self.flat_kernel = None if self.mode == "bposd" else (
+        self.flat_kernel = None if self.mode in ("bposd", "relay_bp") else (
             "core" if self.early_stop else "bpflat")
         self._osd = None
         if self.osd_fallback_cap > 0:
@@ -178,7 +207,13 @@ class StorageDecodePipeline:
 
     def _resolve_kernel(self) -> Optional[str]:
         """The spacetime stage: "stbsr" (K3), "stbp" (K2), "core" (plain
-        early-stop BP), or None in mode "bposd_single_shot"."""
+        early-stop BP), "relay" (mode "relay_bp": the relay ensemble), or
+        None in mode "bposd_single_shot"."""
+        if self.mode == "relay_bp":
+            if self.bp_backend != "auto":
+                raise ValueError(f"bp_backend={self.bp_backend!r} applies to the spacetime-BP "
+                                 "stage; relay_bp has none")
+            return "relay"
         if self.mode == "bposd_single_shot":
             if self.bp_backend != "auto":
                 raise ValueError(f"bp_backend={self.bp_backend!r} applies to the spacetime-BP "
@@ -208,6 +243,12 @@ class StorageDecodePipeline:
         self.prior_llr = priors_to_llr(spacetime_prior(self.spacetime, data_prior, meas_prior))
         self._prior = prior_llr_st(self.prior_llr, self.device)
         self._prior_ss = self._prior_final = None
+        if self.mode == "relay_bp":
+            opts = {"bp_method": self.bp_method, "ms_scaling_factor": self.ms_scaling_factor,
+                    **(self.osd_options or {})}
+            self._relay = RelayBPDecoder(self._relay_tables, self.prior_llr,
+                                         **relay_kwargs(opts, 1.0))
+            return
         if self.mode != "bposd":
             n = self.num_data
             self._prior_final = prior_llr_st(priors_to_llr(np.full(n, data_prior)), self.device)
@@ -257,6 +298,14 @@ class StorageDecodePipeline:
         conv[order] = conv[order] | conv2
         return hard, conv
 
+    def decode_relay(self, synd: torch.Tensor):
+        """The relay stage: (Vst-row, S) spacetime syndromes -> (hard (Vst,
+        S) uint8, conv (S,) bool, solved leg (S,) int32, ``relay_legs``
+        where no leg solved the shot)."""
+        with span("decode.relay"):
+            h, _p, c, leg = self._relay.decode_tensors(synd)
+        return h, c, leg
+
     def decode_flat(self, tables, prior: torch.Tensor, synd: torch.Tensor):
         """A flat BP stage: (C, S) syndromes -> (hard (V, S) uint8, conv (S,) bool)."""
         args = (tables, prior, synd, self._method, self.max_iter, float(self.ms_scaling_factor))
@@ -283,7 +332,15 @@ class StorageDecodePipeline:
         with span("decode"):
             history, readout = self._split_record(record)
             final = lambda s: self.decode_flat(self._tables, self._prior_final, s)  # noqa: E731
-            if self.mode == "bposd_single_shot":
+            legs = []   # the relay stage's solving legs
+
+            if self.mode == "relay_bp":
+                def relay(s):
+                    h, c, leg = self.decode_relay(s)
+                    legs.append(leg)
+                    return h, c
+                stages = (relay,)
+            elif self.mode == "bposd_single_shot":
                 stages = (lambda s: self.decode_flat(self._tables_ss, self._prior_ss, s), final)
             else:
                 st = ((lambda s: self.decode_two_tier(s)) if self.tier1_iters > 0
@@ -293,9 +350,19 @@ class StorageDecodePipeline:
             with span("decode.fold"):
                 corrected = torch.remainder(readout + correction, 2.0)
                 failed = (torch.remainder(corrected @ self._Lz.T, 2.0) > 0.5).any(dim=1)
-                S, unconv = record.shape[0], int((~ok).sum())
+                S = record.shape[0]
                 if self.osd_fallback_cap <= 0:
-                    return int(failed.sum()), S, unconv
+                    counts = [failed.sum(), (~ok).sum()]
+                    if legs:   # the deepest leg a shot ran, and the shots past leg 0
+                        L = self._relay.num_legs
+                        counts += [(legs[0] + 1).clamp(max=L).max().to(torch.int64),
+                                   (legs[0] > 0).sum()]
+                    counts = torch.stack(counts).tolist()   # the batch's one read
+                    if legs:
+                        count("relay_legs", counts[2])
+                        count("relay_tail_shots", counts[3])
+                    return int(counts[0]), S, int(counts[1])
+                unconv = int((~ok).sum())
                 order = torch.argsort(ok.to(torch.int32), stable=True)[: self.osd_fallback_cap]
                 return (int((failed & ok).sum()), S, unconv, history[order], readout[order],
                         ~ok[order])

@@ -30,6 +30,11 @@ scoring must move through the card's shared memory (128 bytes a clock and
 SM, 132 SMs at 1,980 MHz), or its device-memory traffic where that is
 larger.
 
+The relay BP ensemble (K10, :func:`relay_bound`) is a flat min-sum decode
+whose variable update adds a memory term: its bound counts leg 0 on every
+shot and the later legs on none (their work depends on the data), so it
+errs low.
+
 The Pauli-frame sampler (K9, :func:`sampler_bound`) writes the record once
 and draws its random words from Philox4x32-10: its bound is the record's
 bytes over the device-memory rate, or the Philox calls' integer operations
@@ -44,7 +49,7 @@ __all__ = ["HBM_BYTES_PER_S", "OPS_PER_S", "TENSOR_OPS_PER_S", "OPS_FLOAT", "OPS
            "ABLATE_OPS", "bound", "table_bytes", "flat_io", "st_io",
            "streamed_bound", "dot_chain_bound", "DOT_ELEMENT_BYTES", "OPS_PER_CLOCK_SM",
            "clock_peak", "SMEM_BYTES_PER_S", "osd_bound", "INT32_OPS_PER_S", "PHILOX_OPS",
-           "sampler_bound"]
+           "sampler_bound", "OPS_MEMORY", "relay_bound"]
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 SMEM_BYTES_PER_S = 132 * 128 * 1.98e9   # H100 SXM shared memory, all SMs
@@ -73,6 +78,10 @@ OPS_PER_CLOCK_SM = {"bf16": 4096, "int8": 8192, "f32": 256}
 # shift, sign parity, negate-select (9); add, clip, subtract, clip (4);
 # parity (1): 14.
 OPS_FLOAT, OPS_INT8 = 11, 14
+# The relay's memory term per variable, shot and iteration
+# (relay_core's lam = (1 - g) * (prior + total) + g * lam): the prior added to
+# the total, two products and a sum.  1 - g is once a leg, not counted.
+OPS_MEMORY = 4
 # K1's profiling hook (experiments/bench_bsr_ablation.py): the operations an
 # ablation leaves of OPS_FLOAT, whose check side is 8: "no_check" the
 # variable side and the parity (3), "no_route" the check side and the
@@ -161,3 +170,15 @@ def sampler_bound(calls: int, shots: int, measurements: int) -> dict:
     over the device-memory rate.  The frames stay on chip, the op table and
     noise vector are read once a block from the cache (not counted)."""
     return bound(measurements * shots, PHILOX_OPS * calls * shots, INT32_OPS_PER_S)
+
+
+def relay_bound(tab, nnz: int, shots: int, iters: int, legs: int) -> dict:
+    """K10's bound for one relay decode of ``shots`` shots over a matrix of
+    ``nnz`` edges (Tanner tables ``tab``), ``iters`` iterations a leg and
+    ``legs`` legs: :func:`flat_io` with the (legs, V) f32 gamma table read
+    once (the solving leg, int32, takes the place of the iteration count);
+    :data:`OPS_FLOAT` an edge and :data:`OPS_MEMORY` a variable, each shot
+    and iteration of leg 0 only, whatever the later legs do."""
+    V = tab.num_vars
+    ops = (OPS_FLOAT * nnz + OPS_MEMORY * V) * shots * iters
+    return bound(flat_io(tab, shots) + 4 * legs * V, ops)

@@ -11,8 +11,9 @@
     ("ldpc." + name)``, so the spans land in the profiler's Chrome trace
     beside the device operations, on the same clock, each inside the
     innermost ``ldpc.`` span open on its thread; :func:`count` adds integers
-    the program already holds on the host (shapes, ``nbytes``), never a
-    value that would need a device sync or a copy;
+    the program already holds on the host (shapes, ``nbytes``, values read
+    back by a copy the program makes anyway), never a value that would need
+    a device sync or a copy of its own;
   * :func:`profiler_trace`: a context manager around ``torch.profiler`` that
     writes a Chrome trace of everything inside it (device activity too when
     a CUDA card is present).
@@ -20,14 +21,19 @@
 The spans, from the sweep down (``ldpc.`` prefix; parent first):
 ``point`` (a sweep point), ``rebind`` and ``rebind.osd_build`` (the noise
 rebound between points), ``batch``, ``sample``, ``decode`` with
-``decode.bp`` (each BP stage) and ``decode.fold``, ``ship`` (the copy of
+``decode.bp`` (each BP stage), ``decode.relay`` (the relay ensemble's
+stage, kernel K10 on a card) and ``decode.fold``, ``ship`` (the copy of
 the shipped readout to the host), ``redecode`` (a memory mode's driver,
 the host BP+OSD redecode in the pipeline) with ``redecode.bp`` and
 ``redecode.osd``.  The counters: ``ship_bytes`` (bytes ``ship`` copies),
 ``osd_solves`` (shots handed to OSD after the redecode's BP),
 ``osd_device_solves`` (those of them on kernel K8's device route, the
-matrix past one block's shared memory) and ``sample_kernel`` (batches
-``sample`` drew with kernel K9, the sampler on a CUDA device).
+matrix past one block's shared memory), ``sample_kernel`` (batches
+``sample`` drew with kernel K9, the sampler on a CUDA device),
+``relay_legs`` (the deepest leg a relay batch ran) and ``relay_tail_shots``
+(its shots that needed a leg after leg 0), both read from the relay
+stage's solving legs with the batch's counts, in the one copy the fold
+makes.
 """
 from __future__ import annotations
 

@@ -220,7 +220,8 @@ def test_p_sweep_refusals_and_seeds(small_code):
         p_sweep(p_values=[0.01], device="cpu", **_sweep_kw(
             small_code, pipeline={"mesh_devices": 2, "shots_per_device": 16}))
     with pytest.raises(ValueError, match="drop --pipeline"):
-        p_sweep(p_values=[0.01], device="cpu", **_sweep_kw(small_code, decoder_mode="relay_bp"))
+        p_sweep(p_values=[0.01], device="cpu", **_sweep_kw(small_code,
+                                                           decoder_mode="bpd_detector"))
     seeds = {batch_seed(s, i, j) for s in (None, 0, 1) for i in range(3) for j in range(3)}
     assert len(seeds) == 18  # None and 0 coincide; the rest are distinct
     assert all(0 <= x < 2**63 for x in seeds)
